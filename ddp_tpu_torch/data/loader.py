@@ -1,0 +1,89 @@
+"""Epoch index matrices for the device-resident path (counterpart of the
+index-matrix half of ``ddp_tpu/data/loader.py``; the host-augment streaming
+loader is not ported yet).
+
+Row k of a train matrix holds the sample indices of global batch k, replica
+blocks side by side; the ragged last batch comes separately at its true size.
+Eval matrices are padded with masked index-0 rows instead.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+from .cifar10 import Dataset
+from .sampler import DistributedShardSampler, ShuffleSampler
+
+
+class TrainLoader:
+    """``per_replica_batch`` is the reference's ``--batch_size``; the global
+    batch is ``per_replica_batch * num_replicas``."""
+
+    def __init__(self, dataset: Dataset, per_replica_batch: int,
+                 num_replicas: int = 1, *, shuffle: bool = True,
+                 seed: int = 0):
+        self.dataset = dataset
+        self.per_replica_batch = per_replica_batch
+        self.num_replicas = num_replicas
+        self.seed = seed
+        self.epoch = 0
+        if num_replicas > 1:
+            self.samplers = [
+                DistributedShardSampler(len(dataset), num_replicas, r,
+                                        shuffle=shuffle, seed=seed)
+                for r in range(num_replicas)]
+        else:
+            self.samplers = [ShuffleSampler(len(dataset), shuffle=shuffle,
+                                            seed=seed)]
+        self.steps_per_epoch = -(-len(self.samplers[0]) // per_replica_batch)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+        for s in self.samplers:
+            s.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return self.steps_per_epoch
+
+    def epoch_index_matrix(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """``(full, tail)``: int32 ``full`` of shape ``[steps_full,
+        replicas * b]`` and the ragged last batch's indices ``tail``
+        (``[replicas * b_tail]``), or ``None`` when the batch divides the
+        shard."""
+        shards = [s.indices() for s in self.samplers]
+        b = self.per_replica_batch
+        n_full = len(shards[0]) // b
+        full = np.concatenate(
+            [sh[:n_full * b].reshape(n_full, b) for sh in shards],
+            axis=1).astype(np.int32)
+        tails = [sh[n_full * b:] for sh in shards]
+        tail = (np.concatenate(tails).astype(np.int32)
+                if len(tails[0]) else None)
+        return full, tail
+
+
+class EvalLoader:
+    """Sequential test-set batches of ``per_replica_batch * num_replicas``
+    rows, padded and masked to whole batches."""
+
+    def __init__(self, dataset: Dataset, per_replica_batch: int,
+                 num_replicas: int = 1):
+        self.dataset = dataset
+        self.global_batch = per_replica_batch * num_replicas
+
+    def __len__(self) -> int:
+        return -(-len(self.dataset) // self.global_batch)
+
+    def epoch_index_matrix(self) -> Tuple[np.ndarray, np.ndarray]:
+        """``(idx, mask)`` of shape ``[steps, global_batch]``: indices in
+        order, padded with index 0 under mask 0."""
+        n = len(self.dataset)
+        steps = len(self)
+        total = steps * self.global_batch
+        idx = np.zeros(total, np.int32)
+        idx[:n] = np.arange(n, dtype=np.int32)
+        mask = np.zeros(total, np.float32)
+        mask[:n] = 1.0
+        return (idx.reshape(steps, self.global_batch),
+                mask.reshape(steps, self.global_batch))

@@ -1,0 +1,110 @@
+"""VGG-11-style CIFAR classifier (counterpart of ``ddp_tpu/models/vgg.py``).
+
+The same architecture string, ``conv{i}``/``bn{i}`` naming and parameter
+count (9,228,362), as an :class:`torch.nn.Module` over NCHW activations.  Its
+``state_dict`` keys are the reference checkpoint's
+(``backbone.conv0.weight``, ``backbone.bn0.running_mean``, ...,
+``classifier.weight``), and :mod:`ddp_tpu_torch.interop` maps them to and
+from ``ddp_tpu``'s nested parameters.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import torch
+from torch import nn
+
+from ..ops import initializers as init_lib
+from ..ops.layers import (BatchNormState, bn_relu, conv2d, global_avg_pool,
+                          linear, max_pool)
+
+NAME = "vgg"
+NUM_CLASSES = 10
+ARCH = [64, 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"]
+# The classifier reads 512 features, whatever the last conv's position.
+CLASSIFIER_IN = 512
+
+
+class Conv(nn.Module):
+    """3x3 convolution, padding 1, no bias."""
+
+    def __init__(self, weight: torch.Tensor):
+        super().__init__()
+        self.weight = nn.Parameter(weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.weight, stride=1, padding=1)
+
+
+class BNReLU(nn.Module):
+    """BatchNorm2d (torch defaults) followed by ReLU, through the fused
+    :func:`~ddp_tpu_torch.ops.layers.bn_relu`.  In training the running
+    buffers are updated in place."""
+
+    def __init__(self, num_features: int, device=None):
+        super().__init__()
+        scale, bias = init_lib.batch_norm_params(num_features, device)
+        mean, var = init_lib.batch_norm_stats(num_features, device)
+        self.weight = nn.Parameter(scale)
+        self.bias = nn.Parameter(bias)
+        self.register_buffer("running_mean", mean)
+        self.register_buffer("running_var", var)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        z, new = bn_relu(x, self.weight, self.bias,
+                         BatchNormState(self.running_mean, self.running_var),
+                         train=self.training)
+        if self.training:
+            with torch.no_grad():
+                self.running_mean.copy_(new.mean)
+                self.running_var.copy_(new.var)
+        return z
+
+
+class Linear(nn.Module):
+    def __init__(self, weight: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.weight, self.bias)
+
+
+class VGG(nn.Module):
+    """``[N,3,32,32]`` float -> ``[N,10]`` float32 logits.
+
+    ``arch`` defaults to the reference :data:`ARCH`; the tests pass narrow
+    ones.  Weights are drawn from ``generator`` (a CPU generator; seed 0 when
+    omitted) with PyTorch's default distributions and moved to ``device``."""
+
+    def __init__(self, arch: Optional[Sequence[Union[int, str]]] = None,
+                 *, device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.arch = list(ARCH if arch is None else arch)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.backbone = nn.ModuleDict()
+        in_ch, i = 3, 0
+        for a in self.arch:
+            if a == "M":
+                continue
+            self.backbone[f"conv{i}"] = Conv(
+                init_lib.conv_kernel(generator, 3, 3, in_ch, a, device))
+            self.backbone[f"bn{i}"] = BNReLU(a, device)
+            in_ch, i = a, i + 1
+        self.classifier = Linear(
+            init_lib.linear_weight(generator, CLASSIFIER_IN, NUM_CLASSES,
+                                   device),
+            init_lib.linear_bias(generator, CLASSIFIER_IN, NUM_CLASSES,
+                                 device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        i = 0
+        for a in self.arch:
+            if a == "M":
+                x = max_pool(x, 2, 2)
+                continue
+            x = self.backbone[f"bn{i}"](self.backbone[f"conv{i}"](x))
+            i += 1
+        return self.classifier(global_avg_pool(x)).float()

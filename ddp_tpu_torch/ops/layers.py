@@ -1,0 +1,150 @@
+"""Low-level NN ops over NCHW activations and OIHW kernels (counterpart of
+``ddp_tpu/ops/layers.py``, which works in NHWC / HWIO).
+
+The convolutions and matrix products go to PyTorch (cuDNN and cuBLAS on the
+card).  :func:`bn_relu` keeps the JAX package's hand-written backward as a
+:class:`torch.autograd.Function`: it recomputes the ReLU mask and x̂ from
+``x`` and reads only ``(x, dz)``.  Batch statistics are per device; the
+synchronised variant (``sync_axis`` / ``grad_axis`` in the JAX package)
+belongs to the multi-card port.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+_REDUCE = (0, 2, 3)  # batch and spatial dims of an NCHW activation
+
+
+def _ch(v: torch.Tensor) -> torch.Tensor:
+    """A per-channel vector broadcast over NCHW."""
+    return v.view(1, -1, 1, 1)
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, stride: int = 1,
+           padding: int = 1) -> torch.Tensor:
+    """2-D convolution. x: [N,C_in,H,W], weight: [C_out,C_in,kh,kw]."""
+    return F.conv2d(x, weight, bias, stride=stride, padding=padding)
+
+
+def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2,
+             padding: int = 0) -> torch.Tensor:
+    """MaxPool2d(window, stride, padding)."""
+    return F.max_pool2d(x, window, stride, padding)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ weight.T (+ bias). weight: [out, in]."""
+    return F.linear(x, weight, bias)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """[N,C,H,W] -> [N,C], the mean over the spatial dims."""
+    return x.mean(dim=(2, 3))
+
+
+class BatchNormState(NamedTuple):
+    """Running statistics (BatchNorm2d's buffers)."""
+    mean: torch.Tensor
+    var: torch.Tensor
+
+
+def _bn_stats(xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, float]:
+    """Per-channel batch statistics of a float32 NCHW ``xf``, in one pass:
+    ``(mean, biased var, count)`` with var = max(E[x²] - E[x]², 0), the form
+    ``ddp_tpu``'s per-device ``_bn_stats`` uses."""
+    count = float(xf.shape[0] * xf.shape[2] * xf.shape[3])
+    mean = xf.mean(dim=_REDUCE)
+    var = torch.clamp((xf * xf).mean(dim=_REDUCE) - mean * mean, min=0.0)
+    return mean, var, count
+
+
+def _unbiased(var: torch.Tensor, count: float) -> torch.Tensor:
+    return var * (count / max(count - 1.0, 1.0))
+
+
+def _blend_running_stats(state: BatchNormState, batch_mean: torch.Tensor,
+                         unbiased_var: torch.Tensor,
+                         momentum: float) -> BatchNormState:
+    """torch's running-buffer EMA, shared by :func:`batch_norm` and
+    :func:`bn_relu`."""
+    return BatchNormState(
+        mean=(1.0 - momentum) * state.mean + momentum * batch_mean,
+        var=(1.0 - momentum) * state.var + momentum * unbiased_var)
+
+
+def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               state: BatchNormState, *, train: bool, momentum: float = 0.1,
+               eps: float = 1e-5) -> Tuple[torch.Tensor, BatchNormState]:
+    """BatchNorm2d with torch semantics: training normalises with the biased
+    batch variance and blends the unbiased one into the running variance;
+    eval normalises with the running statistics.  Returns ``(y, new
+    state)``; the caller stores the state."""
+    if train:
+        mean, var, count = _bn_stats(x.float())
+        new_state = _blend_running_stats(state, mean.detach(),
+                                         _unbiased(var, count).detach(),
+                                         momentum)
+    else:
+        new_state = state
+        mean, var = state.mean, state.var
+    inv = torch.rsqrt(var + eps) * scale
+    y = (x - _ch(mean).to(x.dtype)) * _ch(inv).to(x.dtype) + \
+        _ch(bias).to(x.dtype)
+    return y, new_state
+
+
+class _BNReLUTrain(torch.autograd.Function):
+    """Training-mode BatchNorm+ReLU with the hand-written backward of
+    ``ddp_tpu/ops/layers.py::_bn_relu_train``.
+
+    Forward returns ``(z, batch mean, unbiased batch var)``; the two
+    statistics are not differentiable (they only feed the running buffers).
+    Backward recomputes x̂ and the ReLU mask (x̂·γ+β > 0, the forward's own
+    expression) from the saved ``x``, so it reads only ``(x, dz)``: one
+    reduction pass for dβ and dγ and one elementwise pass for dx."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps: float):
+        xf = x.float()
+        mean, var, count = _bn_stats(xf)
+        inv = torch.rsqrt(var + eps)
+        xhat = (xf - _ch(mean)) * _ch(inv)
+        z = torch.clamp(xhat * _ch(scale) + _ch(bias), min=0.0).to(x.dtype)
+        unbiased = _unbiased(var, count)
+        ctx.save_for_backward(x, mean, inv, scale, bias)
+        ctx.mark_non_differentiable(mean, unbiased)
+        return z, mean, unbiased
+
+    @staticmethod
+    def backward(ctx, ct_z, _ct_mean, _ct_unbiased):
+        x, mean, inv, scale, bias = ctx.saved_tensors
+        xf = x.float()
+        count = float(xf.shape[0] * xf.shape[2] * xf.shape[3])
+        xhat = (xf - _ch(mean)) * _ch(inv)
+        dy = torch.where(xhat * _ch(scale) + _ch(bias) > 0.0, ct_z.float(),
+                         torch.zeros((), dtype=torch.float32,
+                                     device=x.device))
+        dbeta = dy.sum(dim=_REDUCE)
+        dgamma = (dy * xhat).sum(dim=_REDUCE)
+        dx = _ch(inv) * (dy * _ch(scale) - _ch(dbeta * scale) / count
+                         - xhat * _ch(dgamma * scale) / count)
+        return dx.to(x.dtype), dgamma, dbeta, None
+
+
+def bn_relu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+            state: BatchNormState, *, train: bool, momentum: float = 0.1,
+            eps: float = 1e-5) -> Tuple[torch.Tensor, BatchNormState]:
+    """``relu(batch_norm(x))`` as one op, with :class:`_BNReLUTrain`'s
+    backward in training.  Eval delegates to :func:`batch_norm` so its
+    numbers are those of the unfused composition."""
+    if not train:
+        y, _ = batch_norm(x, scale, bias, state, train=False,
+                          momentum=momentum, eps=eps)
+        return torch.relu(y), state
+    z, batch_mean, unbiased = _BNReLUTrain.apply(x, scale, bias, eps)
+    return z, _blend_running_stats(state, batch_mean, unbiased, momentum)

@@ -1,0 +1,118 @@
+"""Where a resident training step's device time goes, at full VGG-11 width:
+
+    python -m ddp_tpu_torch.profile_resident [--steps 10] [--warmup 5]
+
+Runs resident train steps of the port (batch 512 from a 50,000-image
+synthetic table on the card, crop/flip on), the measured window under
+``torch.profiler``.  Prints the window's wall time per step, the device's
+busy and idle share (the kernels' summed time against the wall time), the
+device time by kernel group and the top kernels, and one JSON summary line
+last.  Needs a card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from .data import TrainLoader, synthetic
+from .device import resolve_device, set_tf32
+from .models import get_model
+from .optim import SGDConfig, triangular_lr
+from .train.trainer import Trainer
+
+# Kernel name fragments -> group, first match wins.  cuDNN runs VGG's
+# convolutions as implicit GEMM, Winograd, FFT (complex cf32 GEMMs between
+# fft2d transforms) or plain GEMM kernels; the one true matrix product, the
+# 512x10 classifier, is negligible beside them, so every GEMM counts as
+# convolution.
+GROUPS = (("row_gather", "row gather (port kernel)"),
+          ("conv", "convolution"), ("xmma", "convolution"),
+          ("implicit", "convolution"), ("winograd", "convolution"),
+          ("cudnn", "convolution"), ("fft", "convolution"),
+          ("gemm", "convolution"), ("max_pool", "max pool"),
+          ("reduce", "reduction (BN stats, sums)"),
+          ("index", "indexing (crop/flip, labels)"),
+          ("gather", "indexing (crop/flip, labels)"),
+          ("elementwise", "elementwise (BN, ReLU, SGD)"),
+          ("vectorized", "elementwise (BN, ReLU, SGD)"))
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    for frag, group in GROUPS:
+        if frag in low:
+            return group
+    return "other"
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--warmup", type=int, default=5)
+    args = p.parse_args(argv)
+    device = resolve_device("cuda")
+    set_tf32(False)
+    train_ds, _ = synthetic(n_train=50000, n_test=64)
+    loader = TrainLoader(train_ds, 512, seed=0)
+    model = get_model("vgg", device=device,
+                      generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(model, loader, device=device,
+                      lr_schedule=lambda s: triangular_lr(
+                          s, num_epochs=1, steps_per_epoch=len(loader)),
+                      sgd_config=SGDConfig())
+    full, _ = loader.epoch_index_matrix()
+    rows = torch.from_numpy(full).to(device)
+    res = trainer.resident
+
+    def run(a: int, b: int) -> None:
+        trainer.train_epoch(trainer.state, res.images, res.labels, rows[a:b],
+                            trainer.draws)
+
+    run(0, args.warmup)
+    torch.cuda.synchronize()
+    w = args.warmup
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(w, w + args.steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total", None)
+        if dev is None:
+            dev = ev.self_cuda_time_total
+        if dev > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.key] = (kernels.get(ev.key, (0.0, 0))[0] + dev / 1e3,
+                               kernels.get(ev.key, (0.0, 0))[1] + ev.count)
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    groups = {}
+    for name, (ms, _) in kernels.items():
+        groups[_group(name)] = groups.get(_group(name), 0.0) + ms
+    card = torch.cuda.get_device_name(0)
+    print(f"{card}: {args.steps} steps, wall {wall_ms / args.steps:.3f} "
+          f"ms/step, device busy {busy_ms / args.steps:.3f} ms/step "
+          f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}")
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {g:32s} {ms / args.steps:9.3f} ms/step "
+              f"{ms / busy_ms:6.1%}")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    for name, (ms, n) in top:
+        print(f"  {ms / args.steps:9.3f} ms/step  x{n // args.steps:<4d} "
+              f"{name[:100]}")
+    summary = {"device": card, "steps": args.steps,
+               "wall_ms_per_step": wall_ms / args.steps,
+               "busy_ms_per_step": busy_ms / args.steps,
+               "idle_share": 1 - busy_ms / wall_ms,
+               "groups_ms_per_step": {g: ms / args.steps
+                                      for g, ms in groups.items()}}
+    print(json.dumps(summary))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,83 @@
+"""Device-resident epochs (counterpart of ``ddp_tpu/train/epoch.py``).
+
+The dataset stays on the card (``data/resident.py``); an epoch uploads its
+int32 index matrix once and runs one step per row.  The JAX package runs the
+epoch as one ``lax.scan`` program; here it is a Python loop that enqueues
+each step's kernels without waiting for the device: losses and eval counters
+stay on the device until the epoch ends.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Optional
+
+import torch
+from torch import nn
+
+from ..data.device_augment import Draws
+from ..ops.gather import gather_rows
+from ..optim import sgd as sgd_lib
+from .step import (TrainState, make_eval_apply, make_group_update,
+                   make_loss_and_grads, micro_from_table)
+
+DrawFn = Callable[[int, int], Draws]  # (global step, batch size) -> draws
+
+
+def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
+                     lr_schedule: Callable[[int], float],
+                     device_augment: bool = False):
+    """``epoch_fn(state, images, labels, idx, draws=None, events=None) ->
+    losses``: one step per row of the device index matrix ``idx``
+    ``[steps, B]``, over the resident ``images``/``labels``.
+
+    ``draws(step, B)`` gives each step's crop/flip draws under
+    ``device_augment``.  ``losses`` is the ``[steps]`` tensor of per-step
+    global-mean losses, on the device.  When ``events`` is a list, a CUDA
+    event recorded after each step is appended to it (step timing without a
+    host sync).  The trainer calls this once for the full batches and once
+    for the ragged tail, as the JAX trainer does."""
+    loss_and_grads = make_loss_and_grads(model)
+    update = make_group_update(sgd_config, lr_schedule)
+
+    def epoch_fn(state: TrainState, images: torch.Tensor,
+                 labels: torch.Tensor, idx: torch.Tensor,
+                 draws: Optional[DrawFn] = None,
+                 events: Optional[List[torch.cuda.Event]] = None
+                 ) -> torch.Tensor:
+        get_micro = micro_from_table(images, labels, device_augment)
+        losses = []
+        for idx_row in idx:
+            aug = draws(state.step, idx_row.shape[0]) if device_augment \
+                else None
+            x, y = get_micro(aug, idx_row)
+            loss, grads = loss_and_grads(x, y)
+            update(state, grads)
+            losses.append(loss)
+            if events is not None:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append(ev)
+        return torch.stack(losses)
+
+    return epoch_fn
+
+
+def make_eval_epoch(model: nn.Module):
+    """``eval_fn(images, labels, idx, mask) -> (correct, total)``: the whole
+    test set through the eval forward, row by row of the padded index matrix
+    ``idx`` ``[steps, B]``; ``mask`` zeroes the padding out of both
+    counters, which stay on the device."""
+    apply_fn = make_eval_apply(model)
+
+    @torch.no_grad()
+    def eval_fn(images: torch.Tensor, labels: torch.Tensor,
+                idx: torch.Tensor, mask: torch.Tensor):
+        correct = torch.zeros((), device=images.device)
+        total = torch.zeros((), device=images.device)
+        for idx_row, mask_row in zip(idx, mask):
+            logits = apply_fn(gather_rows(images, idx_row))
+            hit = (logits.argmax(dim=-1) == labels[idx_row.long()]).float()
+            correct += (hit * mask_row).sum()
+            total += mask_row.sum()
+        return correct, total
+
+    return eval_fn
