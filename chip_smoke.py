@@ -16,9 +16,22 @@
    and crop/flip draws, TF32 off.
 5. Main path: the port's CLI in-process at full VGG-11 width,
    ``1 1 --batch_size 512 --resident --synthetic --synthetic_size 50000``
-   (98 train steps, 25 eval steps), with the gather's launch count read
-   around it.
-6. Prints the kernels line, the card line, and last
+   (98 train steps, 25 eval steps) with ``--snapshot_path`` in a temporary
+   directory, with the gather's launch count read around it.
+6. Checkpoint phase: the epoch-0 checkpoint the main path wrote, loaded
+   with ``load_checkpoint`` and held bit for bit against the trained
+   weights, buffers and momentum; then the CLI again with ``--resume``,
+   which must train no step and report the same accuracy.
+7. Conv kernel phase: ``conv3x3`` (``conv3x3_fused``) forward and dgrad
+   against its plain version at the probe's shapes at batch 512 and at
+   every VGG conv shape at batch 8, float32 and bfloat16 against a float64
+   result; the autograd candidate (y, dx, dw) against autograd of the plain
+   version; then its times beside the plain version's, cuDNN's
+   (``conv2d_nhwc``, TF32 off: the yardstick only) and its bound.
+8. Probe path: the conv-candidate CLI in-process (``--repeats 2``, all five
+   candidates at both target shapes, batch 512, float32), with the
+   kernel's launch count read around it, then the pool probe once.
+9. Prints the kernels line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; without a card it
@@ -29,25 +42,37 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from ddp_tpu_torch import _build, cli
+from ddp_tpu_torch import _build, cli, interop
 from ddp_tpu_torch.data import ResidentData, TrainLoader, synthetic
 from ddp_tpu_torch.device import set_tf32
 from ddp_tpu_torch.models.vgg import VGG
+from ddp_tpu_torch.ops import conv_candidates, pool_candidates
+from ddp_tpu_torch.ops.conv_candidates import (TARGET_SHAPES, _flip_transpose,
+                                               _shift9_fwd, conv2d_fused,
+                                               conv3x3_fused)
+from ddp_tpu_torch.ops.conv_probe import (N_LONG, N_SHORT, VGG_CONV_SHAPES,
+                                          conv2d_nhwc, conv_flops)
 from ddp_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 from ddp_tpu_torch.optim import SGDConfig, triangular_lr
+from ddp_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from ddp_tpu_torch.train.epoch import make_train_epoch
 from ddp_tpu_torch.train.step import init_train_state
 
-# H100 SXM memory rate (NVIDIA's data sheet), for the gather's bound.
+# H100 SXM peaks (NVIDIA's data sheet): memory rate, float32 on the CUDA
+# cores (TF32 is another precision, not the same work), bf16 tensor cores.
 HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 66.9e12
+BF16_FLOP_PER_S = 989e12
 MAIN_ARGS = ["1", "1", "--batch_size", "512", "--resident", "--synthetic",
              "--synthetic_size", "50000"]
 MAIN_TRAIN_STEPS, MAIN_EVAL_STEPS = 98, 25  # 50,000 / 512 and 12,500 / 512
@@ -56,6 +81,15 @@ MAIN_TRAIN_STEPS, MAIN_EVAL_STEPS = 98, 25  # 50,000 / 512 and 12,500 / 512
 # those last-bit differences into the weights.  1e-4 is two orders above
 # the ~1e-6 such rounding gives at these widths.
 PARITY_TOL = 1e-4
+# The conv kernel against a float64 plain result, as a share of max|y|.
+# float32: K = 9*Cin products summed in another order than the reference;
+# the rounding of such sums is ~1e-6..1e-5 of max|y| at K <= 4608, and
+# 1e-4 leaves an order of magnitude.  bfloat16: the same fp32 sums, then
+# the output rounded to bfloat16 (at most half an ulp, 2^-8 of |y|), so one
+# ulp at the top of the range, 2^-7 of max|y|, bounds it with room for the
+# sums.
+CONV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+PROBE_REPEATS = 2
 
 
 def check(ok: bool, what: str) -> None:
@@ -184,6 +218,165 @@ def parity_phase() -> None:
           "card and CPU disagree beyond the tolerance")
 
 
+def checkpoint_phase(out: dict, path: str) -> None:
+    """The main path's epoch-0 file, bit for bit against the trained state;
+    then a resumed run of the CLI that must train no step."""
+    ckpt = load_checkpoint(path)
+    state = out["state"]
+    saved = interop.vgg_state_dict_from_jax(ckpt.params, ckpt.batch_stats)
+    live = state.model.state_dict()
+    check(set(saved) == set(live), "checkpoint keys differ from the model's")
+    check(all(torch.equal(saved[k], live[k].cpu()) for k in live),
+          "checkpoint weights/buffers differ from the trained model")
+    momentum = interop.momentum_list_from_tree(state.model, ckpt.momentum)
+    check(len(momentum) == len(state.momentum) and all(
+        torch.equal(a, b.cpu()) for a, b in zip(momentum, state.momentum)),
+        "checkpoint momentum differs from the trained momentum")
+    check(ckpt.step == state.step == MAIN_TRAIN_STEPS and ckpt.epoch == 0
+          and ckpt.data_state["epoch"] == 1 and ckpt.data_state["offset"] == 0,
+          f"checkpoint meta: step {ckpt.step}, epoch {ckpt.epoch}, "
+          f"data_state {ckpt.data_state}")
+    t0 = time.perf_counter()  # one more write of the same state, timed
+    save_checkpoint(path + ".timed", state.model, state.momentum,
+                    state.step, 0)
+    write_s = time.perf_counter() - t0
+    print(f"checkpoint: {os.path.getsize(path)} bytes, {len(live)} "
+          f"state tensors and {len(momentum)} momentum buffers equal bit "
+          f"for bit; step {ckpt.step}, epoch {ckpt.epoch}; a write takes "
+          f"{write_s:.3f} s", flush=True)
+    accuracy = out["accuracy"]
+    again = cli.main(MAIN_ARGS + ["--snapshot_path", path, "--resume"])
+    check(again["loss_history"] == [],
+          f"the resumed run trained {len(again['loss_history'])} steps")
+    check(again["accuracy"] == accuracy,
+          f"resumed accuracy {again['accuracy']} != {accuracy}")
+    print(f"resume: 0 steps trained, accuracy {again['accuracy']:.2f}% "
+          f"(the trained run's {accuracy:.2f}%)", flush=True)
+
+
+def _conv_inputs(gen, batch, h, cin, cout):
+    x = torch.randn((batch, h, h, cin), device="cuda", generator=gen)
+    w = torch.randn((3, 3, cin, cout), device="cuda", generator=gen) \
+        * math.sqrt(2.0 / (9 * cin))
+    dy = torch.randn((batch, h, h, cout), device="cuda", generator=gen)
+    return x, w, dy
+
+
+def conv_kernel_phase(gen: torch.Generator) -> dict:
+    """conv3x3 forward and dgrad against the float64 plain version, the
+    autograd candidate against autograd of the plain version, then timed
+    at the probe's two shapes."""
+    cases = [(512,) + s[:3] for s in TARGET_SHAPES] + \
+        [(8,) + s[:3] for s in VGG_CONV_SHAPES]
+    worst = {torch.float32: (0.0, 0.0), torch.bfloat16: (0.0, 0.0)}
+    for batch, h, cin, cout in cases:
+        x, w, dy = _conv_inputs(gen, batch, h, cin, cout)
+        for dtype, tol in CONV_TOL.items():
+            xd, wd, dyd = x.to(dtype), w.to(dtype), dy.to(dtype)
+            for what, a, b in (("fwd", xd, wd),
+                               ("dgrad", dyd,
+                                _flip_transpose(wd).contiguous())):
+                got = conv3x3_fused(a, b).double()
+                want = _shift9_fwd(a.double(), b.double())
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                rel = err / float(want.abs().max())
+                check(rel <= tol, f"conv3x3 {what} {dtype} at {batch}x{h}x"
+                      f"{h} {cin}->{cout}: max|err| {err:.3e} is {rel:.3e} "
+                      f"of max|y|, tolerance {tol:.3e}")
+                worst[dtype] = (max(worst[dtype][0], err),
+                                max(worst[dtype][1], rel))
+                del got, want
+    for dtype, (err, rel) in worst.items():
+        print(f"conv3x3 vs float64 plain, fwd and dgrad, {len(cases)} "
+              f"shapes, {dtype}: max|err| {err:.3e}, {rel:.3e} of max|y| "
+              f"(tolerance {CONV_TOL[dtype]:.3e})", flush=True)
+
+    # The autograd candidate (y, dx, dw) against autograd of the plain
+    # version, float32, at the parity tests' shape.
+    x, w, _ = _conv_inputs(gen, 4, 8, 16, 32)
+    grads = []
+    for conv in (conv2d_fused, _shift9_fwd):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = conv(xg, wg)
+        dx, dw = torch.autograd.grad(y.sin().sum(), (xg, wg))
+        grads.append((y.detach(), dx, dw))
+    for name, a, b in zip(("y", "dx", "dw"), *grads):
+        rel = float((a - b).abs().max() / b.abs().max())
+        check(rel <= CONV_TOL[torch.float32],
+              f"conv2d_fused {name} differs from autograd of the plain "
+              f"version: {rel:.3e} of max")
+    print("conv2d_fused autograd (y, dx, dw) matches the plain version's "
+          "within 1e-4 of max", flush=True)
+
+    timings = []
+    for h, cin, cout, _ in TARGET_SHAPES:
+        x, w, _ = _conv_inputs(gen, 512, h, cin, cout)
+        flops = conv_flops(512, h, cin, cout)
+        for dtype, peak in ((torch.float32, FP32_FLOP_PER_S),
+                            (torch.bfloat16, BF16_FLOP_PER_S)):
+            xd, wd = x.to(dtype), w.to(dtype)
+            nbytes = (xd.numel() + wd.numel() + 512 * h * h * cout) \
+                * xd.element_size()
+            t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            ms = median_ms(lambda _: conv3x3_fused(xd, wd), [None], 20)
+            plain_ms = median_ms(lambda _: _shift9_fwd(xd, wd), [None], 20)
+            library_ms = median_ms(lambda _: conv2d_nhwc(xd, wd), [None], 20)
+            ms_again = median_ms(lambda _: conv3x3_fused(xd, wd), [None], 20)
+            row = {"shape": f"512x{h}x{h} {cin}->{cout}",
+                   "dtype": str(dtype).replace("torch.", ""), "ms": ms,
+                   "ms_again": ms_again, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "tflops": flops / ms / 1e9}
+            timings.append(row)
+            print(f"conv3x3 {row['shape']} {row['dtype']}: kernel {ms:.6f} "
+                  f"ms (again {ms_again:.6f}, {row['tflops']:.1f} TFLOP/s), "
+                  f"plain {plain_ms:.6f} ms, cuDNN {library_ms:.6f} ms, "
+                  f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
+                  f"ops {t_ops:.6f}, bytes {t_bytes:.6f})", flush=True)
+    head = timings[0]  # 32x32 64->128 float32, the first target shape
+    return {"name": "conv3x3", "route": "cuda",
+            "source": "ddp_tpu_torch/csrc/conv3x3.cu",
+            "replaces": "ddp_tpu/ops/conv_candidates.py:104",
+            "max_abs_err": worst[torch.float32][0],
+            "max_abs_err_bf16": worst[torch.bfloat16][0],
+            "ms": head["ms"], "kernel_ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "timings": timings}
+
+
+def probe_phase() -> int:
+    """The conv-candidate CLI over all five candidates, with the kernel's
+    launch count read around it; then the pool probe once."""
+    t0 = time.time()
+    conv3x3_fused.launches = 0
+    records = conv_candidates.main(["--repeats", str(PROBE_REPEATS)])
+    launches = conv3x3_fused.launches
+    # Each chain runs once to warm up and PROBE_REPEATS times timed, at
+    # N_SHORT and N_LONG links.  A link launches the kernel once forward;
+    # the fused candidate's train link adds its dgrad, the hybrid's none.
+    links = (1 + PROBE_REPEATS) * (N_SHORT + N_LONG) * len(TARGET_SHAPES)
+    expected = links * (1 + 2) + links * (1 + 1)
+    check(launches == expected,
+          f"conv3x3 launched {launches} times on the probe path, expected "
+          f"{expected}")
+    check(set(records) == set(conv_candidates.CANDIDATES),
+          f"probe ran {sorted(records)}")
+    for name, recs in records.items():
+        check(len(recs) == 2 * len(TARGET_SHAPES) and all(
+            math.isfinite(r["marginal_ms_per_call"]) and (
+                r["tflops"] is None or math.isfinite(r["tflops"]))
+            for r in recs), f"probe records of {name}: {recs}")
+    print(f"probe path: {time.time() - t0:.2f} s, conv3x3 launches "
+          f"{launches}", flush=True)
+    t0 = time.time()
+    pool_candidates.main(["--repeats", "1"])
+    print(f"pool probe: {time.time() - t0:.2f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -203,11 +396,16 @@ def main() -> int:
     row_gather = kernel_phase(gen)
     parity_phase()
 
+    snapshot_dir = tempfile.TemporaryDirectory()
+    snapshot = os.path.join(snapshot_dir.name, "checkpoint.pt")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gather_rows.launches = 0
-    out = cli.main(MAIN_ARGS)
+    gather_rows.launches = conv3x3_fused.launches = 0
+    out = cli.main(MAIN_ARGS + ["--snapshot_path", snapshot])
     launches = gather_rows.launches
+    # The training path runs cuDNN's convolutions, as the JAX package's
+    # runs XLA's: the conv kernel belongs to the probe path.
+    conv_main_launches = conv3x3_fused.launches
     losses = out["loss_history"]
     check(len(losses) == MAIN_TRAIN_STEPS,
           f"{len(losses)} train steps, expected {MAIN_TRAIN_STEPS}")
@@ -225,10 +423,19 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
           f"row_gather launches {launches}, first/last loss "
           f"{losses[0]:.4f}/{losses[-1]:.4f}, accuracy "
-          f"{out['accuracy']:.2f}%", flush=True)
+          f"{out['accuracy']:.2f}%, conv3x3 launches {conv_main_launches}",
+          flush=True)
+    checkpoint_phase(out, snapshot)
+    snapshot_dir.cleanup()
+
+    conv3x3 = conv_kernel_phase(gen)
+    probe_launches = probe_phase()
 
     row_gather.update(launches=launches, launches_per_epoch=launches)
-    print(json.dumps({"kernels": [row_gather]}))
+    conv3x3.update(launches=probe_launches,
+                   path="python -m ddp_tpu_torch.ops.conv_candidates",
+                   launches_main_path=conv_main_launches)
+    print(json.dumps({"kernels": [row_gather, conv3x3]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,13 +4,14 @@ resident single-card path:
     python -m ddp_tpu_torch.singlegpu <total_epochs> <save_every> \\
         [--batch_size 512] --resident [--synthetic --synthetic_size N] \\
         [--seed 0] [--lr 0.4] [--momentum 0.9] [--weight_decay 5e-4] \\
-        [--device cuda|cpu]
+        [--snapshot_path checkpoint.pt] [--resume] [--device cuda|cpu]
 
-Prints what the JAX CLI prints: each epoch's header and loss, ``Total
-training time``, ``fp32 model has size=... MiB`` and ``fp32 model has
-accuracy=...%``.  The run writes no checkpoint yet.  It runs on ``cuda``
-unless ``--device cpu`` is given, and refuses to run without a card
-otherwise.
+Prints what the JAX CLI prints: each epoch's header and loss, the
+checkpoint line of every ``save_every``-th epoch, ``Total training time``,
+``fp32 model has size=... MiB`` and ``fp32 model has accuracy=...%``.  The
+checkpoint is the JAX package's v1 file: either package's
+``load_checkpoint`` reads the other's.  It runs on ``cuda`` unless
+``--device cpu`` is given, and refuses to run without a card otherwise.
 """
 from __future__ import annotations
 
@@ -37,8 +38,9 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("total_epochs", type=int,
                    help="Total epochs to train the model")
     p.add_argument("save_every", type=int,
-                   help="How often to save a snapshot (checkpoints are not "
-                        "ported yet; the value is accepted and unused)")
+                   help="Save a checkpoint at the end of every epoch "
+                        "whose number is a multiple of this (epoch 0 "
+                        "included)")
     p.add_argument("--batch_size", default=512, type=int,
                    help="Input batch size (default: 512)")
     p.add_argument("--data_root", default=cifar10.DEFAULT_ROOT,
@@ -51,6 +53,10 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    help="Keep the whole dataset in device memory and gather "
                         "each batch there (implies on-device augmentation); "
                         "the only data path ported so far")
+    p.add_argument("--resume", action="store_true",
+                   help="Resume from the checkpoint if present")
+    p.add_argument("--snapshot_path", default="checkpoint.pt",
+                   help="Checkpoint path (reference: checkpoint.pt)")
     p.add_argument("--lr", default=0.4, type=float,
                    help="Peak learning rate (reference: 0.4)")
     p.add_argument("--momentum", default=0.9, type=float)
@@ -64,7 +70,8 @@ def build_parser(description: str) -> argparse.ArgumentParser:
 
 def run(args: argparse.Namespace) -> Dict:
     """Train and evaluate; returns ``{"accuracy", "training_seconds",
-    "eval_seconds", "loss_history", "step_ms"}``."""
+    "eval_seconds", "loss_history", "step_ms", "state"}``, where ``state``
+    is the trained :class:`~ddp_tpu_torch.train.step.TrainState`."""
     device = resolve_device(args.device)
     if not args.resident:
         raise SystemExit("only the --resident data path is ported so far; "
@@ -86,7 +93,8 @@ def run(args: argparse.Namespace) -> Dict:
     trainer = Trainer(
         model, train_loader, device=device, lr_schedule=lr_schedule,
         sgd_config=SGDConfig(args.lr, args.momentum, args.weight_decay),
-        seed=args.seed)
+        seed=args.seed, save_every=args.save_every,
+        snapshot_path=args.snapshot_path, resume=args.resume)
 
     start = time.time()
     trainer.train(args.total_epochs)
@@ -96,8 +104,6 @@ def run(args: argparse.Namespace) -> Dict:
     print(f"Total training time: {training_seconds:.2f} seconds")
     n_params = sum(p.numel() for p in model.parameters())
     print(f"fp32 model has size={n_params * 32 / MiB:.2f} MiB")
-    print("checkpoint: not written (checkpoint save/restore is not ported "
-          "yet)")
 
     start = time.time()
     accuracy = evaluate_resident(model, ResidentData(test_ds, device),
@@ -107,7 +113,7 @@ def run(args: argparse.Namespace) -> Dict:
     return {"accuracy": accuracy, "training_seconds": training_seconds,
             "eval_seconds": eval_seconds,
             "loss_history": list(trainer.loss_history),
-            "step_ms": list(trainer.step_ms)}
+            "step_ms": list(trainer.step_ms), "state": trainer.state}
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:

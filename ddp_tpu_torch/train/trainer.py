@@ -1,9 +1,12 @@
 """The resident epoch loop (counterpart of the resident half of
 ``ddp_tpu/train/trainer.py``): the dataset uploaded once, one epoch of
 device steps per call, each epoch's losses read to the host once at its end
-and printed."""
+and printed, a checkpoint every ``save_every`` epochs, and ``resume`` from
+one at an epoch boundary."""
 from __future__ import annotations
 
+import os
+import sys
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -14,6 +17,7 @@ from ..data.device_augment import Draws, make_draws
 from ..data.loader import TrainLoader
 from ..data.resident import ResidentData
 from ..optim.sgd import SGDConfig
+from . import checkpoint as ckpt_lib
 from .epoch import make_train_epoch
 from .step import init_train_state
 
@@ -34,23 +38,66 @@ class Trainer:
     device augmentation, as in the JAX CLI) with draws from a device
     :class:`torch.Generator` seeded by :func:`draw_seed`.
     After :meth:`train`, ``loss_history`` holds every step's loss and, on a
-    CUDA device, ``step_ms`` every step's device time."""
+    CUDA device, ``step_ms`` every step's device time.
+
+    Every epoch with ``epoch % save_every == 0`` (epoch 0 included, as in
+    the reference) ends with a checkpoint at ``snapshot_path``; ``None``
+    turns checkpoints off.  With ``resume``, an existing file at
+    ``snapshot_path`` restores the weights, BatchNorm buffers, momentum and
+    step, and training starts at the file's resume position (the epoch
+    after the saved one); a missing file starts fresh."""
 
     def __init__(self, model: nn.Module, train_loader: TrainLoader, *,
                  device: torch.device,
                  lr_schedule: Callable[[int], float],
-                 sgd_config: SGDConfig = SGDConfig(), seed: int = 0):
+                 sgd_config: SGDConfig = SGDConfig(), seed: int = 0,
+                 save_every: int = 1,
+                 snapshot_path: Optional[str] = "checkpoint.pt",
+                 resume: bool = False):
         self.train_loader = train_loader
         self.device = device
         self.seed = seed
+        self.save_every = save_every
+        self.snapshot_path = snapshot_path
         self.resident = ResidentData(train_loader.dataset, device)
         self.state = init_train_state(model)
         self.train_epoch = make_train_epoch(model, sgd_config, lr_schedule,
                                             device_augment=True)
         self._generator = torch.Generator(device=device)
         self._epoch = 0
+        self.start_epoch = 0
         self.loss_history: List[float] = []
         self.step_ms: List[float] = []
+        if resume and snapshot_path and os.path.exists(snapshot_path):
+            self._resume(snapshot_path)
+
+    def _resume(self, path: str) -> None:
+        ckpt = ckpt_lib.load_checkpoint(path)
+        ds = ckpt.data_state
+        if isinstance(ds, dict) and "epoch" in ds:
+            if int(ds.get("offset", 0)) > 0:
+                raise ckpt_lib.CheckpointError(
+                    f"checkpoint {path!r} was saved mid-epoch (epoch "
+                    f"{ds['epoch']}, batch offset {ds['offset']}); the port "
+                    f"resumes at epoch boundaries only (mid-epoch resume "
+                    f"belongs to the resilience slice)")
+            self.start_epoch = int(ds["epoch"])
+        else:
+            self.start_epoch = ckpt.epoch + 1
+            print("WARNING: checkpoint has no data_state record; resuming "
+                  "at the next epoch boundary", file=sys.stderr)
+        ckpt_lib.restore(ckpt, self.state.model, self.state.momentum)
+        self.state.step = ckpt.step
+        print(f"Resuming training from snapshot at Epoch {ckpt.epoch}")
+
+    def _save(self, epoch: int) -> None:
+        data_state = {"version": 1, "epoch": epoch + 1, "offset": 0,
+                      "seed": self.seed, "rng_folds": 0}
+        ckpt_lib.save_checkpoint(self.snapshot_path, self.state.model,
+                                 self.state.momentum, self.state.step, epoch,
+                                 data_state=data_state)
+        print(f"Epoch {epoch} | Training checkpoint saved at "
+              f"{self.snapshot_path}")
 
     def draws(self, step: int, n: int) -> Draws:
         """The crop/flip draws of global step ``step`` for ``n`` images."""
@@ -85,5 +132,7 @@ class Trainer:
                   f"{losses[-1]:.4f}")
 
     def train(self, max_epochs: int) -> None:
-        for epoch in range(max_epochs):
+        for epoch in range(self.start_epoch, max_epochs):
             self._run_epoch(epoch)
+            if self.snapshot_path and epoch % self.save_every == 0:
+                self._save(epoch)

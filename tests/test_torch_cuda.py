@@ -3,11 +3,21 @@
 Marked ``cuda``: they need an NVIDIA card and ``nvcc``, and skip elsewhere
 (the decision is made in the fixture, never at import).  Run them on the
 machine with the card with ``python -m pytest tests/test_torch_cuda.py``.
-Exact equality: the row gather moves bytes.
+Tolerances: the row gather moves bytes, so it compares exactly.  The conv
+kernel compares with its plain version on float64 copies of the same
+inputs, as a share of max|y|: 1e-4 for float32 (K = 9*Cin products summed
+in another order), 2^-7 for bfloat16 (the fp32 sum rounded once to
+bfloat16, at most half an ulp, plus room for the sums).
 """
+import math
+
 import pytest
 import torch
 
+from ddp_tpu_torch.ops.conv_candidates import (TARGET_SHAPES, _flip_transpose,
+                                               _shift9_fwd, conv2d_fused,
+                                               conv3x3_fused)
+from ddp_tpu_torch.ops.conv_probe import VGG_CONV_SHAPES
 from ddp_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 
 pytestmark = pytest.mark.cuda
@@ -53,3 +63,73 @@ def test_row_gather_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         gather_rows(table.t(), torch.zeros(3, dtype=torch.int32,
                                            device=cuda))
+
+
+CONV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+# chip_smoke's shapes: the probe's two targets at batch 512 and every VGG
+# conv at batch 8 (Cin = 3, H = 4 among them).
+CONV_CASES = [(512,) + s[:3] for s in TARGET_SHAPES] + \
+    [(8,) + s[:3] for s in VGG_CONV_SHAPES]
+
+
+def _rel_err(got, want):
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", CONV_CASES,
+                         ids=lambda c: "n{}h{}_{}to{}".format(*c))
+def test_conv3x3_fwd_and_dgrad_equal_plain(cuda, case, dtype):
+    n, h, cin, cout = case
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((n, h, h, cin), device=cuda, generator=g).to(dtype)
+    w = (torch.randn((3, 3, cin, cout), device=cuda, generator=g)
+         * math.sqrt(2.0 / (9 * cin))).to(dtype)
+    dy = torch.randn((n, h, h, cout), device=cuda, generator=g).to(dtype)
+    wt = _flip_transpose(w).contiguous()
+    before = conv3x3_fused.launches
+    y, dx = conv3x3_fused(x, w), conv3x3_fused(dy, wt)
+    torch.cuda.synchronize()
+    assert conv3x3_fused.launches == before + 2
+    assert y.dtype == dx.dtype == dtype and y.is_contiguous()
+    assert _rel_err(y, _shift9_fwd(x.double(), w.double())) <= CONV_TOL[dtype]
+    assert _rel_err(dx, _shift9_fwd(dy.double(), wt.double())) <= \
+        CONV_TOL[dtype]
+
+
+def test_conv2d_fused_autograd_equals_plain(cuda):
+    """y, dx and dw of the fused candidate (dgrad through the kernel)
+    against autograd of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((4, 8, 8, 16), device=cuda, generator=g)
+    w = torch.randn((3, 3, 16, 32), device=cuda, generator=g) * 0.1
+    outs = []
+    for conv in (conv2d_fused, _shift9_fwd):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = conv(xg, wg)
+        outs.append((y.detach(),) + torch.autograd.grad(y.sin().sum(),
+                                                        (xg, wg)))
+    before = conv3x3_fused.launches
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    torch.autograd.grad(conv2d_fused(xg, wg).sum(), (xg, wg))
+    assert conv3x3_fused.launches == before + 2  # forward and dgrad
+    for got, want in zip(*outs):
+        assert _rel_err(got, want.double()) <= 1e-4
+
+
+def test_conv3x3_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((2, 4, 4, 8), device=cuda)
+    w = torch.zeros((3, 3, 8, 16), device=cuda)
+    before = conv3x3_fused.launches
+    with pytest.raises(ValueError):
+        conv3x3_fused(x, w.cpu())  # w on the CPU
+    with pytest.raises(ValueError):
+        conv3x3_fused(x.permute(0, 2, 1, 3), w)  # a non-contiguous x
+    with pytest.raises(ValueError):
+        conv3x3_fused(x.half(), w.half())  # a dtype the kernel lacks
+    with pytest.raises(ValueError):
+        conv3x3_fused(x, w.bfloat16())  # mixed dtypes
+    with pytest.raises(ValueError):
+        conv3x3_fused(x, torch.zeros((3, 3, 4, 16), device=cuda))  # Cin
+    assert conv3x3_fused.launches == before

@@ -42,16 +42,21 @@ _ARGS = ["2", "1", "--batch_size", "8", "--resident", "--synthetic",
          "--synthetic_size", "32"]
 
 
-def test_cli_runs_on_cpu_when_asked(capsys):
-    out = cli.main(_ARGS + ["--device", "cpu", "--lr", "0.05"])
+def test_cli_runs_on_cpu_when_asked(capsys, tmp_path):
+    snapshot = str(tmp_path / "checkpoint.pt")
+    out = cli.main(_ARGS + ["--device", "cpu", "--lr", "0.05",
+                            "--snapshot_path", snapshot])
     printed = capsys.readouterr().out
     assert len(out["loss_history"]) == 2 * 4  # 32 / 8 steps, two epochs
     assert all(math.isfinite(x) for x in out["loss_history"])
     assert 0.0 <= out["accuracy"] <= 100.0
     assert out["step_ms"] == []  # device step times exist on a card only
     for line in ("Total training time:", "fp32 model has size=35.20 MiB",
-                 "checkpoint: not written", "fp32 model has accuracy="):
+                 f"Epoch 0 | Training checkpoint saved at {snapshot}",
+                 f"Epoch 1 | Training checkpoint saved at {snapshot}",
+                 "fp32 model has accuracy="):
         assert line in printed
+    assert os.path.exists(snapshot)
 
 
 def test_cli_refuses_without_a_card(monkeypatch):
@@ -65,10 +70,11 @@ def test_cli_requires_resident():
         cli.main(["1", "1", "--synthetic", "--device", "cpu"])
 
 
-def test_singlegpu_module_entry_point():
+def test_singlegpu_module_entry_point(tmp_path):
     r = subprocess.run(
         [sys.executable, "-m", "ddp_tpu_torch.singlegpu", *_ARGS,
-         "--device", "cpu", "--lr", "0.05"],
+         "--device", "cpu", "--lr", "0.05",
+         "--snapshot_path", str(tmp_path / "checkpoint.pt")],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "fp32 model has accuracy=" in r.stdout
