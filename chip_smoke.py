@@ -23,14 +23,19 @@
    weights, buffers and momentum; then the CLI again with ``--resume``,
    which must train no step and report the same accuracy.
 7. Conv kernel phase: ``conv3x3`` (``conv3x3_fused``) forward and dgrad
-   against its plain version at the probe's shapes at batch 512 and at
-   every VGG conv shape at batch 8, float32 and bfloat16 against a float64
-   result; the autograd candidate (y, dx, dw) against autograd of the plain
-   version; then its times beside the plain version's, cuDNN's
-   (``conv2d_nhwc``, TF32 off: the yardstick only) and its bound.
+   against its plain version at the probe's shapes at batch 512, at every
+   VGG conv shape at batch 8 and at the routes' edge cases, float32 and
+   bfloat16 against a float64 result, each through the route
+   ``conv3x3_route`` names (its launch counter must move, and no other);
+   the autograd candidate (y, dx, dw) against autograd of the plain
+   version; whether the built library's SASS holds ``HGMMA`` (wgmma)
+   instructions; then the times of both dtypes at the two probe shapes and
+   their dgrads beside the plain version's, cuDNN's (``conv2d_nhwc``, TF32
+   off: the yardstick only) and the bound.
 8. Probe path: the conv-candidate CLI in-process (``--repeats 2``, all five
-   candidates at both target shapes, batch 512, float32), with the
-   kernel's launch count read around it, then the pool probe once.
+   candidates at both target shapes, batch 512), once in float32 and once
+   with ``--bf16``, each with the kernel's launch count and its route read
+   around it, then the pool probe once.
 9. Prints the kernels line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -57,9 +62,10 @@ from ddp_tpu_torch.data import ResidentData, TrainLoader, synthetic
 from ddp_tpu_torch.device import set_tf32
 from ddp_tpu_torch.models.vgg import VGG
 from ddp_tpu_torch.ops import conv_candidates, pool_candidates
-from ddp_tpu_torch.ops.conv_candidates import (TARGET_SHAPES, _flip_transpose,
-                                               _shift9_fwd, conv2d_fused,
-                                               conv3x3_fused)
+from ddp_tpu_torch.ops.conv_candidates import (ROUTES, TARGET_SHAPES,
+                                               _flip_transpose, _shift9_fwd,
+                                               conv2d_fused, conv3x3_fused,
+                                               conv3x3_route)
 from ddp_tpu_torch.ops.conv_probe import (N_LONG, N_SHORT, VGG_CONV_SHAPES,
                                           conv2d_nhwc, conv_flops)
 from ddp_tpu_torch.ops.gather import gather_rows, gather_rows_plain
@@ -89,6 +95,11 @@ PARITY_TOL = 1e-4
 # ulp at the top of the range, 2^-7 of max|y|, bounds it with room for the
 # sums.
 CONV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+# The routes' edge cases, (batch, H, Cin, Cout): a ragged last tile (3
+# images of 8x8 in tiles of two), a box across 8 images (4x4), Cout = 64,
+# 16x16 128->256, and channel counts that are multiples of 8 but not of 64.
+CONV_EDGE_CASES = [(3, 8, 256, 512), (8, 4, 512, 512), (4, 16, 128, 64),
+                   (8, 16, 128, 256), (2, 8, 40, 24), (5, 32, 64, 72)]
 PROBE_REPEATS = 2
 
 
@@ -262,35 +273,65 @@ def _conv_inputs(gen, batch, h, cin, cout):
     return x, w, dy
 
 
+def _conv_route_launch(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """``conv3x3_fused(a, b)`` and the route it ran, checked: the route
+    ``conv3x3_route`` names for these inputs, and exactly one launch
+    counted, on that route."""
+    n, h, wd, cin = a.shape
+    route = conv3x3_route(n, h, wd, cin, b.shape[3], a.dtype, aligned=(
+        a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0))
+    before = dict(conv3x3_fused.route_launches)
+    y = conv3x3_fused(a, b)
+    moved = {k: v - before[k]
+             for k, v in conv3x3_fused.route_launches.items()}
+    check(moved == {k: int(k == route) for k in ROUTES},
+          f"conv3x3 at {tuple(a.shape)} -> {b.shape[3]} {a.dtype}: route "
+          f"{route} expected, the counters moved {moved}")
+    return y, route
+
+
 def conv_kernel_phase(gen: torch.Generator) -> dict:
-    """conv3x3 forward and dgrad against the float64 plain version, the
-    autograd candidate against autograd of the plain version, then timed
-    at the probe's two shapes."""
+    """conv3x3 forward and dgrad against the float64 plain version through
+    the route each case should take, the autograd candidate against
+    autograd of the plain version, the SASS check, then the times at the
+    probe's two shapes and their dgrads in both dtypes."""
     cases = [(512,) + s[:3] for s in TARGET_SHAPES] + \
-        [(8,) + s[:3] for s in VGG_CONV_SHAPES]
+        [(8,) + s[:3] for s in VGG_CONV_SHAPES] + CONV_EDGE_CASES
     worst = {torch.float32: (0.0, 0.0), torch.bfloat16: (0.0, 0.0)}
+    conv3x3_fused.route_launches = dict.fromkeys(ROUTES, 0)
     for batch, h, cin, cout in cases:
         x, w, dy = _conv_inputs(gen, batch, h, cin, cout)
+        line = []
         for dtype, tol in CONV_TOL.items():
             xd, wd, dyd = x.to(dtype), w.to(dtype), dy.to(dtype)
             for what, a, b in (("fwd", xd, wd),
                                ("dgrad", dyd,
                                 _flip_transpose(wd).contiguous())):
-                got = conv3x3_fused(a, b).double()
+                got, route = _conv_route_launch(a, b)
+                got = got.double()
                 want = _shift9_fwd(a.double(), b.double())
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
                 rel = err / float(want.abs().max())
                 check(rel <= tol, f"conv3x3 {what} {dtype} at {batch}x{h}x"
-                      f"{h} {cin}->{cout}: max|err| {err:.3e} is {rel:.3e} "
-                      f"of max|y|, tolerance {tol:.3e}")
+                      f"{h} {cin}->{cout} ({route}): max|err| {err:.3e} is "
+                      f"{rel:.3e} of max|y|, tolerance {tol:.3e}")
+                if batch == 512 and dtype == torch.bfloat16:
+                    check(route == "wgmma_bf16", f"conv3x3 {what} bf16 at "
+                          f"the probe target {h}x{h} {cin}->{cout} ran on "
+                          f"{route}, not on the tensor cores")
                 worst[dtype] = (max(worst[dtype][0], err),
                                 max(worst[dtype][1], rel))
+                line.append(f"{what} {str(dtype)[6:]} {route} {rel:.2e}")
                 del got, want
+        print(f"conv3x3 {batch}x{h}x{h} {cin}->{cout}: " + ", ".join(line),
+              flush=True)
+    routes = dict(conv3x3_fused.route_launches)
     for dtype, (err, rel) in worst.items():
         print(f"conv3x3 vs float64 plain, fwd and dgrad, {len(cases)} "
               f"shapes, {dtype}: max|err| {err:.3e}, {rel:.3e} of max|y| "
               f"(tolerance {CONV_TOL[dtype]:.3e})", flush=True)
+    print(f"conv3x3 check launches by route: {routes}", flush=True)
 
     # The autograd candidate (y, dx, dw) against autograd of the plain
     # version, float32, at the parity tests' shape.
@@ -309,8 +350,20 @@ def conv_kernel_phase(gen: torch.Generator) -> dict:
     print("conv2d_fused autograd (y, dx, dw) matches the plain version's "
           "within 1e-4 of max", flush=True)
 
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
+         _build.library_path("conv3x3")], capture_output=True, text=True,
+        check=True, timeout=120).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"conv3x3 library SASS: {hgmma} HGMMA instruction lines "
+          f"(wgmma on the tensor cores: {hgmma > 0})", flush=True)
+    check(hgmma > 0, "the built conv3x3 library holds no HGMMA instruction")
+
+    # The probe's two target shapes, then their dgrads (Cout = 64 takes the
+    # 64-channel tiles).
     timings = []
-    for h, cin, cout, _ in TARGET_SHAPES:
+    for h, cin, cout in [s[:3] for s in TARGET_SHAPES] + \
+            [(s[0], s[2], s[1]) for s in TARGET_SHAPES]:
         x, w, _ = _conv_inputs(gen, 512, h, cin, cout)
         flops = conv_flops(512, h, cin, cout)
         for dtype, peak in ((torch.float32, FP32_FLOP_PER_S),
@@ -319,23 +372,26 @@ def conv_kernel_phase(gen: torch.Generator) -> dict:
             nbytes = (xd.numel() + wd.numel() + 512 * h * h * cout) \
                 * xd.element_size()
             t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            route = conv3x3_route(512, h, h, cin, cout, dtype)
             ms = median_ms(lambda _: conv3x3_fused(xd, wd), [None], 20)
             plain_ms = median_ms(lambda _: _shift9_fwd(xd, wd), [None], 20)
             library_ms = median_ms(lambda _: conv2d_nhwc(xd, wd), [None], 20)
             ms_again = median_ms(lambda _: conv3x3_fused(xd, wd), [None], 20)
             row = {"shape": f"512x{h}x{h} {cin}->{cout}",
-                   "dtype": str(dtype).replace("torch.", ""), "ms": ms,
-                   "ms_again": ms_again, "plain_ms": plain_ms,
+                   "dtype": str(dtype).replace("torch.", ""), "route": route,
+                   "ms": ms, "ms_again": ms_again, "plain_ms": plain_ms,
                    "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                    "tflops": flops / ms / 1e9}
             timings.append(row)
-            print(f"conv3x3 {row['shape']} {row['dtype']}: kernel {ms:.6f} "
-                  f"ms (again {ms_again:.6f}, {row['tflops']:.1f} TFLOP/s), "
-                  f"plain {plain_ms:.6f} ms, cuDNN {library_ms:.6f} ms, "
-                  f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
-                  f"ops {t_ops:.6f}, bytes {t_bytes:.6f})", flush=True)
-    head = timings[0]  # 32x32 64->128 float32, the first target shape
+            print(f"conv3x3 {row['shape']} {row['dtype']} ({route}): kernel "
+                  f"{ms:.6f} ms (again {ms_again:.6f}, {row['tflops']:.1f} "
+                  f"TFLOP/s), plain {plain_ms:.6f} ms, cuDNN "
+                  f"{library_ms:.6f} ms, bound {row['bound_ms']:.6f} ms "
+                  f"({row['bound_by']}: ops {t_ops:.6f}, bytes "
+                  f"{t_bytes:.6f})", flush=True)
+    # 32x32 64->128, the first target shape: float32 and bfloat16.
+    head, head_bf16 = timings[0], timings[1]
     return {"name": "conv3x3", "route": "cuda",
             "source": "ddp_tpu_torch/csrc/conv3x3.cu",
             "replaces": "ddp_tpu/ops/conv_candidates.py:104",
@@ -344,37 +400,52 @@ def conv_kernel_phase(gen: torch.Generator) -> dict:
             "ms": head["ms"], "kernel_ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "timings": timings}
+            "ms_bf16": head_bf16["ms"], "plain_ms_bf16": head_bf16["plain_ms"],
+            "bound_ms_bf16": head_bf16["bound_ms"],
+            "bound_by_bf16": head_bf16["bound_by"],
+            "library_ms_bf16": head_bf16["library_ms"],
+            "routes": list(ROUTES), "check_launches_by_route": routes,
+            "hgmma_sass_lines": hgmma, "timings": timings}
 
 
-def probe_phase() -> int:
-    """The conv-candidate CLI over all five candidates, with the kernel's
-    launch count read around it; then the pool probe once."""
-    t0 = time.time()
-    conv3x3_fused.launches = 0
-    records = conv_candidates.main(["--repeats", str(PROBE_REPEATS)])
-    launches = conv3x3_fused.launches
+def probe_phase() -> dict:
+    """The conv-candidate CLI over all five candidates, in float32 and in
+    bfloat16, each with the kernel's launch count and route read around
+    it; then the pool probe once.  Returns the launches by route."""
     # Each chain runs once to warm up and PROBE_REPEATS times timed, at
     # N_SHORT and N_LONG links.  A link launches the kernel once forward;
     # the fused candidate's train link adds its dgrad, the hybrid's none.
     links = (1 + PROBE_REPEATS) * (N_SHORT + N_LONG) * len(TARGET_SHAPES)
     expected = links * (1 + 2) + links * (1 + 1)
-    check(launches == expected,
-          f"conv3x3 launched {launches} times on the probe path, expected "
-          f"{expected}")
-    check(set(records) == set(conv_candidates.CANDIDATES),
-          f"probe ran {sorted(records)}")
-    for name, recs in records.items():
-        check(len(recs) == 2 * len(TARGET_SHAPES) and all(
-            math.isfinite(r["marginal_ms_per_call"]) and (
-                r["tflops"] is None or math.isfinite(r["tflops"]))
-            for r in recs), f"probe records of {name}: {recs}")
-    print(f"probe path: {time.time() - t0:.2f} s, conv3x3 launches "
-          f"{launches}", flush=True)
+    by_route = dict.fromkeys(ROUTES, 0)
+    for flags, route in (([], "ffma_f32"), (["--bf16"], "wgmma_bf16")):
+        t0 = time.time()
+        conv3x3_fused.launches = 0
+        conv3x3_fused.route_launches = dict.fromkeys(ROUTES, 0)
+        records = conv_candidates.main(
+            flags + ["--repeats", str(PROBE_REPEATS)])
+        launches = conv3x3_fused.launches
+        routes = dict(conv3x3_fused.route_launches)
+        check(launches == expected and routes[route] == expected,
+              f"conv3x3 launched {launches} times on the probe path "
+              f"{flags}, {routes} by route; expected {expected}, all on "
+              f"{route}")
+        check(set(records) == set(conv_candidates.CANDIDATES),
+              f"probe ran {sorted(records)}")
+        for name, recs in records.items():
+            check(len(recs) == 2 * len(TARGET_SHAPES) and all(
+                math.isfinite(r["marginal_ms_per_call"]) and (
+                    r["tflops"] is None or math.isfinite(r["tflops"]))
+                for r in recs), f"probe records of {name}: {recs}")
+        print(f"probe path {' '.join(flags) or '(float32)'}: "
+              f"{time.time() - t0:.2f} s, conv3x3 launches {launches}, by "
+              f"route {routes}", flush=True)
+        for k in ROUTES:
+            by_route[k] += routes[k]
     t0 = time.time()
     pool_candidates.main(["--repeats", "1"])
     print(f"pool probe: {time.time() - t0:.2f} s", flush=True)
-    return launches
+    return by_route
 
 
 def main() -> int:
@@ -415,6 +486,8 @@ def main() -> int:
     check(launches >= MAIN_TRAIN_STEPS + MAIN_EVAL_STEPS,
           f"row_gather launched {launches} times on the main path, expected "
           f">= {MAIN_TRAIN_STEPS + MAIN_EVAL_STEPS}")
+    check(conv_main_launches == 0,
+          f"conv3x3 launched {conv_main_launches} times on the main path")
     step_ms = statistics.median(out["step_ms"])
     print(f"main path ({card}): median {step_ms:.3f} ms/step, "
           f"{512 / step_ms * 1e3:.1f} samples/s, train "
@@ -429,11 +502,13 @@ def main() -> int:
     snapshot_dir.cleanup()
 
     conv3x3 = conv_kernel_phase(gen)
-    probe_launches = probe_phase()
+    probe_routes = probe_phase()
 
     row_gather.update(launches=launches, launches_per_epoch=launches)
-    conv3x3.update(launches=probe_launches,
-                   path="python -m ddp_tpu_torch.ops.conv_candidates",
+    conv3x3.update(launches=sum(probe_routes.values()),
+                   launches_by_route=probe_routes,
+                   path="python -m ddp_tpu_torch.ops.conv_candidates "
+                        "[--bf16]",
                    launches_main_path=conv_main_launches)
     print(json.dumps({"kernels": [row_gather, conv3x3]}))
     print(card)

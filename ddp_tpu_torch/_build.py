@@ -2,8 +2,9 @@
 libraries that have a plain C interface, and loads them with ``ctypes``.
 
 Each library is built at first use into ``ddp_tpu_torch/_build/`` (listed in
-``.gitignore``), under a name keyed on the hash of its source and the compiler
-flags, so an edited source is rebuilt and an unchanged one is reused.
+``.gitignore``), under a name keyed on the hash of its source, the shared
+headers of ``csrc/`` and the compiler flags, so an edited source or header is
+rebuilt and an unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source at once, so the build of
 several kernels takes the time of the slowest.  Nothing is built when a
 module is imported: the wrappers call :func:`load` on their first launch.
@@ -21,7 +22,8 @@ from typing import Dict, List
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 # sm_90a, not sm_90: the Hopper-only instructions (wgmma, setmaxnreg) exist
-# only for that target, and later kernels will need them.
+# only for that target.  Nothing else is linked: the TMA tensor maps' driver
+# entry point is looked up through the runtime.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -48,8 +50,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, keyed on the source, every shared header
+    (``csrc/*.cuh``) it may include, and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(f.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

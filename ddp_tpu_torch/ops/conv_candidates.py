@@ -6,12 +6,15 @@ HWIO weights as in the JAX package.
   ``torch.matmul`` s over 1-pixel-shifted views of the zero-padded input.
 - ``conv2d_im2col``: the ``[N,H,W,9*Cin]`` patch tensor, then one matmul
   with K = 9*Cin.
-- ``conv2d_fused``: the hand-written CUDA kernel ``csrc/conv3x3.cu`` behind
-  :func:`conv3x3_fused` (it replaces the TPU kernel
-  ``ddp_tpu/ops/conv_candidates.py::_pallas_fwd``; the source says how it is
-  laid out).  The TPU wrapper sizes a VMEM batch tile with
-  ``_pick_block_n``; the CUDA kernel tiles the output itself, so that
-  helper has no counterpart here.
+- ``conv2d_fused``: the hand-written CUDA kernels ``csrc/conv3x3.cu`` behind
+  :func:`conv3x3_fused` (they replace the TPU kernel
+  ``ddp_tpu/ops/conv_candidates.py::_pallas_fwd``; the source says how each
+  is laid out).  :func:`conv3x3_route` picks one of three routes from the
+  shape and dtype before the launch: ``wgmma_bf16`` (tensor cores, TMA
+  ring), ``ffma_f32`` (register-tiled CUDA cores, cp.async double
+  buffering) or ``general`` (any shape, e.g. Cin = 3).  The TPU wrapper
+  sizes a VMEM batch tile with ``_pick_block_n``; the CUDA kernels tile the
+  output themselves, so that helper has no counterpart here.
 - ``conv2d_fused_fwd_cudnn_bwd``: the kernel's forward with the baseline
   conv's own backward (cuDNN's dgrad and wgrad).
 
@@ -31,7 +34,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -86,13 +89,60 @@ def _im2col_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv3x3")
     if not getattr(lib, "_typed", False):
-        lib.ddp_conv3x3.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.ddp_conv3x3.restype = ctypes.c_int
+        ptrs = [ctypes.c_void_p] * 3
+        ints = [ctypes.c_int] * 5  # n, h, wd, cin, cout
+        for fn, extra in ((lib.ddp_conv3x3, [ctypes.c_int]),  # dtype
+                          (lib.ddp_conv3x3_f32_tiled, []),
+                          (lib.ddp_conv3x3_bf16_wgmma,
+                           [ctypes.c_int, ctypes.c_int])):  # box_h, box_n
+            fn.argtypes = ptrs + ints + extra + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+ROUTES = ("wgmma_bf16", "ffma_f32", "general")
+# The wgmma route's tile: 128 output pixels (two warpgroups of 64 rows).
+_TC_PIXELS = 128
+
+
+def tc_box(h: int, wd: int) -> Optional[Tuple[int, int]]:
+    """``(box_h, box_n)`` of the wgmma route's input box for an H x W
+    image: 128 pixels as ``box_h`` whole rows of one image, or as ``box_n``
+    whole images; ``None`` when neither tiles 128 pixels exactly."""
+    hw = h * wd
+    if hw >= _TC_PIXELS:
+        if _TC_PIXELS % wd == 0 and h % (_TC_PIXELS // wd) == 0:
+            return _TC_PIXELS // wd, 1
+    elif _TC_PIXELS % hw == 0:
+        return h, _TC_PIXELS // hw
+    return None
+
+
+def conv3x3_route(n: int, h: int, wd: int, cin: int, cout: int,
+                  dtype: torch.dtype, aligned: bool = True) -> str:
+    """Which kernel of ``csrc/conv3x3.cu`` runs a conv of x ``[n, h, wd,
+    cin]`` and w ``[3, 3, cin, cout]`` in ``dtype``; ``aligned``: x and w
+    start on 16 bytes.  Decided from these alone, before the launch.
+
+    - ``wgmma_bf16``: bfloat16 with Cin and Cout multiples of 8 (TMA's 16 B
+      strides) and rows or images that tile 128 pixels (:func:`tc_box`);
+    - ``ffma_f32``: float32 with Cin and Cout multiples of 4 (16 B copies);
+    - ``general``: everything else, e.g. VGG's conv0 (Cin = 3) and its
+      dgrad (Cout = 3)."""
+    if aligned and dtype == torch.bfloat16 and cin % 8 == 0 and \
+            cout % 8 == 0 and tc_box(h, wd) is not None:
+        return "wgmma_bf16"
+    if aligned and dtype == torch.float32 and cin % 4 == 0 and \
+            cout % 4 == 0:
+        return "ffma_f32"
+    return "general"
+
+
+def kmajor_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO ``[3, 3, Cin, Cout]`` -> ``[9, Cout, Cin]``, contiguous: the
+    wgmma route's B operand, K (input channels) innermost."""
+    return w.reshape(9, w.shape[2], w.shape[3]).transpose(1, 2).contiguous()
 
 
 def conv3x3_fused(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -100,10 +150,12 @@ def conv3x3_fused(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``[3,3,Cin,Cout]`` -> ``[N,H,W,Cout]`` in ``x``'s dtype.
 
     CUDA tensors (float32 or bfloat16, both contiguous, one dtype) go
-    through the kernel, launched on the current stream without a
-    synchronise; each launch adds one to ``conv3x3_fused.launches``.  CPU
-    tensors take the plain version :func:`_shift9_fwd`.  Anything else
-    raises."""
+    through the kernel of the route :func:`conv3x3_route` picks, launched on
+    the current stream without a synchronise; each launch adds one to
+    ``conv3x3_fused.launches`` and to the route's count in
+    ``conv3x3_fused.route_launches``.  CPU tensors take the plain version
+    :func:`_shift9_fwd`.  Anything else raises, and so does a launch the
+    kernel refuses: no route falls back to another."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return _shift9_fwd(x, w)
     if x.device.type != "cuda" or w.device != x.device:
@@ -127,19 +179,37 @@ def conv3x3_fused(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    route = conv3x3_route(n, h, wd, cin, cout, x.dtype, aligned=(
+        x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().ddp_conv3x3(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                                 n, h, wd, cin, cout,
-                                 _KERNEL_DTYPES[x.dtype], stream)
+        lib = _lib()
+        if route == "wgmma_bf16":
+            box_h, box_n = tc_box(h, wd)
+            wk = kmajor_weights(w)
+            err = lib.ddp_conv3x3_bf16_wgmma(
+                x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, wd, cin,
+                cout, box_h, box_n, stream)
+        elif route == "ffma_f32":
+            err = lib.ddp_conv3x3_f32_tiled(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, cin,
+                cout, stream)
+        else:
+            err = lib.ddp_conv3x3(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                                  n, h, wd, cin, cout,
+                                  _KERNEL_DTYPES[x.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"conv3x3_fused: kernel launch failed with CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"conv3x3_fused: {route} kernel launch failed "
+                           f"with error {err} (a CUDA error; 1000: no "
+                           f"cuTensorMapEncodeTiled; 2000 + a CUresult: "
+                           f"tensor map refused)")
     conv3x3_fused.launches += 1
+    conv3x3_fused.route_launches[route] += 1
     return y
 
 
 conv3x3_fused.launches = 0
+conv3x3_fused.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def _flip_transpose(w: torch.Tensor) -> torch.Tensor:

@@ -7,16 +7,21 @@ Tolerances: the row gather moves bytes, so it compares exactly.  The conv
 kernel compares with its plain version on float64 copies of the same
 inputs, as a share of max|y|: 1e-4 for float32 (K = 9*Cin products summed
 in another order), 2^-7 for bfloat16 (the fp32 sum rounded once to
-bfloat16, at most half an ulp, plus room for the sums).
+bfloat16, at most half an ulp, plus room for the sums).  Each conv case
+also checks that the counter of the route it should take moved, and only
+that one.
 """
 import math
+import os
+import subprocess
 
 import pytest
 import torch
 
+from ddp_tpu_torch import _build
 from ddp_tpu_torch.ops.conv_candidates import (TARGET_SHAPES, _flip_transpose,
                                                _shift9_fwd, conv2d_fused,
-                                               conv3x3_fused)
+                                               conv3x3_fused, conv3x3_route)
 from ddp_tpu_torch.ops.conv_probe import VGG_CONV_SHAPES
 from ddp_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 
@@ -72,13 +77,35 @@ CONV_CASES = [(512,) + s[:3] for s in TARGET_SHAPES] + \
     [(8,) + s[:3] for s in VGG_CONV_SHAPES]
 
 
+# Edge cases of the redesigned routes: a ragged last tile (3 images of 8x8
+# in tiles of two), a box across 8 images (4x4), Cout = 64 (narrower than a
+# 128-channel tile) and 16x16 128->256; then Cin and Cout that are
+# multiples of 8 but not of 64 or 128.
+EDGE_CASES = [(3, 8, 256, 512), (8, 4, 512, 512), (4, 16, 128, 64),
+              (8, 16, 128, 256), (2, 8, 40, 24), (5, 32, 64, 72)]
+ROUTE_OF = {torch.float32: "ffma_f32", torch.bfloat16: "wgmma_bf16"}
+
+
 def _rel_err(got, want):
     return float((got.double() - want).abs().max() / want.abs().max())
 
 
+def _launch_counted(a, b, route):
+    """``conv3x3_fused(a, b)``, checking that exactly one launch was
+    counted, on ``route``."""
+    before = (conv3x3_fused.launches, dict(conv3x3_fused.route_launches))
+    y = conv3x3_fused(a, b)
+    torch.cuda.synchronize()
+    assert conv3x3_fused.launches == before[0] + 1
+    moved = {k: v - before[1][k]
+             for k, v in conv3x3_fused.route_launches.items()}
+    assert moved == {k: int(k == route) for k in moved}, moved
+    return y
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", CONV_CASES,
+@pytest.mark.parametrize("case", CONV_CASES + EDGE_CASES,
                          ids=lambda c: "n{}h{}_{}to{}".format(*c))
 def test_conv3x3_fwd_and_dgrad_equal_plain(cuda, case, dtype):
     n, h, cin, cout = case
@@ -88,14 +115,45 @@ def test_conv3x3_fwd_and_dgrad_equal_plain(cuda, case, dtype):
          * math.sqrt(2.0 / (9 * cin))).to(dtype)
     dy = torch.randn((n, h, h, cout), device=cuda, generator=g).to(dtype)
     wt = _flip_transpose(w).contiguous()
-    before = conv3x3_fused.launches
-    y, dx = conv3x3_fused(x, w), conv3x3_fused(dy, wt)
-    torch.cuda.synchronize()
-    assert conv3x3_fused.launches == before + 2
+    # Every case but VGG's conv0 (Cin = 3) and its dgrad (Cout = 3) takes
+    # the dtype's fast route, forward and dgrad.
+    route = "general" if cin == 3 else ROUTE_OF[dtype]
+    assert conv3x3_route(n, h, h, cin, cout, dtype) == route
+    assert conv3x3_route(n, h, h, cout, cin, dtype) == route
+    y = _launch_counted(x, w, route)
+    dx = _launch_counted(dy, wt, route)
     assert y.dtype == dx.dtype == dtype and y.is_contiguous()
     assert _rel_err(y, _shift9_fwd(x.double(), w.double())) <= CONV_TOL[dtype]
     assert _rel_err(dx, _shift9_fwd(dy.double(), wt.double())) <= \
         CONV_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_conv3x3_unaligned_input_takes_the_general_route(cuda, dtype):
+    """x starting 2 bytes past a 16-byte boundary: neither TMA nor
+    cp.async takes it, so the general kernel runs, and agrees."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    n, h, cin, cout = 2, 8, 64, 128
+    flat = torch.randn(n * h * h * cin + 1, device=cuda,
+                       generator=g).to(dtype)
+    x = flat[1:].view(n, h, h, cin)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    w = (torch.randn((3, 3, cin, cout), device=cuda, generator=g)
+         * 0.05).to(dtype)
+    y = _launch_counted(x, w, "general")
+    assert _rel_err(y, _shift9_fwd(x.double(), w.double())) <= CONV_TOL[dtype]
+
+
+def test_conv3x3_library_runs_on_the_tensor_cores(cuda):
+    """The built library's SASS holds HGMMA (wgmma) instructions."""
+    _build.build_all()
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    sass = subprocess.run(
+        [os.path.join(home, "bin", "cuobjdump"), "-sass",
+         _build.library_path("conv3x3")], capture_output=True, text=True,
+        check=True).stdout
+    assert "HGMMA" in sass
 
 
 def test_conv2d_fused_autograd_equals_plain(cuda):
