@@ -11,18 +11,31 @@
    negative indices, a float32 table, row sizes that are not a multiple of
    16 bytes), and its time beside the plain version's and
    ``torch.index_select``'s (the yardstick only; the port never calls it).
-4. Parity phase: three resident steps of a narrow VGG on the card (kernel)
-   against the same steps on the CPU (plain version), from the same weights
-   and crop/flip draws, TF32 off.
-5. Main path: the port's CLI in-process at full VGG-11 width,
+4. Resident-batch phase: the ``gather_batch`` kernel (rows, crop/flip,
+   u8/255, channels-first, labels in one launch) against its plain version,
+   images and labels exactly, at N = 512 and the ragged 336, int32 and int64
+   indices with out-of-range and negative ones, draws at both ends of the
+   window with all and no flips, random draws and the eval form; every byte
+   value against numpy's division.  Then at N = 512 its time by the event
+   bracket and by ``torch.profiler``, its bound, the plain version's time,
+   and the unfused sequence it replaced on the main path (``gather_rows``,
+   ``crop_flip``, the label index and ``_as_input``): that
+   sequence's device time, kernel launches and host enqueue time per call,
+   beside the kernel's enqueue time.  No single PyTorch call computes this
+   function, so the replaced sequence is the yardstick.
+5. Parity phase: three resident steps of a narrow VGG on the card
+   (``gather_batch``'s kernel) against the same steps on the CPU (plain
+   version), from the same weights and crop/flip draws, TF32 off.
+6. Main path: the port's CLI in-process at full VGG-11 width,
    ``1 1 --batch_size 512 --resident --synthetic --synthetic_size 50000``
    (98 train steps, 25 eval steps) with ``--snapshot_path`` in a temporary
-   directory, with the gather's launch count read around it.
-6. Checkpoint phase: the epoch-0 checkpoint the main path wrote, loaded
+   directory, with the kernels' launch counts read around it: 123 of
+   ``gather_batch``, none of ``row_gather`` or ``conv3x3``.
+7. Checkpoint phase: the epoch-0 checkpoint the main path wrote, loaded
    with ``load_checkpoint`` and held bit for bit against the trained
    weights, buffers and momentum; then the CLI again with ``--resume``,
    which must train no step and report the same accuracy.
-7. Conv kernel phase: ``conv3x3`` (``conv3x3_fused``) forward and dgrad
+8. Conv kernel phase: ``conv3x3`` (``conv3x3_fused``) forward and dgrad
    against its plain version at the probe's shapes at batch 512, at every
    VGG conv shape at batch 8 and at the routes' edge cases, float32 and
    bfloat16 against a float64 result, each through the route
@@ -32,11 +45,11 @@
    instructions; then the times of both dtypes at the two probe shapes and
    their dgrads beside the plain version's, cuDNN's (``conv2d_nhwc``, TF32
    off: the yardstick only) and the bound.
-8. Probe path: the conv-candidate CLI in-process (``--repeats 2``, all five
+9. Probe path: the conv-candidate CLI in-process (``--repeats 2``, all five
    candidates at both target shapes, batch 512), once in float32 and once
    with ``--bf16``, each with the kernel's launch count and its route read
    around it, then the pool probe once.
-9. Prints the kernels line, the card line, and last
+10. Prints the kernels line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; without a card it
@@ -56,9 +69,11 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from ddp_tpu_torch import _build, cli, interop
 from ddp_tpu_torch.data import ResidentData, TrainLoader, synthetic
+from ddp_tpu_torch.data.device_augment import crop_flip, make_draws
 from ddp_tpu_torch.device import set_tf32
 from ddp_tpu_torch.models.vgg import VGG
 from ddp_tpu_torch.ops import conv_candidates, pool_candidates
@@ -68,11 +83,13 @@ from ddp_tpu_torch.ops.conv_candidates import (ROUTES, TARGET_SHAPES,
                                                conv3x3_route)
 from ddp_tpu_torch.ops.conv_probe import (N_LONG, N_SHORT, VGG_CONV_SHAPES,
                                           conv2d_nhwc, conv_flops)
-from ddp_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from ddp_tpu_torch.ops.gather import (gather_batch, gather_batch_plain,
+                                      gather_rows, gather_rows_plain)
 from ddp_tpu_torch.optim import SGDConfig, triangular_lr
+from ddp_tpu_torch.profile_resident import device_events, kernel_launches
 from ddp_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from ddp_tpu_torch.train.epoch import make_train_epoch
-from ddp_tpu_torch.train.step import init_train_state
+from ddp_tpu_torch.train.step import _as_input, init_train_state
 
 # H100 SXM peaks (NVIDIA's data sheet): memory rate, float32 on the CUDA
 # cores (TF32 is another precision, not the same work), bf16 tensor cores.
@@ -101,6 +118,9 @@ CONV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 CONV_EDGE_CASES = [(3, 8, 256, 512), (8, 4, 512, 512), (4, 16, 128, 64),
                    (8, 16, 128, 256), (2, 8, 40, 24), (5, 32, 64, 72)]
 PROBE_REPEATS = 2
+# The resident-batch kernel's draw cases: random, both ends of the crop
+# window with every image flipped or none, and the eval form (no draws).
+BATCH_DRAWS = ("random", "0_flip", "0_noflip", "8_flip", "8_noflip", "eval")
 
 
 def check(ok: bool, what: str) -> None:
@@ -115,18 +135,20 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, inputs, repeats: int = 60) -> float:
+def median_ms(fn, inputs, repeats: int = 60,
+              sleep_cycles: int = 200_000) -> float:
     """Median device time of ``fn(x)`` over ``repeats`` launches after a
     warm-up, each bracketed by CUDA events.  A sleep kernel queued ahead of
     each launch keeps the card busy while the host enqueues, so the events
-    time the device work and not the host's launch gap."""
+    time the device work and not the host's launch gap; ``sleep_cycles``
+    must outlast the enqueue of ``fn``."""
     for x in inputs[:5]:
         fn(x)
     pairs = []
     for i in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         fn(inputs[i % len(inputs)])
         end.record()
@@ -183,6 +205,137 @@ def kernel_phase(gen: torch.Generator) -> dict:
             "library_ms": library_ms}
 
 
+def _profiled_us(events: dict, fragment: str) -> float:
+    """Mean device us per launch of the kernels of ``device_events`` whose
+    name holds ``fragment``."""
+    hits = [v for k, v in events.items() if fragment in k]
+    check(bool(hits), f"no kernel named like {fragment!r} in the profile")
+    return sum(ms for ms, _ in hits) / sum(n for _, n in hits) * 1e3
+
+
+def enqueue_us(fn, inputs, calls: int = 200) -> float:
+    """Host microseconds per call to enqueue ``fn`` (no synchronise inside
+    the timed loop)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(calls):
+        fn(inputs[k % len(inputs)])
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _batch_draws(kind: str, n: int, gen: torch.Generator):
+    if kind == "eval":
+        return None
+    if kind == "random":
+        return make_draws(gen, n, torch.device("cuda"))
+    off, flip = kind.split("_")
+    full = torch.full((n,), int(off), dtype=torch.int64, device="cuda")
+    return full, full.clone(), torch.full((n,), flip == "flip",
+                                          device="cuda")
+
+
+def batch_phase(gen: torch.Generator) -> tuple:
+    """gather_batch against its plain version (exact), then timed beside
+    the sequence it replaced.  Returns its kernels-line entry and
+    row_gather's profiled time."""
+    m = 50000
+    table = torch.randint(0, 256, (m, 32, 32, 3), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+    labels = torch.randint(0, 10, (m,), device="cuda", generator=gen)
+    cases, max_err = 0, 0.0
+    for n in (512, 336):
+        for idx_dtype in (torch.int32, torch.int64):
+            idx = torch.randint(-20, m + 20, (n,), dtype=idx_dtype,
+                                device="cuda", generator=gen)
+            idx[:4] = torch.tensor([-1, m, -(2**31) + 1, 2**31 - 1],
+                                   dtype=idx_dtype)
+            for kind in BATCH_DRAWS:
+                draws = _batch_draws(kind, n, gen)
+                images, got = gather_batch(table, labels, idx, draws)
+                want_images, want = gather_batch_plain(table, labels, idx,
+                                                       draws)
+                torch.cuda.synchronize()
+                check(torch.equal(images, want_images) and
+                      torch.equal(got, want),
+                      f"gather_batch differs from its plain version at "
+                      f"N={n}, {idx_dtype}, draws {kind}")
+                check(images.permute(0, 3, 1, 2).is_contiguous(),
+                      "gather_batch's images are not stored channels-first")
+                max_err = max(max_err, float((images - want_images)
+                                             .abs().max()))
+                cases += 1
+    ramp = torch.zeros((1, 32, 32, 3), dtype=torch.uint8, device="cuda")
+    ramp.view(-1)[:256] = torch.arange(256, device="cuda")
+    images, _ = gather_batch(ramp, labels[:1], torch.zeros(
+        1, dtype=torch.int32, device="cuda"))
+    check(np.array_equal(images.cpu().numpy().reshape(-1)[:256],
+                         np.arange(256, dtype=np.float32) / np.float32(255)),
+          "gather_batch's u8/255 differs from numpy's float32 division")
+    print(f"gather_batch: {cases} cases equal to the plain version (images "
+          f"and labels), every byte value equal to numpy's u8/255", flush=True)
+
+    n = 512
+    args = [(torch.randperm(m, device="cuda", generator=gen)[:n].int(),
+             make_draws(gen, n, torch.device("cuda"))) for _ in range(60)]
+    fused = lambda a: gather_batch(table, labels, *a)
+    replaced = lambda a: (_as_input(crop_flip(gather_rows(table, a[0]),
+                                              *a[1])),
+                          labels[a[0].long()])
+    ms = median_ms(fused, args)
+    plain_ms = median_ms(lambda a: gather_batch_plain(table, labels, *a),
+                         args, sleep_cycles=2_000_000)
+    replaced_ms = median_ms(replaced, args, sleep_cycles=2_000_000)
+    ms_again = median_ms(fused, args)
+    fused_enqueue, replaced_enqueue = (enqueue_us(fused, args),
+                                       enqueue_us(replaced, args))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for a in args[:50]:
+            fused(a)
+        for a in args[:50]:
+            gather_rows(table, a[0])
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    kernel_us = _profiled_us(events, "gather_batch_kernel")
+    row_us = _profiled_us(events, "row_gather_kernel")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for a in args[:20]:
+            replaced(a)
+        torch.cuda.synchronize()
+    replaced_launches = kernel_launches(device_events(prof)) / 20
+    nbytes = (n * 3 * 32 * 32 * 4 + n * 3072 + n * 4 + n * (8 + 8 + 1)
+              + 2 * n * 8)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    share = bound_ms * 1e3 / kernel_us
+    print(f"gather_batch N={n}: kernel {ms:.6f} ms (again {ms_again:.6f}) by "
+          f"the event bracket, {kernel_us:.3f} us by the profiler; bound "
+          f"{bound_ms:.6f} ms ({nbytes} bytes), {share:.1%} of it by the "
+          f"profiler; plain {plain_ms:.6f} ms; replaced sequence "
+          f"{replaced_ms:.6f} ms, {replaced_launches:g} launches, enqueue "
+          f"{replaced_enqueue:.1f} us against the kernel's "
+          f"{fused_enqueue:.1f} us; row_gather {row_us:.3f} us by the "
+          f"profiler", flush=True)
+    entry = {"name": "gather_batch", "route": "cuda",
+             "source": "ddp_tpu_torch/csrc/gather.cu",
+             "replaces": "ddp_tpu/ops/gather.py:37",
+             "also_replaces": ["ddp_tpu/data/device_augment.py:44",
+                               "ddp_tpu/data/device_augment.py:57",
+                               "ddp_tpu/train/step.py:53"],
+             "max_abs_err": max_err, "ms": ms, "kernel_ms": ms,
+             "ms_again": ms_again, "profiler_ms": kernel_us / 1e3,
+             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+             "bound_share_profiler": share,
+             "library_ms": None,
+             "replaced_sequence": "gather_rows + crop_flip + labels[idx] + "
+                                  "_as_input",
+             "replaced_ms": replaced_ms,
+             "replaced_launches": replaced_launches,
+             "replaced_enqueue_us": replaced_enqueue,
+             "enqueue_us": fused_enqueue, "cases": cases}
+    return entry, row_us / 1e3
+
+
 def parity_phase() -> None:
     """Three resident steps (two full batches and a ragged tail) of a
     narrow VGG on the card against the CPU, same weights and draws."""
@@ -198,6 +351,7 @@ def parity_phase() -> None:
                                     steps_per_epoch=3)
     cpu_model = VGG(arch, generator=torch.Generator().manual_seed(0))
     results = {}
+    launches = gather_batch.launches
     for device in ("cuda", "cpu"):
         model = copy.deepcopy(cpu_model).to(device)
         res = ResidentData(ds, torch.device(device))
@@ -218,6 +372,8 @@ def parity_phase() -> None:
         results[device] = (losses.cpu(),
                            {k: v.cpu() for k, v in
                             model.state_dict().items()})
+    check(gather_batch.launches == launches + 3,
+          "the card's parity steps did not run the gather_batch kernel")
     (lg, sg), (lc, sc) = results["cuda"], results["cpu"]
     loss_err = float((lg - lc).abs().max())
     param_err = max(float((sg[k] - sc[k]).abs().max()) for k in sc)
@@ -465,15 +621,18 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     row_gather = kernel_phase(gen)
+    batch, row_gather["profiler_ms"] = batch_phase(gen)
     parity_phase()
 
     snapshot_dir = tempfile.TemporaryDirectory()
     snapshot = os.path.join(snapshot_dir.name, "checkpoint.pt")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gather_rows.launches = conv3x3_fused.launches = 0
+    gather_batch.launches = gather_rows.launches = 0
+    conv3x3_fused.launches = 0
     out = cli.main(MAIN_ARGS + ["--snapshot_path", snapshot])
-    launches = gather_rows.launches
+    launches = gather_batch.launches
+    row_main_launches = gather_rows.launches
     # The training path runs cuDNN's convolutions, as the JAX package's
     # runs XLA's: the conv kernel belongs to the probe path.
     conv_main_launches = conv3x3_fused.launches
@@ -483,9 +642,11 @@ def main() -> int:
     check(all(math.isfinite(x) for x in losses), "non-finite training loss")
     check(math.isfinite(out["accuracy"]) and 0 <= out["accuracy"] <= 100,
           f"accuracy {out['accuracy']}")
-    check(launches >= MAIN_TRAIN_STEPS + MAIN_EVAL_STEPS,
-          f"row_gather launched {launches} times on the main path, expected "
-          f">= {MAIN_TRAIN_STEPS + MAIN_EVAL_STEPS}")
+    check(launches == MAIN_TRAIN_STEPS + MAIN_EVAL_STEPS,
+          f"gather_batch launched {launches} times on the main path, "
+          f"expected {MAIN_TRAIN_STEPS + MAIN_EVAL_STEPS}")
+    check(row_main_launches == 0,
+          f"row_gather launched {row_main_launches} times on the main path")
     check(conv_main_launches == 0,
           f"conv3x3 launched {conv_main_launches} times on the main path")
     step_ms = statistics.median(out["step_ms"])
@@ -494,7 +655,8 @@ def main() -> int:
           f"{out['training_seconds']:.2f} s, eval "
           f"{out['eval_seconds']:.2f} s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
-          f"row_gather launches {launches}, first/last loss "
+          f"gather_batch launches {launches}, row_gather launches "
+          f"{row_main_launches}, first/last loss "
           f"{losses[0]:.4f}/{losses[-1]:.4f}, accuracy "
           f"{out['accuracy']:.2f}%, conv3x3 launches {conv_main_launches}",
           flush=True)
@@ -504,13 +666,17 @@ def main() -> int:
     conv3x3 = conv_kernel_phase(gen)
     probe_routes = probe_phase()
 
-    row_gather.update(launches=launches, launches_per_epoch=launches)
+    # row_gather stays the direct counterpart of _pallas_row_gather for
+    # later slices; the main path now runs gather_batch.
+    row_gather.update(launches=row_main_launches,
+                      launches_main_path=row_main_launches)
+    batch.update(launches=launches, launches_main_path=launches)
     conv3x3.update(launches=sum(probe_routes.values()),
                    launches_by_route=probe_routes,
                    path="python -m ddp_tpu_torch.ops.conv_candidates "
                         "[--bf16]",
                    launches_main_path=conv_main_launches)
-    print(json.dumps({"kernels": [row_gather, conv3x3]}))
+    print(json.dumps({"kernels": [row_gather, batch, conv3x3]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -52,5 +52,6 @@ def crop_flip(imgs: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
 def gather_crop_flip(table: torch.Tensor, idx_row: torch.Tensor,
                      draws: Draws) -> torch.Tensor:
     """Batch gather from the resident ``table`` (the row-gather kernel on
-    the card), then :func:`crop_flip` with ``draws``."""
+    the card), then :func:`crop_flip` with ``draws``: the uint8 composition
+    that ``ops/gather.py::gather_batch`` fuses with u8/255 and the labels."""
     return crop_flip(gather_rows(table, idx_row), *draws)

@@ -3,8 +3,8 @@
 
 The uint8 images (~150 MB for CIFAR-10's 50,000 training images) are copied
 to the device once; each step gathers its batch by index there
-(:func:`~ddp_tpu_torch.ops.gather.gather_rows`), so an epoch moves only its
-int32 index matrix from the host.
+(:func:`~ddp_tpu_torch.ops.gather.gather_batch`), so an epoch moves only
+its int32 index matrix from the host.
 """
 from __future__ import annotations
 
@@ -34,9 +34,8 @@ class ResidentData:
     int64 ``[N]`` on ``device``.
 
     Raises :class:`ValueError` before any copy when the dataset would not fit
-    the budget; the ToTensor scaling (u8/255) happens in the train step
-    (``train/step.py::_as_input``), so the card holds the set at a quarter of
-    its float32 size."""
+    the budget; the ToTensor scaling (u8/255) happens as each step gathers
+    its batch, so the card holds the set at a quarter of its float32 size."""
 
     def __init__(self, dataset: Dataset, device: torch.device):
         images = np.ascontiguousarray(dataset.images)

@@ -6,8 +6,8 @@ Runs resident train steps of the port (batch 512 from a 50,000-image
 synthetic table on the card, crop/flip on), the measured window under
 ``torch.profiler``.  Prints the window's wall time per step, the device's
 busy and idle share (the kernels' summed time against the wall time), the
-device time by kernel group and the top kernels, and one JSON summary line
-last.  Needs a card.
+CUDA kernels launched per step, the device time by kernel group and the top
+kernels, and one JSON summary line last.  Needs a card.
 """
 from __future__ import annotations
 
@@ -29,7 +29,8 @@ from .train.trainer import Trainer
 # fft2d transforms) or plain GEMM kernels; the one true matrix product, the
 # 512x10 classifier, is negligible beside them, so every GEMM counts as
 # convolution.
-GROUPS = (("row_gather", "row gather (port kernel)"),
+GROUPS = (("gather_batch", "resident batch (port kernel)"),
+          ("row_gather", "row gather (port kernel)"),
           ("conv", "convolution"), ("xmma", "convolution"),
           ("implicit", "convolution"), ("winograd", "convolution"),
           ("cudnn", "convolution"), ("fft", "convolution"),
@@ -39,6 +40,27 @@ GROUPS = (("row_gather", "row gather (port kernel)"),
           ("gather", "indexing (crop/flip, labels)"),
           ("elementwise", "elementwise (BN, ReLU, SGD)"),
           ("vectorized", "elementwise (BN, ReLU, SGD)"))
+
+
+def device_events(prof) -> dict:
+    """``{name: (device ms, count)}`` of the device-side events of a
+    ``torch.profiler`` profile: the kernels, and the copies and fills
+    (named ``Memcpy ...`` and ``Memset ...``)."""
+    out = {}
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total", None)
+        if dev is None:
+            dev = ev.self_cuda_time_total
+        if dev > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            ms, count = out.get(ev.key, (0.0, 0))
+            out[ev.key] = (ms + dev / 1e3, count + ev.count)
+    return out
+
+
+def kernel_launches(events: dict) -> int:
+    """The kernel launches among :func:`device_events`' entries."""
+    return sum(n for name, (_, n) in events.items()
+               if not name.startswith(("Memcpy", "Memset")))
 
 
 def _group(name: str) -> str:
@@ -81,22 +103,17 @@ def main(argv=None) -> dict:
         run(w, w + args.steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for ev in prof.key_averages():
-        dev = getattr(ev, "self_device_time_total", None)
-        if dev is None:
-            dev = ev.self_cuda_time_total
-        if dev > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[ev.key] = (kernels.get(ev.key, (0.0, 0))[0] + dev / 1e3,
-                               kernels.get(ev.key, (0.0, 0))[1] + ev.count)
+    kernels = device_events(prof)
     busy_ms = sum(ms for ms, _ in kernels.values())
+    launches = kernel_launches(kernels)
     groups = {}
     for name, (ms, _) in kernels.items():
         groups[_group(name)] = groups.get(_group(name), 0.0) + ms
     card = torch.cuda.get_device_name(0)
     print(f"{card}: {args.steps} steps, wall {wall_ms / args.steps:.3f} "
           f"ms/step, device busy {busy_ms / args.steps:.3f} ms/step "
-          f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}")
+          f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}, "
+          f"{launches / args.steps:g} CUDA kernels launched per step")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g:32s} {ms / args.steps:9.3f} ms/step "
               f"{ms / busy_ms:6.1%}")
@@ -108,6 +125,7 @@ def main(argv=None) -> dict:
                "wall_ms_per_step": wall_ms / args.steps,
                "busy_ms_per_step": busy_ms / args.steps,
                "idle_share": 1 - busy_ms / wall_ms,
+               "kernels_per_step": launches / args.steps,
                "groups_ms_per_step": {g: ms / args.steps
                                       for g, ms in groups.items()}}
     print(json.dumps(summary))

@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from ..data.device_augment import Draws
-from ..ops.gather import gather_rows
+from ..ops.gather import gather_batch
 from ..optim import sgd as sgd_lib
 from .step import (TrainState, make_eval_apply, make_group_update,
                    make_loss_and_grads, micro_from_table)
@@ -74,8 +74,8 @@ def make_eval_epoch(model: nn.Module):
         correct = torch.zeros((), device=images.device)
         total = torch.zeros((), device=images.device)
         for idx_row, mask_row in zip(idx, mask):
-            logits = apply_fn(gather_rows(images, idx_row))
-            hit = (logits.argmax(dim=-1) == labels[idx_row.long()]).float()
+            x, y = gather_batch(images, labels, idx_row)
+            hit = (apply_fn(x).argmax(dim=-1) == y).float()
             correct += (hit * mask_row).sum()
             total += mask_row.sum()
         return correct, total

@@ -1,12 +1,13 @@
 """The single-device train and eval steps (counterpart of
 ``ddp_tpu/train/step.py`` at one device).
 
-One step: gather the batch from the resident table, crop and flip it,
-scale u8/255, forward in training mode, the global-mean loss ``sum/count``,
-backward, and the SGD update at ``lr_schedule(step)``.  PyTorch runs it
-eagerly; the JAX package's ``shard_map``/``jit`` wiring has no counterpart
-at one device.  BatchNorm's running buffers are updated in place by the
-forward (the JAX package returns them as new state).
+One step: the batch from the resident table, cropped, flipped and scaled
+u8/255 by one kernel (``ops/gather.py::gather_batch``), forward in training
+mode, the global-mean loss ``sum/count``, backward, and the SGD update at
+``lr_schedule(step)``.  PyTorch runs it eagerly; the JAX package's
+``shard_map``/``jit`` wiring has no counterpart at one device.  BatchNorm's
+running buffers are updated in place by the forward (the JAX package
+returns them as new state).
 """
 from __future__ import annotations
 
@@ -16,15 +17,16 @@ from typing import Callable, List, Optional, Tuple
 import torch
 from torch import nn
 
-from ..data.device_augment import Draws, gather_crop_flip
-from ..ops.gather import gather_rows
+from ..data.device_augment import Draws
+from ..ops.gather import gather_batch
 from ..ops.losses import cross_entropy_sum_count
 from ..optim import sgd as sgd_lib
 
 
 def _as_input(x: torch.Tensor) -> torch.Tensor:
-    """uint8 NHWC batch -> float32 NCHW with ToTensor's u8/255 scaling, on
-    the tensor's device."""
+    """NHWC batch -> float32 NCHW, uint8 scaled u8/255 (ToTensor), on the
+    tensor's device.  A float batch from :func:`gather_batch` is already
+    scaled and stored channels-first, so this returns its buffer as is."""
     if x.dtype == torch.uint8:
         x = x.float() / 255.0
     return x.permute(0, 3, 1, 2).contiguous()
@@ -46,7 +48,7 @@ def init_train_state(model: nn.Module) -> TrainState:
 
 
 def make_loss_and_grads(model: nn.Module):
-    """``fn(images u8 [B,32,32,3], labels [B]) -> (loss, grads)``: the
+    """``fn(images [B,32,32,3], labels [B]) -> (loss, grads)``: the
     forward in training mode and the backward of the global-mean loss.
     ``loss`` stays on the device, detached."""
     params = list(model.parameters())
@@ -79,23 +81,20 @@ def make_group_update(sgd_config: sgd_lib.SGDConfig,
 def micro_from_table(images: torch.Tensor, labels: torch.Tensor,
                      device_augment: bool):
     """``get_micro(draws, idx_row) -> (images, labels)`` for the resident
-    path: the batch gathered from the resident table by the row-gather
-    kernel, then cropped and flipped with ``draws`` under
-    ``device_augment``."""
+    path: the batch of float32 images, cropped and flipped with ``draws``
+    under ``device_augment``, and its labels, from one
+    :func:`~ddp_tpu_torch.ops.gather.gather_batch` launch."""
 
     def get_micro(draws: Optional[Draws], idx_row: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if device_augment:
-            x = gather_crop_flip(images, idx_row, draws)
-        else:
-            x = gather_rows(images, idx_row)
-        return x, labels[idx_row.long()]
+        return gather_batch(images, labels, idx_row,
+                            draws if device_augment else None)
 
     return get_micro
 
 
 def make_eval_apply(model: nn.Module):
-    """``fn(images u8 [B,32,32,3]) -> logits [B,10]``: the eval-mode
+    """``fn(images [B,32,32,3]) -> logits [B,10]``: the eval-mode
     forward (BatchNorm on running statistics), without autograd.  The one
     eval forward of the port; the serving slice will reuse it."""
 

@@ -3,7 +3,9 @@
 Marked ``cuda``: they need an NVIDIA card and ``nvcc``, and skip elsewhere
 (the decision is made in the fixture, never at import).  Run them on the
 machine with the card with ``python -m pytest tests/test_torch_cuda.py``.
-Tolerances: the row gather moves bytes, so it compares exactly.  The conv
+Tolerances: the row gather moves bytes, so it compares exactly; so does
+the resident-batch kernel, whose crop/flip selects bytes and whose u8/255
+is the same IEEE division as its plain version's.  The conv
 kernel compares with its plain version on float64 copies of the same
 inputs, as a share of max|y|: 1e-4 for float32 (K = 9*Cin products summed
 in another order), 2^-7 for bfloat16 (the fp32 sum rounded once to
@@ -23,7 +25,9 @@ from ddp_tpu_torch.ops.conv_candidates import (TARGET_SHAPES, _flip_transpose,
                                                _shift9_fwd, conv2d_fused,
                                                conv3x3_fused, conv3x3_route)
 from ddp_tpu_torch.ops.conv_probe import VGG_CONV_SHAPES
-from ddp_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from ddp_tpu_torch.data.device_augment import make_draws
+from ddp_tpu_torch.ops.gather import (gather_batch, gather_batch_plain,
+                                      gather_rows, gather_rows_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -68,6 +72,68 @@ def test_row_gather_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         gather_rows(table.t(), torch.zeros(3, dtype=torch.int32,
                                            device=cuda))
+
+
+def _batch_draws(kind, n, g, device):
+    """Crop/flip draws of ``kind``: random, the two extremes of the window
+    (offset 0 with every image flipped, offset 8 with none), or None (the
+    eval form)."""
+    if kind == "eval":
+        return None
+    if kind == "random":
+        return make_draws(g, n, device)
+    off = 0 if kind == "corner0_flip" else 8
+    full = torch.full((n,), off, dtype=torch.int64, device=device)
+    return full, full.clone(), torch.full((n,), off == 0, device=device)
+
+
+@pytest.mark.parametrize("kind", ["random", "corner0_flip", "corner8_noflip",
+                                  "eval"])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", [512, 336, 1])
+def test_gather_batch_equals_plain(cuda, n, idx_dtype, kind):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    m = 1000
+    table = torch.randint(0, 256, (m, 32, 32, 3), dtype=torch.uint8,
+                          device=cuda, generator=g)
+    labels = torch.randint(0, 10, (m,), device=cuda, generator=g)
+    idx = torch.randint(-5, m + 5, (n,), dtype=idx_dtype, device=cuda,
+                        generator=g)
+    draws = _batch_draws(kind, n, g, cuda)
+    before = gather_batch.launches
+    images, got_labels = gather_batch(table, labels, idx, draws)
+    torch.cuda.synchronize()
+    assert gather_batch.launches == before + 1
+    want_images, want_labels = gather_batch_plain(table, labels, idx, draws)
+    assert images.shape == (n, 32, 32, 3) and images.dtype == torch.float32
+    assert images.permute(0, 3, 1, 2).is_contiguous()
+    assert torch.equal(images, want_images)
+    assert torch.equal(got_labels, want_labels)
+
+
+def test_gather_batch_rejects_what_the_kernel_does_not_take(cuda):
+    table = torch.zeros((10, 32, 32, 3), dtype=torch.uint8, device=cuda)
+    labels = torch.zeros(10, dtype=torch.int64, device=cuda)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    draws = make_draws(torch.Generator(device=cuda).manual_seed(0), 4, cuda)
+    flat = torch.zeros(10 * 3072 + 1, dtype=torch.uint8, device=cuda)
+    before = gather_batch.launches
+    for args in (
+            (table, labels, idx.cpu(), draws),                # idx on the CPU
+            (table, labels.cpu(), idx, None),                 # CPU labels
+            (table, labels, idx, (draws[0].cpu(),) + draws[1:]),
+            (table.float(), labels, idx, None),               # not uint8
+            (table[:, :16], labels, idx, None),               # not 32x32
+            (table, labels.int(), idx, None),                 # int32 labels
+            (table, labels, idx.float(), None),               # float idx
+            (table, labels, idx, draws[:2]),                  # two draws
+            (table, labels, idx, (draws[0][:3],) + draws[1:]),  # short ys
+            (table, labels, idx, draws[:2] + (draws[2].int(),)),
+            (flat[1:].view(10, 32, 32, 3), labels, idx, None),  # misaligned
+    ):
+        with pytest.raises(ValueError):
+            gather_batch(*args)
+    assert gather_batch.launches == before
 
 
 CONV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}

@@ -240,6 +240,127 @@ def test_gather_crop_flip_matches():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _batch_inputs(seed, m=50, n=9):
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, 256, (m, 32, 32, 3), dtype=np.uint8)
+    labels = rng.integers(0, 10, m).astype(np.int64)
+    idx = rng.integers(0, m, n).astype(np.int32)
+    return table, labels, idx
+
+
+@pytest.mark.parametrize("mode", ["train", "eval"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_gather_batch_matches_jax_as_input(pallas_interpret, monkeypatch,
+                                           mode, seed):
+    """The resident step's whole input, bit for bit (atol 0): JAX's
+    ``_as_input(gather_crop_flip(key, ...))`` with the draws of ``key``, or
+    ``_as_input(gather_rows(...))`` for eval, the Pallas gather in
+    interpret mode.  JAX's eager cast divides by 255 as IEEE does, like
+    the port (a ``jit`` would fold it into a multiply by 1/255, which is
+    one ulp off for 126 byte values)."""
+    from ddp_tpu.train.step import _as_input as jax_as_input
+    monkeypatch.setattr(jgather, "_use_pallas", lambda: True)
+    table, labels, idx = _batch_inputs(seed)
+    key = jax.random.key(seed + 11)
+    if mode == "train":
+        want = jax_as_input(jaug.gather_crop_flip(key, jnp.asarray(table),
+                                                  jnp.asarray(idx)))
+        draws = _jax_draws(key, idx.shape[0])
+    else:
+        want = jax_as_input(jgather.gather_rows(jnp.asarray(table),
+                                                jnp.asarray(idx)))
+        draws = None
+    images, got_labels = tgather.gather_batch(
+        torch.from_numpy(table), torch.from_numpy(labels),
+        torch.from_numpy(idx), draws)
+    assert images.dtype == torch.float32 and images.shape == want.shape
+    np.testing.assert_array_equal(images.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got_labels.numpy(), labels[idx])
+    assert tgather.gather_batch.launches == 0  # the CPU never launches
+
+
+def test_u8_over_255_is_the_ieee_division_everywhere():
+    """All 256 byte values: the port's plain version, JAX's eager cast and
+    numpy's float32 division agree bit for bit, and a multiply by the
+    reciprocal does not (why the kernel divides)."""
+    from ddp_tpu.train.step import _as_input as jax_as_input
+    u = np.arange(256, dtype=np.uint8)
+    want = u.astype(np.float32) / np.float32(255)
+    table = np.zeros((1, 32, 32, 3), dtype=np.uint8)
+    table.reshape(-1)[:256] = u
+    images, _ = tgather.gather_batch(torch.from_numpy(table),
+                                     torch.zeros(1, dtype=torch.int64),
+                                     torch.zeros(1, dtype=torch.int32))
+    np.testing.assert_array_equal(images.numpy().reshape(-1)[:256], want)
+    np.testing.assert_array_equal(
+        np.asarray(jax_as_input(jnp.asarray(u))), want)
+    reciprocal = u.astype(np.float32) * (np.float32(1) / np.float32(255))
+    assert int((reciprocal != want).sum()) == 126
+
+
+def test_gather_batch_clamps_image_and_label_rows_alike():
+    table, labels, _ = _batch_inputs(2, m=30)
+    idx = np.array([-7, -1, 0, 5, 29, 30, 1000, 3], dtype=np.int64)
+    rows = np.clip(idx, 0, 29)
+    images, got_labels = tgather.gather_batch(
+        torch.from_numpy(table), torch.from_numpy(labels),
+        torch.from_numpy(idx))
+    np.testing.assert_array_equal(got_labels.numpy(), labels[rows])
+    np.testing.assert_array_equal(
+        images.numpy(), table[rows].astype(np.float32) / np.float32(255))
+
+
+def test_gather_batch_stores_channels_first():
+    """``_as_input`` of the NHWC result returns its buffer without a copy."""
+    from ddp_tpu_torch.train.step import _as_input
+    table, labels, idx = _batch_inputs(3)
+    images, _ = tgather.gather_batch(
+        torch.from_numpy(table), torch.from_numpy(labels),
+        torch.from_numpy(idx), _jax_draws(jax.random.key(0), idx.shape[0]))
+    nchw = _as_input(images)
+    assert nchw.is_contiguous() and nchw.shape == (idx.shape[0], 3, 32, 32)
+    assert nchw.data_ptr() == images.data_ptr()
+
+
+def _meta_batch_args():
+    """Valid arguments of ``gather_batch``, on the meta device."""
+    meta = dict(device="meta")
+    return [torch.empty((10, 32, 32, 3), dtype=torch.uint8, **meta),
+            torch.empty(10, dtype=torch.int64, **meta),
+            torch.empty(4, dtype=torch.int32, **meta),
+            (torch.empty(4, dtype=torch.int64, **meta),
+             torch.empty(4, dtype=torch.int64, **meta),
+             torch.empty(4, dtype=torch.bool, **meta))]
+
+
+@pytest.mark.parametrize("what,change,match", [
+    ("table", lambda a: a.float(), "table"),
+    ("table", lambda a: a[:, :16], "table"),
+    ("table", lambda a: a.permute(0, 2, 1, 3), "table"),
+    ("table", lambda a: a[:0], "table"),
+    ("labels", lambda a: a.int(), "labels"),
+    ("labels", lambda a: a[:9], "labels"),
+    ("idx", lambda a: a.float(), "idx"),
+    ("idx", lambda a: a.view(2, 2), "idx"),
+    ("draws", lambda d: d[:2], "draws"),
+    ("draws", lambda d: (d[0][:3],) + d[1:], "ys"),
+    ("draws", lambda d: d[:1] + (d[1].int(), d[2]), "xs"),
+    ("draws", lambda d: d[:2] + (d[2].to(torch.uint8),), "flip"),
+    (None, None, "CUDA device"),
+])
+def test_gather_batch_rejects_what_the_kernel_does_not_take(what, change,
+                                                            match):
+    """The wrapper's checks, without a card: each bad argument raises a
+    ValueError naming it, and valid tensors off the CPU and off CUDA (meta)
+    are refused as such."""
+    table, labels, idx, draws = _meta_batch_args()
+    args = dict(table=table, labels=labels, idx=idx, draws=draws)
+    if what is not None:
+        args[what] = change(args[what])
+    with pytest.raises(ValueError, match=match):
+        tgather.gather_batch(**args)
+
+
 def test_make_draws_distribution():
     g = torch.Generator().manual_seed(0)
     ys, xs, flip = taug.make_draws(g, 20000, torch.device("cpu"))
