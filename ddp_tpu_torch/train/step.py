@@ -12,13 +12,13 @@ returns them as new state).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..data.device_augment import Draws
-from ..ops.gather import gather_batch
+from ..ops.gather import IMAGE_SHAPE, gather_batch
 from ..ops.losses import cross_entropy_sum_count
 from ..optim import sgd as sgd_lib
 
@@ -26,10 +26,17 @@ from ..optim import sgd as sgd_lib
 def _as_input(x: torch.Tensor) -> torch.Tensor:
     """NHWC batch -> float32 NCHW, uint8 scaled u8/255 (ToTensor), on the
     tensor's device.  A float batch from :func:`gather_batch` is already
-    scaled and stored channels-first, so this returns its buffer as is."""
+    scaled and stored channels-first, so this returns its buffer as is.
+
+    The uint8 branch divides by a device tensor, as
+    :func:`~ddp_tpu_torch.ops.gather.gather_batch_plain` does: on a CUDA
+    tensor ``x / 255.0`` multiplies by the reciprocal, one ulp off for 126
+    byte values, and the served logits would then differ from the eval
+    forward's, whose input comes from the kernel's true division."""
+    x = x.permute(0, 3, 1, 2)
     if x.dtype == torch.uint8:
-        x = x.float() / 255.0
-    return x.permute(0, 3, 1, 2).contiguous()
+        x = x.float() / torch.full((), 255.0, device=x.device)
+    return x.contiguous()
 
 
 @dataclass
@@ -96,7 +103,8 @@ def micro_from_table(images: torch.Tensor, labels: torch.Tensor,
 def make_eval_apply(model: nn.Module):
     """``fn(images [B,32,32,3]) -> logits [B,10]``: the eval-mode
     forward (BatchNorm on running statistics), without autograd.  The one
-    eval forward of the port; the serving slice will reuse it."""
+    eval forward of the port: the resident eval and every serving program
+    (:func:`make_eval_forward`) run it."""
 
     @torch.no_grad()
     def apply_fn(images: torch.Tensor) -> torch.Tensor:
@@ -104,3 +112,96 @@ def make_eval_apply(model: nn.Module):
         return model(_as_input(images))
 
     return apply_fn
+
+
+class EvalProgram:
+    """The serving forward at one batch size ``B``: the uint8 ``[B,32,32,3]``
+    batch in the static tensor ``input`` -> :func:`gather_batch`'s eval form
+    (rows ``arange(B)``, u8/255 into channels-first float32) ->
+    :func:`make_eval_apply` -> float32 ``[B,10]`` logits.
+
+    On the card :meth:`capture` records that sequence as one CUDA graph, the
+    counterpart of one compiled executable of the JAX package's
+    ``make_eval_forward``, and :meth:`run` replays it into the static tensor
+    ``output``.  Both static tensors live as long as the program, so the
+    graph's input and output (the latter in the graph's private memory pool)
+    are never freed under it.  On the CPU :meth:`run` is :meth:`eager`."""
+
+    def __init__(self, model: nn.Module, batch: int):
+        device = next(model.parameters()).device
+        self.batch = batch
+        self.input = torch.zeros((batch,) + IMAGE_SHAPE, dtype=torch.uint8,
+                                 device=device)
+        self._labels = torch.zeros(batch, dtype=torch.int64, device=device)
+        self._rows = torch.arange(batch, dtype=torch.int32, device=device)
+        self._apply = make_eval_apply(model)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        # The graph's static output (card); the warm-up run's logits (CPU).
+        self.output: Optional[torch.Tensor] = None
+
+    def eager(self) -> torch.Tensor:
+        """The program op by op: the CPU path, and on the card the reference
+        the graph is held against."""
+        images, _ = gather_batch(self.input, self._labels, self._rows)
+        return self._apply(images)
+
+    def capture(self, stream: torch.cuda.Stream) -> None:
+        """Record :meth:`eager` on ``stream`` as this program's CUDA graph.
+        The caller has run it eagerly first (see
+        :func:`make_eval_forward`)."""
+        if self.graph is not None:
+            raise RuntimeError(f"the {self.batch}-row program is captured")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            output = self.eager()
+        self.graph, self.output = graph, output
+
+    def run(self) -> torch.Tensor:
+        """The logits of ``input``: the graph's replay on the current stream
+        (card), or :meth:`eager` (CPU).  On the card a program that was not
+        captured raises; it never runs eagerly instead."""
+        if self.input.device.type == "cpu":
+            return self.eager()
+        if self.graph is None:
+            raise RuntimeError(f"the {self.batch}-row program was not "
+                               f"captured; call make_eval_forward first")
+        self.graph.replay()
+        return self.output
+
+
+def make_eval_forward(model: nn.Module, batches: Sequence[int], *,
+                      stream: Optional[torch.cuda.Stream] = None,
+                      on_capture: Optional[Callable[[], None]] = None
+                      ) -> Dict[int, EvalProgram]:
+    """One :class:`EvalProgram` per batch size in ``batches`` (counterpart of
+    ``ddp_tpu/train/step.py::make_eval_forward``, whose jit compiles one
+    executable per padded batch bucket), ready to run.
+
+    On the card every program first runs once eagerly on ``stream`` (a side
+    stream; one is made when None), all of them before any capture: that
+    builds and loads the kernel library (``nvcc`` must not run inside a
+    capture), loads its module, and settles cuDNN's choice for each shape.
+    Then each is captured on ``stream``.  A failed build, launch or capture
+    raises.  On the CPU each program runs once eagerly.  ``on_capture`` is
+    called once per program, after its capture on the card and after its
+    run on the CPU: the counterpart of ``on_trace``."""
+    programs = {b: EvalProgram(model, b) for b in batches}
+    device = next(model.parameters()).device
+    if device.type == "cpu":
+        for p in programs.values():
+            p.output = p.eager()
+            if on_capture is not None:
+                on_capture()
+        return programs
+    if stream is None:
+        stream = torch.cuda.Stream(device)
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        for p in programs.values():
+            p.eager()
+    stream.synchronize()
+    for p in programs.values():
+        with torch.cuda.device(device):
+            p.capture(stream)
+        if on_capture is not None:
+            on_capture()
+    return programs

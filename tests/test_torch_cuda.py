@@ -11,14 +11,18 @@ inputs, as a share of max|y|: 1e-4 for float32 (K = 9*Cin products summed
 in another order), 2^-7 for bfloat16 (the fp32 sum rounded once to
 bfloat16, at most half an ulp, plus room for the sums).  Each conv case
 also checks that the counter of the route it should take moved, and only
-that one.
+that one.  The serving engine's CUDA graphs compare exactly with the eager
+forward at each bucket: the same kernels on the same shapes, TF32 off.
 """
 import math
 import os
 import subprocess
+import time
 
+import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from ddp_tpu_torch import _build
 from ddp_tpu_torch.ops.conv_candidates import (TARGET_SHAPES, _flip_transpose,
@@ -26,8 +30,12 @@ from ddp_tpu_torch.ops.conv_candidates import (TARGET_SHAPES, _flip_transpose,
                                                conv3x3_fused, conv3x3_route)
 from ddp_tpu_torch.ops.conv_probe import VGG_CONV_SHAPES
 from ddp_tpu_torch.data.device_augment import make_draws
+from ddp_tpu_torch.device import set_tf32
+from ddp_tpu_torch.models.vgg import VGG
 from ddp_tpu_torch.ops.gather import (gather_batch, gather_batch_plain,
                                       gather_rows, gather_rows_plain)
+from ddp_tpu_torch.serve import DynamicBatcher, ServeEngine
+from ddp_tpu_torch.train.step import _as_input, make_eval_apply
 
 pytestmark = pytest.mark.cuda
 
@@ -257,3 +265,78 @@ def test_conv3x3_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         conv3x3_fused(x, torch.zeros((3, 3, 4, 16), device=cuda))  # Cin
     assert conv3x3_fused.launches == before
+
+
+def test_as_input_of_uint8_equals_gather_batch_bitwise(cuda):
+    """Every byte value: ``_as_input`` divides as the kernel does, so a
+    uint8 batch fed to the eval forward gets the kernel's bits."""
+    ramp = torch.zeros((1, 32, 32, 3), dtype=torch.uint8, device=cuda)
+    ramp.view(-1)[:256] = torch.arange(256, device=cuda)
+    want, _ = gather_batch(ramp, torch.zeros(1, dtype=torch.int64,
+                                             device=cuda),
+                           torch.zeros(1, dtype=torch.int32, device=cuda))
+    got = _as_input(ramp)
+    assert got.is_contiguous() and got.dtype == torch.float32
+    assert torch.equal(got, want.permute(0, 3, 1, 2))
+
+
+NARROW = [8, "M", 16, "M", 512, "M"]
+
+
+def test_serve_graphs_equal_eager_forward_and_count(cuda):
+    """One graph captured per bucket (the wrapper counted at the eager
+    warm-up and at capture), each replay equal bit for bit to the eager
+    gather_batch + eval forward at that shape, one gather_batch_kernel per
+    replay and no call of the wrapper, and the engine's forwards by bucket
+    (each one replay) equal to the batches run."""
+    set_tf32(False)
+    model = VGG(NARROW, generator=torch.Generator().manual_seed(0))
+    engine = ServeEngine(model, device=cuda, buckets=(1, 8, 32))
+    before = gather_batch.launches
+    assert engine.warm() == 3 == engine.stats()["compiled_executables"]
+    assert gather_batch.launches == before + 6
+    rng = np.random.default_rng(0)
+    apply_fn = make_eval_apply(engine.model)
+    for b in engine.buckets:
+        x = rng.integers(0, 256, (b, 32, 32, 3), dtype=np.uint8)
+        table = torch.from_numpy(x).to(cuda)
+        images, _ = gather_batch(
+            table, torch.zeros(b, dtype=torch.int64, device=cuda),
+            torch.arange(b, dtype=torch.int32, device=cuda))
+        want = apply_fn(images).cpu().numpy()
+        np.testing.assert_array_equal(engine.forward(x), want)
+        # Fewer rows than the bucket: zero-padded, the same valid rows.
+        if b > 1:
+            np.testing.assert_array_equal(engine.forward(x[:b - 1]),
+                                          want[:b - 1])
+    launches = gather_batch.launches
+    assert engine.stats()["forward_batches_per_bucket"] == {
+        "1": 1, "8": 2, "32": 2}
+    x = rng.integers(0, 256, (5, 32, 32, 3), dtype=np.uint8)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # The profiler can miss the start of a session: a lead-in forward.
+        engine.forward(x)
+        time.sleep(0.05)
+        engine.forward(x)
+        torch.cuda.synchronize()
+    # The last forward's device records: from after the copy out before it
+    # up to and with its own.
+    timeline = sorted((e.time_range.start, e.name) for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+    cuts = [i for i, (_, name) in enumerate(timeline)
+            if name.startswith("Memcpy DtoH")]
+    last = [name for _, name in
+            timeline[(cuts[-2] + 1 if len(cuts) > 1 else 0):cuts[-1] + 1]]
+    assert last[0].startswith("Memcpy HtoD")
+    assert sum("gather_batch_kernel" in name for name in last) == 1
+    assert gather_batch.launches == launches
+    batcher = DynamicBatcher(engine, max_wait_ms=1.0).start()
+    try:
+        for n in (1, 3, 8, 9, 17, 32):
+            batcher.submit(rng.integers(0, 256, (n, 32, 32, 3),
+                                        dtype=np.uint8), timeout=30)
+    finally:
+        assert batcher.drain(timeout=30)
+    assert engine.stats()["forward_batches"] == 7 + batcher.batches
+    assert engine.trace_count == 3 and gather_batch.launches == launches
