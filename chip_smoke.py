@@ -35,7 +35,23 @@
    with ``load_checkpoint`` and held bit for bit against the trained
    weights, buffers and momentum; then the CLI again with ``--resume``,
    which must train no step and report the same accuracy.
-8. Serving phase: ``ServeEngine.from_checkpoint`` on that epoch-0 file at
+8. DDP phase: ``python -m ddp_tpu_torch.multigpu`` with the main path's
+   arguments as a subprocess, which spawns one rank per card: at world 1
+   over NCCL it must launch ``gather_batch`` 123 times and neither
+   ``row_gather`` nor ``conv3x3``, issue one gradient and one buffer
+   all-reduce a step (plus the epoch's loss sum, the eval counters and the
+   start's broadcast), match the in-process ``singlegpu`` run's first 3
+   losses within ``PARITY_TOL`` (the epoch's largest difference is
+   printed), and write a checkpoint ``load_checkpoint`` reads; its median
+   ms/step and samples/s are printed beside ``singlegpu``'s.  Under
+   deterministic mode (``ddp_tpu_torch.repeat_check``, in processes of
+   their own) the world-1 run's whole history must equal ``singlegpu``'s
+   bit for bit.  Then a narrow VGG's world-2 epoch of 3 steps with crop and
+   flip (``ddp_tpu_torch.parallel.drill``) on the one card over gloo,
+   against the same 2 ranks on the CPU, from the same weights and draws:
+   losses, weights, BN buffers and momentum within ``PARITY_TOL``, and one
+   ``gather_batch`` launch a step on each card rank.
+9. Serving phase: ``ServeEngine.from_checkpoint`` on that epoch-0 file at
    full width with buckets 1, 8, 32 and 128; ``warm()`` must capture exactly
    4 CUDA graphs (the ``gather_batch`` wrapper runs once eagerly and once at
    capture per bucket).  At every bucket the served logits must equal the
@@ -58,7 +74,7 @@
    the batches formed, and so must the profiled ``gather_batch_kernel``
    launches, one in each forward; neither ``row_gather`` nor ``conv3x3``
    may launch on the path.
-9. Conv kernel phase: ``conv3x3`` (``conv3x3_fused``) forward and dgrad
+10. Conv kernel phase: ``conv3x3`` (``conv3x3_fused``) forward and dgrad
    against its plain version at the probe's shapes at batch 512, at every
    VGG conv shape at batch 8 and at the routes' edge cases, float32 and
    bfloat16 against a float64 result, each through the route
@@ -68,13 +84,14 @@
    instructions; then the times of both dtypes at the two probe shapes and
    their dgrads beside the plain version's, cuDNN's (``conv2d_nhwc``, TF32
    off: the yardstick only) and the bound.
-10. Probe path: the conv-candidate CLI in-process (``--repeats 2``, all five
+11. Probe path: the conv-candidate CLI in-process (``--repeats 2``, all five
    candidates at both target shapes, batch 512), once in float32 and once
    with ``--bf16``, each with the kernel's launch count and its route read
    around it, then the pool probe once.
-11. Prints the kernels line (``gather_batch``'s entry adds its launches on
+12. Prints the kernels line (``gather_batch``'s entry adds its launches on
     the serving path: the eager runs in ``warm()`` and the launches of the
-    profiled HTTP load), the card line, and last
+    profiled HTTP load, and on the DDP path: the world-1 run's and the
+    card ranks' of the world-2 run), the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; without a card it
@@ -116,8 +133,10 @@ from ddp_tpu_torch.ops.conv_probe import (N_LONG, N_SHORT, VGG_CONV_SHAPES,
 from ddp_tpu_torch.ops.gather import (gather_batch, gather_batch_plain,
                                       gather_rows, gather_rows_plain)
 from ddp_tpu_torch.optim import SGDConfig, triangular_lr
+from ddp_tpu_torch.parallel import drill
 from ddp_tpu_torch.profile_resident import (_group, device_events,
                                             kernel_launches)
+from ddp_tpu_torch.repeat_check import compare, run_entries
 from ddp_tpu_torch.serve import (DynamicBatcher, ServeEngine,
                                  ServeHTTPServer, percentiles)
 from ddp_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
@@ -465,6 +484,108 @@ def checkpoint_phase(out: dict, path: str) -> None:
           f"resumed accuracy {again['accuracy']} != {accuracy}")
     print(f"resume: 0 steps trained, accuracy {again['accuracy']:.2f}% "
           f"(the trained run's {accuracy:.2f}%)", flush=True)
+
+
+DDP_ARCH = [8, "M", 16, "M", 512, "M"]
+
+
+def ddp_phase(out: dict, card: str) -> int:
+    """The multigpu entry at world 1 over NCCL beside the in-process
+    singlegpu run ``out``, the same pair under deterministic mode, then a
+    world-2 epoch on the card over gloo against the CPU.  Returns the
+    path's gather_batch launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ddp.json")
+        snapshot = os.path.join(tmp, "checkpoint.pt")
+        t0 = time.time()
+        r = subprocess.run(
+            [sys.executable, "-m", "ddp_tpu_torch.multigpu", *MAIN_ARGS,
+             "--snapshot_path", snapshot, "--result_json", path],
+            timeout=900)
+        wall_s = time.time() - t0
+        check(r.returncode == 0, f"multigpu exited with {r.returncode}")
+        with open(path) as f:
+            res = json.load(f)
+        ckpt = load_checkpoint(snapshot)
+    launches = res["kernel_launches"]
+    check(res["world"] == 1 and res["backend"] == "nccl",
+          f"multigpu ran at world {res['world']} on {res['backend']}")
+    check(launches == {"gather_batch": MAIN_TRAIN_STEPS + MAIN_EVAL_STEPS,
+                       "row_gather": 0, "conv3x3": 0},
+          f"multigpu's kernel launches {launches}")
+    check(res["collectives"] == {"all_reduce": 2 * MAIN_TRAIN_STEPS + 2,
+                                 "broadcast": 1},
+          f"multigpu's collectives {res['collectives']}")
+    losses, single = res["loss_history"], out["loss_history"]
+    check(len(losses) == MAIN_TRAIN_STEPS and
+          all(math.isfinite(x) for x in losses), "multigpu's losses")
+    first3 = max(abs(a - b) for a, b in zip(losses[:3], single[:3]))
+    check(first3 <= PARITY_TOL, f"multigpu's first 3 losses differ from "
+          f"singlegpu's by {first3:.3e}")
+    check(ckpt.step == MAIN_TRAIN_STEPS and ckpt.epoch == 0,
+          f"multigpu's checkpoint: step {ckpt.step}, epoch {ckpt.epoch}")
+    step_ms = statistics.median(res["step_ms"])
+    single_ms = statistics.median(out["step_ms"])
+    print(f"ddp world 1 ({card}): backend {res['backend']}, median "
+          f"{step_ms:.3f} ms/step ({512 / step_ms * 1e3:.1f} samples/s), "
+          f"singlegpu {single_ms:.3f} ms/step "
+          f"({512 / single_ms * 1e3:.1f} samples/s), ratio "
+          f"{step_ms / single_ms:.4f}; train {res['training_seconds']:.2f} "
+          f"s, eval {res['eval_seconds']:.2f} s, process wall {wall_s:.2f} "
+          f"s; gather_batch launches "
+          f"{launches['gather_batch']}, collectives {res['collectives']}; "
+          f"first 3 losses within {first3:.3e} of singlegpu's, max |loss "
+          f"diff| over the epoch "
+          f"{max(abs(a - b) for a, b in zip(losses, single)):.3e}; accuracy "
+          f"{res['accuracy']:.2f}% (singlegpu {out['accuracy']:.2f}%); "
+          f"checkpoint step {ckpt.step}", flush=True)
+
+    t0 = time.time()
+    pair, = compare(run_entries(["singlegpu", "multigpu"], MAIN_ARGS,
+                                deterministic=True))
+    print(f"ddp world 1 against singlegpu, deterministic mode ({card}): "
+          f"{pair} ({time.time() - t0:.1f} s)", flush=True)
+    check(pair["bit_equal"], "under deterministic mode the world-1 history "
+          "differs from singlegpu's")
+
+    # World 2 on the one card: gloo, the only backend that takes two ranks
+    # on one device, against the same ranks on the CPU.
+    train, test = synthetic(n_train=40, n_test=24, seed=1)
+    model = VGG(DDP_ARCH, generator=torch.Generator().manual_seed(0))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        spec = drill.spec(DDP_ARCH, model.state_dict(), train, test,
+                          batch=8, lr=0.05, seed=0, augment=True,
+                          device=device, backend="gloo")
+        runs[device] = drill.run(spec, 2, same_device=True, timeout=300)
+    worst = 0.0
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        check(got["backend"] == "gloo" and got["device"] == "cuda:0" and
+              got["steps"] == 3, f"world-2 card rank {got['rank']}: "
+              f"{got['backend']} on {got['device']}, {got['steps']} steps")
+        check(got["train_launches"] == 3 and got["eval_launches"] == 2,
+              f"world-2 card rank {got['rank']} launched gather_batch "
+              f"{got['train_launches']} + {got['eval_launches']} times")
+        errs = [float((got["losses"] - want["losses"]).abs().max())]
+        errs += [float((got["state_dict"][k] - v).abs().max())
+                 for k, v in want["state_dict"].items()]
+        errs += [float((a - b).abs().max())
+                 for a, b in zip(got["momentum"], want["momentum"])]
+        worst = max(worst, *errs)
+        check(bool(torch.isfinite(got["losses"]).all()),
+              "world-2 losses not finite")
+    check(worst <= PARITY_TOL, f"world 2 on the card differs from the CPU "
+          f"by {worst:.3e}")
+    card_launches = sum(g["train_launches"] + g["eval_launches"]
+                        for g in runs["cuda"])
+    print(f"ddp world 2 on one card over gloo ({card}): 3 steps, max |diff| "
+          f"against the CPU {worst:.3e} (losses, weights, BN buffers, "
+          f"momentum; tolerance {PARITY_TOL:g}); correct/total card "
+          f"{runs['cuda'][0]['correct']}/{runs['cuda'][0]['total']}, cpu "
+          f"{runs['cpu'][0]['correct']}/{runs['cpu'][0]['total']}; "
+          f"gather_batch launches on the card ranks {card_launches}",
+          flush=True)
+    return launches["gather_batch"] + card_launches
 
 
 @contextlib.contextmanager
@@ -1059,6 +1180,7 @@ def main() -> int:
           f"{out['accuracy']:.2f}%, conv3x3 launches {conv_main_launches}",
           flush=True)
     checkpoint_phase(out, snapshot)
+    ddp_launches = ddp_phase(out, card)
     serve = serve_phase(snapshot)
     print(f"serve: {json.dumps(serve)}", flush=True)
     snapshot_dir.cleanup()
@@ -1075,6 +1197,7 @@ def main() -> int:
     # does not launch) and, in the profiled HTTP load, the profiler's count
     # (one a graph replay; the wrapper is not called there).
     batch.update(launches=launches, launches_main_path=launches,
+                 launches_ddp_path=ddp_launches,
                  launches_serve_path=serve["warm_launches"]
                  + serve["http_profiled"]["gather_batch_kernel_launches"],
                  serve_warm_launches=serve["warm_launches"],

@@ -1,22 +1,36 @@
-"""Command line of the port (counterpart of ``ddp_tpu/cli.py``), for the
-resident single-card path:
+"""Command line of the port (counterpart of ``ddp_tpu/cli.py`` and
+``ddp_tpu/entry.py``), for the resident path on one card or data-parallel
+over several:
 
     python -m ddp_tpu_torch.singlegpu <total_epochs> <save_every> \\
-        [--batch_size 512] --resident [--synthetic --synthetic_size N] \\
-        [--seed 0] [--lr 0.4] [--momentum 0.9] [--weight_decay 5e-4] \\
-        [--snapshot_path checkpoint.pt] [--resume] [--device cuda|cpu]
+        [--batch_size 512] --resident [--synthetic --synthetic_size N \\
+        [--synthetic_label_noise P]] [--seed 0] [--lr 0.4] \\
+        [--momentum 0.9] [--weight_decay 5e-4] \\
+        [--snapshot_path checkpoint.pt] [--resume] [--device cuda|cpu] \\
+        [--result_json PATH]
+    python -m ddp_tpu_torch.multigpu <same arguments> [--spawn N]
 
-Prints what the JAX CLI prints: each epoch's header and loss, the
-checkpoint line of every ``save_every``-th epoch, ``Total training time``,
-``fp32 model has size=... MiB`` and ``fp32 model has accuracy=...%``.  The
-checkpoint is the JAX package's v1 file: either package's
-``load_checkpoint`` reads the other's.  It runs on ``cuda`` unless
-``--device cpu`` is given, and refuses to run without a card otherwise.
+``singlegpu`` is one process at world 1.  ``multigpu`` is one process per
+rank: under a rendezvous environment (``torchrun``'s, or ``--spawn``'s) it
+is that rank; otherwise it spawns ``--spawn N`` local ranks, or on ``cuda``
+one per visible card (the reference's ``mp.spawn`` over
+``torch.cuda.device_count()``, multigpu.py:262-263), and returns the
+largest exit code of its ranks.  ``--batch_size`` is the per-rank batch.
+
+Prints what the JAX CLI prints: each epoch's header and loss on every rank
+(``[GPU{rank}]``), the checkpoint line of every ``save_every``-th epoch,
+and on rank 0 ``Total training time``, ``fp32 model has size=... MiB`` and
+``fp32 model has accuracy=...%``.  The checkpoint is the JAX package's v1
+file, written by rank 0: either package's ``load_checkpoint`` reads the
+other's.  It runs on ``cuda`` unless ``--device cpu`` is given, and refuses
+to run without a card otherwise.  A failing rank exits 1.
 """
 from __future__ import annotations
 
 import argparse
 import functools
+import json
+import sys
 import time
 from typing import Dict, List, Optional
 
@@ -25,7 +39,10 @@ import torch
 from .data import EvalLoader, ResidentData, TrainLoader, cifar10
 from .device import resolve_device, set_tf32
 from .models import get_model
+from .ops.conv_candidates import conv3x3_fused
+from .ops.gather import gather_batch, gather_rows
 from .optim import SGDConfig, triangular_lr
+from .parallel import dist
 from .train.evaluate import evaluate_resident
 from .train.trainer import Trainer
 
@@ -49,6 +66,11 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    help="Use a synthetic dataset (no CIFAR files needed)")
     p.add_argument("--synthetic_size", default=2048, type=int,
                    help="Training-set size for --synthetic (default 2048)")
+    p.add_argument("--synthetic_label_noise", default=0.0, type=float,
+                   help="Relabel this fraction of --synthetic examples "
+                        "(train and test) uniformly at random, putting "
+                        "held-out accuracy in a non-saturated regime "
+                        "(Bayes ceiling = 1 - 0.9*p)")
     p.add_argument("--resident", action="store_true",
                    help="Keep the whole dataset in device memory and gather "
                         "each batch there (implies on-device augmentation); "
@@ -65,28 +87,65 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; without a card, cuda is an "
                         "error")
+    p.add_argument("--spawn", default=0, type=int, metavar="N",
+                   help="multigpu: run N local ranks wired by a fresh "
+                        "rendezvous (default: one per visible card on "
+                        "cuda, world 1 on cpu)")
+    p.add_argument("--result_json", default=None, metavar="PATH",
+                   help="Rank 0 writes the run's summary here as JSON: "
+                        "world, backend, losses, step times, accuracy, and "
+                        "the port's kernel launches and the collectives "
+                        "in this process")
     return p
 
 
-def run(args: argparse.Namespace) -> Dict:
-    """Train and evaluate; returns ``{"accuracy", "training_seconds",
-    "eval_seconds", "loss_history", "step_ms", "state"}``, where ``state``
-    is the trained :class:`~ddp_tpu_torch.train.step.TrainState`."""
-    device = resolve_device(args.device)
+def _check_args(args: argparse.Namespace) -> None:
     if not args.resident:
         raise SystemExit("only the --resident data path is ported so far; "
                          "pass --resident")
+    if args.synthetic_label_noise > 0 and not args.synthetic:
+        raise SystemExit(
+            "--synthetic_label_noise only applies to the --synthetic "
+            "dataset; it would be silently ignored for real CIFAR-10. "
+            "Pass --synthetic, or drop the flag.")
+
+
+def run(args: argparse.Namespace, *, data_parallel: bool = False) -> Dict:
+    """Train and evaluate; returns ``{"accuracy", "training_seconds",
+    "eval_seconds", "loss_history", "step_ms", "state", "rank", "world",
+    "backend"}``, where ``state`` is the trained
+    :class:`~ddp_tpu_torch.train.step.TrainState`.
+
+    With ``data_parallel`` this process first joins the process group its
+    environment describes (:func:`~ddp_tpu_torch.parallel.dist.initialize`;
+    world 1 without one) and leaves it at the end, failed or not."""
+    _check_args(args)
+    device = resolve_device(args.device)
+    if data_parallel:
+        device = dist.initialize(device)
+    try:
+        return _train_and_evaluate(args, device)
+    finally:
+        if data_parallel:
+            dist.shutdown()
+
+
+def _train_and_evaluate(args: argparse.Namespace,
+                        device: torch.device) -> Dict:
+    rank, world = dist.rank(), dist.world_size()
     set_tf32(False)
     if args.synthetic:
         train_ds, test_ds = cifar10.synthetic(
             n_train=args.synthetic_size,
-            n_test=max(args.synthetic_size // 4, 64))
+            n_test=max(args.synthetic_size // 4, 64),
+            label_noise=args.synthetic_label_noise)
     else:
         train_ds, test_ds = cifar10.load(args.data_root)
 
     generator = torch.Generator().manual_seed(args.seed)
     model = get_model("vgg", device=device, generator=generator)
-    train_loader = TrainLoader(train_ds, args.batch_size, seed=args.seed)
+    train_loader = TrainLoader(train_ds, args.batch_size, world,
+                               seed=args.seed)
     lr_schedule = functools.partial(
         triangular_lr, base_lr=args.lr, num_epochs=args.total_epochs,
         steps_per_epoch=len(train_loader))
@@ -101,22 +160,56 @@ def run(args: argparse.Namespace) -> Dict:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     training_seconds = time.time() - start
-    print(f"Total training time: {training_seconds:.2f} seconds")
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"fp32 model has size={n_params * 32 / MiB:.2f} MiB")
+    if rank == 0:
+        print(f"Total training time: {training_seconds:.2f} seconds")
+        print(f"fp32 model has size={n_params * 32 / MiB:.2f} MiB")
 
     start = time.time()
     accuracy = evaluate_resident(model, ResidentData(test_ds, device),
-                                 EvalLoader(test_ds, args.batch_size))
+                                 EvalLoader(test_ds, args.batch_size, world))
     eval_seconds = time.time() - start
-    print(f"fp32 model has accuracy={accuracy:.2f}%")
-    return {"accuracy": accuracy, "training_seconds": training_seconds,
-            "eval_seconds": eval_seconds,
-            "loss_history": list(trainer.loss_history),
-            "step_ms": list(trainer.step_ms), "state": trainer.state}
+    out = {"accuracy": accuracy, "training_seconds": training_seconds,
+           "eval_seconds": eval_seconds,
+           "loss_history": list(trainer.loss_history),
+           "step_ms": list(trainer.step_ms), "rank": rank, "world": world,
+           "backend": dist.backend()}
+    if rank == 0:
+        print(f"fp32 model has accuracy={accuracy:.2f}%")
+        if args.result_json:
+            launches = {"gather_batch": gather_batch.launches,
+                        "row_gather": gather_rows.launches,
+                        "conv3x3": conv3x3_fused.launches}
+            with open(args.result_json, "w") as f:
+                json.dump(dict(out, device=str(device),
+                               kernel_launches=launches,
+                               collectives=dict(dist.collective_calls)), f)
+    return dict(out, state=trainer.state)
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:
+    """``singlegpu``: one process, world 1."""
     args = build_parser("Single-card resident training (PyTorch port)"
                         ).parse_args(argv)
+    if args.spawn:
+        raise SystemExit("singlegpu runs one process; --spawn belongs to "
+                         "multigpu")
     return run(args)
+
+
+def main_multi(argv: Optional[List[str]] = None) -> Dict:
+    """``multigpu``: this process's rank of the run, or the spawner of its
+    ranks (see the module's docstring), which exits with their largest
+    exit code.  A rank never spawns."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser("Data-parallel resident training (PyTorch port)"
+                        ).parse_args(argv)
+    if not dist.in_rendezvous():
+        _check_args(args)
+        device = resolve_device(args.device)
+        n = args.spawn or (torch.cuda.device_count()
+                           if device.type == "cuda" else 0)
+        if n:
+            raise SystemExit(dist.spawn_local(n, "ddp_tpu_torch.multigpu",
+                                              argv))
+    return run(args, data_parallel=True)

@@ -4,7 +4,10 @@ loader is not ported yet).
 
 Row k of a train matrix holds the sample indices of global batch k, replica
 blocks side by side; the ragged last batch comes separately at its true size.
-Eval matrices are padded with masked index-0 rows instead.
+Eval matrices are padded with masked index-0 rows instead.  Rank r of a
+data-parallel run takes block r of each row (:func:`replica_columns`), the
+columns the JAX package's ``P(None, DATA_AXIS)`` sharding gives device r
+(``ddp_tpu/train/epoch.py::put_index_matrix``).
 """
 from __future__ import annotations
 
@@ -14,6 +17,18 @@ import numpy as np
 
 from .cifar10 import Dataset
 from .sampler import DistributedShardSampler, ShuffleSampler
+
+
+def replica_columns(matrix: np.ndarray, rank: int,
+                    num_replicas: int) -> np.ndarray:
+    """Block ``rank`` of the last axis of ``matrix`` (replica blocks side by
+    side), contiguous: columns ``[rank*b, (rank+1)*b)`` for ``b`` the width
+    over ``num_replicas``."""
+    if not 0 <= rank < num_replicas or matrix.shape[-1] % num_replicas:
+        raise ValueError(f"rank {rank} of {num_replicas} replicas over "
+                         f"{matrix.shape[-1]} columns")
+    b = matrix.shape[-1] // num_replicas
+    return np.ascontiguousarray(matrix[..., rank * b:(rank + 1) * b])
 
 
 class TrainLoader:
@@ -62,6 +77,16 @@ class TrainLoader:
                 if len(tails[0]) else None)
         return full, tail
 
+    def rank_index_matrix(self, rank: int
+                          ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """Rank ``rank``'s ``(full [steps_full, b], tail [b_tail])``: its
+        block of :meth:`epoch_index_matrix`, which is
+        ``DistributedShardSampler(rank=rank)``'s stream batch by batch."""
+        full, tail = self.epoch_index_matrix()
+        return (replica_columns(full, rank, self.num_replicas),
+                None if tail is None else
+                replica_columns(tail, rank, self.num_replicas))
+
 
 class EvalLoader:
     """Sequential test-set batches of ``per_replica_batch * num_replicas``
@@ -70,6 +95,7 @@ class EvalLoader:
     def __init__(self, dataset: Dataset, per_replica_batch: int,
                  num_replicas: int = 1):
         self.dataset = dataset
+        self.num_replicas = num_replicas
         self.global_batch = per_replica_batch * num_replicas
 
     def __len__(self) -> int:
@@ -87,3 +113,9 @@ class EvalLoader:
         mask[:n] = 1.0
         return (idx.reshape(steps, self.global_batch),
                 mask.reshape(steps, self.global_batch))
+
+    def rank_index_matrix(self, rank: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Rank ``rank``'s block of :meth:`epoch_index_matrix`: ``(idx,
+        mask)`` of shape ``[steps, per_replica_batch]``."""
+        return tuple(replica_columns(m, rank, self.num_replicas)
+                     for m in self.epoch_index_matrix())

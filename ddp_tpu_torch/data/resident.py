@@ -4,7 +4,9 @@
 The uint8 images (~150 MB for CIFAR-10's 50,000 training images) are copied
 to the device once; each step gathers its batch by index there
 (:func:`~ddp_tpu_torch.ops.gather.gather_batch`), so an epoch moves only
-its int32 index matrix from the host.
+its int32 index matrix from the host.  In a data-parallel run every rank
+holds the whole set on its own device and gathers its own columns, so the
+budget is checked per device.
 """
 from __future__ import annotations
 

@@ -1,0 +1,139 @@
+"""One resident epoch and one sharded eval, data-parallel, from a given
+start: the data-parallel path below the CLI, for parity checks.
+
+    python -m ddp_tpu_torch.parallel.drill SPEC OUT_DIR
+
+runs as one rank of a process group (its rendezvous environment set, as
+:func:`~ddp_tpu_torch.parallel.dist.launch_local` sets it) and writes
+``OUT_DIR/rank{r}.pt``; :func:`run` launches the ranks and reads their
+results.  The spec (:func:`spec`) holds the model's architecture and
+weights, the datasets, the per-rank batch, the learning rate and seed,
+whether to crop and flip, the device and an optional backend.  Crop/flip
+draws come from numpy, keyed on ``(seed, rank, step)``, so a run on the
+card and a run on the CPU draw the same.  Each rank runs its columns of
+the epoch (the full batches, then the ragged tail) through
+:func:`~ddp_tpu_torch.train.epoch.make_train_epoch` and of the test set
+through :func:`~ddp_tpu_torch.train.epoch.make_eval_epoch`.
+"""
+from __future__ import annotations
+
+import functools
+import os
+import sys
+import tempfile
+from typing import Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ..data.cifar10 import Dataset
+from ..data.loader import EvalLoader, TrainLoader
+from ..data.resident import ResidentData
+from ..device import resolve_device, set_tf32
+from ..models.vgg import VGG
+from ..ops.gather import gather_batch
+from ..optim import SGDConfig, triangular_lr
+from ..train.epoch import make_eval_epoch, make_train_epoch
+from ..train.step import init_train_state
+from . import dist
+
+
+def spec(arch: Sequence[Union[int, str]], state_dict: Dict[str, torch.Tensor],
+         train: Dataset, test: Dataset, *, batch: int, lr: float, seed: int,
+         augment: bool, device: str, backend: Optional[str] = None) -> Dict:
+    """The drill's input as a dict of tensors and plain values."""
+    return {"arch": list(arch),
+            "state_dict": {k: v.detach().cpu().clone()
+                           for k, v in state_dict.items()},
+            "train_images": torch.from_numpy(np.array(train.images)),
+            "train_labels": torch.from_numpy(np.array(train.labels)),
+            "test_images": torch.from_numpy(np.array(test.images)),
+            "test_labels": torch.from_numpy(np.array(test.labels)),
+            "batch": batch, "lr": lr, "seed": seed, "augment": augment,
+            "device": device, "backend": backend or ""}
+
+
+def _dataset(s: Dict, which: str) -> Dataset:
+    return Dataset(s[f"{which}_images"].numpy(), s[f"{which}_labels"].numpy())
+
+
+def rank_main(spec_path: str, out_dir: str) -> None:
+    """This process's rank of the drill."""
+    torch.set_num_threads(1)
+    s = torch.load(spec_path, weights_only=True)
+    device = dist.initialize(resolve_device(s["device"]),
+                             backend=s["backend"] or None)
+    try:
+        rank, world = dist.rank(), dist.world_size()
+        set_tf32(False)
+        model = VGG(s["arch"])
+        model.load_state_dict(s["state_dict"])
+        model.to(device)
+        train, test = _dataset(s, "train"), _dataset(s, "test")
+        loader = TrainLoader(train, s["batch"], world, seed=s["seed"])
+        loader.set_epoch(0)
+        sched = functools.partial(triangular_lr, base_lr=s["lr"],
+                                  num_epochs=1, steps_per_epoch=len(loader))
+        state = init_train_state(model)
+        dist.broadcast_state(model, state.momentum)
+        run = make_train_epoch(model, SGDConfig(lr=s["lr"]), sched,
+                               device_augment=s["augment"])
+
+        def draws(step: int, n: int):
+            rng = np.random.default_rng([s["seed"], rank, step])
+            off = torch.from_numpy(rng.integers(0, 9, (2, n))).to(device)
+            flip = torch.from_numpy(rng.random(n) < 0.5).to(device)
+            return off[0], off[1], flip
+
+        res = ResidentData(train, device)
+        full, tail = loader.rank_index_matrix(rank)
+        launches = gather_batch.launches
+        parts = [run(state, res.images, res.labels,
+                     torch.from_numpy(rows).to(device), draws)
+                 for rows in [full] + ([tail[None]] if tail is not None
+                                       else [])]
+        losses = dist.sum_over_ranks(torch.cat(parts))
+        train_launches = gather_batch.launches - launches
+
+        idx, mask = EvalLoader(test, s["batch"], world).rank_index_matrix(
+            rank)
+        tres = ResidentData(test, device)
+        launches = gather_batch.launches
+        correct, total = make_eval_epoch(model)(
+            tres.images, tres.labels, torch.from_numpy(idx).to(device),
+            torch.from_numpy(mask).to(device))
+        torch.save({
+            "rank": rank, "world": world, "backend": dist.backend(),
+            "device": str(device), "losses": losses.cpu(),
+            "state_dict": {k: v.cpu() for k, v in
+                           model.state_dict().items()},
+            "momentum": [m.cpu() for m in state.momentum],
+            "steps": state.step, "correct": float(correct),
+            "total": float(total), "train_launches": train_launches,
+            "eval_launches": gather_batch.launches - launches,
+            "collectives": dict(dist.collective_calls)},
+            os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.shutdown()
+
+
+def run(drill_spec: Dict, world: int, *, same_device: bool = False,
+        timeout: float = 120.0, env: Optional[Dict[str, str]] = None
+        ) -> List[Dict]:
+    """Run the drill as ``world`` local ranks (all on one card with
+    ``same_device``) and return each rank's result, rank 0 first.  Raises
+    RuntimeError when a rank fails or ``timeout`` seconds pass."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "spec.pt")
+        torch.save(drill_spec, path)
+        code = dist.launch_local(
+            [sys.executable, "-m", "ddp_tpu_torch.parallel.drill", path, tmp],
+            world, env=env, same_device=same_device, timeout=timeout)
+        if code != 0:
+            raise RuntimeError(f"drill: a rank exited with {code}")
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=True) for r in range(world)]
+
+
+if __name__ == "__main__":
+    rank_main(*sys.argv[1:])

@@ -1,10 +1,13 @@
 """Where a resident training step's device time goes, at full VGG-11 width:
 
-    python -m ddp_tpu_torch.profile_resident [--steps 10] [--warmup 5]
+    python -m ddp_tpu_torch.profile_resident [--steps 10] [--warmup 5] \
+        [--data_parallel]
 
 Runs resident train steps of the port (batch 512 from a 50,000-image
 synthetic table on the card, crop/flip on), the measured window under
-``torch.profiler``.  Prints the window's wall time per step, the device's
+``torch.profiler``.  With ``--data_parallel`` the steps run as rank 0 of a
+world-1 NCCL process group, as ``multigpu`` runs them on a one-card
+machine: each step adds its gradient and buffer all-reduces.  Prints the window's wall time per step, the device's
 busy and idle share (the kernels' summed time against the wall time), the
 CUDA kernels launched per step, the device time by kernel group and the top
 kernels, and one JSON summary line last.  Needs a card.
@@ -13,6 +16,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import torch
@@ -22,6 +26,7 @@ from .data import TrainLoader, synthetic
 from .device import resolve_device, set_tf32
 from .models import get_model
 from .optim import SGDConfig, triangular_lr
+from .parallel import dist
 from .train.trainer import Trainer
 
 # Kernel name fragments -> group, first match wins.  cuDNN runs VGG's
@@ -29,7 +34,8 @@ from .train.trainer import Trainer
 # fft2d transforms) or plain GEMM kernels; the one true matrix product, the
 # 512x10 classifier, is negligible beside them, so every GEMM counts as
 # convolution.
-GROUPS = (("gather_batch", "resident batch (port kernel)"),
+GROUPS = (("nccl", "collectives (NCCL)"),
+          ("gather_batch", "resident batch (port kernel)"),
           ("row_gather", "row gather (port kernel)"),
           ("conv", "convolution"), ("xmma", "convolution"),
           ("implicit", "convolution"), ("winograd", "convolution"),
@@ -75,8 +81,27 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--warmup", type=int, default=5)
+    p.add_argument("--data_parallel", action="store_true",
+                   help="run as rank 0 of a world-1 NCCL process group")
     args = p.parse_args(argv)
     device = resolve_device("cuda")
+    # A world-1 rendezvous of this process's own, unless it is a rank
+    # already; taken out of the environment again at the end.
+    own = {} if not args.data_parallel or dist.in_rendezvous() else {
+        "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(dist.free_port()),
+        "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    os.environ.update(own)
+    try:
+        if args.data_parallel:
+            device = dist.initialize(device)
+        return _profile(args, device)
+    finally:
+        dist.shutdown()
+        for k in own:
+            del os.environ[k]
+
+
+def _profile(args: argparse.Namespace, device: torch.device) -> dict:
     set_tf32(False)
     train_ds, _ = synthetic(n_train=50000, n_test=64)
     loader = TrainLoader(train_ds, 512, seed=0)
@@ -106,6 +131,10 @@ def main(argv=None) -> dict:
     kernels = device_events(prof)
     busy_ms = sum(ms for ms, _ in kernels.values())
     launches = kernel_launches(kernels)
+    # One gather_batch launch a step: fewer means the profiler missed the
+    # start of the session.
+    gather_launches = sum(n for name, (_, n) in kernels.items()
+                          if "gather_batch_kernel" in name)
     groups = {}
     for name, (ms, _) in kernels.items():
         groups[_group(name)] = groups.get(_group(name), 0.0) + ms
@@ -113,7 +142,9 @@ def main(argv=None) -> dict:
     print(f"{card}: {args.steps} steps, wall {wall_ms / args.steps:.3f} "
           f"ms/step, device busy {busy_ms / args.steps:.3f} ms/step "
           f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}, "
-          f"{launches / args.steps:g} CUDA kernels launched per step")
+          f"{launches / args.steps:g} CUDA kernels launched per step, "
+          f"gather_batch_kernel {gather_launches} times in {args.steps} "
+          f"steps")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g:32s} {ms / args.steps:9.3f} ms/step "
               f"{ms / busy_ms:6.1%}")
@@ -122,10 +153,12 @@ def main(argv=None) -> dict:
         print(f"  {ms / args.steps:9.3f} ms/step  x{n // args.steps:<4d} "
               f"{name[:100]}")
     summary = {"device": card, "steps": args.steps,
+               "backend": dist.backend(),
                "wall_ms_per_step": wall_ms / args.steps,
                "busy_ms_per_step": busy_ms / args.steps,
                "idle_share": 1 - busy_ms / wall_ms,
                "kernels_per_step": launches / args.steps,
+               "gather_batch_kernel_launches": gather_launches,
                "groups_ms_per_step": {g: ms / args.steps
                                       for g, ms in groups.items()}}
     print(json.dumps(summary))

@@ -4,7 +4,9 @@ The dataset stays on the card (``data/resident.py``); an epoch uploads its
 int32 index matrix once and runs one step per row.  The JAX package runs the
 epoch as one ``lax.scan`` program; here it is a Python loop that enqueues
 each step's kernels without waiting for the device: losses and eval counters
-stay on the device until the epoch ends.
+stay on the device until the epoch ends.  In a data-parallel run each rank
+runs its own columns of the matrices (``data/loader.py::replica_columns``),
+and the counters are summed over the ranks once, at the end.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from torch import nn
 from ..data.device_augment import Draws
 from ..ops.gather import gather_batch
 from ..optim import sgd as sgd_lib
+from ..parallel import dist
 from .step import (TrainState, make_eval_apply, make_group_update,
                    make_loss_and_grads, micro_from_table)
 
@@ -30,8 +33,11 @@ def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
     ``[steps, B]``, over the resident ``images``/``labels``.
 
     ``draws(step, B)`` gives each step's crop/flip draws under
-    ``device_augment``.  ``losses`` is the ``[steps]`` tensor of per-step
-    global-mean losses, on the device.  When ``events`` is a list, a CUDA
+    ``device_augment``.  ``losses`` is the ``[steps]`` tensor of this
+    rank's shares of the per-step global-mean losses, on the device (at
+    world 1, the losses themselves): the caller sums it over the ranks once
+    an epoch (:func:`~ddp_tpu_torch.parallel.dist.sum_over_ranks`), as the
+    JAX epoch returns the global means.  When ``events`` is a list, a CUDA
     event recorded after each step is appended to it (step timing without a
     host sync).  The trainer calls this once for the full batches and once
     for the ragged tail, as the JAX trainer does."""
@@ -62,10 +68,13 @@ def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
 
 
 def make_eval_epoch(model: nn.Module):
-    """``eval_fn(images, labels, idx, mask) -> (correct, total)``: the whole
-    test set through the eval forward, row by row of the padded index matrix
-    ``idx`` ``[steps, B]``; ``mask`` zeroes the padding out of both
-    counters, which stay on the device."""
+    """``eval_fn(images, labels, idx, mask) -> (correct, total)``: this
+    rank's columns of the test set through the eval forward, row by row of
+    its padded index matrix ``idx`` ``[steps, B]``; ``mask`` zeroes the
+    padding out of both counters, which stay on the device and are summed
+    over the ranks by one all-reduce at the end (the JAX eval's ``psum``,
+    ``ddp_tpu/train/step.py:516``), so every rank returns the global
+    counts."""
     apply_fn = make_eval_apply(model)
 
     @torch.no_grad()
@@ -78,6 +87,7 @@ def make_eval_epoch(model: nn.Module):
             hit = (apply_fn(x).argmax(dim=-1) == y).float()
             correct += (hit * mask_row).sum()
             total += mask_row.sum()
-        return correct, total
+        counts = dist.sum_over_ranks(torch.stack([correct, total]))
+        return counts[0], counts[1]
 
     return eval_fn

@@ -1,13 +1,18 @@
-"""The single-device train and eval steps (counterpart of
-``ddp_tpu/train/step.py`` at one device).
+"""The per-rank train and eval steps (counterpart of
+``ddp_tpu/train/step.py``).
 
-One step: the batch from the resident table, cropped, flipped and scaled
-u8/255 by one kernel (``ops/gather.py::gather_batch``), forward in training
-mode, the global-mean loss ``sum/count``, backward, and the SGD update at
-``lr_schedule(step)``.  PyTorch runs it eagerly; the JAX package's
-``shard_map``/``jit`` wiring has no counterpart at one device.  BatchNorm's
-running buffers are updated in place by the forward (the JAX package
-returns them as new state).
+One step on each rank: the rank's batch from the resident table, cropped,
+flipped and scaled u8/255 by one kernel (``ops/gather.py::gather_batch``),
+forward in training mode with BatchNorm on the rank's own batch statistics
+(the reference's unsynced BN, multigpu.py:127), the rank's share
+``ce_sum / (count * world)`` of the global-mean loss, backward, one
+all-reduce of the gradients and one of BatchNorm's running buffers
+(``parallel/dist.py``), and the SGD update at ``lr_schedule(step)``.
+PyTorch runs it eagerly, one process per rank, where the JAX package runs
+one ``shard_map`` program over the mesh.  The forward updates the running
+buffers in place (the JAX package returns them as new state).  Without a
+process group the collectives are the identity and the step is the
+single-device one.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from ..data.device_augment import Draws
 from ..ops.gather import IMAGE_SHAPE, gather_batch
 from ..ops.losses import cross_entropy_sum_count
 from ..optim import sgd as sgd_lib
+from ..parallel import dist
 
 
 def _as_input(x: torch.Tensor) -> torch.Tensor:
@@ -55,17 +61,32 @@ def init_train_state(model: nn.Module) -> TrainState:
 
 
 def make_loss_and_grads(model: nn.Module):
-    """``fn(images [B,32,32,3], labels [B]) -> (loss, grads)``: the
-    forward in training mode and the backward of the global-mean loss.
-    ``loss`` stays on the device, detached."""
+    """``fn(images [B,32,32,3], labels [B]) -> (loss, grads)`` on this
+    rank's batch: the forward in training mode, the backward of the rank's
+    share ``ce_sum / (count * world)`` of the global-mean loss, the
+    gradients summed over the ranks, and BatchNorm's running buffers
+    averaged over them.
+
+    Every rank's batch has the same ``count`` (the sampler pads the shards
+    to one length), so the shares sum to ``psum(ce_sum) / psum(count)``
+    and the summed gradients are that loss's gradient
+    (``ddp_tpu/train/step.py:107``).  ``loss`` is the rank's share, on the
+    device and detached: :func:`~ddp_tpu_torch.parallel.dist.sum_over_ranks`
+    of it is the global-mean loss.  The gradients come from
+    ``torch.autograd.grad``, so a ``DistributedDataParallel`` wrapper, whose
+    hooks fire in ``.backward()``, would never see them: the all-reduce is
+    explicit, as the JAX package's is.  Build it after the process group
+    exists: it reads the world size once."""
     params = list(model.parameters())
+    world = dist.world_size()
 
     def loss_and_grads(images: torch.Tensor, labels: torch.Tensor):
         model.train()
         logits = model(_as_input(images))
         ce_sum, count = cross_entropy_sum_count(logits, labels)
-        loss = ce_sum / count
-        grads = torch.autograd.grad(loss, params)
+        loss = ce_sum / (count * world)
+        grads = dist.all_reduce_grads(torch.autograd.grad(loss, params))
+        dist.average_buffers(model)
         return loss.detach(), grads
 
     return loss_and_grads

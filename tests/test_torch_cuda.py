@@ -13,6 +13,8 @@ bfloat16, at most half an ulp, plus room for the sums).  Each conv case
 also checks that the counter of the route it should take moved, and only
 that one.  The serving engine's CUDA graphs compare exactly with the eager
 forward at each bucket: the same kernels on the same shapes, TF32 off.
+The data-parallel drill on the card against the CPU holds losses, weights,
+BN buffers and momentum at 1e-4, as the smoke's parity phase does.
 """
 import math
 import os
@@ -24,7 +26,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ddp_tpu_torch import _build
+from ddp_tpu_torch import _build, profile_resident
 from ddp_tpu_torch.ops.conv_candidates import (TARGET_SHAPES, _flip_transpose,
                                                _shift9_fwd, conv2d_fused,
                                                conv3x3_fused, conv3x3_route)
@@ -34,6 +36,8 @@ from ddp_tpu_torch.device import set_tf32
 from ddp_tpu_torch.models.vgg import VGG
 from ddp_tpu_torch.ops.gather import (gather_batch, gather_batch_plain,
                                       gather_rows, gather_rows_plain)
+from ddp_tpu_torch.data import synthetic
+from ddp_tpu_torch.parallel import drill
 from ddp_tpu_torch.serve import DynamicBatcher, ServeEngine
 from ddp_tpu_torch.train.step import _as_input, make_eval_apply
 
@@ -340,3 +344,53 @@ def test_serve_graphs_equal_eager_forward_and_count(cuda):
         assert batcher.drain(timeout=30)
     assert engine.stats()["forward_batches"] == 7 + batcher.batches
     assert engine.trace_count == 3 and gather_batch.launches == launches
+
+
+def _drill_spec(device, backend=None):
+    train, test = synthetic(n_train=40, n_test=24, seed=1)
+    model = VGG(NARROW, generator=torch.Generator().manual_seed(0))
+    return drill.spec(NARROW, model.state_dict(), train, test, batch=8,
+                      lr=0.05, seed=0, augment=True, device=device,
+                      backend=backend)
+
+
+def test_world1_nccl_runs_the_all_reduces(cuda):
+    """multigpu's path on a one-card machine: rank 0 of a world-1 NCCL
+    group issues every collective (two a step, the loss sum, the eval
+    counters, the start's broadcast) and one gather_batch a step."""
+    got, = drill.run(_drill_spec("cuda"), 1, timeout=300)
+    assert (got["backend"], got["device"], got["steps"]) == \
+        ("nccl", "cuda:0", 5)
+    assert got["collectives"] == {"all_reduce": 2 * 5 + 2, "broadcast": 1}
+    assert (got["train_launches"], got["eval_launches"]) == (5, 3)
+    assert torch.isfinite(got["losses"]).all()
+
+
+def test_world2_gloo_on_one_card_equals_cpu(cuda):
+    """Two ranks on the one card over gloo against two on the CPU, from the
+    same weights and crop/flip draws: 1e-4, the card-against-CPU parity
+    tolerance (cuDNN and the CPU sum in other orders)."""
+    card = drill.run(_drill_spec("cuda", "gloo"), 2, same_device=True,
+                     timeout=300)
+    cpu = drill.run(_drill_spec("cpu"), 2, timeout=300)
+    for got, want in zip(card, cpu):
+        assert (got["backend"], got["device"]) == ("gloo", "cuda:0")
+        assert (got["train_launches"], got["eval_launches"]) == (3, 2)
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4,
+                                   atol=1e-4)
+        for k, v in want["state_dict"].items():
+            np.testing.assert_allclose(got["state_dict"][k], v, rtol=1e-4,
+                                       atol=1e-4, err_msg=k)
+        for a, b in zip(got["momentum"], want["momentum"]):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_profile_resident_data_parallel_sees_the_collectives(cuda):
+    """``profile_resident --data_parallel``: the steps run as rank 0 of a
+    world-1 NCCL group, one gather_batch_kernel a step, and the rendezvous
+    is taken out of the environment again."""
+    summary = profile_resident.main(["--steps", "2", "--warmup", "1",
+                                     "--data_parallel"])
+    assert summary["backend"] == "nccl"
+    assert summary["gather_batch_kernel_launches"] == 2
+    assert "RANK" not in os.environ

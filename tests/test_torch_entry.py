@@ -27,6 +27,10 @@ bad = sorted(m for m in sys.modules
              or m == "ddp_tpu" or m.startswith("ddp_tpu."))
 print(len(names), bad)
 assert len(names) >= 20 and not bad, bad
+new = {"ddp_tpu_torch.multigpu", "ddp_tpu_torch.parallel",
+       "ddp_tpu_torch.parallel.dist", "ddp_tpu_torch.parallel.drill",
+       "ddp_tpu_torch.repeat_check"}
+assert new <= set(names), sorted(new - set(names))
 """
 
 
