@@ -51,6 +51,21 @@
    against the same 2 ranks on the CPU, from the same weights and draws:
    losses, weights, BN buffers and momentum within ``PARITY_TOL``, and one
    ``gather_batch`` launch a step on each card rank.
+   Strategy phase (the flags of ``multigpu``): the main path's arguments with
+   ``--grad_accum 2 --sync_bn --shard_update`` at world 1 over NCCL as a
+   subprocess: 50 optimizer steps with finite losses, ``gather_batch`` 123
+   times and neither ``row_gather`` nor ``conv3x3``, the collectives equal
+   to the count worked out from the code (printed beside its formula: 24
+   sync-BN all-reduces a micro-batch, one buffer all-reduce, one
+   reduce-scatter and one all-gather a step, no gradient all-reduce), and
+   a checkpoint at step 50; its ms per optimizer step, samples/s, process
+   wall time and accuracy beside the DDP phase's run.  Then each flag alone
+   on a 10,240-image epoch (20 batches of 512) beside no flag, for its
+   ms/step and collective counts; under deterministic mode
+   ``--shard_update`` and ``--grad_accum 1`` bit for bit against no flag;
+   and a narrow world-2 epoch with the flags composed on the card over gloo
+   against the CPU within ``PARITY_TOL``, one ``gather_batch`` launch a
+   micro-batch on each card rank.
 9. Serving phase: ``ServeEngine.from_checkpoint`` on that epoch-0 file at
    full width with buckets 1, 8, 32 and 128; ``warm()`` must capture exactly
    4 CUDA graphs (the ``gather_batch`` wrapper runs once eagerly and once at
@@ -90,8 +105,10 @@
    around it, then the pool probe once.
 12. Prints the kernels line (``gather_batch``'s entry adds its launches on
     the serving path: the eager runs in ``warm()`` and the launches of the
-    profiled HTTP load, and on the DDP path: the world-1 run's and the
-    card ranks' of the world-2 run), the card line, and last
+    profiled HTTP load, on the DDP path: the world-1 run's and the card
+    ranks' of the world-2 run, and on the strategy path: the composed
+    world-1 run's and the card ranks' of its world-2 run), the card line,
+    and last
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; without a card it
@@ -122,7 +139,8 @@ from ddp_tpu_torch.data import (EvalLoader, ResidentData, TrainLoader,
                                 synthetic)
 from ddp_tpu_torch.data.device_augment import crop_flip, make_draws
 from ddp_tpu_torch.device import set_tf32
-from ddp_tpu_torch.models.vgg import VGG
+from ddp_tpu_torch.data.loader import optimizer_groups
+from ddp_tpu_torch.models.vgg import VGG, BNReLU
 from ddp_tpu_torch.ops import conv_candidates, pool_candidates
 from ddp_tpu_torch.ops.conv_candidates import (ROUTES, TARGET_SHAPES,
                                                _flip_transpose, _shift9_fwd,
@@ -424,8 +442,9 @@ def parity_phase() -> None:
         run = make_train_epoch(model, SGDConfig(lr=0.05), sched,
                                device_augment=True)
 
-        def draws(step, n, device=device):
+        def draws(step, n, micro=0, device=device):
             off, flip = draws_np[step]
+            check(micro == 0, "parity draws of one micro-batch a step")
             check(off.shape[1] == n, "parity draw size")
             off = torch.from_numpy(off).to(device)
             return off[0], off[1], torch.from_numpy(flip).to(device)
@@ -489,24 +508,33 @@ def checkpoint_phase(out: dict, path: str) -> None:
 DDP_ARCH = [8, "M", 16, "M", 512, "M"]
 
 
-def ddp_phase(out: dict, card: str) -> int:
-    """The multigpu entry at world 1 over NCCL beside the in-process
-    singlegpu run ``out``, the same pair under deterministic mode, then a
-    world-2 epoch on the card over gloo against the CPU.  Returns the
-    path's gather_batch launches."""
+def run_multigpu(args: list) -> tuple:
+    """``python -m ddp_tpu_torch.multigpu args`` as a subprocess (one rank
+    per card): its ``--result_json`` summary, process wall seconds and
+    checkpoint."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "ddp.json")
         snapshot = os.path.join(tmp, "checkpoint.pt")
         t0 = time.time()
         r = subprocess.run(
-            [sys.executable, "-m", "ddp_tpu_torch.multigpu", *MAIN_ARGS,
+            [sys.executable, "-m", "ddp_tpu_torch.multigpu", *args,
              "--snapshot_path", snapshot, "--result_json", path],
             timeout=900)
         wall_s = time.time() - t0
-        check(r.returncode == 0, f"multigpu exited with {r.returncode}")
+        check(r.returncode == 0, f"multigpu {' '.join(args)} exited with "
+              f"{r.returncode}")
         with open(path) as f:
             res = json.load(f)
-        ckpt = load_checkpoint(snapshot)
+        return res, wall_s, load_checkpoint(snapshot)
+
+
+def ddp_phase(out: dict, card: str) -> tuple:
+    """The multigpu entry at world 1 over NCCL beside the in-process
+    singlegpu run ``out``, the same pair under deterministic mode, then a
+    world-2 epoch on the card over gloo against the CPU.  Returns the
+    path's gather_batch launches and the world-1 run's summary."""
+    res, wall_s, ckpt = run_multigpu(MAIN_ARGS)
+    res["wall_s"] = wall_s
     launches = res["kernel_launches"]
     check(res["world"] == 1 and res["backend"] == "nccl",
           f"multigpu ran at world {res['world']} on {res['backend']}")
@@ -585,6 +613,225 @@ def ddp_phase(out: dict, card: str) -> int:
           f"{runs['cpu'][0]['correct']}/{runs['cpu'][0]['total']}; "
           f"gather_batch launches on the card ranks {card_launches}",
           flush=True)
+    return launches["gather_batch"] + card_launches, res
+
+
+# The strategy phase: VGG-11's BatchNorm layers, and a 10,240-image epoch
+# (20 batches of 512, 5 eval batches) for each flag's cost.
+VGG_BN_LAYERS = 8
+FLAG_ARGS = MAIN_ARGS[:-1] + ["10240"]
+FLAG_TRAIN_STEPS, FLAG_EVAL_STEPS = 20, 5
+STRATEGY_FLAGS = ["--grad_accum", "2", "--sync_bn", "--shard_update"]
+# The strategy phase's world-2 card-against-CPU epoch needs every BN+ReLU
+# input at least this far from the ReLU's kink (``kink_margin``): float32
+# rounding moves x̂ by ~1e-7 of |mean|/σ between the two devices.  The
+# drill's seed 0 puts one element 1.5e-7 from it (its momentum then parts by
+# 1.5e-3 while the losses agree to 2e-7); seed 3's nearest is 2.4e-6.
+KINK_MARGIN, STRATEGY_DRILL_SEED = 1e-6, 3
+
+
+def expected_collectives(steps: int, micro: int, *, sync_bn: bool,
+                         zero: bool, bn_layers: int, saves: int) -> tuple:
+    """The collectives of one rank of a run, counted from the code, and the
+    formula: sync-BN's 3 all-reduces per BN layer and micro-batch (2 for
+    the statistics, 1 for dβ/dγ); per optimizer step the buffers' average
+    and the gradients' all-reduce, or under ZeRO one reduce-scatter and one
+    all-gather; the epoch's loss sum and the eval counters; the start's
+    broadcast; under ZeRO ``saves`` all-gathers of the momentum (one per
+    checkpoint; the drill gathers it once at its end)."""
+    want = {"all_reduce": 3 * bn_layers * micro * sync_bn
+            + steps * (1 if zero else 2) + 2, "broadcast": 1}
+    formula = (f"all_reduce = {3 * bn_layers * sync_bn}*{micro} micro + "
+               f"{1 if zero else 2}*{steps} steps + 2")
+    if zero:
+        want.update(reduce_scatter=steps, all_gather=steps + saves)
+        formula += (f", reduce_scatter = {steps} steps, all_gather = "
+                    f"{steps} steps + {saves} momentum gather(s)")
+    return want, formula
+
+
+def kink_margin(model: torch.nn.Module, train, *, batch: int, seed: int,
+                world: int, accum: int) -> float:
+    """The smallest ``|x̂·γ + β|`` at any BN+ReLU of a sync-BN drill epoch
+    (``drill.spec`` with ``augment=True``), in float64 on the CPU at the
+    start weights (the drill's first step runs at lr 0, so every step sees
+    them): each global micro-batch, the ranks' gathered and cropped rows
+    together, through the model with the statistics of the whole batch.
+    Where it is within float32 rounding of 0, the card's and the CPU's
+    reductions may put that element on opposite sides of the ReLU, and the
+    two runs' gradients then part by that element's whole cotangent: a
+    comparison of the two at any tolerance needs a margin well above the
+    rounding."""
+    m64 = copy.deepcopy(model).double().train()
+    margins = []
+
+    def pre(mod, args):
+        x = args[0]
+        ch = lambda v: v[None, :, None, None]
+        xhat = (x - ch(x.mean((0, 2, 3)))) * ch(torch.rsqrt(
+            x.var((0, 2, 3), unbiased=False) + 1e-5))
+        margins.append(float((xhat * ch(mod.weight) + ch(mod.bias))
+                             .abs().min()))
+
+    hooks = [m.register_forward_pre_hook(pre) for m in m64.modules()
+             if isinstance(m, BNReLU)]
+    loader = TrainLoader(train, batch, world, seed=seed)
+    loader.set_epoch(0)
+    table, labels = (torch.from_numpy(np.array(train.images)),
+                     torch.from_numpy(np.array(train.labels)))
+    step = 0
+    with torch.no_grad():
+        for calls in zip(*(optimizer_groups(
+                *loader.rank_index_matrix(r), accum) for r in range(world))):
+            for g in range(calls[0].shape[0]):
+                for k in range(calls[0].shape[1]):
+                    xs = [gather_batch_plain(
+                        table, labels, torch.from_numpy(c[g, k]),
+                        tuple(torch.from_numpy(d) for d in drill.draws_np(
+                            seed, r, step, c.shape[2], k)))[0]
+                        for r, c in enumerate(calls)]
+                    m64(_as_input(torch.cat(xs)).double())
+                step += 1
+    for h in hooks:
+        h.remove()
+    return min(margins)
+
+
+def strategy_phase(ddp: dict, card: str) -> int:
+    """The strategy flags: the composed flags at full width over NCCL at
+    world 1 beside the DDP phase's run ``ddp``, each flag alone for its
+    cost, the flags' bit-equalities under deterministic mode, and a
+    world-2 epoch with the flags composed on the card over gloo against
+    the CPU.  Returns the path's gather_batch launches."""
+    res, wall_s, ckpt = run_multigpu(MAIN_ARGS + STRATEGY_FLAGS)
+    steps = -(-(MAIN_TRAIN_STEPS - 1) // 2) + 1  # 97 full batches, the tail
+    launches = res["kernel_launches"]
+    check((res["world"], res["backend"], res["grad_accum"], res["sync_bn"],
+           res["shard_update"]) == (1, "nccl", 2, True, True),
+          f"the strategy run's summary {res}")
+    check(launches == {"gather_batch": MAIN_TRAIN_STEPS + MAIN_EVAL_STEPS,
+                       "row_gather": 0, "conv3x3": 0},
+          f"the strategy run's kernel launches {launches}")
+    want, formula = expected_collectives(
+        steps, MAIN_TRAIN_STEPS, sync_bn=True, zero=True,
+        bn_layers=VGG_BN_LAYERS, saves=1)
+    check(res["collectives"] == want,
+          f"the strategy run's collectives {res['collectives']}, expected "
+          f"{want} ({formula})")
+    losses = res["loss_history"]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"the strategy run's losses: {len(losses)}, expected {steps}")
+    check(ckpt.step == steps and ckpt.epoch == 0,
+          f"the strategy run's checkpoint: step {ckpt.step}, epoch "
+          f"{ckpt.epoch}")
+    step_ms = statistics.median(res["step_ms"])
+    ddp_ms = statistics.median(ddp["step_ms"])
+    print(f"strategy, --grad_accum 2 --sync_bn --shard_update at world 1 "
+          f"({card}): backend {res['backend']}, {steps} optimizer steps of "
+          f"2 x 512 (the last two 512 and 336), median {step_ms:.3f} ms per "
+          f"optimizer step ({1024 / step_ms * 1e3:.1f} samples/s); the DDP "
+          f"phase's unflagged run {ddp_ms:.3f} ms/step "
+          f"({512 / ddp_ms * 1e3:.1f} samples/s); train "
+          f"{res['training_seconds']:.2f} s (unflagged "
+          f"{ddp['training_seconds']:.2f}), process wall {wall_s:.2f} s "
+          f"(unflagged {ddp['wall_s']:.2f}); accuracy {res['accuracy']:.2f}% "
+          f"(unflagged {ddp['accuracy']:.2f}%); gather_batch launches "
+          f"{launches['gather_batch']}; collectives {res['collectives']} "
+          f"= {formula}; first/last loss {losses[0]:.4f}/{losses[-1]:.4f}; "
+          f"checkpoint step {ckpt.step}", flush=True)
+
+    # Each flag alone at full width on a 20-batch epoch, beside no flag.
+    for flags, accum, sync_bn, zero in (
+            ([], 1, False, False), (["--grad_accum", "2"], 2, False, False),
+            (["--sync_bn"], 1, True, False),
+            (["--shard_update"], 1, False, True)):
+        one, wall_s, ckpt = run_multigpu(FLAG_ARGS + flags)
+        n = FLAG_TRAIN_STEPS // accum
+        want, formula = expected_collectives(
+            n, FLAG_TRAIN_STEPS, sync_bn=sync_bn, zero=zero,
+            bn_layers=VGG_BN_LAYERS, saves=1)
+        check(one["collectives"] == want and len(one["loss_history"]) == n
+              and one["kernel_launches"]["gather_batch"]
+              == FLAG_TRAIN_STEPS + FLAG_EVAL_STEPS and
+              all(math.isfinite(x) for x in one["loss_history"]),
+              f"multigpu {flags}: {len(one['loss_history'])} steps, "
+              f"collectives {one['collectives']} (expected {want}), "
+              f"launches {one['kernel_launches']}")
+        ms = statistics.median(one["step_ms"])
+        print(f"strategy, {' '.join(flags) or 'no flag'} alone at world 1 "
+              f"({card}): {n} optimizer steps of {accum} x 512, median "
+              f"{ms:.3f} ms per optimizer step ({512 * accum / ms * 1e3:.1f}"
+              f" samples/s), train {one['training_seconds']:.2f} s, wall "
+              f"{wall_s:.2f} s; collectives {one['collectives']} = "
+              f"{formula}", flush=True)
+
+    # Deterministic mode: the sharded update and A = 1 are the unflagged
+    # arithmetic, bit for bit.
+    t0 = time.time()
+    plain, zero_run, accum1 = (
+        run_entries(["multigpu"], FLAG_ARGS + extra, deterministic=True)[0]
+        for extra in ([], ["--shard_update"], ["--grad_accum", "1"]))
+    for name, other in (("--shard_update", zero_run),
+                        ("--grad_accum 1", accum1)):
+        pair, = compare([plain, other])
+        print(f"strategy, {name} against no flag at world 1, deterministic "
+              f"mode ({card}): {pair}", flush=True)
+        check(pair["bit_equal"], f"under deterministic mode {name} differs "
+              f"from the unflagged run")
+    print(f"strategy deterministic runs: {time.time() - t0:.1f} s",
+          flush=True)
+
+    # World 2 on the one card over gloo, the flags composed, against the
+    # same 2 ranks on the CPU: 20 images a rank, groups of 2 batches of 8
+    # and the ragged 4.
+    train, test = synthetic(n_train=40, n_test=24, seed=1)
+    model = VGG(DDP_ARCH, generator=torch.Generator().manual_seed(0))
+    margin = kink_margin(model, train, batch=8, seed=STRATEGY_DRILL_SEED,
+                         world=2, accum=2)
+    check(margin >= KINK_MARGIN, f"the strategy world-2 epoch has a BN+ReLU "
+          f"input {margin:.3e} from the ReLU's kink")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        spec = drill.spec(DDP_ARCH, model.state_dict(), train, test,
+                          batch=8, lr=0.05, seed=STRATEGY_DRILL_SEED,
+                          augment=True,
+                          device=device, backend="gloo", grad_accum=2,
+                          sync_bn=True, shard_update=True)
+        runs[device] = drill.run(spec, 2, same_device=True, timeout=300)
+    want, formula = expected_collectives(2, 3, sync_bn=True, zero=True,
+                                         bn_layers=3, saves=1)
+    worst = 0.0
+    for got, ref in zip(runs["cuda"], runs["cpu"]):
+        check(got["backend"] == "gloo" and got["device"] == "cuda:0" and
+              got["steps"] == 2 and got["collectives"] == want,
+              f"strategy world-2 card rank {got['rank']}: {got['backend']} "
+              f"on {got['device']}, {got['steps']} steps, collectives "
+              f"{got['collectives']} (expected {want})")
+        check(got["train_launches"] == 3 and got["eval_launches"] == 2,
+              f"strategy world-2 card rank {got['rank']} launched "
+              f"gather_batch {got['train_launches']} + "
+              f"{got['eval_launches']} times")
+        check(bool(torch.isfinite(got["losses"]).all()),
+              "strategy world-2 losses not finite")
+        errs = [float((got["losses"] - ref["losses"]).abs().max())]
+        errs += [float((got["state_dict"][k] - v).abs().max())
+                 for k, v in ref["state_dict"].items()]
+        errs += [float((a - b).abs().max())
+                 for a, b in zip(got["momentum"], ref["momentum"])]
+        worst = max(worst, *errs)
+    check(worst <= PARITY_TOL, f"strategy world 2 on the card differs from "
+          f"the CPU by {worst:.3e}")
+    card_launches = sum(g["train_launches"] + g["eval_launches"]
+                        for g in runs["cuda"])
+    print(f"strategy world 2 on one card over gloo, flags composed "
+          f"({card}): 2 optimizer steps of 3 micro-batches, max |diff| "
+          f"against the CPU {worst:.3e} (losses, weights, BN buffers, "
+          f"momentum; tolerance {PARITY_TOL:g}; drill seed "
+          f"{STRATEGY_DRILL_SEED}, nearest BN+ReLU input {margin:.3e} from "
+          f"the kink); collectives a rank "
+          f"{runs['cuda'][0]['collectives']} = {formula}; momentum a rank "
+          f"{runs['cuda'][0]['momentum_numel']} elements; gather_batch "
+          f"launches on the card ranks {card_launches}", flush=True)
     return launches["gather_batch"] + card_launches
 
 
@@ -1180,7 +1427,8 @@ def main() -> int:
           f"{out['accuracy']:.2f}%, conv3x3 launches {conv_main_launches}",
           flush=True)
     checkpoint_phase(out, snapshot)
-    ddp_launches = ddp_phase(out, card)
+    ddp_launches, ddp = ddp_phase(out, card)
+    strategy_launches = strategy_phase(ddp, card)
     serve = serve_phase(snapshot)
     print(f"serve: {json.dumps(serve)}", flush=True)
     snapshot_dir.cleanup()
@@ -1198,6 +1446,7 @@ def main() -> int:
     # (one a graph replay; the wrapper is not called there).
     batch.update(launches=launches, launches_main_path=launches,
                  launches_ddp_path=ddp_launches,
+                 launches_strategy_path=strategy_launches,
                  launches_serve_path=serve["warm_launches"]
                  + serve["http_profiled"]["gather_batch_kernel_launches"],
                  serve_warm_launches=serve["warm_launches"],

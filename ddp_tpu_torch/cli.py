@@ -5,9 +5,9 @@ over several:
     python -m ddp_tpu_torch.singlegpu <total_epochs> <save_every> \\
         [--batch_size 512] --resident [--synthetic --synthetic_size N \\
         [--synthetic_label_noise P]] [--seed 0] [--lr 0.4] \\
-        [--momentum 0.9] [--weight_decay 5e-4] \\
-        [--snapshot_path checkpoint.pt] [--resume] [--device cuda|cpu] \\
-        [--result_json PATH]
+        [--momentum 0.9] [--weight_decay 5e-4] [--grad_accum A] \\
+        [--sync_bn] [--shard_update] [--snapshot_path checkpoint.pt] \\
+        [--resume] [--device cuda|cpu] [--result_json PATH]
     python -m ddp_tpu_torch.multigpu <same arguments> [--spawn N]
 
 ``singlegpu`` is one process at world 1.  ``multigpu`` is one process per
@@ -16,6 +16,12 @@ is that rank; otherwise it spawns ``--spawn N`` local ranks, or on ``cuda``
 one per visible card (the reference's ``mp.spawn`` over
 ``torch.cuda.device_count()``, multigpu.py:262-263), and returns the
 largest exit code of its ranks.  ``--batch_size`` is the per-rank batch.
+The strategy flags have the JAX CLI's meaning (``ddp_tpu/cli.py:215-227``)
+and compose with each other and with ``--resume``: ``--grad_accum A`` takes
+one optimizer step per A micro-batches (the LR schedule counts optimizer
+steps), ``--sync_bn`` takes BatchNorm's statistics over every rank's batch,
+``--shard_update`` shards the weight update (ZeRO-1).  At world 1 without a
+process group (``singlegpu``) each collective is the identity.
 
 Prints what the JAX CLI prints: each epoch's header and loss on every rank
 (``[GPU{rank}]``), the checkpoint line of every ``save_every``-th epoch,
@@ -32,7 +38,7 @@ import functools
 import json
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -84,6 +90,19 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--momentum", default=0.9, type=float)
     p.add_argument("--weight_decay", default=5e-4, type=float)
     p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--grad_accum", type=int, default=1, metavar="A",
+                   help="Accumulate gradients over A micro-batches per "
+                        "optimizer step (effective batch = A * --batch_size "
+                        "per replica)")
+    p.add_argument("--sync_bn", action="store_true",
+                   help="Synchronise BatchNorm statistics across replicas "
+                        "(the SyncBatchNorm line the reference keeps "
+                        "commented out, multigpu.py:127)")
+    p.add_argument("--shard_update", action="store_true",
+                   help="ZeRO-1-style weight-update sharding: "
+                        "reduce-scatter grads, update a 1/R momentum+param "
+                        "slice per rank, all-gather params (same math as "
+                        "plain DP, 1/R optimizer memory)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; without a card, cuda is an "
                         "error")
@@ -93,10 +112,21 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                         "cuda, world 1 on cpu)")
     p.add_argument("--result_json", default=None, metavar="PATH",
                    help="Rank 0 writes the run's summary here as JSON: "
-                        "world, backend, losses, step times, accuracy, and "
-                        "the port's kernel launches and the collectives "
-                        "in this process")
+                        "world, backend, the strategy flags, losses, step "
+                        "times, accuracy, and the port's kernel launches "
+                        "and the collectives in this process")
     return p
+
+
+def build_schedule(args: argparse.Namespace,
+                   train_loader: TrainLoader) -> Callable[[int], float]:
+    """The triangular LR over ``args.total_epochs``, advanced per optimizer
+    step: ``train_loader.optimizer_steps_per_epoch(args.grad_accum)`` steps
+    an epoch (``ddp_tpu/cli.py:760``, ``build_schedule``)."""
+    return functools.partial(
+        triangular_lr, base_lr=args.lr, num_epochs=args.total_epochs,
+        steps_per_epoch=train_loader.optimizer_steps_per_epoch(
+            args.grad_accum))
 
 
 def _check_args(args: argparse.Namespace) -> None:
@@ -108,6 +138,9 @@ def _check_args(args: argparse.Namespace) -> None:
             "--synthetic_label_noise only applies to the --synthetic "
             "dataset; it would be silently ignored for real CIFAR-10. "
             "Pass --synthetic, or drop the flag.")
+    if args.grad_accum < 1:
+        raise SystemExit(f"--grad_accum must be at least 1, not "
+                         f"{args.grad_accum}")
 
 
 def run(args: argparse.Namespace, *, data_parallel: bool = False) -> Dict:
@@ -146,14 +179,14 @@ def _train_and_evaluate(args: argparse.Namespace,
     model = get_model("vgg", device=device, generator=generator)
     train_loader = TrainLoader(train_ds, args.batch_size, world,
                                seed=args.seed)
-    lr_schedule = functools.partial(
-        triangular_lr, base_lr=args.lr, num_epochs=args.total_epochs,
-        steps_per_epoch=len(train_loader))
     trainer = Trainer(
-        model, train_loader, device=device, lr_schedule=lr_schedule,
+        model, train_loader, device=device,
+        lr_schedule=build_schedule(args, train_loader),
         sgd_config=SGDConfig(args.lr, args.momentum, args.weight_decay),
         seed=args.seed, save_every=args.save_every,
-        snapshot_path=args.snapshot_path, resume=args.resume)
+        snapshot_path=args.snapshot_path, resume=args.resume,
+        grad_accum=args.grad_accum, sync_bn=args.sync_bn,
+        shard_update=args.shard_update)
 
     start = time.time()
     trainer.train(args.total_epochs)
@@ -173,7 +206,8 @@ def _train_and_evaluate(args: argparse.Namespace,
            "eval_seconds": eval_seconds,
            "loss_history": list(trainer.loss_history),
            "step_ms": list(trainer.step_ms), "rank": rank, "world": world,
-           "backend": dist.backend()}
+           "backend": dist.backend(), "grad_accum": args.grad_accum,
+           "sync_bn": args.sync_bn, "shard_update": args.shard_update}
     if rank == 0:
         print(f"fp32 model has accuracy={accuracy:.2f}%")
         if args.result_json:

@@ -11,7 +11,7 @@ columns the JAX package's ``P(None, DATA_AXIS)`` sharding gives device r
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -29,6 +29,27 @@ def replica_columns(matrix: np.ndarray, rank: int,
                          f"{matrix.shape[-1]} columns")
     b = matrix.shape[-1] // num_replicas
     return np.ascontiguousarray(matrix[..., rank * b:(rank + 1) * b])
+
+
+def optimizer_groups(full: np.ndarray, tail: Optional[np.ndarray],
+                     grad_accum: int) -> List[np.ndarray]:
+    """A rank's ``(full [n_full, B], tail [B_tail])`` index matrices split
+    into optimizer-step groups, each ``[G, A', B']``, in order: the full
+    batches in groups of ``grad_accum`` (``[G, A, B]``), the remainder of
+    full batches as one group (``[1, rem, B]``), and the ragged tail alone
+    (``[1, 1, B_tail]``), as the JAX trainer groups them
+    (``ddp_tpu/train/trainer.py:555-575``).  At ``grad_accum`` 1 that is
+    ``[n_full, 1, B]`` and ``[1, 1, B_tail]``: one step per batch."""
+    n_groups, rem = divmod(full.shape[0], grad_accum)
+    groups = []
+    if n_groups:
+        groups.append(full[:n_groups * grad_accum].reshape(
+            n_groups, grad_accum, -1))
+    if rem:
+        groups.append(full[n_groups * grad_accum:][None])
+    if tail is not None:
+        groups.append(tail[None, None, :])
+    return groups
 
 
 class TrainLoader:
@@ -60,6 +81,17 @@ class TrainLoader:
 
     def __len__(self) -> int:
         return self.steps_per_epoch
+
+    def optimizer_steps_per_epoch(self, grad_accum: int = 1) -> int:
+        """How many optimizer steps one epoch takes under ``--grad_accum``
+        (``ddp_tpu/data/loader.py:80-94``): the full batches in groups of
+        ``grad_accum``, the last group partial, and the ragged final batch
+        always a step of its own (:func:`optimizer_groups`), so
+        ``ceil(n_full / A) + (1 if ragged else 0)``.  The LR schedule counts
+        optimizer steps, so it is built from this number."""
+        a = max(grad_accum, 1)
+        n_full, rem = divmod(len(self.samplers[0]), self.per_replica_batch)
+        return -(-n_full // a) + (1 if rem else 0)
 
     def epoch_index_matrix(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """``(full, tail)``: int32 ``full`` of shape ``[steps_full,

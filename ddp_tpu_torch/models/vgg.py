@@ -39,7 +39,8 @@ class Conv(nn.Module):
 class BNReLU(nn.Module):
     """BatchNorm2d (torch defaults) followed by ReLU, through the fused
     :func:`~ddp_tpu_torch.ops.layers.bn_relu`.  In training the running
-    buffers are updated in place."""
+    buffers are updated in place; ``sync_bn`` takes the batch statistics
+    over every rank's batch (``--sync_bn``)."""
 
     def __init__(self, num_features: int, device=None):
         super().__init__()
@@ -50,10 +51,11 @@ class BNReLU(nn.Module):
         self.register_buffer("running_mean", mean)
         self.register_buffer("running_var", var)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sync_bn: bool = False
+                ) -> torch.Tensor:
         z, new = bn_relu(x, self.weight, self.bias,
                          BatchNormState(self.running_mean, self.running_var),
-                         train=self.training)
+                         train=self.training, sync=sync_bn)
         if self.training:
             with torch.no_grad():
                 self.running_mean.copy_(new.mean)
@@ -76,7 +78,9 @@ class VGG(nn.Module):
 
     ``arch`` defaults to the reference :data:`ARCH`; the tests pass narrow
     ones.  Weights are drawn from ``generator`` (a CPU generator; seed 0 when
-    omitted) with PyTorch's default distributions and moved to ``device``."""
+    omitted) with PyTorch's default distributions and moved to ``device``.
+    ``forward(x, sync_bn=True)`` synchronises every BatchNorm layer's
+    training statistics over the process group."""
 
     def __init__(self, arch: Optional[Sequence[Union[int, str]]] = None,
                  *, device=None, generator: Optional[torch.Generator] = None):
@@ -99,12 +103,14 @@ class VGG(nn.Module):
             init_lib.linear_bias(generator, CLASSIFIER_IN, NUM_CLASSES,
                                  device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sync_bn: bool = False
+                ) -> torch.Tensor:
         i = 0
         for a in self.arch:
             if a == "M":
                 x = max_pool(x, 2, 2)
                 continue
-            x = self.backbone[f"bn{i}"](self.backbone[f"conv{i}"](x))
+            x = self.backbone[f"bn{i}"](self.backbone[f"conv{i}"](x),
+                                        sync_bn)
             i += 1
         return self.classifier(global_avg_pool(x)).float()

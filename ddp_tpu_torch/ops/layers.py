@@ -4,9 +4,14 @@
 The convolutions and matrix products go to PyTorch (cuDNN and cuBLAS on the
 card).  :func:`bn_relu` keeps the JAX package's hand-written backward as a
 :class:`torch.autograd.Function`: it recomputes the ReLU mask and x̂ from
-``x`` and reads only ``(x, dz)``.  Batch statistics are per device; the
-synchronised variant (``sync_axis`` / ``grad_axis`` in the JAX package)
-belongs to the multi-card port.
+``x`` and reads only ``(x, dz)``.  Batch statistics are per rank, or with
+``sync=True`` (``--sync_bn``, the JAX package's ``bn_sync_axis``) over the
+global batch of every rank of the process group: the centred two-pass
+statistics, each pass one all-reduce (``parallel/dist.py``), and in
+:func:`bn_relu`'s backward one all-reduce of the packed ``[dβ, dγ]`` sums.
+The returned parameter gradients stay the rank's own (local) sums: the
+step's gradient collective sums them over the ranks, as it does every other
+gradient.  Without a process group the all-reduces are the identity.
 """
 from __future__ import annotations
 
@@ -14,6 +19,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import dist
 
 _REDUCE = (0, 2, 3)  # batch and spatial dims of an NCHW activation
 
@@ -63,6 +70,42 @@ def _bn_stats(xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, float]:
     return mean, var, count
 
 
+def _sync_bn_stats(xf: torch.Tensor, mean_over_ranks
+                   ) -> Tuple[torch.Tensor, torch.Tensor, float]:
+    """The synchronised form of :func:`_bn_stats` (``ddp_tpu``'s
+    ``_bn_stats`` under a sync axis, ``ddp_tpu/ops/layers.py:177-199``):
+    centred two-pass, ``mean = Σ_r mean_r / world`` then ``var = Σ_r
+    mean_r((x - mean)²) / world``, over ``count = n * world`` elements.
+    ``mean_over_ranks(t)`` is ``Σ_r t_r / world``; the second pass waits on
+    the first's result."""
+    world = dist.world_size()
+    n = float(xf.shape[0] * xf.shape[2] * xf.shape[3])
+    mean = mean_over_ranks(xf.mean(dim=_REDUCE))
+    d = xf - _ch(mean)
+    var = mean_over_ranks((d * d).mean(dim=_REDUCE))
+    return mean, var, n * world
+
+
+def _mean_over_ranks(t: torch.Tensor) -> torch.Tensor:
+    return dist.all_reduce_sum_(t) / dist.world_size()
+
+
+class _MeanOverRanks(torch.autograd.Function):
+    """``Σ_r t_r / world`` with its transpose as backward (the cotangent
+    summed over the ranks, divided by the world): the differentiable
+    all-reduce :func:`batch_norm`'s synchronised statistics go through, so
+    each rank's ``dx`` carries the cross-rank terms of the summed
+    objective."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return _mean_over_ranks(t.clone())
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _mean_over_ranks(ct.clone())
+
+
 def _unbiased(var: torch.Tensor, count: float) -> torch.Tensor:
     return var * (count / max(count - 1.0, 1.0))
 
@@ -79,13 +122,17 @@ def _blend_running_stats(state: BatchNormState, batch_mean: torch.Tensor,
 
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                state: BatchNormState, *, train: bool, momentum: float = 0.1,
-               eps: float = 1e-5) -> Tuple[torch.Tensor, BatchNormState]:
+               eps: float = 1e-5, sync: bool = False
+               ) -> Tuple[torch.Tensor, BatchNormState]:
     """BatchNorm2d with torch semantics: training normalises with the biased
     batch variance and blends the unbiased one into the running variance;
-    eval normalises with the running statistics.  Returns ``(y, new
-    state)``; the caller stores the state."""
+    eval normalises with the running statistics.  With ``sync`` the
+    training statistics are those of every rank's batch together (autograd
+    runs through their all-reduces).  Returns ``(y, new state)``; the caller
+    stores the state."""
     if train:
-        mean, var, count = _bn_stats(x.float())
+        mean, var, count = (_sync_bn_stats(x.float(), _MeanOverRanks.apply)
+                            if sync else _bn_stats(x.float()))
         new_state = _blend_running_stats(state, mean.detach(),
                                          _unbiased(var, count).detach(),
                                          momentum)
@@ -106,17 +153,28 @@ class _BNReLUTrain(torch.autograd.Function):
     statistics are not differentiable (they only feed the running buffers).
     Backward recomputes x̂ and the ReLU mask (x̂·γ+β > 0, the forward's own
     expression) from the saved ``x``, so it reads only ``(x, dz)``: one
-    reduction pass for dβ and dγ and one elementwise pass for dx."""
+    reduction pass for dβ and dγ and one elementwise pass for dx.
+
+    With ``sync`` (``_bn_relu_bwd`` under a sync axis,
+    ``ddp_tpu/ops/layers.py:241-283``) the statistics are the global
+    batch's, and ``dx``'s mean-subtraction terms need the dβ/dγ sums over
+    that batch: one all-reduce of the packed local sums.  The returned dγ
+    and dβ stay the local sums, the gradient of the rank's own share of the
+    loss: the step's gradient collective sums them over the ranks like any
+    other gradient, where returning the summed ones would count them
+    ``world`` times."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps: float):
+    def forward(ctx, x, scale, bias, eps: float, sync: bool):
         xf = x.float()
-        mean, var, count = _bn_stats(xf)
+        mean, var, count = (_sync_bn_stats(xf, _mean_over_ranks) if sync
+                            else _bn_stats(xf))
         inv = torch.rsqrt(var + eps)
         xhat = (xf - _ch(mean)) * _ch(inv)
         z = torch.clamp(xhat * _ch(scale) + _ch(bias), min=0.0).to(x.dtype)
         unbiased = _unbiased(var, count)
         ctx.save_for_backward(x, mean, inv, scale, bias)
+        ctx.sync, ctx.count = sync, count
         ctx.mark_non_differentiable(mean, unbiased)
         return z, mean, unbiased
 
@@ -124,27 +182,32 @@ class _BNReLUTrain(torch.autograd.Function):
     def backward(ctx, ct_z, _ct_mean, _ct_unbiased):
         x, mean, inv, scale, bias = ctx.saved_tensors
         xf = x.float()
-        count = float(xf.shape[0] * xf.shape[2] * xf.shape[3])
+        count = ctx.count
         xhat = (xf - _ch(mean)) * _ch(inv)
         dy = torch.where(xhat * _ch(scale) + _ch(bias) > 0.0, ct_z.float(),
                          torch.zeros((), dtype=torch.float32,
                                      device=x.device))
         dbeta = dy.sum(dim=_REDUCE)
         dgamma = (dy * xhat).sum(dim=_REDUCE)
-        dx = _ch(inv) * (dy * _ch(scale) - _ch(dbeta * scale) / count
-                         - xhat * _ch(dgamma * scale) / count)
-        return dx.to(x.dtype), dgamma, dbeta, None
+        sbeta, sgamma = dbeta, dgamma
+        if ctx.sync:
+            sbeta, sgamma = dist.all_reduce_sum_(torch.stack([dbeta, dgamma]))
+        dx = _ch(inv) * (dy * _ch(scale) - _ch(sbeta * scale) / count
+                         - xhat * _ch(sgamma * scale) / count)
+        return dx.to(x.dtype), dgamma, dbeta, None, None
 
 
 def bn_relu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             state: BatchNormState, *, train: bool, momentum: float = 0.1,
-            eps: float = 1e-5) -> Tuple[torch.Tensor, BatchNormState]:
+            eps: float = 1e-5, sync: bool = False
+            ) -> Tuple[torch.Tensor, BatchNormState]:
     """``relu(batch_norm(x))`` as one op, with :class:`_BNReLUTrain`'s
-    backward in training.  Eval delegates to :func:`batch_norm` so its
-    numbers are those of the unfused composition."""
+    backward in training (``sync``: statistics over every rank's batch).
+    Eval delegates to :func:`batch_norm` so its numbers are those of the
+    unfused composition."""
     if not train:
         y, _ = batch_norm(x, scale, bias, state, train=False,
                           momentum=momentum, eps=eps)
         return torch.relu(y), state
-    z, batch_mean, unbiased = _BNReLUTrain.apply(x, scale, bias, eps)
+    z, batch_mean, unbiased = _BNReLUTrain.apply(x, scale, bias, eps, sync)
     return z, _blend_running_stats(state, batch_mean, unbiased, momentum)

@@ -11,10 +11,15 @@ coordinator.  The backend is NCCL on the card and gloo on the CPU; nothing
 falls back from one to the other.
 
 Each of the step's collectives is one ``all_reduce`` (or one ``broadcast``)
-of one flat buffer.  They run whenever a process group exists, at world 1
-too (the only world of a one-card machine), and are the identity without
-one.  ``collective_calls`` counts the collectives issued, by kind, in this
-process (as each kernel wrapper counts its launches).
+of one flat buffer; under ``--shard_update`` the gradients' all-reduce
+becomes one ``reduce_scatter`` and one ``all_gather`` of the parameters
+(:func:`reduce_scatter_flat`, :func:`all_gather_flat`), and under
+``--sync_bn`` each BatchNorm layer adds small all-reduces of its statistics
+(:func:`all_reduce_sum_`).  They run whenever a process group exists, at
+world 1 too (the only world of a one-card machine), and are the identity
+without one.  ``collective_calls`` counts the collectives issued, by kind
+(``all_reduce``, ``broadcast``, ``reduce_scatter``, ``all_gather``), in
+this process (as each kernel wrapper counts its launches).
 """
 from __future__ import annotations
 
@@ -157,12 +162,43 @@ def broadcast_state(model: nn.Module,
     torch._foreach_copy_(tensors, _views(flat, tensors))
 
 
-def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
+def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
     """``t`` summed over the ranks in place (one ``all_reduce``); ``t``
-    itself without a group."""
+    itself without a group.  The epoch's loss and eval sums and sync-BN's
+    statistics (``ops/layers.py``) go through it."""
     if tdist.is_initialized():
         _all_reduce_sum(t)
     return t
+
+
+def reduce_scatter_flat(flat: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of ``flat`` summed over the ranks: one
+    ``reduce_scatter`` (SUM) of the 1-D ``flat``, whose length must be a
+    multiple of the world (pad it), into a new buffer of ``1/world`` of it,
+    elements ``[rank * s, (rank + 1) * s)``.  ``flat`` itself without a
+    group (the JAX package's ``psum_scatter``, ``ddp_tpu/train/zero.py``)."""
+    if not tdist.is_initialized():
+        return flat
+    world = tdist.get_world_size()
+    if flat.dim() != 1 or flat.numel() % world:
+        raise ValueError(f"reduce_scatter_flat: {tuple(flat.shape)} is not "
+                         f"a flat buffer of a multiple of {world} elements")
+    out = flat.new_empty(flat.numel() // world)
+    tdist.reduce_scatter_tensor(out, flat, op=tdist.ReduceOp.SUM)
+    collective_calls["reduce_scatter"] += 1
+    return out
+
+
+def all_gather_flat(shard: torch.Tensor) -> torch.Tensor:
+    """Every rank's 1-D ``shard`` side by side, in rank order: one
+    ``all_gather`` into a new buffer of ``world`` times its length.
+    ``shard`` itself without a group (``lax.all_gather(tiled=True)``)."""
+    if not tdist.is_initialized():
+        return shard
+    out = shard.new_empty(shard.numel() * tdist.get_world_size())
+    tdist.all_gather_into_tensor(out, shard)
+    collective_calls["all_gather"] += 1
+    return out
 
 
 def free_port() -> int:

@@ -8,12 +8,14 @@ runs as one rank of a process group (its rendezvous environment set, as
 ``OUT_DIR/rank{r}.pt``; :func:`run` launches the ranks and reads their
 results.  The spec (:func:`spec`) holds the model's architecture and
 weights, the datasets, the per-rank batch, the learning rate and seed,
-whether to crop and flip, the device and an optional backend.  Crop/flip
-draws come from numpy, keyed on ``(seed, rank, step)``, so a run on the
-card and a run on the CPU draw the same.  Each rank runs its columns of
-the epoch (the full batches, then the ragged tail) through
-:func:`~ddp_tpu_torch.train.epoch.make_train_epoch` and of the test set
-through :func:`~ddp_tpu_torch.train.epoch.make_eval_epoch`.
+whether to crop and flip, the device, an optional backend and the strategy
+flags (``grad_accum``, ``sync_bn``, ``shard_update``).  Crop/flip draws come
+from numpy, keyed on ``(seed, rank, step)`` and, for micro-batch k > 0,
+``k`` after them, so a run on the card and a run on the CPU draw the same.
+Each rank runs its columns of the epoch in optimizer-step groups (the full
+batches, then the ragged tail; ``data/loader.py::optimizer_groups``)
+through :func:`~ddp_tpu_torch.train.epoch.make_train_epoch` and of the test
+set through :func:`~ddp_tpu_torch.train.epoch.make_eval_epoch`.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from ..data.cifar10 import Dataset
-from ..data.loader import EvalLoader, TrainLoader
+from ..data.loader import EvalLoader, TrainLoader, optimizer_groups
 from ..data.resident import ResidentData
 from ..device import resolve_device, set_tf32
 from ..models.vgg import VGG
@@ -35,12 +37,15 @@ from ..ops.gather import gather_batch
 from ..optim import SGDConfig, triangular_lr
 from ..train.epoch import make_eval_epoch, make_train_epoch
 from ..train.step import init_train_state
+from ..train.zero import init_opt_shard, opt_shard_to_list
 from . import dist
 
 
 def spec(arch: Sequence[Union[int, str]], state_dict: Dict[str, torch.Tensor],
          train: Dataset, test: Dataset, *, batch: int, lr: float, seed: int,
-         augment: bool, device: str, backend: Optional[str] = None) -> Dict:
+         augment: bool, device: str, backend: Optional[str] = None,
+         grad_accum: int = 1, sync_bn: bool = False,
+         shard_update: bool = False) -> Dict:
     """The drill's input as a dict of tensors and plain values."""
     return {"arch": list(arch),
             "state_dict": {k: v.detach().cpu().clone()
@@ -50,7 +55,18 @@ def spec(arch: Sequence[Union[int, str]], state_dict: Dict[str, torch.Tensor],
             "test_images": torch.from_numpy(np.array(test.images)),
             "test_labels": torch.from_numpy(np.array(test.labels)),
             "batch": batch, "lr": lr, "seed": seed, "augment": augment,
-            "device": device, "backend": backend or ""}
+            "device": device, "backend": backend or "",
+            "grad_accum": grad_accum, "sync_bn": sync_bn,
+            "shard_update": shard_update}
+
+
+def draws_np(seed: int, rank: int, step: int, n: int, micro: int = 0):
+    """The drill's crop/flip draws of micro-batch ``micro`` of optimizer
+    step ``step`` on rank ``rank``, as numpy ``(ys, xs, flip)``."""
+    rng = np.random.default_rng([seed, rank, step] +
+                                ([micro] if micro else []))
+    off = rng.integers(0, 9, (2, n))
+    return off[0], off[1], rng.random(n) < 0.5
 
 
 def _dataset(s: Dict, which: str) -> Dataset:
@@ -72,27 +88,30 @@ def rank_main(spec_path: str, out_dir: str) -> None:
         train, test = _dataset(s, "train"), _dataset(s, "test")
         loader = TrainLoader(train, s["batch"], world, seed=s["seed"])
         loader.set_epoch(0)
-        sched = functools.partial(triangular_lr, base_lr=s["lr"],
-                                  num_epochs=1, steps_per_epoch=len(loader))
+        sched = functools.partial(
+            triangular_lr, base_lr=s["lr"], num_epochs=1,
+            steps_per_epoch=loader.optimizer_steps_per_epoch(
+                s["grad_accum"]))
         state = init_train_state(model)
         dist.broadcast_state(model, state.momentum)
+        if s["shard_update"]:
+            state.momentum = init_opt_shard(list(model.parameters()))
         run = make_train_epoch(model, SGDConfig(lr=s["lr"]), sched,
-                               device_augment=s["augment"])
+                               device_augment=s["augment"],
+                               sync_bn=s["sync_bn"],
+                               shard_update=s["shard_update"])
 
-        def draws(step: int, n: int):
-            rng = np.random.default_rng([s["seed"], rank, step])
-            off = torch.from_numpy(rng.integers(0, 9, (2, n))).to(device)
-            flip = torch.from_numpy(rng.random(n) < 0.5).to(device)
-            return off[0], off[1], flip
+        def draws(step: int, n: int, micro: int = 0):
+            return tuple(torch.from_numpy(d).to(device) for d in
+                         draws_np(s["seed"], rank, step, n, micro))
 
         res = ResidentData(train, device)
         full, tail = loader.rank_index_matrix(rank)
         launches = gather_batch.launches
         parts = [run(state, res.images, res.labels,
                      torch.from_numpy(rows).to(device), draws)
-                 for rows in [full] + ([tail[None]] if tail is not None
-                                       else [])]
-        losses = dist.sum_over_ranks(torch.cat(parts))
+                 for rows in optimizer_groups(full, tail, s["grad_accum"])]
+        losses = dist.all_reduce_sum_(torch.cat(parts))
         train_launches = gather_batch.launches - launches
 
         idx, mask = EvalLoader(test, s["batch"], world).rank_index_matrix(
@@ -102,12 +121,17 @@ def rank_main(spec_path: str, out_dir: str) -> None:
         correct, total = make_eval_epoch(model)(
             tres.images, tres.labels, torch.from_numpy(idx).to(device),
             torch.from_numpy(mask).to(device))
+        momentum = state.momentum
+        if s["shard_update"]:
+            momentum = opt_shard_to_list(list(model.parameters()),
+                                         state.momentum)
         torch.save({
             "rank": rank, "world": world, "backend": dist.backend(),
             "device": str(device), "losses": losses.cpu(),
             "state_dict": {k: v.cpu() for k, v in
                            model.state_dict().items()},
-            "momentum": [m.cpu() for m in state.momentum],
+            "momentum": [m.cpu() for m in momentum],
+            "momentum_numel": sum(m.numel() for m in state.momentum),
             "steps": state.step, "correct": float(correct),
             "total": float(total), "train_launches": train_launches,
             "eval_launches": gather_batch.launches - launches,

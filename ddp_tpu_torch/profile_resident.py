@@ -20,7 +20,7 @@ import os
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
 from .data import TrainLoader, synthetic
 from .device import resolve_device, set_tf32
@@ -51,13 +51,17 @@ GROUPS = (("nccl", "collectives (NCCL)"),
 def device_events(prof) -> dict:
     """``{name: (device ms, count)}`` of the device-side events of a
     ``torch.profiler`` profile: the kernels, and the copies and fills
-    (named ``Memcpy ...`` and ``Memset ...``)."""
+    (named ``Memcpy ...`` and ``Memset ...``).  A scheduled profile's step
+    ranges (``ProfilerStep*`` in ``key_averages``), which the device
+    timeline also carries as annotations spanning the step's kernels, are
+    not device work."""
     out = {}
     for ev in prof.key_averages():
         dev = getattr(ev, "self_device_time_total", None)
         if dev is None:
             dev = ev.self_cuda_time_total
-        if dev > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+        if dev > 0 and ev.device_type == torch.autograd.DeviceType.CUDA \
+                and not ev.key.startswith("ProfilerStep"):
             ms, count = out.get(ev.key, (0.0, 0))
             out[ev.key] = (ms + dev / 1e3, count + ev.count)
     return out
@@ -119,11 +123,15 @@ def _profile(args: argparse.Namespace, device: torch.device) -> dict:
         trainer.train_epoch(trainer.state, res.images, res.labels, rows[a:b],
                             trainer.draws)
 
-    run(0, args.warmup)
-    torch.cuda.synchronize()
     w = args.warmup
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # The warm-up steps run in the profiler's own warm-up phase, traced and
+    # dropped: a session can miss the device work at its start (ROADMAP C3),
+    # and the measured window then starts after it.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        run(0, w)
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         run(w, w + args.steps)
         torch.cuda.synchronize()

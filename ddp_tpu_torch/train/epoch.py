@@ -1,12 +1,14 @@
-"""Device-resident epochs (counterpart of ``ddp_tpu/train/epoch.py``).
+"""Device-resident epochs (counterpart of ``ddp_tpu/train/epoch.py`` and of
+the resident epochs of ``ddp_tpu/train/zero.py``).
 
 The dataset stays on the card (``data/resident.py``); an epoch uploads its
-int32 index matrix once and runs one step per row.  The JAX package runs the
-epoch as one ``lax.scan`` program; here it is a Python loop that enqueues
-each step's kernels without waiting for the device: losses and eval counters
-stay on the device until the epoch ends.  In a data-parallel run each rank
-runs its own columns of the matrices (``data/loader.py::replica_columns``),
-and the counters are summed over the ranks once, at the end.
+int32 index matrix once and runs one optimizer step per group of its
+micro-batch rows.  The JAX package runs the epoch as one ``lax.scan``
+program; here it is a Python loop that enqueues each step's kernels without
+waiting for the device: losses and eval counters stay on the device until
+the epoch ends.  In a data-parallel run each rank runs its own columns of
+the matrices (``data/loader.py::replica_columns``), and the counters are
+summed over the ranks once, at the end.
 """
 from __future__ import annotations
 
@@ -19,43 +21,57 @@ from ..data.device_augment import Draws
 from ..ops.gather import gather_batch
 from ..optim import sgd as sgd_lib
 from ..parallel import dist
-from .step import (TrainState, make_eval_apply, make_group_update,
-                   make_loss_and_grads, micro_from_table)
+from .step import (TrainState, make_accum_grads, make_eval_apply,
+                   make_group_update, make_local_grads, micro_from_table)
+from .zero import make_zero_update
 
-DrawFn = Callable[[int, int], Draws]  # (global step, batch size) -> draws
+# (optimizer step, batch size, micro-batch) -> draws
+DrawFn = Callable[..., Draws]
 
 
 def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
                      lr_schedule: Callable[[int], float],
-                     device_augment: bool = False):
+                     device_augment: bool = False, *, sync_bn: bool = False,
+                     shard_update: bool = False):
     """``epoch_fn(state, images, labels, idx, draws=None, events=None) ->
-    losses``: one step per row of the device index matrix ``idx``
-    ``[steps, B]``, over the resident ``images``/``labels``.
+    losses``: one optimizer step per group of the device index tensor
+    ``idx``, over the resident ``images``/``labels``.  ``idx`` is
+    ``[G, A, B]``, G groups of A micro-batch rows
+    (``data/loader.py::optimizer_groups``; the counterpart of
+    ``make_train_epoch_accum``, ``ddp_tpu/train/epoch.py:87-140``), or
+    ``[steps, B]``, one row a step.
 
-    ``draws(step, B)`` gives each step's crop/flip draws under
-    ``device_augment``.  ``losses`` is the ``[steps]`` tensor of this
-    rank's shares of the per-step global-mean losses, on the device (at
-    world 1, the losses themselves): the caller sums it over the ranks once
-    an epoch (:func:`~ddp_tpu_torch.parallel.dist.sum_over_ranks`), as the
-    JAX epoch returns the global means.  When ``events`` is a list, a CUDA
+    Each step runs :func:`~ddp_tpu_torch.train.step.make_accum_grads` over
+    its rows, then the update stage: the replicated one, or with
+    ``shard_update`` the sharded one (``train/zero.py``, the counterparts of
+    ``make_train_epoch_zero`` and ``make_train_epoch_zero_accum``).
+    ``sync_bn`` synchronises BatchNorm's statistics over the ranks.
+    ``draws(step, B, micro=k)`` gives micro-batch k's crop/flip draws under
+    ``device_augment``.  ``losses`` is the ``[G]`` tensor of this rank's
+    shares of the per-step global-mean losses (each the mean over the
+    step's micro-batches), on the device (at world 1, the losses
+    themselves): the caller sums it over the ranks once an epoch
+    (:func:`~ddp_tpu_torch.parallel.dist.all_reduce_sum_`), as the JAX
+    epoch returns the global means.  When ``events`` is a list, a CUDA
     event recorded after each step is appended to it (step timing without a
-    host sync).  The trainer calls this once for the full batches and once
-    for the ragged tail, as the JAX trainer does."""
-    loss_and_grads = make_loss_and_grads(model)
-    update = make_group_update(sgd_config, lr_schedule)
+    host sync).  The trainer calls this once per shape of group, as the JAX
+    trainer does."""
+    local_grads = make_local_grads(model, sync_bn)
+    update = (make_zero_update if shard_update else make_group_update)(
+        sgd_config, lr_schedule)
 
     def epoch_fn(state: TrainState, images: torch.Tensor,
                  labels: torch.Tensor, idx: torch.Tensor,
                  draws: Optional[DrawFn] = None,
                  events: Optional[List[torch.cuda.Event]] = None
                  ) -> torch.Tensor:
-        get_micro = micro_from_table(images, labels, device_augment)
+        accum = make_accum_grads(
+            local_grads, micro_from_table(images, labels, device_augment))
         losses = []
-        for idx_row in idx:
-            aug = draws(state.step, idx_row.shape[0]) if device_augment \
-                else None
-            x, y = get_micro(aug, idx_row)
-            loss, grads = loss_and_grads(x, y)
+        for group in (idx[:, None] if idx.dim() == 2 else idx):
+            loss, grads = accum(
+                group, lambda k, n: draws(state.step, n, micro=k)
+                if device_augment else None)
             update(state, grads)
             losses.append(loss)
             if events is not None:
@@ -87,7 +103,7 @@ def make_eval_epoch(model: nn.Module):
             hit = (apply_fn(x).argmax(dim=-1) == y).float()
             correct += (hit * mask_row).sum()
             total += mask_row.sum()
-        counts = dist.sum_over_ranks(torch.stack([correct, total]))
+        counts = dist.all_reduce_sum_(torch.stack([correct, total]))
         return counts[0], counts[1]
 
     return eval_fn

@@ -1,13 +1,17 @@
 """The per-rank train and eval steps (counterpart of
 ``ddp_tpu/train/step.py``).
 
-One step on each rank: the rank's batch from the resident table, cropped,
+One optimizer step on each rank: for each of its micro-batches (one, or
+``--grad_accum`` A), the rank's batch from the resident table, cropped,
 flipped and scaled u8/255 by one kernel (``ops/gather.py::gather_batch``),
 forward in training mode with BatchNorm on the rank's own batch statistics
-(the reference's unsynced BN, multigpu.py:127), the rank's share
-``ce_sum / (count * world)`` of the global-mean loss, backward, one
-all-reduce of the gradients and one of BatchNorm's running buffers
-(``parallel/dist.py``), and the SGD update at ``lr_schedule(step)``.
+(the reference's unsynced BN, multigpu.py:127; ``--sync_bn`` takes them
+over every rank's batch), the rank's share ``ce_sum / (count * world)`` of
+the global-mean loss, backward; the micro-batches' gradients summed on the
+rank and divided by A (:func:`make_accum_grads`); then the update stage:
+one all-reduce of the gradients and one of BatchNorm's running buffers
+(``parallel/dist.py``) and the SGD update at ``lr_schedule(step)``
+(:func:`make_group_update`), or the sharded update of ``train/zero.py``.
 PyTorch runs it eagerly, one process per rank, where the JAX package runs
 one ``shard_map`` program over the mesh.  The forward updates the running
 buffers in place (the JAX package returns them as new state).  Without a
@@ -49,8 +53,10 @@ def _as_input(x: torch.Tensor) -> torch.Tensor:
 class TrainState:
     """What evolves across steps.  ``model`` holds the weights and
     BatchNorm buffers; ``momentum`` is parallel to
-    ``list(model.parameters())``; ``step`` is the host's count of optimizer
-    steps (it drives the LR schedule without a device read)."""
+    ``list(model.parameters())``, or under ``--shard_update`` the one flat
+    slice of it this rank updates (``train/zero.py``); ``step`` is the
+    host's count of optimizer steps (it drives the LR schedule without a
+    device read)."""
     model: nn.Module
     momentum: List[torch.Tensor]
     step: int = 0
@@ -60,44 +66,82 @@ def init_train_state(model: nn.Module) -> TrainState:
     return TrainState(model, sgd_lib.init(model.parameters()), 0)
 
 
-def make_loss_and_grads(model: nn.Module):
+def make_local_grads(model: nn.Module, sync_bn: bool = False):
     """``fn(images [B,32,32,3], labels [B]) -> (loss, grads)`` on this
-    rank's batch: the forward in training mode, the backward of the rank's
-    share ``ce_sum / (count * world)`` of the global-mean loss, the
-    gradients summed over the ranks, and BatchNorm's running buffers
-    averaged over them.
+    rank's batch, with no collective but sync-BN's: the forward in training
+    mode (BatchNorm over every rank's batch with ``sync_bn``), and the
+    gradients of the rank's share ``ce_sum / (count * world)`` of the
+    global-mean loss (the JAX package's local objective,
+    ``ddp_tpu/train/zero.py::_make_local_grads``).
 
     Every rank's batch has the same ``count`` (the sampler pads the shards
     to one length), so the shares sum to ``psum(ce_sum) / psum(count)``
-    and the summed gradients are that loss's gradient
-    (``ddp_tpu/train/step.py:107``).  ``loss`` is the rank's share, on the
-    device and detached: :func:`~ddp_tpu_torch.parallel.dist.sum_over_ranks`
-    of it is the global-mean loss.  The gradients come from
-    ``torch.autograd.grad``, so a ``DistributedDataParallel`` wrapper, whose
-    hooks fire in ``.backward()``, would never see them: the all-reduce is
-    explicit, as the JAX package's is.  Build it after the process group
-    exists: it reads the world size once."""
+    and the gradients summed over the ranks are that loss's gradient
+    (``ddp_tpu/train/step.py:107``): the update stage sums them.  ``loss``
+    is the rank's share, on the device and detached:
+    :func:`~ddp_tpu_torch.parallel.dist.all_reduce_sum_` of it is the
+    global-mean loss.  The gradients come from ``torch.autograd.grad``, so
+    a ``DistributedDataParallel`` wrapper, whose hooks fire in
+    ``.backward()``, would never see them: the collectives are explicit, as
+    the JAX package's are.  Build it after the process group exists: it
+    reads the world size once."""
     params = list(model.parameters())
     world = dist.world_size()
 
-    def loss_and_grads(images: torch.Tensor, labels: torch.Tensor):
+    def local_grads(images: torch.Tensor, labels: torch.Tensor):
         model.train()
-        logits = model(_as_input(images))
+        logits = model(_as_input(images), sync_bn=sync_bn)
         ce_sum, count = cross_entropy_sum_count(logits, labels)
         loss = ce_sum / (count * world)
-        grads = dist.all_reduce_grads(torch.autograd.grad(loss, params))
-        dist.average_buffers(model)
-        return loss.detach(), grads
+        return loss.detach(), list(torch.autograd.grad(loss, params))
 
-    return loss_and_grads
+    return local_grads
+
+
+def make_accum_grads(local_grads, get_micro):
+    """``accum(idx_group [A, B], draws) -> (loss, grads)``: one optimizer
+    step's gradients over its A micro-batches in order (the counterpart of
+    ``ddp_tpu/train/step.py::make_accum_scan``), summed on the rank and
+    divided by A, with ``loss`` the mean of the micro-batches' shares.
+    ``draws(micro, B)`` gives micro-batch ``micro``'s crop/flip draws (or
+    None).  The BatchNorm buffers chain through the micro-batches, each
+    forward normalising with its own statistics, as torch does under
+    accumulation.  No collective: the update stage reduces the gradients
+    once a step, torch's ``no_sync`` (the JAX scan all-reduces each
+    micro-batch's; the sums agree up to rounding).  At A = 1 the step's
+    arithmetic is the single micro-batch's, op for op."""
+
+    def accum(idx_group: torch.Tensor,
+              draws: Callable[[int, int], Optional[Draws]]):
+        loss, grads = None, None
+        for k, idx_row in enumerate(idx_group):
+            x, y = get_micro(draws(k, idx_row.shape[0]), idx_row)
+            micro_loss, micro_grads = local_grads(x, y)
+            if grads is None:
+                loss, grads = micro_loss, micro_grads
+            else:
+                loss = loss + micro_loss
+                grads = torch._foreach_add(grads, micro_grads)
+        a = idx_group.shape[0]
+        if a > 1:
+            loss, grads = loss / a, torch._foreach_div(grads, a)
+        return loss, grads
+
+    return accum
 
 
 def make_group_update(sgd_config: sgd_lib.SGDConfig,
                       lr_schedule: Callable[[int], float]):
-    """``update(state, grads)``: SGD at ``lr_schedule(state.step)``, in
-    place, then ``state.step += 1``."""
+    """``update(state, grads)``, the replicated update stage: the rank's
+    gradients summed over the ranks (one all-reduce), BatchNorm's running
+    buffers averaged over them (one all-reduce), SGD at
+    ``lr_schedule(state.step)`` in place, then ``state.step += 1``.  The
+    sharded stage, ``train/zero.py::make_zero_update``, takes the same
+    arguments."""
 
     def update(state: TrainState, grads) -> None:
+        grads = dist.all_reduce_grads(grads)
+        dist.average_buffers(state.model)
         sgd_lib.apply_updates(list(state.model.parameters()), list(grads),
                               state.momentum, lr_schedule(state.step),
                               sgd_config)

@@ -1,9 +1,9 @@
 """The resident epoch loop (counterpart of the resident half of
 ``ddp_tpu/train/trainer.py``): the dataset uploaded once, one epoch of
-device steps per call, each epoch's losses summed over the ranks and read
-to the host once at its end and printed, a checkpoint every ``save_every``
-epochs (written by rank 0), and ``resume`` from one at an epoch
-boundary."""
+device steps per call (one optimizer step per group of ``grad_accum``
+micro-batches), each epoch's losses summed over the ranks and read to the
+host once at its end and printed, a checkpoint every ``save_every`` epochs
+(written by rank 0), and ``resume`` from one at an epoch boundary."""
 from __future__ import annotations
 
 import os
@@ -15,23 +15,29 @@ import torch
 from torch import nn
 
 from ..data.device_augment import Draws, make_draws
-from ..data.loader import TrainLoader
+from ..data.loader import TrainLoader, optimizer_groups
 from ..data.resident import ResidentData
 from ..optim.sgd import SGDConfig
 from ..parallel import dist
 from . import checkpoint as ckpt_lib
 from .epoch import make_train_epoch
 from .step import init_train_state
+from .zero import list_to_opt_shard, opt_shard_to_list
 
 
-def draw_seed(seed: int, epoch: int, step: int, rank: int = 0) -> int:
-    """The augmentation generator's seed for one step of one rank, keyed on
-    ``(seed, epoch, step)`` and, for rank r > 0, ``r`` after them, so a
-    step's crops and flips do not depend on what ran before it and differ
-    between ranks (the JAX step's ``fold_in(rng, axis_index)``,
-    ``ddp_tpu/train/step.py:298``).  Rank 0 keeps the single-device key, so
-    a world-1 run draws what ``singlegpu`` draws."""
-    key = [seed, epoch, step] + ([rank] if rank else [])
+def draw_seed(seed: int, epoch: int, step: int, rank: int = 0,
+              micro: int = 0) -> int:
+    """The augmentation generator's seed for micro-batch ``micro`` of
+    optimizer step ``step`` of one rank, keyed on ``(seed, epoch, step)``
+    and, for rank r > 0 or micro-batch k > 0, ``r`` and then ``k`` after
+    them, so a micro-batch's crops and flips do not depend on what ran
+    before it and differ between ranks (the JAX step's ``fold_in(rng,
+    axis_index)``, ``ddp_tpu/train/step.py:298``) and between micro-batches
+    (``make_accum_scan``'s ``fold_in(rng, k)``).  Rank 0's micro-batch 0
+    keeps the single-device key, so a world-1 run without accumulation
+    draws what ``singlegpu`` draws."""
+    key = [seed, epoch, step] + ([rank] if rank or micro else []) + \
+        ([micro] if micro else [])
     state = np.random.SeedSequence(key).generate_state(1, np.uint64)
     return int(state[0]) & ((1 << 63) - 1)
 
@@ -41,12 +47,16 @@ class Trainer:
     this process's rank of the process group (world 1 without one).
 
     Each rank runs its columns of the epoch's index matrix
-    (``train_loader.num_replicas`` must be the world size).  Each batch is
-    cropped and flipped on the device (resident mode implies device
-    augmentation, as in the JAX CLI) with draws from a device
-    :class:`torch.Generator` seeded by :func:`draw_seed`.
-    After :meth:`train`, ``loss_history`` holds every step's global-mean
-    loss, the same on every rank, and, on a CUDA device, ``step_ms`` every
+    (``train_loader.num_replicas`` must be the world size), grouped into
+    optimizer steps of ``grad_accum`` micro-batches
+    (``data/loader.py::optimizer_groups``).  Each micro-batch is cropped and
+    flipped on the device (resident mode implies device augmentation, as in
+    the JAX CLI) with draws from a device :class:`torch.Generator` seeded by
+    :func:`draw_seed`.  ``sync_bn`` synchronises BatchNorm's statistics over
+    the ranks; ``shard_update`` shards the weight update (``train/zero.py``;
+    ``state.momentum`` is then the rank's flat slice).  After :meth:`train`,
+    ``loss_history`` holds every optimizer step's global-mean loss, the
+    same on every rank, and, on a CUDA device, ``step_ms`` every optimizer
     step's device time on this rank.
 
     Every epoch with ``epoch % save_every == 0`` (epoch 0 included, as in
@@ -56,7 +66,9 @@ class Trainer:
     which restores the weights, BatchNorm buffers, momentum and step, and
     training starts at the file's resume position (the epoch after the
     saved one); a missing file starts fresh.  Either way rank 0's state is
-    then broadcast to every rank."""
+    then broadcast to every rank, and only then, under ``shard_update``, is
+    the momentum cut to each rank's slice.  A checkpoint always holds the
+    per-parameter momentum."""
 
     def __init__(self, model: nn.Module, train_loader: TrainLoader, *,
                  device: torch.device,
@@ -64,7 +76,8 @@ class Trainer:
                  sgd_config: SGDConfig = SGDConfig(), seed: int = 0,
                  save_every: int = 1,
                  snapshot_path: Optional[str] = "checkpoint.pt",
-                 resume: bool = False):
+                 resume: bool = False, grad_accum: int = 1,
+                 sync_bn: bool = False, shard_update: bool = False):
         if train_loader.num_replicas != dist.world_size():
             raise ValueError(f"the train loader has "
                              f"{train_loader.num_replicas} replicas; the "
@@ -75,10 +88,13 @@ class Trainer:
         self.seed = seed
         self.save_every = save_every
         self.snapshot_path = snapshot_path
+        self.grad_accum = grad_accum
+        self.shard_update = shard_update
         self.resident = ResidentData(train_loader.dataset, device)
         self.state = init_train_state(model)
-        self.train_epoch = make_train_epoch(model, sgd_config, lr_schedule,
-                                            device_augment=True)
+        self.train_epoch = make_train_epoch(
+            model, sgd_config, lr_schedule, device_augment=True,
+            sync_bn=sync_bn, shard_update=shard_update)
         self._generator = torch.Generator(device=device)
         self._epoch = 0
         self.start_epoch = 0
@@ -87,6 +103,8 @@ class Trainer:
         if resume and snapshot_path and os.path.exists(snapshot_path):
             self._resume(snapshot_path)
         dist.broadcast_state(self.state.model, self.state.momentum)
+        if shard_update:
+            self.state.momentum = list_to_opt_shard(self.state.momentum)
 
     def _resume(self, path: str) -> None:
         ckpt = ckpt_lib.load_checkpoint(path)
@@ -107,20 +125,20 @@ class Trainer:
         self.state.step = ckpt.step
         print(f"Resuming training from snapshot at Epoch {ckpt.epoch}")
 
-    def _save(self, epoch: int) -> None:
+    def _save(self, epoch: int, momentum: List[torch.Tensor]) -> None:
         data_state = {"version": 1, "epoch": epoch + 1, "offset": 0,
                       "seed": self.seed, "rng_folds": 0}
         ckpt_lib.save_checkpoint(self.snapshot_path, self.state.model,
-                                 self.state.momentum, self.state.step, epoch,
+                                 momentum, self.state.step, epoch,
                                  data_state=data_state)
         print(f"Epoch {epoch} | Training checkpoint saved at "
               f"{self.snapshot_path}")
 
-    def draws(self, step: int, n: int) -> Draws:
-        """This rank's crop/flip draws of global step ``step`` for ``n``
-        images."""
+    def draws(self, step: int, n: int, micro: int = 0) -> Draws:
+        """This rank's crop/flip draws of micro-batch ``micro`` of optimizer
+        step ``step`` for ``n`` images."""
         self._generator.manual_seed(draw_seed(self.seed, self._epoch, step,
-                                              self.rank))
+                                              self.rank, micro))
         return make_draws(self._generator, n, self.device)
 
     def _run_epoch(self, epoch: int) -> None:
@@ -134,13 +152,11 @@ class Trainer:
         if self.device.type == "cuda":
             events = [torch.cuda.Event(enable_timing=True)]
             events[0].record()
-        parts = []
-        for idx in ([full] if full.shape[0] else []) + \
-                ([tail[None]] if tail is not None else []):
-            parts.append(self.train_epoch(
-                self.state, self.resident.images, self.resident.labels,
-                torch.from_numpy(idx).to(self.device), self.draws, events))
-        losses = dist.sum_over_ranks(torch.cat(parts)).tolist() \
+        parts = [self.train_epoch(
+            self.state, self.resident.images, self.resident.labels,
+            torch.from_numpy(idx).to(self.device), self.draws, events)
+            for idx in optimizer_groups(full, tail, self.grad_accum)]
+        losses = dist.all_reduce_sum_(torch.cat(parts)).tolist() \
             if parts else []
         if events is not None:
             self.step_ms.extend(a.elapsed_time(b)
@@ -154,6 +170,11 @@ class Trainer:
     def train(self, max_epochs: int) -> None:
         for epoch in range(self.start_epoch, max_epochs):
             self._run_epoch(epoch)
-            if self.snapshot_path and epoch % self.save_every == 0 and \
-                    self.rank == 0:
-                self._save(epoch)
+            if self.snapshot_path and epoch % self.save_every == 0:
+                # Gathering the sharded momentum is a collective: every rank
+                # runs it, before the rank-0 gate.
+                momentum = (opt_shard_to_list(
+                    list(self.state.model.parameters()), self.state.momentum)
+                    if self.shard_update else self.state.momentum)
+                if self.rank == 0:
+                    self._save(epoch, momentum)

@@ -14,11 +14,14 @@ also checks that the counter of the route it should take moved, and only
 that one.  The serving engine's CUDA graphs compare exactly with the eager
 forward at each bucket: the same kernels on the same shapes, TF32 off.
 The data-parallel drill on the card against the CPU holds losses, weights,
-BN buffers and momentum at 1e-4, as the smoke's parity phase does.
+BN buffers and momentum at 1e-4, as the smoke's parity phase does.  The
+strategy flags at world 1 over NCCL compare bit for bit, under
+deterministic mode, with the same epochs run without a process group.
 """
 import math
 import os
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -37,7 +40,7 @@ from ddp_tpu_torch.models.vgg import VGG
 from ddp_tpu_torch.ops.gather import (gather_batch, gather_batch_plain,
                                       gather_rows, gather_rows_plain)
 from ddp_tpu_torch.data import synthetic
-from ddp_tpu_torch.parallel import drill
+from ddp_tpu_torch.parallel import dist, drill
 from ddp_tpu_torch.serve import DynamicBatcher, ServeEngine
 from ddp_tpu_torch.train.step import _as_input, make_eval_apply
 
@@ -383,6 +386,95 @@ def test_world2_gloo_on_one_card_equals_cpu(cuda):
                                        atol=1e-4, err_msg=k)
         for a, b in zip(got["momentum"], want["momentum"]):
             np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+
+
+_STRATEGY_WORKER = r'''
+import sys
+import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.use_deterministic_algorithms(True)
+from ddp_tpu_torch.data import ResidentData, synthetic
+from ddp_tpu_torch.device import set_tf32
+from ddp_tpu_torch.models.vgg import VGG
+from ddp_tpu_torch.ops.gather import gather_batch
+from ddp_tpu_torch.optim import SGDConfig
+from ddp_tpu_torch.parallel import dist
+from ddp_tpu_torch.train.epoch import make_train_epoch
+from ddp_tpu_torch.train.step import init_train_state
+from ddp_tpu_torch.train.zero import list_to_opt_shard, opt_shard_to_list
+
+set_tf32(False)
+arch = [8, "M", 16, "M", 512, "M"]
+start = VGG(arch, generator=torch.Generator().manual_seed(0)).state_dict()
+train, _ = synthetic(n_train=32, n_test=8, seed=1)
+dev = torch.device("cuda")
+res = ResidentData(train, dev)
+groups = torch.arange(32, dtype=torch.int32, device=dev).view(2, 2, 8)
+
+
+def epoch(accum, zero):
+    model = VGG(arch)
+    model.load_state_dict(start)
+    model.to(dev)
+    state = init_train_state(model)
+    if zero:
+        state.momentum = list_to_opt_shard(state.momentum)
+    run = make_train_epoch(model, SGDConfig(lr=0.05), lambda s: 0.05,
+                           shard_update=zero)
+    launches = gather_batch.launches
+    losses = run(state, res.images, res.labels,
+                 groups if accum == 2 else groups.view(4, 8))
+    momentum = (opt_shard_to_list(list(model.parameters()), state.momentum)
+                if zero else state.momentum)
+    return {"losses": losses.cpu(), "launches": gather_batch.launches
+            - launches, "state": {k: v.cpu() for k, v in
+                                  model.state_dict().items()},
+            "momentum": [m.cpu() for m in momentum]}
+
+
+cases = {"plain": (1, False), "accum": (2, False), "zero": (1, True)}
+out = {f"nogroup/{k}": epoch(*v) for k, v in cases.items()}
+dist.initialize(dev)
+try:
+    out["backend"] = dist.backend()
+    out.update({f"nccl/{k}": epoch(*v) for k, v in cases.items()})
+    out["collectives"] = dict(dist.collective_calls)
+finally:
+    dist.shutdown()
+torch.save(out, sys.argv[1])
+'''
+
+
+def test_strategy_flags_world1_nccl_equal_no_group(cuda, tmp_path):
+    """``--grad_accum 2`` and ``--shard_update`` at world 1 over NCCL,
+    under deterministic mode, against the same epochs without a process
+    group (whose collectives are the identity): bit for bit, and the
+    sharded update bit for bit the replicated one.  ``gather_batch``
+    launches once per micro-batch (4 of 8 images in each epoch)."""
+    path = tmp_path / "out.pt"
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    assert dist.launch_local([sys.executable, "-c", _STRATEGY_WORKER,
+                              str(path)], 1, env=env, timeout=300) == 0
+    out = torch.load(path, weights_only=True)
+    assert out["backend"] == "nccl"
+    # accum: 2 steps of 2 micro-batches; plain and zero: 4 steps each.
+    assert out["collectives"] == {"all_reduce": 2 * 2 + 2 * 4 + 4,
+                                  "reduce_scatter": 4, "all_gather": 5}
+    for case in ("plain", "accum", "zero"):
+        a, b = out[f"nogroup/{case}"], out[f"nccl/{case}"]
+        assert a["launches"] == b["launches"] == 4
+        assert torch.equal(a["losses"], b["losses"]), case
+        assert all(torch.equal(v, b["state"][k])
+                   for k, v in a["state"].items()), case
+        assert all(torch.equal(x, y)
+                   for x, y in zip(a["momentum"], b["momentum"])), case
+    plain, zero = out["nccl/plain"], out["nccl/zero"]
+    assert torch.equal(plain["losses"], zero["losses"])
+    assert all(torch.equal(v, zero["state"][k])
+               for k, v in plain["state"].items())
+    assert all(torch.equal(x, y)
+               for x, y in zip(plain["momentum"], zero["momentum"]))
 
 
 def test_profile_resident_data_parallel_sees_the_collectives(cuda):
