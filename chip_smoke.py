@@ -22,7 +22,12 @@
    ``crop_flip``, the label index and ``_as_input``): that
    sequence's device time, kernel launches and host enqueue time per call,
    beside the kernel's enqueue time.  No single PyTorch call computes this
-   function, so the replaced sequence is the yardstick.
+   function, so the replaced sequence is the yardstick.  Then its bfloat16
+   form (``dtype=torch.bfloat16``, the ``--bf16`` input) the same way: the
+   same 24 cases bit for bit against its plain version, every byte value
+   against the float32 quotient rounded to nearest even, its time by the
+   event bracket and the profiler, its bound (4,737,536 bytes) and its
+   yardstick, the float32 kernel followed by ``.to(torch.bfloat16)``.
 5. Parity phase: three resident steps of a narrow VGG on the card
    (``gather_batch``'s kernel) against the same steps on the CPU (plain
    version), from the same weights and crop/flip draws, TF32 off.
@@ -35,6 +40,10 @@
    with ``load_checkpoint`` and held bit for bit against the trained
    weights, buffers and momentum; then the CLI again with ``--resume``,
    which must train no step and report the same accuracy.
+   bf16 main path: the CLI again with ``--bf16``, its counts zeroed just
+   before and read just after: 98 finite losses, 123 launches of
+   ``gather_batch``'s bfloat16 form, none of ``row_gather`` or ``conv3x3``,
+   a float32 checkpoint; its ms/step and samples/s beside the float32 run's.
 8. DDP phase: ``python -m ddp_tpu_torch.multigpu`` with the main path's
    arguments as a subprocess, which spawns one rank per card: at world 1
    over NCCL it must launch ``gather_batch`` 123 times and neither
@@ -65,7 +74,12 @@
    ``--shard_update`` and ``--grad_accum 1`` bit for bit against no flag;
    and a narrow world-2 epoch with the flags composed on the card over gloo
    against the CPU within ``PARITY_TOL``, one ``gather_batch`` launch a
-   micro-batch on each card rank.
+   micro-batch on each card rank.  Then the same in bfloat16: the composed
+   flags with ``--bf16`` at world 1 over NCCL (50 finite losses, 123
+   bfloat16 launches, the same collectives, a float32 checkpoint, its
+   ms/step beside the float32 composed run's) and the narrow world-2 epoch
+   with ``compute_dtype="bfloat16"`` on the card against the CPU, within
+   ``BF16_LOSS_TOL`` and ``BF16_UPDATE_TOL``.
 9. Serving phase: ``ServeEngine.from_checkpoint`` on that epoch-0 file at
    full width with buckets 1, 8, 32 and 128; ``warm()`` must capture exactly
    4 CUDA graphs (the ``gather_batch`` wrapper runs once eagerly and once at
@@ -88,7 +102,20 @@
    ``/metrics`` the stats, the engine's forwards (one graph replay each)
    the batches formed, and so must the profiled ``gather_batch_kernel``
    launches, one in each forward; neither ``row_gather`` nor ``conv3x3``
-   may launch on the path.
+   may launch on the path.  Then bf16 serving: the engine with
+   ``compute_dtype=torch.bfloat16`` on the bf16 main path's epoch-0 file,
+   4 graphs, each bucket's logits bit for bit against the eager bfloat16
+   forward, one ``gather_batch_kernel`` in each of 5 profiled replays, its
+   replay ms beside the float32 bucket's, and served accuracy equal to
+   ``evaluate_resident``'s in bfloat16.
+   Accuracy anchors (ROADMAP C2): the configs of
+   ``tests/golden/accuracy_parity_20epoch_noise0.25_bf16.json`` and of its
+   float32 twin (batch 64, lr 0.05, 768 images of ``synthetic(seed=21,
+   label_noise=0.25)``, 256 held out, no augmentation, the shuffle
+   ``rng(1234 + epoch)``, init from ``tests/torch_ref.py::TorchVGG`` under
+   ``torch.manual_seed(2)``) for 20 epochs through the port's resident step
+   at full width; each epoch's mean loss and accuracy printed beside the
+   recording's, the final held-out accuracy within 2 points of it.
 10. Conv kernel phase: ``conv3x3`` (``conv3x3_fused``) forward and dgrad
    against its plain version at the probe's shapes at batch 512, at every
    VGG conv shape at batch 8 and at the routes' edge cases, float32 and
@@ -103,7 +130,10 @@
    candidates at both target shapes, batch 512), once in float32 and once
    with ``--bf16``, each with the kernel's launch count and its route read
    around it, then the pool probe once.
-12. Prints the kernels line (``gather_batch``'s entry adds its launches on
+12. Prints the kernels line (``gather_batch_bf16`` is the bfloat16 form,
+    its launches those of the bf16 main path, with those of the bf16
+    strategy and serving paths beside; ``gather_batch``'s entry adds its
+    launches on
     the serving path: the eager runs in ``warm()`` and the launches of the
     profiled HTTP load, on the DDP path: the world-1 run's and the card
     ranks' of the world-2 run, and on the strategy path: the composed
@@ -119,6 +149,8 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import functools
+import importlib.util
 import json
 import math
 import os
@@ -162,6 +194,9 @@ from ddp_tpu_torch.train.epoch import make_train_epoch
 from ddp_tpu_torch.train.evaluate import evaluate_resident
 from ddp_tpu_torch.train.step import (_as_input, init_train_state,
                                       make_eval_apply)
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+BF16 = torch.bfloat16
 
 # H100 SXM peaks (NVIDIA's data sheet): memory rate, float32 on the CUDA
 # cores (TF32 is another precision, not the same work), bf16 tensor cores.
@@ -319,14 +354,13 @@ def _batch_draws(kind: str, n: int, gen: torch.Generator):
                                           device="cuda")
 
 
-def batch_phase(gen: torch.Generator) -> tuple:
-    """gather_batch against its plain version (exact), then timed beside
-    the sequence it replaced.  Returns its kernels-line entry and
-    row_gather's profiled time."""
-    m = 50000
-    table = torch.randint(0, 256, (m, 32, 32, 3), dtype=torch.uint8,
-                          device="cuda", generator=gen)
-    labels = torch.randint(0, 10, (m,), device="cuda", generator=gen)
+def _batch_cases(table: torch.Tensor, labels: torch.Tensor,
+                 gen: torch.Generator, dtype: torch.dtype) -> tuple:
+    """gather_batch's ``dtype`` form against its plain version, images and
+    labels exactly, at N = 512 and the ragged 336, int32 and int64 indices
+    with out-of-range and negative ones, and every BATCH_DRAWS kind.
+    Returns the number of cases and the largest difference (0)."""
+    m = table.shape[0]
     cases, max_err = 0, 0.0
     for n in (512, 336):
         for idx_dtype in (torch.int32, torch.int64):
@@ -336,19 +370,34 @@ def batch_phase(gen: torch.Generator) -> tuple:
                                    dtype=idx_dtype)
             for kind in BATCH_DRAWS:
                 draws = _batch_draws(kind, n, gen)
-                images, got = gather_batch(table, labels, idx, draws)
+                images, got = gather_batch(table, labels, idx, draws,
+                                           dtype=dtype)
                 want_images, want = gather_batch_plain(table, labels, idx,
-                                                       draws)
+                                                       draws, dtype=dtype)
                 torch.cuda.synchronize()
-                check(torch.equal(images, want_images) and
+                check(images.dtype == dtype and
+                      torch.equal(images, want_images) and
                       torch.equal(got, want),
-                      f"gather_batch differs from its plain version at "
-                      f"N={n}, {idx_dtype}, draws {kind}")
+                      f"gather_batch {dtype} differs from its plain version "
+                      f"at N={n}, {idx_dtype}, draws {kind}")
                 check(images.permute(0, 3, 1, 2).is_contiguous(),
                       "gather_batch's images are not stored channels-first")
-                max_err = max(max_err, float((images - want_images)
+                max_err = max(max_err, float((images.float()
+                                              - want_images.float())
                                              .abs().max()))
                 cases += 1
+    return cases, max_err
+
+
+def batch_phase(gen: torch.Generator) -> tuple:
+    """gather_batch against its plain version (exact), then timed beside
+    the sequence it replaced.  Returns its kernels-line entry and
+    row_gather's profiled time."""
+    m = 50000
+    table = torch.randint(0, 256, (m, 32, 32, 3), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+    labels = torch.randint(0, 10, (m,), device="cuda", generator=gen)
+    cases, max_err = _batch_cases(table, labels, gen, torch.float32)
     ramp = torch.zeros((1, 32, 32, 3), dtype=torch.uint8, device="cuda")
     ramp.view(-1)[:256] = torch.arange(256, device="cuda")
     images, _ = gather_batch(ramp, labels[:1], torch.zeros(
@@ -539,7 +588,8 @@ def ddp_phase(out: dict, card: str) -> tuple:
     check(res["world"] == 1 and res["backend"] == "nccl",
           f"multigpu ran at world {res['world']} on {res['backend']}")
     check(launches == {"gather_batch": MAIN_TRAIN_STEPS + MAIN_EVAL_STEPS,
-                       "row_gather": 0, "conv3x3": 0},
+                       "gather_batch_bf16": 0, "row_gather": 0,
+                       "conv3x3": 0},
           f"multigpu's kernel launches {launches}")
     check(res["collectives"] == {"all_reduce": 2 * MAIN_TRAIN_STEPS + 2,
                                  "broadcast": 1},
@@ -697,12 +747,13 @@ def kink_margin(model: torch.nn.Module, train, *, batch: int, seed: int,
     return min(margins)
 
 
-def strategy_phase(ddp: dict, card: str) -> int:
+def strategy_phase(ddp: dict, card: str) -> tuple:
     """The strategy flags: the composed flags at full width over NCCL at
     world 1 beside the DDP phase's run ``ddp``, each flag alone for its
     cost, the flags' bit-equalities under deterministic mode, and a
     world-2 epoch with the flags composed on the card over gloo against
-    the CPU.  Returns the path's gather_batch launches."""
+    the CPU.  Returns the path's gather_batch launches, the composed run's
+    summary and the world-2 epoch's kink margin."""
     res, wall_s, ckpt = run_multigpu(MAIN_ARGS + STRATEGY_FLAGS)
     steps = -(-(MAIN_TRAIN_STEPS - 1) // 2) + 1  # 97 full batches, the tail
     launches = res["kernel_launches"]
@@ -710,7 +761,8 @@ def strategy_phase(ddp: dict, card: str) -> int:
            res["shard_update"]) == (1, "nccl", 2, True, True),
           f"the strategy run's summary {res}")
     check(launches == {"gather_batch": MAIN_TRAIN_STEPS + MAIN_EVAL_STEPS,
-                       "row_gather": 0, "conv3x3": 0},
+                       "gather_batch_bf16": 0, "row_gather": 0,
+                       "conv3x3": 0},
           f"the strategy run's kernel launches {launches}")
     want, formula = expected_collectives(
         steps, MAIN_TRAIN_STEPS, sync_bn=True, zero=True,
@@ -832,7 +884,8 @@ def strategy_phase(ddp: dict, card: str) -> int:
           f"{runs['cuda'][0]['collectives']} = {formula}; momentum a rank "
           f"{runs['cuda'][0]['momentum_numel']} elements; gather_batch "
           f"launches on the card ranks {card_launches}", flush=True)
-    return launches["gather_batch"] + card_launches
+    res["wall_s"] = wall_s
+    return launches["gather_batch"] + card_launches, res, margin
 
 
 @contextlib.contextmanager
@@ -843,6 +896,33 @@ def serving_profile(activities, engine: ServeEngine, x: np.ndarray):
         engine.forward(x)
         time.sleep(PROFILE_SETTLE_S)
         yield prof
+
+
+def profiled_forwards(engine: ServeEngine, x: np.ndarray, what: str,
+                      attempts: int = 3) -> tuple:
+    """Five forwards of ``x`` under ``torch.profiler`` (CPU and CUDA) after
+    a lead-in (:func:`serving_profile`): ``(_seen(...), forwards run, wall
+    ms)``.  A session in which the profiler recorded no device record at
+    all (no kernel and no copy, as once at one bucket of a long smoke
+    process: ROADMAP C3) says nothing about the forwards, so it is run
+    again, up to ``attempts`` sessions, each said on stdout; any session
+    that recorded something is the one returned and checked."""
+    for attempt in range(1, attempts + 1):
+        with serving_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                             engine, x) as prof:
+            forwards0 = engine.stats()["forward_batches"]
+            t0 = time.perf_counter()
+            for _ in range(5):
+                engine.forward(x)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            replayed = engine.stats()["forward_batches"] - forwards0
+        seen = _seen(prof, replayed)
+        if seen["kernels"] or seen["h2d"] or seen["d2h"] or \
+                attempt == attempts:
+            return seen, replayed, wall_ms
+        print(f"serve {what}: the profiler recorded no device activity in "
+              f"session {attempt} of {attempts}; running the session again",
+              flush=True)
 
 
 def _seen(prof, n: int) -> dict:
@@ -1065,15 +1145,7 @@ def serve_phase(snapshot: str) -> dict:
         # gather_batch_kernel must run once in each, between its copy in
         # and its copy out, and the wrapper not at all.
         launches = gather_batch.launches
-        with serving_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                             engine, x) as prof:
-            forwards0 = engine.stats()["forward_batches"]
-            t0 = time.perf_counter()
-            for _ in range(5):
-                engine.forward(x)
-            wall_ms = (time.perf_counter() - t0) * 1e3
-            replayed = engine.stats()["forward_batches"] - forwards0
-        seen = _seen(prof, replayed)
+        seen, replayed, wall_ms = profiled_forwards(engine, x, f"bucket {b}")
         in_replays = seen["gather_batch_kernel"]
         check(replayed == seen["forwards"] == seen["h2d"] == seen["d2h"]
               == in_replays == 5 and not seen["short_forwards"]
@@ -1370,6 +1442,407 @@ def probe_phase() -> dict:
     return by_route
 
 
+# --------------------------------------------------------------- bfloat16
+# The bfloat16 form of gather_batch at N = 512: 3 MiB of output, the source
+# rows, and the indices, draws and labels (the f32 form's bytes with 2-byte
+# outputs).
+BF16_BATCH_BYTES = (512 * 3 * 32 * 32 * 2 + 512 * 3072 + 512 * 4
+                    + 512 * (8 + 8 + 1) + 2 * 512 * 8)
+# bf16 against the CPU or another bf16 run (tests/test_torch_bf16.py):
+# losses 1e-2 relative; each tensor's change over the run within 2^-3 of
+# that change's largest magnitude (bf16 rounding after sums taken in other
+# orders; bf16 alone moves JAX's epoch ~5-7% of max from its f32 epoch).
+BF16_LOSS_TOL, BF16_UPDATE_TOL = 1e-2, 2.0 ** -3
+# The accuracy anchors of ROADMAP C2: each recording's config, run through
+# the port's resident step on the card at full width.
+ANCHORS = (("tests/golden/accuracy_parity_20epoch_noise0.25_bf16.json", BF16),
+           ("tests/golden/accuracy_parity_20epoch_noise0.25.json", None))
+ANCHOR_CONFIG = {"model": "vgg", "batch": 64, "base_lr": 0.05,
+                 "steps_per_epoch": 12, "epochs": 20, "n_train": 768,
+                 "n_test": 256, "label_noise": 0.25,
+                 "init": "torch.manual_seed(2) TorchVGG state_dict",
+                 "data": "ddp_tpu.data.synthetic(seed=21, label_noise=0.25)"}
+ANCHOR_DATA_SEED, ANCHOR_INIT_SEED, ANCHOR_SHUFFLE_SEED = 21, 2, 1234
+ANCHOR_TOL_POINTS = 2.0  # 5 of the 256 held-out images
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype == BF16 and torch.equal(a.view(torch.int16),
+                                                      b.view(torch.int16))
+
+
+def batch_bf16_phase(gen: torch.Generator) -> dict:
+    """gather_batch's bfloat16 form against its plain version (exact, the
+    same 24 cases as the float32 form's and every byte value), then timed
+    beside the float32 kernel followed by ``.to(torch.bfloat16)``, the
+    sequence it replaces.  Returns its kernels-line entry."""
+    m = 50000
+    table = torch.randint(0, 256, (m, 32, 32, 3), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+    labels = torch.randint(0, 10, (m,), device="cuda", generator=gen)
+    cases, max_err = _batch_cases(table, labels, gen, BF16)
+    ramp = torch.zeros((1, 32, 32, 3), dtype=torch.uint8, device="cuda")
+    ramp.view(-1)[:256] = torch.arange(256, device="cuda")
+    images, _ = gather_batch(ramp, labels[:1], torch.zeros(
+        1, dtype=torch.int32, device="cuda"), dtype=BF16)
+    check(_bits_equal(images.reshape(-1)[:256],
+                      (torch.arange(256, device="cuda").float() / 255.0)
+                      .to(BF16)),
+          "gather_batch's bf16 u8/255 differs from the float32 quotient "
+          "rounded to nearest even")
+    print(f"gather_batch bf16: {cases} cases equal to the plain version bit "
+          f"for bit (images and labels), every byte value the float32 "
+          f"quotient rounded to nearest even", flush=True)
+
+    n = 512
+    args = [(torch.randperm(m, device="cuda", generator=gen)[:n].int(),
+             make_draws(gen, n, torch.device("cuda"))) for _ in range(60)]
+    fused = lambda a: gather_batch(table, labels, *a, dtype=BF16)
+    replaced = lambda a: gather_batch(table, labels, *a)[0].to(BF16)
+    ms = median_ms(fused, args)
+    plain_ms = median_ms(
+        lambda a: gather_batch_plain(table, labels, *a, dtype=BF16), args,
+        sleep_cycles=2_000_000)
+    replaced_ms = median_ms(replaced, args)
+    ms_again = median_ms(fused, args)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for a in args[:50]:
+            fused(a)
+        torch.cuda.synchronize()
+    kernel_us = _profiled_us(device_events(prof), "gather_batch_kernel")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for a in args[:50]:
+            replaced(a)
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    replaced_us = sum(ms for ms, _ in events.values()) / 50 * 1e3
+    bound_ms = BF16_BATCH_BYTES / HBM_BYTES_PER_S * 1e3
+    print(f"gather_batch bf16 N={n}: kernel {ms:.6f} ms (again "
+          f"{ms_again:.6f}) by the event bracket, {kernel_us:.3f} us by the "
+          f"profiler; bound {bound_ms:.6f} ms ({BF16_BATCH_BYTES} bytes), "
+          f"{bound_ms * 1e3 / kernel_us:.1%} of it by the profiler; plain "
+          f"{plain_ms:.6f} ms; yardstick (float32 kernel + .to(bfloat16)) "
+          f"{replaced_ms:.6f} ms by the event bracket, {replaced_us:.3f} us "
+          f"by the profiler", flush=True)
+    return {"name": "gather_batch_bf16", "route": "cuda",
+            "source": "ddp_tpu_torch/csrc/gather.cu",
+            "replaces": "ddp_tpu/ops/gather.py:37",
+            "also_replaces": ["ddp_tpu/data/device_augment.py:44",
+                              "ddp_tpu/data/device_augment.py:57",
+                              "ddp_tpu/train/step.py:53"],
+            "max_abs_err": max_err, "ms": ms, "kernel_ms": ms,
+            "ms_again": ms_again, "profiler_ms": kernel_us / 1e3,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_share_profiler": bound_ms * 1e3 / kernel_us,
+            "library_ms": None,
+            "replaced_sequence": "gather_batch (float32) + .to(bfloat16)",
+            "replaced_ms": replaced_ms, "replaced_profiler_ms":
+                replaced_us / 1e3, "cases": cases}
+
+
+def _float32_file(ckpt) -> bool:
+    """Whether every weight, buffer and momentum array of a checkpoint is
+    float32."""
+    arrays = [*interop.vgg_state_dict_from_jax(ckpt.params,
+                                               ckpt.batch_stats).values()]
+    arrays += interop.momentum_list_from_tree(VGG(), ckpt.momentum)
+    return all(a.dtype == torch.float32 for a in arrays)
+
+
+def bf16_main_phase(out: dict, card: str, path: str) -> dict:
+    """The main path with ``--bf16``, its counts zeroed just before and read
+    just after: 98 finite losses, gather_batch's bf16 form 123 times,
+    neither row_gather nor conv3x3, a float32 checkpoint; its ms/step
+    beside the float32 run ``out``'s."""
+    gather_batch.launches = gather_batch.launches_bf16 = 0
+    gather_rows.launches = conv3x3_fused.launches = 0
+    res = cli.main(MAIN_ARGS + ["--bf16", "--snapshot_path", path])
+    launches = {"gather_batch": gather_batch.launches,
+                "gather_batch_bf16": gather_batch.launches_bf16,
+                "row_gather": gather_rows.launches,
+                "conv3x3": conv3x3_fused.launches}
+    losses = res["loss_history"]
+    check(res["compute_dtype"] == "bfloat16", f"--bf16 ran in "
+          f"{res['compute_dtype']}")
+    check(len(losses) == MAIN_TRAIN_STEPS and
+          all(math.isfinite(x) for x in losses),
+          f"bf16 main path: {len(losses)} losses, finite "
+          f"{all(math.isfinite(x) for x in losses)}")
+    n = MAIN_TRAIN_STEPS + MAIN_EVAL_STEPS
+    check(launches == {"gather_batch": n, "gather_batch_bf16": n,
+                       "row_gather": 0, "conv3x3": 0},
+          f"bf16 main path kernel launches {launches}")
+    ckpt = load_checkpoint(path)
+    check(ckpt.step == MAIN_TRAIN_STEPS and _float32_file(ckpt),
+          f"bf16 main path checkpoint: step {ckpt.step}, float32 "
+          f"{_float32_file(ckpt)}")
+    step_ms = statistics.median(res["step_ms"])
+    f32_ms = statistics.median(out["step_ms"])
+    print(f"main path --bf16 ({card}): median {step_ms:.3f} ms/step, "
+          f"{512 / step_ms * 1e3:.1f} samples/s (float32 {f32_ms:.3f} ms/step, "
+          f"{512 / f32_ms * 1e3:.1f} samples/s, ratio {step_ms / f32_ms:.4f}); "
+          f"train {res['training_seconds']:.2f} s, eval "
+          f"{res['eval_seconds']:.2f} s; launches {launches}; first/last "
+          f"loss {losses[0]:.4f}/{losses[-1]:.4f}; accuracy "
+          f"{res['accuracy']:.2f}% (float32 {out['accuracy']:.2f}%); the "
+          f"checkpoint float32", flush=True)
+    res["launches"] = launches
+    return res
+
+
+def _bf16_drill_errors(got: dict, ref: dict, start: dict) -> dict:
+    """A bf16 drill rank against its reference: the losses' relative
+    difference, the worst tensor's change over the run and the worst
+    momentum, each as a share of the reference's largest magnitude."""
+    rel = lambda a, b: float((a.double() - b.double()).abs().max()
+                             / b.double().abs().max().clamp_min(1e-30))
+    upd = max(rel(got["state_dict"][k] - start[k], v - start[k])
+              for k, v in ref["state_dict"].items())
+    return {"loss": float(((got["losses"] - ref["losses"]).abs()
+                           / ref["losses"].abs()).max()),
+            "update": upd,
+            "momentum": max(rel(a, b) for a, b in zip(got["momentum"],
+                                                      ref["momentum"]))}
+
+
+def bf16_strategy_phase(composed: dict, margin: float, card: str) -> int:
+    """``--bf16`` with the strategy flags composed at full width over NCCL
+    at world 1, beside the float32 composed run ``composed``; then the
+    strategy phase's narrow world-2 epoch in bf16 on the card over gloo
+    against the CPU.  Returns the path's gather_batch launches."""
+    res, wall_s, ckpt = run_multigpu(MAIN_ARGS + STRATEGY_FLAGS + ["--bf16"])
+    steps = -(-(MAIN_TRAIN_STEPS - 1) // 2) + 1
+    n = MAIN_TRAIN_STEPS + MAIN_EVAL_STEPS
+    launches = res["kernel_launches"]
+    check((res["world"], res["backend"], res["compute_dtype"]) ==
+          (1, "nccl", "bfloat16"), f"the bf16 strategy run's summary {res}")
+    check(launches == {"gather_batch": n, "gather_batch_bf16": n,
+                       "row_gather": 0, "conv3x3": 0},
+          f"the bf16 strategy run's kernel launches {launches}")
+    want, formula = expected_collectives(
+        steps, MAIN_TRAIN_STEPS, sync_bn=True, zero=True,
+        bn_layers=VGG_BN_LAYERS, saves=1)
+    check(res["collectives"] == want, f"the bf16 strategy run's collectives "
+          f"{res['collectives']}, expected {want} ({formula})")
+    losses = res["loss_history"]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"the bf16 strategy run's losses: {len(losses)}")
+    check(ckpt.step == steps and _float32_file(ckpt),
+          f"the bf16 strategy run's checkpoint: step {ckpt.step}")
+    step_ms = statistics.median(res["step_ms"])
+    f32_ms = statistics.median(composed["step_ms"])
+    print(f"strategy --bf16 {' '.join(STRATEGY_FLAGS)} at world 1 ({card}): "
+          f"{steps} optimizer steps, median {step_ms:.3f} ms per optimizer "
+          f"step ({1024 / step_ms * 1e3:.1f} samples/s; float32 "
+          f"{f32_ms:.3f} ms, {1024 / f32_ms * 1e3:.1f} samples/s); process "
+          f"wall {wall_s:.2f} s (float32 {composed['wall_s']:.2f}); accuracy "
+          f"{res['accuracy']:.2f}% (float32 {composed['accuracy']:.2f}%); "
+          f"collectives = {formula}; launches {launches}; the checkpoint "
+          f"float32", flush=True)
+
+    train, test = synthetic(n_train=40, n_test=24, seed=1)
+    model = VGG(DDP_ARCH, generator=torch.Generator().manual_seed(0))
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        spec = drill.spec(DDP_ARCH, model.state_dict(), train, test,
+                          batch=8, lr=0.05, seed=STRATEGY_DRILL_SEED,
+                          augment=True, device=device, backend="gloo",
+                          grad_accum=2, sync_bn=True, shard_update=True,
+                          compute_dtype="bfloat16")
+        runs[device] = drill.run(spec, 2, same_device=True, timeout=300)
+    worst = {"loss": 0.0, "update": 0.0, "momentum": 0.0}
+    for got, ref in zip(runs["cuda"], runs["cpu"]):
+        check(got["device"] == "cuda:0" and got["steps"] == 2 and
+              got["train_launches"] == 3 and got["eval_launches"] == 2 and
+              bool(torch.isfinite(got["losses"]).all()),
+              f"bf16 strategy world-2 card rank {got['rank']}: "
+              f"{got['device']}, {got['steps']} steps, launches "
+              f"{got['train_launches']} + {got['eval_launches']}")
+        errs = _bf16_drill_errors(got, ref, start)
+        worst = {k: max(worst[k], v) for k, v in errs.items()}
+    check(worst["loss"] <= BF16_LOSS_TOL and
+          worst["update"] <= BF16_UPDATE_TOL and
+          worst["momentum"] <= BF16_UPDATE_TOL,
+          f"bf16 strategy world 2 on the card differs from the CPU: {worst}")
+    card_launches = sum(g["train_launches"] + g["eval_launches"]
+                        for g in runs["cuda"])
+    print(f"strategy world 2 --bf16 on one card over gloo, flags composed "
+          f"({card}): card against the CPU, losses {worst['loss']:.3e} "
+          f"relative, worst change {worst['update']:.3e} and momentum "
+          f"{worst['momentum']:.3e} of max (tolerances {BF16_LOSS_TOL:g}, "
+          f"{BF16_UPDATE_TOL:g}; drill seed {STRATEGY_DRILL_SEED}, float32 "
+          f"kink margin {margin:.3e}); correct/total card "
+          f"{runs['cuda'][0]['correct']}/{runs['cuda'][0]['total']}, cpu "
+          f"{runs['cpu'][0]['correct']}/{runs['cpu'][0]['total']}; "
+          f"gather_batch launches on the card ranks {card_launches}",
+          flush=True)
+    return launches["gather_batch_bf16"] + card_launches
+
+
+def bf16_serve_phase(snapshot: str, f32: dict) -> dict:
+    """The serving engine in bf16 on the bf16 main path's epoch-0 file:
+    four graphs, each bucket bit for bit against the eager bf16 forward
+    with one gather_batch_kernel a replay under the profiler, accuracy
+    against evaluate_resident's in bf16; replay ms beside the float32
+    serving phase's ``f32``."""
+    gather_batch.launches = gather_batch.launches_bf16 = 0
+    gather_rows.launches = conv3x3_fused.launches = 0
+    engine = ServeEngine.from_checkpoint(snapshot, "vgg",
+                                         buckets=SERVE_BUCKETS,
+                                         compute_dtype=BF16)
+    t0 = time.perf_counter()
+    captured = engine.warm()
+    warm_s = time.perf_counter() - t0
+    check(captured == len(SERVE_BUCKETS) and gather_batch.launches ==
+          gather_batch.launches_bf16 == 2 * len(SERVE_BUCKETS) and
+          engine.stats()["compute_dtype"] == "bfloat16",
+          f"bf16 warm() captured {captured} graphs, wrapper launches "
+          f"{gather_batch.launches} ({gather_batch.launches_bf16} bf16), "
+          f"stats {engine.stats()['compute_dtype']}")
+    warm_launches = gather_batch.launches_bf16 - captured
+    rng = np.random.default_rng(6)
+    apply_fn = make_eval_apply(engine.model, BF16)
+    per_bucket, replays_seen = {}, 0
+    for b in engine.buckets:
+        x = rng.integers(0, 256, (b, 32, 32, 3), dtype=np.uint8)
+        table = torch.from_numpy(x).cuda()
+        zeros = torch.zeros(b, dtype=torch.int64, device="cuda")
+        rows = torch.arange(b, dtype=torch.int32, device="cuda")
+        images, _ = gather_batch(table, zeros, rows, dtype=BF16)
+        want_images, _ = gather_batch_plain(table, zeros, rows, dtype=BF16)
+        want = apply_fn(images).cpu().numpy()
+        got = engine.forward(x)
+        torch.cuda.synchronize()
+        check(_bits_equal(images, want_images), f"gather_batch's bf16 eval "
+              f"form differs from its plain version at N={b}")
+        check(np.array_equal(got, want), f"bf16 served logits at bucket {b} "
+              f"differ from the eager bf16 forward: max|diff| "
+              f"{float(np.abs(got - want).max()):.3e}")
+        prog = engine._programs[b]
+        replay_ms = median_ms(lambda _: prog.graph.replay(), [None], 30)
+        launches = gather_batch.launches
+        seen, replayed, _ = profiled_forwards(engine, x, f"bf16 bucket {b}")
+        check(replayed == seen["forwards"] == seen["gather_batch_kernel"] == 5
+              and
+              not seen["short_forwards"] and
+              gather_batch.launches == launches,
+              f"bf16 bucket {b}: {seen['gather_batch_kernel']} "
+              f"gather_batch_kernel launches in 5 replays (profile {seen})")
+        replays_seen += seen["gather_batch_kernel"]
+        groups = {g: ms / 5 for g, ms in seen["groups_ms"].items()}
+        per_bucket[b] = {"replay_ms": replay_ms,
+                         "f32_replay_ms": f32["buckets"][b]["replay_ms"],
+                         "kernels_per_replay": seen["kernels"] / 5,
+                         "profiled_busy_ms": seen["busy_ms"] / 5,
+                         "groups_ms": groups}
+        print(f"serve bf16 bucket {b}: replay {replay_ms:.6f} ms (float32 "
+              f"{f32['buckets'][b]['replay_ms']:.6f}), logits equal to the "
+              f"eager bf16 forward bit for bit; profiled "
+              f"{seen['kernels'] / 5:g} kernels a replay, device busy "
+              f"{seen['busy_ms'] / 5:.3f} ms a forward, "
+              + ", ".join(f"{g} {ms:.3f}" for g, ms in sorted(
+                  groups.items(), key=lambda kv: -kv[1])), flush=True)
+    _, test_ds = synthetic(n_train=int(MAIN_ARGS[-1]),
+                           n_test=int(MAIN_ARGS[-1]) // 4)
+    correct = 0
+    for start in range(0, len(test_ds), SERVE_BUCKETS[-1]):
+        stop = start + SERVE_BUCKETS[-1]
+        correct += int((engine.predict(test_ds.images[start:stop])
+                        == test_ds.labels[start:stop]).sum())
+    served_acc = correct / len(test_ds) * 100.0
+    eval_acc = evaluate_resident(engine.model,
+                                 ResidentData(test_ds, torch.device("cuda")),
+                                 EvalLoader(test_ds, SERVE_BUCKETS[-1]), BF16)
+    check(served_acc == eval_acc, f"bf16 served accuracy {served_acc} != "
+          f"evaluate_resident's {eval_acc}")
+    check(gather_rows.launches == 0 and conv3x3_fused.launches == 0,
+          "row_gather or conv3x3 launched on the bf16 serving path")
+    print(f"serve bf16: warm() {warm_s:.3f} s for {captured} graphs; "
+          f"accuracy over {len(test_ds)} images {served_acc:.4f}% "
+          f"(evaluate_resident in bf16 {eval_acc:.4f}%)", flush=True)
+    return {"warm_s": warm_s, "graphs": captured, "buckets": per_bucket,
+            "accuracy": served_acc, "warm_launches": warm_launches,
+            "profiled_replay_launches": replays_seen}
+
+
+def _torch_ref_vgg():
+    """``tests/torch_ref.py::TorchVGG``, loaded from its file."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_ref", os.path.join(ROOT, "tests", "torch_ref.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.TorchVGG
+
+
+def anchor_phase(path: str, compute_dtype, card: str) -> dict:
+    """ROADMAP C2's accuracy anchor: the recording ``path``'s config (batch
+    64, lr 0.05, 768 images of synthetic(seed=21, label_noise=0.25), 256
+    held out, no augmentation, the shuffle rng(1234 + epoch), init from
+    TorchVGG under torch.manual_seed(2)) for 20 epochs through the port's
+    resident step on the card at full width in ``compute_dtype``; the final
+    held-out accuracy within ANCHOR_TOL_POINTS of the recording's."""
+    with open(os.path.join(ROOT, path)) as f:
+        art = json.load(f)
+    cfg = art["config"]
+    check({k: cfg[k] for k in ANCHOR_CONFIG} == ANCHOR_CONFIG and
+          cfg.get("compute_dtype", "float32") ==
+          ("bfloat16" if compute_dtype else "float32"),
+          f"{path}: config {cfg}")
+    batch, spe, epochs = cfg["batch"], cfg["steps_per_epoch"], cfg["epochs"]
+    train, test = synthetic(n_train=cfg["n_train"], n_test=cfg["n_test"],
+                            seed=ANCHOR_DATA_SEED,
+                            label_noise=cfg["label_noise"])
+    torch.manual_seed(ANCHOR_INIT_SEED)
+    ref = _torch_ref_vgg()()
+    model = VGG()
+    model.load_state_dict({k: v for k, v in ref.state_dict().items()
+                           if not k.endswith("num_batches_tracked")})
+    dev = torch.device("cuda")
+    model.to(dev)
+    res, tres = ResidentData(train, dev), ResidentData(test, dev)
+    state = init_train_state(model)
+    run = make_train_epoch(
+        model, SGDConfig(lr=cfg["base_lr"]),
+        functools.partial(triangular_lr, base_lr=cfg["base_lr"],
+                          num_epochs=epochs, steps_per_epoch=spe),
+        device_augment=False, compute_dtype=compute_dtype)
+    loader = EvalLoader(test, cfg["n_test"])
+    launches = gather_batch.launches
+    t0 = time.time()
+    rows = []
+    for epoch in range(epochs):
+        perm = np.random.default_rng(ANCHOR_SHUFFLE_SEED + epoch).permutation(
+            cfg["n_train"])[:spe * batch].reshape(spe, batch)
+        losses = run(state, res.images, res.labels,
+                     torch.from_numpy(perm.astype(np.int32)).to(dev))
+        acc = evaluate_resident(model, tres, loader, compute_dtype)
+        rows.append((float(losses.mean()), acc))
+    seconds = time.time() - t0
+    check(gather_batch.launches - launches == epochs * (spe + 1),
+          f"the anchor ran gather_batch {gather_batch.launches - launches} "
+          f"times")
+    name = "bf16" if compute_dtype else "float32"
+    for (loss, acc), rec in zip(rows, art["per_epoch"]):
+        print(f"anchor {name} epoch {rec['epoch']:2d}: mean loss {loss:.6f} "
+              f"(JAX {rec['jax_mean_loss']:.6f}, torch reference "
+              f"{rec['torch_mean_loss']:.6f}), held-out accuracy "
+              f"{acc:.4f}% (JAX {rec['jax_acc']:.4f}%)", flush=True)
+    final, want = rows[-1][1], art["final_jax_acc"]
+    print(f"anchor {name} ({card}): {epochs} epochs of {spe} steps at batch "
+          f"{batch} in {seconds:.2f} s, final held-out accuracy "
+          f"{final:.4f}% against the recording's {want:.4f}% (tolerance "
+          f"{ANCHOR_TOL_POINTS:g} points; empirical ceiling "
+          f"{cfg['empirical_ceiling_pct']}%)", flush=True)
+    check(math.isfinite(rows[-1][0]) and abs(final - want) <=
+          ANCHOR_TOL_POINTS, f"anchor {path}: final accuracy {final:.4f}% "
+          f"against {want:.4f}%")
+    return {"path": path, "final_acc": final, "want_acc": want,
+            "seconds": seconds, "mean_losses": [r[0] for r in rows],
+            "accs": [r[1] for r in rows]}
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -1388,16 +1861,19 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     row_gather = kernel_phase(gen)
     batch, row_gather["profiler_ms"] = batch_phase(gen)
+    batch_bf16 = batch_bf16_phase(gen)
     parity_phase()
 
     snapshot_dir = tempfile.TemporaryDirectory()
     snapshot = os.path.join(snapshot_dir.name, "checkpoint.pt")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gather_batch.launches = gather_rows.launches = 0
-    conv3x3_fused.launches = 0
+    gather_batch.launches = gather_batch.launches_bf16 = 0
+    gather_rows.launches = conv3x3_fused.launches = 0
     out = cli.main(MAIN_ARGS + ["--snapshot_path", snapshot])
     launches = gather_batch.launches
+    check(gather_batch.launches_bf16 == 0,
+          "the float32 main path launched gather_batch's bf16 form")
     row_main_launches = gather_rows.launches
     # The training path runs cuDNN's convolutions, as the JAX package's
     # runs XLA's: the conv kernel belongs to the probe path.
@@ -1427,11 +1903,18 @@ def main() -> int:
           f"{out['accuracy']:.2f}%, conv3x3 launches {conv_main_launches}",
           flush=True)
     checkpoint_phase(out, snapshot)
+    snapshot_bf16 = os.path.join(snapshot_dir.name, "checkpoint_bf16.pt")
+    out_bf16 = bf16_main_phase(out, card, snapshot_bf16)
     ddp_launches, ddp = ddp_phase(out, card)
-    strategy_launches = strategy_phase(ddp, card)
+    strategy_launches, composed, margin = strategy_phase(ddp, card)
+    strategy_bf16_launches = bf16_strategy_phase(composed, margin, card)
     serve = serve_phase(snapshot)
     print(f"serve: {json.dumps(serve)}", flush=True)
+    serve_bf16 = bf16_serve_phase(snapshot_bf16, serve)
+    print(f"serve bf16: {json.dumps(serve_bf16)}", flush=True)
     snapshot_dir.cleanup()
+    anchors = [anchor_phase(path, dtype, card) for path, dtype in ANCHORS]
+    print(f"anchors: {json.dumps(anchors)}", flush=True)
 
     conv3x3 = conv_kernel_phase(gen)
     probe_routes = probe_phase()
@@ -1466,7 +1949,15 @@ def main() -> int:
                    path="python -m ddp_tpu_torch.ops.conv_candidates "
                         "[--bf16]",
                    launches_main_path=conv_main_launches)
-    print(json.dumps({"kernels": [row_gather, batch, conv3x3]}))
+    # The bf16 form: its main path is the --bf16 run; its other paths the
+    # bf16 strategy run (world 1 and the card ranks of world 2) and the
+    # bf16 serving phase (warm()'s eager runs and the profiled replays).
+    bf16_main = out_bf16["launches"]["gather_batch_bf16"]
+    batch_bf16.update(launches=bf16_main, launches_main_path=bf16_main,
+                      launches_strategy_path=strategy_bf16_launches,
+                      launches_serve_path=serve_bf16["warm_launches"]
+                      + serve_bf16["profiled_replay_launches"])
+    print(json.dumps({"kernels": [row_gather, batch, batch_bf16, conv3x3]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

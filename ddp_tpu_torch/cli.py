@@ -6,8 +6,9 @@ over several:
         [--batch_size 512] --resident [--synthetic --synthetic_size N \\
         [--synthetic_label_noise P]] [--seed 0] [--lr 0.4] \\
         [--momentum 0.9] [--weight_decay 5e-4] [--grad_accum A] \\
-        [--sync_bn] [--shard_update] [--snapshot_path checkpoint.pt] \\
-        [--resume] [--device cuda|cpu] [--result_json PATH]
+        [--sync_bn] [--shard_update] [--bf16] \\
+        [--snapshot_path checkpoint.pt] [--resume] [--device cuda|cpu] \\
+        [--result_json PATH]
     python -m ddp_tpu_torch.multigpu <same arguments> [--spawn N]
 
 ``singlegpu`` is one process at world 1.  ``multigpu`` is one process per
@@ -21,7 +22,11 @@ and compose with each other and with ``--resume``: ``--grad_accum A`` takes
 one optimizer step per A micro-batches (the LR schedule counts optimizer
 steps), ``--sync_bn`` takes BatchNorm's statistics over every rank's batch,
 ``--shard_update`` shards the weight update (ZeRO-1).  At world 1 without a
-process group (``singlegpu``) each collective is the identity.
+process group (``singlegpu``) each collective is the identity.  ``--bf16``
+computes in bfloat16 where the JAX package's ``compute_dtype`` does
+(``models/vgg.py``), training and eval alike, and composes with all of
+them; weights, momentum, BatchNorm's buffers and the checkpoint stay
+float32.
 
 Prints what the JAX CLI prints: each epoch's header and loss on every rank
 (``[GPU{rank}]``), the checkpoint line of every ``save_every``-th epoch,
@@ -43,7 +48,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from .data import EvalLoader, ResidentData, TrainLoader, cifar10
-from .device import resolve_device, set_tf32
+from .device import dtype_name, resolve_device, set_tf32
 from .models import get_model
 from .ops.conv_candidates import conv3x3_fused
 from .ops.gather import gather_batch, gather_rows
@@ -103,6 +108,8 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                         "reduce-scatter grads, update a 1/R momentum+param "
                         "slice per rank, all-gather params (same math as "
                         "plain DP, 1/R optimizer memory)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute (BASELINE.json config #4)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; without a card, cuda is an "
                         "error")
@@ -112,9 +119,10 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                         "cuda, world 1 on cpu)")
     p.add_argument("--result_json", default=None, metavar="PATH",
                    help="Rank 0 writes the run's summary here as JSON: "
-                        "world, backend, the strategy flags, losses, step "
-                        "times, accuracy, and the port's kernel launches "
-                        "and the collectives in this process")
+                        "world, backend, the strategy flags, the compute "
+                        "dtype, losses, step times, accuracy, and the "
+                        "port's kernel launches and the collectives in this "
+                        "process")
     return p
 
 
@@ -167,6 +175,7 @@ def _train_and_evaluate(args: argparse.Namespace,
                         device: torch.device) -> Dict:
     rank, world = dist.rank(), dist.world_size()
     set_tf32(False)
+    compute_dtype = torch.bfloat16 if args.bf16 else None
     if args.synthetic:
         train_ds, test_ds = cifar10.synthetic(
             n_train=args.synthetic_size,
@@ -186,7 +195,7 @@ def _train_and_evaluate(args: argparse.Namespace,
         seed=args.seed, save_every=args.save_every,
         snapshot_path=args.snapshot_path, resume=args.resume,
         grad_accum=args.grad_accum, sync_bn=args.sync_bn,
-        shard_update=args.shard_update)
+        shard_update=args.shard_update, compute_dtype=compute_dtype)
 
     start = time.time()
     trainer.train(args.total_epochs)
@@ -200,18 +209,21 @@ def _train_and_evaluate(args: argparse.Namespace,
 
     start = time.time()
     accuracy = evaluate_resident(model, ResidentData(test_ds, device),
-                                 EvalLoader(test_ds, args.batch_size, world))
+                                 EvalLoader(test_ds, args.batch_size, world),
+                                 compute_dtype)
     eval_seconds = time.time() - start
     out = {"accuracy": accuracy, "training_seconds": training_seconds,
            "eval_seconds": eval_seconds,
            "loss_history": list(trainer.loss_history),
            "step_ms": list(trainer.step_ms), "rank": rank, "world": world,
            "backend": dist.backend(), "grad_accum": args.grad_accum,
-           "sync_bn": args.sync_bn, "shard_update": args.shard_update}
+           "sync_bn": args.sync_bn, "shard_update": args.shard_update,
+           "compute_dtype": dtype_name(compute_dtype)}
     if rank == 0:
         print(f"fp32 model has accuracy={accuracy:.2f}%")
         if args.result_json:
             launches = {"gather_batch": gather_batch.launches,
+                        "gather_batch_bf16": gather_batch.launches_bf16,
                         "row_gather": gather_rows.launches,
                         "conv3x3": conv3x3_fused.launches}
             with open(args.result_json, "w") as f:

@@ -27,8 +27,8 @@
 // Resident batch: the whole input side of one resident train or eval step,
 //   images[i] = crop_flip(table[r], ys[i], xs[i], flip[i]) / 255,
 //   labels_out[i] = labels[r],  r = clamp(idx[i], 0, M-1),
-// float32, stored channels-first [N, 3, 32, 32] (the wrapper returns its
-// NHWC view).  Train mode: image i is padded by PAD = 4 zeros, cropped at
+// float32 or bfloat16, stored channels-first [N, 3, 32, 32] (the wrapper
+// returns its NHWC view).  Train mode: image i is padded by PAD = 4 zeros, cropped at
 // row ys[i], column xs[i], then mirrored left-right where flip[i].  Eval
 // mode (no draws): offset PAD, no flip, so the image unchanged.
 //
@@ -43,7 +43,8 @@
 //
 // Bound: memory bytes.  A step's batch of N = 512 moves the 6.3 MB of float
 // output, 1.6 MB of source rows and a few KB of indices, draws and labels:
-// 7.9 MB, 2.35 us at 3.35 TB/s.  That is about the cost of a launch and of
+// 7.9 MB, 2.35 us at 3.35 TB/s (bfloat16: 3.1 MB of output, 4.7 MB in all,
+// 1.41 us).  That is about the cost of a launch and of
 // the dependent chain index -> row -> output, so the design keeps one launch
 // and puts every image's chain in flight at once:
 //   - one 256-thread block per image: N = 512 is one wave of about four
@@ -51,22 +52,27 @@
 //     3072-byte source image into shared memory with one bulk asynchronous
 //     copy (cp.async.bulk, completed on an mbarrier by its byte count);
 //   - while the copy is in flight, every thread loads the draws and makes
-//     one entry of a 256-float table of u/255, and thread 0 writes the
-//     label;
+//     one entry of a 256-entry table of u/255 in the output type, and
+//     thread 0 writes the label;
 //   - after the barrier, thread t makes the 4 consecutive output pixels
 //     (t % 8) * 4 .. + 3 of row t / 8 in each of the three channel planes,
 //     reading the cropped and flipped source from shared memory and writing
-//     zero outside the padded window, and stores them as one 16-byte vector:
-//     a warp writes 4 whole rows, 512 contiguous bytes.  The stores are
-//     marked streaming (evict first): the step reads each output once.
+//     zero outside the padded window, and stores them as one vector (16
+//     bytes of float32, 8 of bfloat16): a warp writes 4 whole rows, 512 (or
+//     256) contiguous bytes.  The stores are marked streaming (evict first):
+//     the step reads each output once.
 // u8/255 is an IEEE division (nvcc's default; no fast math), which is what
 // the CPU and JAX's eager cast compute; a multiply by 1/255 differs from it
 // in the last bit for 126 of the 256 byte values.  A division costs a dozen
 // instructions, and twelve a thread made up much of the kernel's time, so
 // each block divides once per byte value into the table and the pixels look
-// their values up.  Variants measured on the card and not kept (PERF.md):
-// two or four images per block, and plain write-back stores.
+// their values up.  The bfloat16 form's table holds the float32 quotient
+// rounded to nearest even, which is what JAX's u8.astype(bf16) / 255 gives
+// for every byte value (the bf16 division is carried out in float32 and
+// rounded once).  Variants measured on the card and not kept (PERF.md): two
+// or four images per block, and plain write-back stores.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -136,18 +142,38 @@ constexpr int PLANE = SIZE * SIZE;            // floats per output plane
 constexpr int BATCH_THREADS = PLANE / 4;      // 4 output pixels a thread
 static_assert(BATCH_THREADS == 256, "one thread per entry of the u/255 table");
 
-template <bool kAugment, typename Index>
+// u / 255 in the output type, and four output pixels as one streaming store.
+__device__ __forceinline__ void scale_byte(int u, float* v) {
+  *v = static_cast<float>(u) / 255.0f;
+}
+__device__ __forceinline__ void scale_byte(int u, __nv_bfloat16* v) {
+  *v = __float2bfloat16_rn(static_cast<float>(u) / 255.0f);
+}
+__device__ __forceinline__ void store4(float* dst, const float* v) {
+  __stcs(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst,
+                                       const __nv_bfloat16* v) {
+  uint2 w;
+  w.x = static_cast<uint32_t>(__bfloat16_as_ushort(v[0])) |
+        (static_cast<uint32_t>(__bfloat16_as_ushort(v[1])) << 16);
+  w.y = static_cast<uint32_t>(__bfloat16_as_ushort(v[2])) |
+        (static_cast<uint32_t>(__bfloat16_as_ushort(v[3])) << 16);
+  __stcs(reinterpret_cast<uint2*>(dst), w);
+}
+
+template <bool kAugment, typename Index, typename Out>
 __global__ void __launch_bounds__(BATCH_THREADS)
 gather_batch_kernel(const uint8_t* __restrict__ table, long long m,
                     const Index* __restrict__ idx,
                     const int64_t* __restrict__ labels,
                     const int64_t* __restrict__ ys,
                     const int64_t* __restrict__ xs,
-                    const bool* __restrict__ flip, float* __restrict__ out,
+                    const bool* __restrict__ flip, Out* __restrict__ out,
                     int64_t* __restrict__ labels_out) {
   __shared__ __align__(128) uint8_t img[IMAGE_BYTES];
   __shared__ __align__(8) uint64_t bar_word;
-  __shared__ float scaled[256];  // scaled[u] = u / 255, IEEE
+  __shared__ Out scaled[256];  // scaled[u] = u / 255, IEEE, then rounded
   const long long i = blockIdx.x;
   const int tid = threadIdx.x;
   const uint32_t bar = smem_addr(&bar_word);
@@ -164,7 +190,7 @@ gather_batch_kernel(const uint8_t* __restrict__ table, long long m,
         "l"(table + r * IMAGE_BYTES), "r"(IMAGE_BYTES), "r"(bar)
         : "memory");
   }
-  scaled[tid] = static_cast<float>(tid) / 255.0f;
+  scale_byte(tid, &scaled[tid]);
   // Eval: the window at offset PAD, unflipped, is the image itself.
   long long oy = PAD, ox = PAD;
   bool mirror = false;
@@ -190,20 +216,20 @@ gather_batch_kernel(const uint8_t* __restrict__ table, long long m,
                  : -1;
   }
   mbar_wait(bar, 0);
-  float* dst = out + i * (CHANNELS * PLANE) + y * SIZE + x0;
+  Out* dst = out + i * (CHANNELS * PLANE) + y * SIZE + x0;
+  // Zero outside the window: the table's entry for byte 0 is +0 in both types.
 #pragma unroll
   for (int c = 0; c < CHANNELS; ++c) {
-    float v[4];
+    Out v[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      v[j] = src[j] < 0 ? 0.0f : scaled[img[src[j] + c]];
+      v[j] = scaled[src[j] < 0 ? 0 : img[src[j] + c]];
     }
-    __stcs(reinterpret_cast<float4*>(dst + c * PLANE),
-           make_float4(v[0], v[1], v[2], v[3]));
+    store4(dst + c * PLANE, v);
   }
 }
 
-template <typename Index>
+template <typename Index, typename Out>
 void launch_batch(const void* table, long long m, const void* idx,
                   long long n, const void* labels, const void* ys,
                   const void* xs, const void* flip, void* out,
@@ -211,17 +237,31 @@ void launch_batch(const void* table, long long m, const void* idx,
   const auto* t = static_cast<const uint8_t*>(table);
   const auto* ix = static_cast<const Index*>(idx);
   const auto* lab = static_cast<const int64_t*>(labels);
-  auto* o = static_cast<float*>(out);
+  auto* o = static_cast<Out*>(out);
   auto* lo = static_cast<int64_t*>(labels_out);
   const dim3 grid(static_cast<unsigned int>(n));
   if (ys != nullptr) {
-    gather_batch_kernel<true, Index><<<grid, BATCH_THREADS, 0, stream>>>(
+    gather_batch_kernel<true, Index, Out><<<grid, BATCH_THREADS, 0, stream>>>(
         t, m, ix, lab, static_cast<const int64_t*>(ys),
         static_cast<const int64_t*>(xs), static_cast<const bool*>(flip), o,
         lo);
   } else {
-    gather_batch_kernel<false, Index><<<grid, BATCH_THREADS, 0, stream>>>(
+    gather_batch_kernel<false, Index, Out><<<grid, BATCH_THREADS, 0, stream>>>(
         t, m, ix, lab, nullptr, nullptr, nullptr, o, lo);
+  }
+}
+
+template <typename Index>
+void launch_batch_out(int out_bytes, const void* table, long long m,
+                      const void* idx, long long n, const void* labels,
+                      const void* ys, const void* xs, const void* flip,
+                      void* out, void* labels_out, cudaStream_t stream) {
+  if (out_bytes == 4) {
+    launch_batch<Index, float>(table, m, idx, n, labels, ys, xs, flip, out,
+                               labels_out, stream);
+  } else {
+    launch_batch<Index, __nv_bfloat16>(table, m, idx, n, labels, ys, xs, flip,
+                                       out, labels_out, stream);
   }
 }
 
@@ -252,28 +292,30 @@ extern "C" int ddp_row_gather(const void* table, long long m,
 // cudaGetLastError() (0 when the launch was accepted).  table: [m, 32, 32, 3]
 // uint8, 16 B aligned; idx: n indices of idx_bytes (4 or 8) each; labels: m
 // int64; ys, xs: n int64 and flip: n bools, or all three null for the eval
-// form; out: [n, 3, 32, 32] float32, 16 B aligned; labels_out: n int64.
-// 1 <= n < 2^31, m >= 1.
+// form; out: [n, 3, 32, 32] of out_bytes (4: float32, 2: bfloat16), 16 B
+// aligned; labels_out: n int64.  1 <= n < 2^31, m >= 1.
 extern "C" int ddp_gather_batch(const void* table, long long m,
                                 const void* idx, int idx_bytes, long long n,
                                 const void* labels, const void* ys,
                                 const void* xs, const void* flip, void* out,
-                                void* labels_out, void* stream) {
+                                int out_bytes, void* labels_out,
+                                void* stream) {
   const bool some_draws = ys != nullptr || xs != nullptr || flip != nullptr;
   const bool all_draws = ys != nullptr && xs != nullptr && flip != nullptr;
   if (m < 1 || n < 1 || n > 0x7fffffffLL ||
       (idx_bytes != 4 && idx_bytes != 8) || some_draws != all_draws ||
+      (out_bytes != 4 && out_bytes != 2) ||
       reinterpret_cast<uintptr_t>(table) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (idx_bytes == 4) {
-    launch_batch<int32_t>(table, m, idx, n, labels, ys, xs, flip, out,
-                          labels_out, s);
+    launch_batch_out<int32_t>(out_bytes, table, m, idx, n, labels, ys, xs,
+                              flip, out, labels_out, s);
   } else {
-    launch_batch<int64_t>(table, m, idx, n, labels, ys, xs, flip, out,
-                          labels_out, s);
+    launch_batch_out<int64_t>(out_bytes, table, m, idx, n, labels, ys, xs,
+                              flip, out, labels_out, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

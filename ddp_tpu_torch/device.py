@@ -33,8 +33,18 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
 
 
 def set_tf32(enabled: bool = False) -> None:
-    """Set both TF32 switches.  The main path runs with both off: float32
-    convolutions and matrix products in full float32, like the JAX
-    reference (cuDNN would otherwise take TF32 for convolutions)."""
+    """Set both TF32 switches, and keep bfloat16 matrix products' reductions
+    in float32.  The main path runs with TF32 off: float32 convolutions and
+    matrix products in full float32, like the JAX reference (cuDNN would
+    otherwise take TF32 for convolutions).  Under ``--bf16`` cuBLAS may
+    otherwise add split-K partial sums in bfloat16; XLA accumulates bfloat16
+    dots in float32, so that switch stays off whatever ``enabled`` says."""
     torch.backends.cudnn.allow_tf32 = enabled
     torch.backends.cuda.matmul.allow_tf32 = enabled
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def dtype_name(compute_dtype) -> str:
+    """``"float32"`` for None, else the dtype's name (``"bfloat16"``): the
+    compute dtype as the result JSON and the serving stats print it."""
+    return str(compute_dtype or torch.float32).replace("torch.", "")

@@ -6,6 +6,14 @@ count (9,228,362), as an :class:`torch.nn.Module` over NCHW activations.  Its
 (``backbone.conv0.weight``, ``backbone.bn0.running_mean``, ...,
 ``classifier.weight``), and :mod:`ddp_tpu_torch.interop` maps them to and
 from ``ddp_tpu``'s nested parameters.
+
+Mixed precision (``--bf16``) casts by hand where ``ddp_tpu/models/vgg.py``
+casts: the input and every conv kernel to the compute dtype, BatchNorm+ReLU
+on that input with float32 γ/β and float32 statistics (its output in the
+compute dtype), the classifier's weight and bias cast, the logits float32.
+Parameters, their gradients and the BatchNorm buffers stay float32.
+``torch.autocast`` would cast elsewhere (BatchNorm in float32 on float32
+outputs, its own choice of ops), so it is not used.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ class Conv(nn.Module):
         self.weight = nn.Parameter(weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d(x, self.weight, stride=1, padding=1)
+        return conv2d(x, self.weight.to(x.dtype), stride=1, padding=1)
 
 
 class BNReLU(nn.Module):
@@ -70,7 +78,7 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(x, self.weight, self.bias)
+        return linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class VGG(nn.Module):
@@ -80,7 +88,9 @@ class VGG(nn.Module):
     ones.  Weights are drawn from ``generator`` (a CPU generator; seed 0 when
     omitted) with PyTorch's default distributions and moved to ``device``.
     ``forward(x, sync_bn=True)`` synchronises every BatchNorm layer's
-    training statistics over the process group."""
+    training statistics over the process group; ``compute_dtype``
+    (``torch.bfloat16`` under ``--bf16``; None keeps ``x``'s dtype) is the
+    activations' dtype."""
 
     def __init__(self, arch: Optional[Sequence[Union[int, str]]] = None,
                  *, device=None, generator: Optional[torch.Generator] = None):
@@ -103,8 +113,9 @@ class VGG(nn.Module):
             init_lib.linear_bias(generator, CLASSIFIER_IN, NUM_CLASSES,
                                  device))
 
-    def forward(self, x: torch.Tensor, sync_bn: bool = False
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sync_bn: bool = False,
+                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        x = x.to(compute_dtype or x.dtype)
         i = 0
         for a in self.arch:
             if a == "M":

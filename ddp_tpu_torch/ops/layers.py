@@ -2,7 +2,9 @@
 ``ddp_tpu/ops/layers.py``, which works in NHWC / HWIO).
 
 The convolutions and matrix products go to PyTorch (cuDNN and cuBLAS on the
-card).  :func:`bn_relu` keeps the JAX package's hand-written backward as a
+card), in the dtype of their inputs (bfloat16 under ``--bf16``); BatchNorm's
+statistics and parameters stay float32 whatever ``x``'s dtype, as in
+``ddp_tpu``.  :func:`bn_relu` keeps the JAX package's hand-written backward as a
 :class:`torch.autograd.Function`: it recomputes the ReLU mask and x̂ from
 ``x`` and reads only ``(x, dz)``.  Batch statistics are per rank, or with
 ``sync=True`` (``--sync_bn``, the JAX package's ``bn_sync_axis``) over the
@@ -45,8 +47,11 @@ def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2,
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x @ weight.T (+ bias). weight: [out, in]."""
-    return F.linear(x, weight, bias)
+    """x @ weight.T (+ bias). weight: [out, in].  The product and then the
+    sum, each rounded to ``x``'s dtype, as the JAX package's ``x @ w + b``
+    rounds twice in bfloat16; ``F.linear``'s fused bias would round once."""
+    y = F.linear(x, weight)
+    return y if bias is None else y + bias
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

@@ -8,8 +8,9 @@ runs as one rank of a process group (its rendezvous environment set, as
 ``OUT_DIR/rank{r}.pt``; :func:`run` launches the ranks and reads their
 results.  The spec (:func:`spec`) holds the model's architecture and
 weights, the datasets, the per-rank batch, the learning rate and seed,
-whether to crop and flip, the device, an optional backend and the strategy
-flags (``grad_accum``, ``sync_bn``, ``shard_update``).  Crop/flip draws come
+whether to crop and flip, the device, an optional backend, the strategy
+flags (``grad_accum``, ``sync_bn``, ``shard_update``) and the compute dtype
+(``compute_dtype``: ``"bfloat16"`` for ``--bf16``, ``""`` for float32).  Crop/flip draws come
 from numpy, keyed on ``(seed, rank, step)`` and, for micro-batch k > 0,
 ``k`` after them, so a run on the card and a run on the CPU draw the same.
 Each rank runs its columns of the epoch in optimizer-step groups (the full
@@ -45,7 +46,7 @@ def spec(arch: Sequence[Union[int, str]], state_dict: Dict[str, torch.Tensor],
          train: Dataset, test: Dataset, *, batch: int, lr: float, seed: int,
          augment: bool, device: str, backend: Optional[str] = None,
          grad_accum: int = 1, sync_bn: bool = False,
-         shard_update: bool = False) -> Dict:
+         shard_update: bool = False, compute_dtype: str = "") -> Dict:
     """The drill's input as a dict of tensors and plain values."""
     return {"arch": list(arch),
             "state_dict": {k: v.detach().cpu().clone()
@@ -57,7 +58,7 @@ def spec(arch: Sequence[Union[int, str]], state_dict: Dict[str, torch.Tensor],
             "batch": batch, "lr": lr, "seed": seed, "augment": augment,
             "device": device, "backend": backend or "",
             "grad_accum": grad_accum, "sync_bn": sync_bn,
-            "shard_update": shard_update}
+            "shard_update": shard_update, "compute_dtype": compute_dtype}
 
 
 def draws_np(seed: int, rank: int, step: int, n: int, micro: int = 0):
@@ -82,6 +83,8 @@ def rank_main(spec_path: str, out_dir: str) -> None:
     try:
         rank, world = dist.rank(), dist.world_size()
         set_tf32(False)
+        cd = getattr(torch, s["compute_dtype"]) if s["compute_dtype"] \
+            else None
         model = VGG(s["arch"])
         model.load_state_dict(s["state_dict"])
         model.to(device)
@@ -99,7 +102,8 @@ def rank_main(spec_path: str, out_dir: str) -> None:
         run = make_train_epoch(model, SGDConfig(lr=s["lr"]), sched,
                                device_augment=s["augment"],
                                sync_bn=s["sync_bn"],
-                               shard_update=s["shard_update"])
+                               shard_update=s["shard_update"],
+                               compute_dtype=cd)
 
         def draws(step: int, n: int, micro: int = 0):
             return tuple(torch.from_numpy(d).to(device) for d in
@@ -118,7 +122,7 @@ def rank_main(spec_path: str, out_dir: str) -> None:
             rank)
         tres = ResidentData(test, device)
         launches = gather_batch.launches
-        correct, total = make_eval_epoch(model)(
+        correct, total = make_eval_epoch(model, cd)(
             tres.images, tres.labels, torch.from_numpy(idx).to(device),
             torch.from_numpy(mask).to(device))
         momentum = state.momentum

@@ -1,13 +1,14 @@
 """Where a resident training step's device time goes, at full VGG-11 width:
 
     python -m ddp_tpu_torch.profile_resident [--steps 10] [--warmup 5] \
-        [--data_parallel]
+        [--data_parallel] [--bf16]
 
 Runs resident train steps of the port (batch 512 from a 50,000-image
 synthetic table on the card, crop/flip on), the measured window under
 ``torch.profiler``.  With ``--data_parallel`` the steps run as rank 0 of a
 world-1 NCCL process group, as ``multigpu`` runs them on a one-card
-machine: each step adds its gradient and buffer all-reduces.  Prints the window's wall time per step, the device's
+machine: each step adds its gradient and buffer all-reduces.  With
+``--bf16`` the steps compute in bfloat16, as ``--bf16`` trains.  Prints the window's wall time per step, the device's
 busy and idle share (the kernels' summed time against the wall time), the
 CUDA kernels launched per step, the device time by kernel group and the top
 kernels, and one JSON summary line last.  Needs a card.
@@ -23,7 +24,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, schedule
 
 from .data import TrainLoader, synthetic
-from .device import resolve_device, set_tf32
+from .device import dtype_name, resolve_device, set_tf32
 from .models import get_model
 from .optim import SGDConfig, triangular_lr
 from .parallel import dist
@@ -31,16 +32,20 @@ from .train.trainer import Trainer
 
 # Kernel name fragments -> group, first match wins.  cuDNN runs VGG's
 # convolutions as implicit GEMM, Winograd, FFT (complex cf32 GEMMs between
-# fft2d transforms) or plain GEMM kernels; the one true matrix product, the
-# 512x10 classifier, is negligible beside them, so every GEMM counts as
-# convolution.
+# fft2d transforms) or plain GEMM kernels, and in bfloat16 as CUTLASS or
+# cuBLAS (``nvjet``) kernels; the one true matrix product, the 512x10
+# classifier, is negligible beside them, so every GEMM counts as
+# convolution.  Dtype casts (``--bf16``'s weight casts) and copies are
+# PyTorch's ``direct_copy`` kernels.
 GROUPS = (("nccl", "collectives (NCCL)"),
           ("gather_batch", "resident batch (port kernel)"),
           ("row_gather", "row gather (port kernel)"),
           ("conv", "convolution"), ("xmma", "convolution"),
           ("implicit", "convolution"), ("winograd", "convolution"),
           ("cudnn", "convolution"), ("fft", "convolution"),
-          ("gemm", "convolution"), ("max_pool", "max pool"),
+          ("gemm", "convolution"), ("cutlass", "convolution"),
+          ("nvjet", "convolution"), ("max_pool", "max pool"),
+          ("direct_copy", "casts and copies"),
           ("reduce", "reduction (BN stats, sums)"),
           ("index", "indexing (crop/flip, labels)"),
           ("gather", "indexing (crop/flip, labels)"),
@@ -87,6 +92,8 @@ def main(argv=None) -> dict:
     p.add_argument("--warmup", type=int, default=5)
     p.add_argument("--data_parallel", action="store_true",
                    help="run as rank 0 of a world-1 NCCL process group")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute, as the trainer's --bf16")
     args = p.parse_args(argv)
     device = resolve_device("cuda")
     # A world-1 rendezvous of this process's own, unless it is a rank
@@ -107,6 +114,7 @@ def main(argv=None) -> dict:
 
 def _profile(args: argparse.Namespace, device: torch.device) -> dict:
     set_tf32(False)
+    compute_dtype = torch.bfloat16 if args.bf16 else None
     train_ds, _ = synthetic(n_train=50000, n_test=64)
     loader = TrainLoader(train_ds, 512, seed=0)
     model = get_model("vgg", device=device,
@@ -114,7 +122,8 @@ def _profile(args: argparse.Namespace, device: torch.device) -> dict:
     trainer = Trainer(model, loader, device=device,
                       lr_schedule=lambda s: triangular_lr(
                           s, num_epochs=1, steps_per_epoch=len(loader)),
-                      sgd_config=SGDConfig())
+                      sgd_config=SGDConfig(),
+                      compute_dtype=compute_dtype)
     full, _ = loader.epoch_index_matrix()
     rows = torch.from_numpy(full).to(device)
     res = trainer.resident
@@ -147,8 +156,8 @@ def _profile(args: argparse.Namespace, device: torch.device) -> dict:
     for name, (ms, _) in kernels.items():
         groups[_group(name)] = groups.get(_group(name), 0.0) + ms
     card = torch.cuda.get_device_name(0)
-    print(f"{card}: {args.steps} steps, wall {wall_ms / args.steps:.3f} "
-          f"ms/step, device busy {busy_ms / args.steps:.3f} ms/step "
+    print(f"{card}: {dtype_name(compute_dtype)}, {args.steps} steps, wall "
+          f"{wall_ms / args.steps:.3f} ms/step, device busy {busy_ms / args.steps:.3f} ms/step "
           f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}, "
           f"{launches / args.steps:g} CUDA kernels launched per step, "
           f"gather_batch_kernel {gather_launches} times in {args.steps} "
@@ -162,6 +171,7 @@ def _profile(args: argparse.Namespace, device: torch.device) -> dict:
               f"{name[:100]}")
     summary = {"device": card, "steps": args.steps,
                "backend": dist.backend(),
+               "compute_dtype": dtype_name(compute_dtype),
                "wall_ms_per_step": wall_ms / args.steps,
                "busy_ms_per_step": busy_ms / args.steps,
                "idle_share": 1 - busy_ms / wall_ms,

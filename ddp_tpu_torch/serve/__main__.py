@@ -9,11 +9,12 @@ gracefully through the preemption guard: admission stops (503 and a
 draining ``/healthz``), accepted requests finish, the span spill is
 flushed, exit 0.  A second signal kills at once.  It runs on ``cuda``
 unless ``--device cpu`` is given, and refuses to run without a card
-otherwise.
+otherwise.  ``--bf16`` serves in bfloat16 compute, as the trainer's
+``--bf16`` trains (``/stats`` reports the dtype).
 
 Usage:
     python -m ddp_tpu_torch.singlegpu 5 1 --resident --snapshot_path ck.pt
-    python -m ddp_tpu_torch.serve --snapshot_path ck.pt --port 8100
+    python -m ddp_tpu_torch.serve --snapshot_path ck.pt --port 8100 [--bf16]
     curl -s localhost:8100/healthz
     curl -s -X POST localhost:8100/predict -d '{"instances": [[[..]]]}'
     python -m ddp_tpu.obs serve_spill.jsonl              # telemetry
@@ -65,6 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "next to --snapshot_path)")
     p.add_argument("--obs_off", action="store_true",
                    help="Telemetry kill switch: no spans, no spill")
+    p.add_argument("--bf16", action="store_true",
+                   help="Serve in bfloat16 compute (match the flag the "
+                        "checkpoint was trained with for parity)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; without a card, cuda is an "
                         "error")
@@ -73,6 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+
+    import torch
 
     from ..device import resolve_device, set_tf32
     from ..obs.registry import MetricsRegistry
@@ -87,6 +93,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     # As the trainer's CLI: full float32 convolutions and products, or the
     # served logits would differ from evaluate_resident's.
     set_tf32(False)
+    compute_dtype = torch.bfloat16 if args.bf16 else None
     trace_spill = args.trace_spill
     if trace_spill is None:
         trace_spill = default_spill_path(args.snapshot_path,
@@ -101,7 +108,7 @@ def main(argv: Optional[List[str]] = None) -> int:
               file=sys.stderr)
         engine = ServeEngine.from_checkpoint(
             args.snapshot_path, args.model, device=device, buckets=buckets,
-            tracer=tracer, registry=registry)
+            compute_dtype=compute_dtype, tracer=tracer, registry=registry)
         t0 = time.monotonic()
         # The JAX server's line, word for word: on the card each executable
         # is one captured CUDA graph.

@@ -7,7 +7,8 @@ build.  A bucket's program is :class:`~ddp_tpu_torch.train.step.EvalProgram`:
 the ``gather_batch`` kernel's eval form (u8/255 into channels-first float32)
 and then ``make_eval_apply``, the eval forward ``evaluate_resident`` runs, so
 served logits cannot drift from the training-side evaluation of the same
-checkpoint at the same batch shape.  On the card each program is one CUDA
+checkpoint at the same batch shape and compute dtype (``--bf16``: bfloat16,
+as the JAX engine's ``compute_dtype``).  On the card each program is one CUDA
 graph, captured at warm-up and replayed per batch; ``trace_count`` counts the
 captured graphs and must equal the bucket set.  On the CPU the programs run
 eagerly and ``trace_count`` counts warmed buckets.  A request larger than the
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, dtype_name, resolve_device
 from ..obs.registry import MetricsRegistry
 from ..obs.tracer import get_tracer
 from ..train.step import EvalProgram, make_eval_forward
@@ -76,7 +77,8 @@ def resolve_buckets(buckets: Sequence[int]) -> Tuple[int, ...]:
 
 
 class ServeEngine:
-    """Eval-mode forwards of ``model`` on ``device``, one program per bucket.
+    """Eval-mode forwards of ``model`` on ``device`` in ``compute_dtype``
+    (float32 when None), one program per bucket.
 
     ``forward()`` is synchronous and single-caller by design (the batcher's
     engine thread); a lock serialises misuse.  Counters have their own lock,
@@ -86,9 +88,11 @@ class ServeEngine:
     input_shape = (32, 32, 3)
 
     def __init__(self, model: nn.Module, *, device: DeviceLike = "cuda",
-                 buckets: Sequence[int] = (1, 8, 32, 128), tracer=None,
+                 buckets: Sequence[int] = (1, 8, 32, 128),
+                 compute_dtype: Optional[torch.dtype] = None, tracer=None,
                  registry=None):
         self.device = resolve_device(device)
+        self.compute_dtype = compute_dtype
         self.model = model.to(self.device)
         self.buckets = resolve_buckets(buckets)
         self.max_rows = self.buckets[-1]
@@ -133,6 +137,7 @@ class ServeEngine:
     def from_checkpoint(cls, snapshot_path: str, model_name: str, *,
                         device: DeviceLike = "cuda",
                         buckets: Sequence[int] = (1, 8, 32, 128),
+                        compute_dtype: Optional[torch.dtype] = None,
                         tracer=None, registry=None) -> "ServeEngine":
         """An engine on the v1 checkpoint file ``snapshot_path``, read by
         :func:`~ddp_tpu_torch.train.checkpoint.load_checkpoint`.
@@ -161,7 +166,8 @@ class ServeEngine:
         model = get_model(model_name)
         model.load_state_dict(
             interop.vgg_state_dict_from_jax(ckpt.params, ckpt.batch_stats))
-        engine = cls(model, device=device, buckets=buckets, tracer=tracer,
+        engine = cls(model, device=device, buckets=buckets,
+                     compute_dtype=compute_dtype, tracer=tracer,
                      registry=registry)
         engine.checkpoint_file = snapshot_path
         engine.checkpoint_epoch = int(ckpt.epoch)
@@ -181,7 +187,8 @@ class ServeEngine:
         with self._lock:
             if not self._programs:
                 self._programs = make_eval_forward(
-                    self.model, self.buckets, stream=self._stream,
+                    self.model, self.buckets,
+                    compute_dtype=self.compute_dtype, stream=self._stream,
                     on_capture=self._on_capture)
                 for b, prog in self._programs.items():
                     self._host_in[b] = torch.zeros(
@@ -290,7 +297,7 @@ class ServeEngine:
                     str(b): c for b, c in self._per_bucket.items()},
                 "rows_served": self.rows_served,
                 "mesh_devices": 1,
-                "compute_dtype": "float32",
+                "compute_dtype": dtype_name(self.compute_dtype),
                 "device": str(self.device),
                 "checkpoint": {
                     "file": self.checkpoint_file,

@@ -32,7 +32,8 @@ DrawFn = Callable[..., Draws]
 def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
                      lr_schedule: Callable[[int], float],
                      device_augment: bool = False, *, sync_bn: bool = False,
-                     shard_update: bool = False):
+                     shard_update: bool = False,
+                     compute_dtype: Optional[torch.dtype] = None):
     """``epoch_fn(state, images, labels, idx, draws=None, events=None) ->
     losses``: one optimizer step per group of the device index tensor
     ``idx``, over the resident ``images``/``labels``.  ``idx`` is
@@ -46,6 +47,9 @@ def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
     ``shard_update`` the sharded one (``train/zero.py``, the counterparts of
     ``make_train_epoch_zero`` and ``make_train_epoch_zero_accum``).
     ``sync_bn`` synchronises BatchNorm's statistics over the ranks.
+    ``compute_dtype`` (``torch.bfloat16`` under ``--bf16``) is the dtype of
+    each micro-batch's images, as the kernel writes them, and of the
+    model's activations; the gradients and the update stay float32.
     ``draws(step, B, micro=k)`` gives micro-batch k's crop/flip draws under
     ``device_augment``.  ``losses`` is the ``[G]`` tensor of this rank's
     shares of the per-step global-mean losses (each the mean over the
@@ -56,7 +60,7 @@ def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
     event recorded after each step is appended to it (step timing without a
     host sync).  The trainer calls this once per shape of group, as the JAX
     trainer does."""
-    local_grads = make_local_grads(model, sync_bn)
+    local_grads = make_local_grads(model, sync_bn, compute_dtype)
     update = (make_zero_update if shard_update else make_group_update)(
         sgd_config, lr_schedule)
 
@@ -65,8 +69,9 @@ def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
                  draws: Optional[DrawFn] = None,
                  events: Optional[List[torch.cuda.Event]] = None
                  ) -> torch.Tensor:
-        accum = make_accum_grads(
-            local_grads, micro_from_table(images, labels, device_augment))
+        accum = make_accum_grads(local_grads, micro_from_table(
+            images, labels, device_augment,
+            compute_dtype or torch.float32))
         losses = []
         for group in (idx[:, None] if idx.dim() == 2 else idx):
             loss, grads = accum(
@@ -83,15 +88,18 @@ def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
     return epoch_fn
 
 
-def make_eval_epoch(model: nn.Module):
+def make_eval_epoch(model: nn.Module,
+                    compute_dtype: Optional[torch.dtype] = None):
     """``eval_fn(images, labels, idx, mask) -> (correct, total)``: this
-    rank's columns of the test set through the eval forward, row by row of
+    rank's columns of the test set through the eval forward in
+    ``compute_dtype`` (the batch from the kernel in it), row by row of
     its padded index matrix ``idx`` ``[steps, B]``; ``mask`` zeroes the
     padding out of both counters, which stay on the device and are summed
     over the ranks by one all-reduce at the end (the JAX eval's ``psum``,
     ``ddp_tpu/train/step.py:516``), so every rank returns the global
     counts."""
-    apply_fn = make_eval_apply(model)
+    apply_fn = make_eval_apply(model, compute_dtype)
+    dtype = compute_dtype or torch.float32
 
     @torch.no_grad()
     def eval_fn(images: torch.Tensor, labels: torch.Tensor,
@@ -99,7 +107,7 @@ def make_eval_epoch(model: nn.Module):
         correct = torch.zeros((), device=images.device)
         total = torch.zeros((), device=images.device)
         for idx_row, mask_row in zip(idx, mask):
-            x, y = gather_batch(images, labels, idx_row)
+            x, y = gather_batch(images, labels, idx_row, dtype=dtype)
             hit = (apply_fn(x).argmax(dim=-1) == y).float()
             correct += (hit * mask_row).sum()
             total += mask_row.sum()

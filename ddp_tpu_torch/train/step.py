@@ -12,6 +12,9 @@ rank and divided by A (:func:`make_accum_grads`); then the update stage:
 one all-reduce of the gradients and one of BatchNorm's running buffers
 (``parallel/dist.py``) and the SGD update at ``lr_schedule(step)``
 (:func:`make_group_update`), or the sharded update of ``train/zero.py``.
+Under ``--bf16`` (``compute_dtype=torch.bfloat16``) the batch comes out of
+the kernel in bfloat16 and the model computes in it (``models/vgg.py``);
+the loss, the gradients, momentum and BatchNorm's buffers stay float32.
 PyTorch runs it eagerly, one process per rank, where the JAX package runs
 one ``shard_map`` program over the mesh.  The forward updates the running
 buffers in place (the JAX package returns them as new state).  Without a
@@ -33,8 +36,11 @@ from ..optim import sgd as sgd_lib
 from ..parallel import dist
 
 
-def _as_input(x: torch.Tensor) -> torch.Tensor:
-    """NHWC batch -> float32 NCHW, uint8 scaled u8/255 (ToTensor), on the
+def _as_input(x: torch.Tensor,
+              compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """NHWC batch -> NCHW, uint8 scaled u8/255 (ToTensor) into
+    ``compute_dtype`` (float32 when None; bfloat16: the float32 quotient
+    rounded to nearest even, which is JAX's ``astype(bf16) / 255``), on the
     tensor's device.  A float batch from :func:`gather_batch` is already
     scaled and stored channels-first, so this returns its buffer as is.
 
@@ -45,7 +51,8 @@ def _as_input(x: torch.Tensor) -> torch.Tensor:
     forward's, whose input comes from the kernel's true division."""
     x = x.permute(0, 3, 1, 2)
     if x.dtype == torch.uint8:
-        x = x.float() / torch.full((), 255.0, device=x.device)
+        x = (x.float() / torch.full((), 255.0, device=x.device)).to(
+            compute_dtype or torch.float32)
     return x.contiguous()
 
 
@@ -66,11 +73,12 @@ def init_train_state(model: nn.Module) -> TrainState:
     return TrainState(model, sgd_lib.init(model.parameters()), 0)
 
 
-def make_local_grads(model: nn.Module, sync_bn: bool = False):
+def make_local_grads(model: nn.Module, sync_bn: bool = False,
+                     compute_dtype: Optional[torch.dtype] = None):
     """``fn(images [B,32,32,3], labels [B]) -> (loss, grads)`` on this
     rank's batch, with no collective but sync-BN's: the forward in training
-    mode (BatchNorm over every rank's batch with ``sync_bn``), and the
-    gradients of the rank's share ``ce_sum / (count * world)`` of the
+    mode (BatchNorm over every rank's batch with ``sync_bn``) in
+    ``compute_dtype``, and the float32 gradients of the rank's share ``ce_sum / (count * world)`` of the
     global-mean loss (the JAX package's local objective,
     ``ddp_tpu/train/zero.py::_make_local_grads``).
 
@@ -90,7 +98,8 @@ def make_local_grads(model: nn.Module, sync_bn: bool = False):
 
     def local_grads(images: torch.Tensor, labels: torch.Tensor):
         model.train()
-        logits = model(_as_input(images), sync_bn=sync_bn)
+        logits = model(_as_input(images, compute_dtype), sync_bn=sync_bn,
+                       compute_dtype=compute_dtype)
         ce_sum, count = cross_entropy_sum_count(logits, labels)
         loss = ce_sum / (count * world)
         return loss.detach(), list(torch.autograd.grad(loss, params))
@@ -151,30 +160,35 @@ def make_group_update(sgd_config: sgd_lib.SGDConfig,
 
 
 def micro_from_table(images: torch.Tensor, labels: torch.Tensor,
-                     device_augment: bool):
+                     device_augment: bool,
+                     dtype: torch.dtype = torch.float32):
     """``get_micro(draws, idx_row) -> (images, labels)`` for the resident
-    path: the batch of float32 images, cropped and flipped with ``draws``
+    path: the batch of ``dtype`` images, cropped and flipped with ``draws``
     under ``device_augment``, and its labels, from one
     :func:`~ddp_tpu_torch.ops.gather.gather_batch` launch."""
 
     def get_micro(draws: Optional[Draws], idx_row: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         return gather_batch(images, labels, idx_row,
-                            draws if device_augment else None)
+                            draws if device_augment else None, dtype=dtype)
 
     return get_micro
 
 
-def make_eval_apply(model: nn.Module):
+def make_eval_apply(model: nn.Module,
+                    compute_dtype: Optional[torch.dtype] = None):
     """``fn(images [B,32,32,3]) -> logits [B,10]``: the eval-mode
-    forward (BatchNorm on running statistics), without autograd.  The one
-    eval forward of the port: the resident eval and every serving program
-    (:func:`make_eval_forward`) run it."""
+    forward (BatchNorm on running statistics) in ``compute_dtype``, without
+    autograd; the logits are float32.  The one eval forward of the port:
+    the resident eval and every serving program (:func:`make_eval_forward`)
+    run it, in the compute dtype of the training (``ddp_tpu/cli.py:
+    1123-1127``)."""
 
     @torch.no_grad()
     def apply_fn(images: torch.Tensor) -> torch.Tensor:
         model.eval()
-        return model(_as_input(images))
+        return model(_as_input(images, compute_dtype),
+                     compute_dtype=compute_dtype)
 
     return apply_fn
 
@@ -182,8 +196,9 @@ def make_eval_apply(model: nn.Module):
 class EvalProgram:
     """The serving forward at one batch size ``B``: the uint8 ``[B,32,32,3]``
     batch in the static tensor ``input`` -> :func:`gather_batch`'s eval form
-    (rows ``arange(B)``, u8/255 into channels-first float32) ->
-    :func:`make_eval_apply` -> float32 ``[B,10]`` logits.
+    (rows ``arange(B)``, u8/255 into channels-first ``compute_dtype``) ->
+    :func:`make_eval_apply` in ``compute_dtype`` -> float32 ``[B,10]``
+    logits.
 
     On the card :meth:`capture` records that sequence as one CUDA graph, the
     counterpart of one compiled executable of the JAX package's
@@ -192,14 +207,16 @@ class EvalProgram:
     graph's input and output (the latter in the graph's private memory pool)
     are never freed under it.  On the CPU :meth:`run` is :meth:`eager`."""
 
-    def __init__(self, model: nn.Module, batch: int):
+    def __init__(self, model: nn.Module, batch: int,
+                 compute_dtype: Optional[torch.dtype] = None):
         device = next(model.parameters()).device
         self.batch = batch
+        self.dtype = compute_dtype or torch.float32
         self.input = torch.zeros((batch,) + IMAGE_SHAPE, dtype=torch.uint8,
                                  device=device)
         self._labels = torch.zeros(batch, dtype=torch.int64, device=device)
         self._rows = torch.arange(batch, dtype=torch.int32, device=device)
-        self._apply = make_eval_apply(model)
+        self._apply = make_eval_apply(model, compute_dtype)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         # The graph's static output (card); the warm-up run's logits (CPU).
         self.output: Optional[torch.Tensor] = None
@@ -207,7 +224,8 @@ class EvalProgram:
     def eager(self) -> torch.Tensor:
         """The program op by op: the CPU path, and on the card the reference
         the graph is held against."""
-        images, _ = gather_batch(self.input, self._labels, self._rows)
+        images, _ = gather_batch(self.input, self._labels, self._rows,
+                                 dtype=self.dtype)
         return self._apply(images)
 
     def capture(self, stream: torch.cuda.Stream) -> None:
@@ -235,12 +253,14 @@ class EvalProgram:
 
 
 def make_eval_forward(model: nn.Module, batches: Sequence[int], *,
+                      compute_dtype: Optional[torch.dtype] = None,
                       stream: Optional[torch.cuda.Stream] = None,
                       on_capture: Optional[Callable[[], None]] = None
                       ) -> Dict[int, EvalProgram]:
     """One :class:`EvalProgram` per batch size in ``batches`` (counterpart of
     ``ddp_tpu/train/step.py::make_eval_forward``, whose jit compiles one
-    executable per padded batch bucket), ready to run.
+    executable per padded batch bucket), ready to run, in
+    ``compute_dtype`` (float32 when None).
 
     On the card every program first runs once eagerly on ``stream`` (a side
     stream; one is made when None), all of them before any capture: that
@@ -250,7 +270,7 @@ def make_eval_forward(model: nn.Module, batches: Sequence[int], *,
     raises.  On the CPU each program runs once eagerly.  ``on_capture`` is
     called once per program, after its capture on the card and after its
     run on the CPU: the counterpart of ``on_trace``."""
-    programs = {b: EvalProgram(model, b) for b in batches}
+    programs = {b: EvalProgram(model, b, compute_dtype) for b in batches}
     device = next(model.parameters()).device
     if device.type == "cpu":
         for p in programs.values():

@@ -54,7 +54,9 @@ class Trainer:
     the JAX CLI) with draws from a device :class:`torch.Generator` seeded by
     :func:`draw_seed`.  ``sync_bn`` synchronises BatchNorm's statistics over
     the ranks; ``shard_update`` shards the weight update (``train/zero.py``;
-    ``state.momentum`` is then the rank's flat slice).  After :meth:`train`,
+    ``state.momentum`` is then the rank's flat slice).  ``compute_dtype``
+    (``torch.bfloat16`` under ``--bf16``) is the step's compute dtype; the
+    state and the checkpoint stay float32.  After :meth:`train`,
     ``loss_history`` holds every optimizer step's global-mean loss, the
     same on every rank, and, on a CUDA device, ``step_ms`` every optimizer
     step's device time on this rank.
@@ -77,7 +79,8 @@ class Trainer:
                  save_every: int = 1,
                  snapshot_path: Optional[str] = "checkpoint.pt",
                  resume: bool = False, grad_accum: int = 1,
-                 sync_bn: bool = False, shard_update: bool = False):
+                 sync_bn: bool = False, shard_update: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         if train_loader.num_replicas != dist.world_size():
             raise ValueError(f"the train loader has "
                              f"{train_loader.num_replicas} replicas; the "
@@ -94,7 +97,8 @@ class Trainer:
         self.state = init_train_state(model)
         self.train_epoch = make_train_epoch(
             model, sgd_config, lr_schedule, device_augment=True,
-            sync_bn=sync_bn, shard_update=shard_update)
+            sync_bn=sync_bn, shard_update=shard_update,
+            compute_dtype=compute_dtype)
         self._generator = torch.Generator(device=device)
         self._epoch = 0
         self.start_epoch = 0

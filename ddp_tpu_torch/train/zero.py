@@ -13,7 +13,8 @@ replicated path keeps all ``n``).  The flat order is internal: a checkpoint
 holds the per-parameter momentum every mode reads
 (:func:`opt_shard_to_list`, ``ddp_tpu/train/trainer.py:755-766``).  The
 update is the replicated one, element for element: at world 1 it is
-bit-equal to it.
+bit-equal to it.  Under ``--bf16`` the gradients it flattens are float32,
+as the parameters are (``ddp_tpu/train/zero.py:188-235``).
 """
 from __future__ import annotations
 
@@ -96,6 +97,9 @@ def make_zero_update(sgd_config: sgd_lib.SGDConfig,
     @torch.no_grad()
     def update(state: TrainState, grads) -> None:
         params = list(state.model.parameters())
+        if any(g.dtype != torch.float32 for g in grads):
+            raise TypeError(f"the sharded update takes float32 gradients, "
+                            f"got {sorted({str(g.dtype) for g in grads})}")
         n_pad = padded_size(params, world)
         dist.average_buffers(state.model)
         g_shard = dist.reduce_scatter_flat(_padded_flat(grads, n_pad))

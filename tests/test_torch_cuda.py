@@ -5,7 +5,8 @@ Marked ``cuda``: they need an NVIDIA card and ``nvcc``, and skip elsewhere
 machine with the card with ``python -m pytest tests/test_torch_cuda.py``.
 Tolerances: the row gather moves bytes, so it compares exactly; so does
 the resident-batch kernel, whose crop/flip selects bytes and whose u8/255
-is the same IEEE division as its plain version's.  The conv
+is the same IEEE division as its plain version's (its bfloat16 form rounds
+that quotient to nearest even, as the plain version does).  The conv
 kernel compares with its plain version on float64 copies of the same
 inputs, as a share of max|y|: 1e-4 for float32 (K = 9*Cin products summed
 in another order), 2^-7 for bfloat16 (the fp32 sum rounded once to
@@ -16,7 +17,11 @@ forward at each bucket: the same kernels on the same shapes, TF32 off.
 The data-parallel drill on the card against the CPU holds losses, weights,
 BN buffers and momentum at 1e-4, as the smoke's parity phase does.  The
 strategy flags at world 1 over NCCL compare bit for bit, under
-deterministic mode, with the same epochs run without a process group.
+deterministic mode, with the same epochs run without a process group.  A
+bfloat16 resident epoch on the card against the CPU holds the CPU parity
+test's bfloat16 tolerances (``tests/test_torch_bf16.py``): losses 1e-2
+relative, each tensor's change 2^-3 of its largest magnitude (cuDNN's and
+the CPU's convolutions round to bfloat16 after sums in other orders).
 """
 import math
 import os
@@ -42,7 +47,11 @@ from ddp_tpu_torch.ops.gather import (gather_batch, gather_batch_plain,
 from ddp_tpu_torch.data import synthetic
 from ddp_tpu_torch.parallel import dist, drill
 from ddp_tpu_torch.serve import DynamicBatcher, ServeEngine
-from ddp_tpu_torch.train.step import _as_input, make_eval_apply
+from ddp_tpu_torch.optim import SGDConfig, triangular_lr
+from ddp_tpu_torch.data.resident import ResidentData
+from ddp_tpu_torch.train.epoch import make_train_epoch
+from ddp_tpu_torch.train.step import (_as_input, init_train_state,
+                                      make_eval_apply)
 
 pytestmark = pytest.mark.cuda
 
@@ -106,7 +115,9 @@ def _batch_draws(kind, n, g, device):
                                   "eval"])
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("n", [512, 336, 1])
-def test_gather_batch_equals_plain(cuda, n, idx_dtype, kind):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_batch_equals_plain(cuda, n, idx_dtype, kind, dtype):
+    """Both output forms, exactly, at the main path's N and ragged ones."""
     g = torch.Generator(device=cuda).manual_seed(n)
     m = 1000
     table = torch.randint(0, 256, (m, 32, 32, 3), dtype=torch.uint8,
@@ -115,15 +126,36 @@ def test_gather_batch_equals_plain(cuda, n, idx_dtype, kind):
     idx = torch.randint(-5, m + 5, (n,), dtype=idx_dtype, device=cuda,
                         generator=g)
     draws = _batch_draws(kind, n, g, cuda)
-    before = gather_batch.launches
-    images, got_labels = gather_batch(table, labels, idx, draws)
+    before = gather_batch.launches, gather_batch.launches_bf16
+    images, got_labels = gather_batch(table, labels, idx, draws, dtype=dtype)
     torch.cuda.synchronize()
-    assert gather_batch.launches == before + 1
-    want_images, want_labels = gather_batch_plain(table, labels, idx, draws)
-    assert images.shape == (n, 32, 32, 3) and images.dtype == torch.float32
+    assert (gather_batch.launches, gather_batch.launches_bf16) == \
+        (before[0] + 1, before[1] + (dtype == torch.bfloat16))
+    want_images, want_labels = gather_batch_plain(table, labels, idx, draws,
+                                                  dtype=dtype)
+    assert images.shape == (n, 32, 32, 3) and images.dtype == dtype
     assert images.permute(0, 3, 1, 2).is_contiguous()
     assert torch.equal(images, want_images)
     assert torch.equal(got_labels, want_labels)
+
+
+def test_gather_batch_bf16_every_byte_value_and_no_other_dtype(cuda):
+    """All 256 byte values through the kernel's bfloat16 table equal the
+    float32 quotient rounded to nearest even; a dtype the kernel has no
+    form for raises, on the card as on the CPU."""
+    ramp = torch.zeros((1, 32, 32, 3), dtype=torch.uint8, device=cuda)
+    ramp.view(-1)[:256] = torch.arange(256, device=cuda)
+    zero = torch.zeros(1, dtype=torch.int64, device=cuda)
+    images, _ = gather_batch(ramp, zero, zero.int(), dtype=torch.bfloat16)
+    want = (torch.arange(256, device=cuda).float() / 255.0).to(
+        torch.bfloat16)
+    assert torch.equal(images.reshape(-1)[:256].view(torch.int16),
+                       want.view(torch.int16))
+    assert torch.equal(_as_input(ramp, torch.bfloat16),
+                       images.permute(0, 3, 1, 2))
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="dtype"):
+            gather_batch(ramp, zero, zero.int(), dtype=dtype)
 
 
 def test_gather_batch_rejects_what_the_kernel_does_not_take(cuda):
@@ -486,3 +518,77 @@ def test_profile_resident_data_parallel_sees_the_collectives(cuda):
     assert summary["backend"] == "nccl"
     assert summary["gather_batch_kernel_launches"] == 2
     assert "RANK" not in os.environ
+
+
+def test_bf16_serve_graphs_equal_eager_forward(cuda):
+    """The serving engine in bfloat16: one graph a bucket, each replay
+    equal bit for bit to the eager bfloat16 forward, the dtype reported."""
+    set_tf32(False)
+    model = VGG(NARROW, generator=torch.Generator().manual_seed(0))
+    engine = ServeEngine(model, device=cuda, buckets=(1, 8),
+                         compute_dtype=torch.bfloat16)
+    assert engine.warm() == 2
+    assert engine.stats()["compute_dtype"] == "bfloat16"
+    apply_fn = make_eval_apply(engine.model, torch.bfloat16)
+    rng = np.random.default_rng(1)
+    for b in engine.buckets:
+        x = rng.integers(0, 256, (b, 32, 32, 3), dtype=np.uint8)
+        images, _ = gather_batch(
+            torch.from_numpy(x).to(cuda),
+            torch.zeros(b, dtype=torch.int64, device=cuda),
+            torch.arange(b, dtype=torch.int32, device=cuda),
+            dtype=torch.bfloat16)
+        want = apply_fn(images).cpu().numpy()
+        assert want.dtype == np.float32
+        np.testing.assert_array_equal(engine.forward(x), want)
+
+
+def test_bf16_resident_steps_on_card_equal_cpu(cuda):
+    """Three bfloat16 resident steps (two batches of 8 and the ragged 4) of
+    a narrow VGG, crop/flip from the same draws, on the card (the kernel's
+    bfloat16 form) against the CPU (its plain version)."""
+    set_tf32(False)
+    ds, _ = synthetic(n_train=20, n_test=8, seed=1)
+    rng = np.random.default_rng(0)
+    draws_np = [(rng.integers(0, 9, (2, n)), rng.random(n) < 0.5)
+                for n in (8, 8, 4)]
+    rows = [np.arange(16, dtype=np.int32).reshape(2, 8),
+            np.arange(16, 20, dtype=np.int32)[None]]
+    start = VGG(NARROW, generator=torch.Generator().manual_seed(0))
+    sched = lambda s: triangular_lr(s, base_lr=0.05, num_epochs=1,
+                                    steps_per_epoch=3)
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        model = VGG(NARROW)
+        model.load_state_dict(start.state_dict())
+        model.to(device)
+        res = ResidentData(ds, device)
+        state = init_train_state(model)
+        run = make_train_epoch(model, SGDConfig(lr=0.05), sched,
+                               device_augment=True,
+                               compute_dtype=torch.bfloat16)
+
+        def draws(step, n, micro=0, device=device):
+            off, flip = draws_np[step]
+            off = torch.from_numpy(off).to(device)
+            return off[0], off[1], torch.from_numpy(flip).to(device)
+
+        before = gather_batch.launches
+        losses = torch.cat([run(state, res.images, res.labels,
+                                torch.from_numpy(r).to(device), draws)
+                            for r in rows])
+        out[device.type] = (losses.cpu(), {k: v.cpu() for k, v in
+                                           model.state_dict().items()},
+                            gather_batch.launches - before)
+    (lg, sg, ng), (lc, sc, nc) = out["cuda"], out["cpu"]
+    assert (ng, nc) == (3, 0)
+    assert torch.isfinite(lg).all()
+    assert float(((lg - lc).abs() / lc.abs()).max()) <= 1e-2
+    sd0 = start.state_dict()
+    for k, v in sc.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        want = v.double() - sd0[k].double()
+        got = sg[k].double() - sd0[k].double()
+        assert float((got - want).abs().max()) <= \
+            2.0 ** -3 * float(want.abs().max()), k
