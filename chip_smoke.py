@@ -80,6 +80,29 @@
    ms/step beside the float32 composed run's) and the narrow world-2 epoch
    with ``compute_dtype="bfloat16"`` on the card against the CPU, within
    ``BF16_LOSS_TOL`` and ``BF16_UPDATE_TOL``.
+   Streaming phase (the reference's data path, without ``--resident``):
+   first ``gather_batch`` on the inputs that path gives it (train batch 0,
+   the ragged 336-row batch, the 212-row eval tail and a view into a
+   ``--grad_accum 2`` group, each copied by ``to_device`` and read through
+   ``micro_from_batch``) against its plain version on the same tensors,
+   exactly, in float32 and bfloat16, eval and augment form; then
+   ``multigpu`` with the main path's other arguments, run in this process
+   as rank 0 of a world-1 NCCL group with its counts set to 0 just before
+   and read just after: 123 ``gather_batch`` launches (each streamed batch
+   and each eval batch once), ``host_augment`` ``native`` (the C++
+   crop/flip), the collectives of the DDP phase, 98 finite losses and a
+   float32 checkpoint; its wall and event ms/step, samples/s and the
+   prefetch engine's host, H2D-enqueue and consumer-wait ms a step beside
+   the resident main path's from this process; ``--resume`` training epoch
+   1 from that file; the same with ``--bf16`` (123 launches of the
+   bfloat16 form, beside the resident bf16 run); ``--device_augment`` and
+   the composed strategy flags on 10,240 images (launches, and the
+   collectives against the formula); in deterministic mode,
+   ``--device_augment`` streamed at ``--prefetch_depth`` 0 and 2, each in
+   a process of its own, bit for bit against each other and against the
+   strategy phase's deterministic resident run of the same arguments; a
+   narrow world-2 streamed epoch over gloo on the card against the CPU
+   within ``PARITY_TOL`` (lr 0.05, drill seed ``STREAM_DRILL_SEED``).
 9. Serving phase: ``ServeEngine.from_checkpoint`` on that epoch-0 file at
    full width with buckets 1, 8, 32 and 128; ``warm()`` must capture exactly
    4 CUDA graphs (the ``gather_batch`` wrapper runs once eagerly and once at
@@ -132,13 +155,15 @@
    around it, then the pool probe once.
 12. Prints the kernels line (``gather_batch_bf16`` is the bfloat16 form,
     its launches those of the bf16 main path, with those of the bf16
-    strategy and serving paths beside; ``gather_batch``'s entry adds its
-    launches on
+    strategy, streaming and serving paths beside; ``gather_batch``'s entry
+    adds its launches on
     the serving path: the eager runs in ``warm()`` and the launches of the
     profiled HTTP load, on the DDP path: the world-1 run's and the card
-    ranks' of the world-2 run, and on the strategy path: the composed
-    world-1 run's and the card ranks' of its world-2 run), the card line,
-    and last
+    ranks' of the world-2 run, on the strategy path: the composed
+    world-1 run's and the card ranks' of its world-2 run, and on the
+    streaming path: every card run of the streaming phase; both entries
+    give ``stream_batch_cases``, the streamed-batch comparisons in their
+    dtype, whose launches are not counted), the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero; without a card it
@@ -183,7 +208,8 @@ from ddp_tpu_torch.ops.conv_probe import (N_LONG, N_SHORT, VGG_CONV_SHAPES,
 from ddp_tpu_torch.ops.gather import (gather_batch, gather_batch_plain,
                                       gather_rows, gather_rows_plain)
 from ddp_tpu_torch.optim import SGDConfig, triangular_lr
-from ddp_tpu_torch.parallel import drill
+from ddp_tpu_torch.parallel import dist, drill
+from ddp_tpu_torch.parallel.dist import free_port
 from ddp_tpu_torch.profile_resident import (_group, device_events,
                                             kernel_launches)
 from ddp_tpu_torch.repeat_check import compare, run_entries
@@ -193,7 +219,9 @@ from ddp_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from ddp_tpu_torch.train.epoch import make_train_epoch
 from ddp_tpu_torch.train.evaluate import evaluate_resident
 from ddp_tpu_torch.train.step import (_as_input, init_train_state,
-                                      make_eval_apply)
+                                      make_eval_apply, micro_from_batch,
+                                      to_device)
+from ddp_tpu_torch.train.trainer import _stack_groups, micro_batches
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BF16 = torch.bfloat16
@@ -753,7 +781,8 @@ def strategy_phase(ddp: dict, card: str) -> tuple:
     cost, the flags' bit-equalities under deterministic mode, and a
     world-2 epoch with the flags composed on the card over gloo against
     the CPU.  Returns the path's gather_batch launches, the composed run's
-    summary and the world-2 epoch's kink margin."""
+    summary, the world-2 epoch's kink margin and the unflagged
+    deterministic run's summary."""
     res, wall_s, ckpt = run_multigpu(MAIN_ARGS + STRATEGY_FLAGS)
     steps = -(-(MAIN_TRAIN_STEPS - 1) // 2) + 1  # 97 full batches, the tail
     launches = res["kernel_launches"]
@@ -885,7 +914,7 @@ def strategy_phase(ddp: dict, card: str) -> tuple:
           f"{runs['cuda'][0]['momentum_numel']} elements; gather_batch "
           f"launches on the card ranks {card_launches}", flush=True)
     res["wall_s"] = wall_s
-    return launches["gather_batch"] + card_launches, res, margin
+    return launches["gather_batch"] + card_launches, res, margin, plain
 
 
 @contextlib.contextmanager
@@ -1680,6 +1709,312 @@ def bf16_strategy_phase(composed: dict, margin: float, card: str) -> int:
     return launches["gather_batch_bf16"] + card_launches
 
 
+# The streaming phase: the reference's command shape, without --resident.
+STREAM_ARGS = [a for a in MAIN_ARGS if a != "--resident"]
+STREAM_FLAG_ARGS = [a for a in FLAG_ARGS if a != "--resident"]
+# The streamed world-2 drill's seed (its host crops and the loader's order;
+# lr 0.05 as the other drills): along its float64 trajectory every ReLU input
+# and every max-pool window's top two inputs stay at least 2.2e-6 apart
+# (``python tests/stream_parity_probe.py --configs drill_seed4``).  At seed
+# 0 a window's top two sit 2.9e-7 apart in the last step, within float32
+# rounding, and card runs took either side of it, moving momentum by 7.2e-4
+# (``--configs drill``), as a ReLU kink does at the strategy drill's seed 0.
+STREAM_DRILL_SEED = 4
+
+
+@contextlib.contextmanager
+def world1_rendezvous():
+    """The environment of rank 0 of a world-1 group on this machine, for a
+    ``multigpu`` rank run in this process; the previous environment is put
+    back after."""
+    keys = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def stream_run(args: list, snapshot: str) -> dict:
+    """``python -m ddp_tpu_torch.multigpu args`` run in this process as
+    rank 0 of a world-1 NCCL group (the rank a one-card machine spawns),
+    with every count set to 0 just before and read just after: its
+    ``--result_json`` summary, with ``wall_s``."""
+    gather_batch.launches = gather_batch.launches_bf16 = 0
+    gather_rows.launches = conv3x3_fused.launches = 0
+    dist.collective_calls.clear()
+    path = snapshot + ".json"
+    t0 = time.time()
+    with world1_rendezvous():
+        cli.main_multi(args + ["--snapshot_path", snapshot,
+                               "--result_json", path])
+    with open(path) as f:
+        res = json.load(f)
+    res["wall_s"] = time.time() - t0
+    check((res["world"], res["backend"], res["data_path"]) ==
+          (1, "nccl", "streaming"), f"multigpu {' '.join(args)}: world "
+          f"{res['world']}, {res['backend']}, {res['data_path']}")
+    check(all(math.isfinite(x) for x in res["loss_history"]),
+          f"multigpu {' '.join(args)}: a loss is not finite")
+    return res
+
+
+def _stream_line(res: dict, steps: int, batch: int) -> str:
+    """Wall and event ms/step, samples/s and the prefetch engine's per-step
+    host, H2D-enqueue and consumer-wait ms of one run."""
+    wall = sum(res["epoch_seconds"]) * 1e3 / steps
+    event = statistics.median(res["step_ms"])
+    pre = res.get("prefetch") or {}
+    return (f"wall {wall:.3f} ms/step ({batch / wall * 1e3:.1f} samples/s), "
+            f"event median {event:.3f} ms/step "
+            f"({batch / event * 1e3:.1f} samples/s)" +
+            (f", prefetch host {pre['host_ms_per_step']} ms, H2D enqueue "
+             f"{pre['h2d_enqueue_ms_per_step']} ms, consumer wait "
+             f"{pre['consumer_wait_ms_per_step']} ms a step over "
+             f"{pre['batches']} batches" if pre else ""))
+
+
+def stream_batch_cases(gen: torch.Generator) -> dict:
+    """gather_batch on the inputs the streaming path gives it, against its
+    plain version on the same device tensors, images and labels exactly:
+    host batches of the streaming runs' data (train batch 0, the ragged
+    last batch of 336 rows, the eval tail of 212 and micro-batch 1 of a
+    ``--grad_accum 2`` group, a view into the stacked [2, 512, 32, 32, 3]
+    copy), each copied by ``to_device`` on a side stream and read through
+    ``micro_batches`` and ``micro_from_batch`` as the trainer and
+    ``eval_counts`` read it, in float32 and bfloat16, eval and augment
+    form.  Each copy is held against its host bytes, and each case must
+    launch the kernel once.  These launches compare the kernel with its
+    plain version: the path's counts are the runs' of :func:`stream_run`.
+    Returns the case counts by dtype."""
+    n = int(STREAM_ARGS[-1])
+    train, test = synthetic(n_train=n, n_test=max(n // 4, 64))
+    loader = TrainLoader(train, 512, seed=0, augment=True,
+                         local_replicas=[0])
+    loader.set_epoch(0)
+    last = len(loader) - 1
+    group, = _stack_groups([loader.materialize(0), loader.materialize(1)], 2)
+    *_, eval_tail = EvalLoader(test, 512, local_replicas=[0])
+    hosts = {"train batch 0": (loader.materialize(0), 1, 512),
+             f"train batch {last}": (loader.materialize(last), 1, 336),
+             "the eval tail": (eval_tail, 1, 212),
+             "micro-batch 1 of a --grad_accum 2 group": (group, 2, 512)}
+    copy = torch.cuda.Stream()
+    cases = {torch.float32: 0, BF16: 0}
+    for name, (host, accum, rows) in hosts.items():
+        batch = to_device(host, torch.device("cuda"), stream=copy).wait()
+        for k, v in host.items():
+            check(torch.equal(batch[k].cpu(), torch.from_numpy(v)),
+                  f"the card's copy of {name} differs from the host's {k}")
+        micro = micro_batches(batch, accum)[-1]
+        check(micro["image"].shape == (rows, 32, 32, 3),
+              f"{name}: {tuple(micro['image'].shape)}")
+        for dtype in cases:
+            for augment in (False, True):
+                draws = make_draws(gen, rows, torch.device("cuda")) \
+                    if augment else None
+                before = gather_batch.launches
+                images, labels = micro_from_batch(augment, dtype)(
+                    lambda m: draws, micro)
+                check(gather_batch.launches == before + 1,
+                      f"{name}: {gather_batch.launches - before} launches")
+                want_images, want = gather_batch_plain(
+                    micro["image"], micro["label"],
+                    torch.arange(rows, device="cuda"), draws, dtype=dtype)
+                torch.cuda.synchronize()
+                check(images.dtype == dtype and
+                      torch.equal(images, want_images) and
+                      torch.equal(labels, want),
+                      f"gather_batch {dtype} on {name} ("
+                      f"{'augment' if augment else 'eval'} form) differs "
+                      f"from its plain version")
+                cases[dtype] += 1
+    print(f"streamed batches: gather_batch equal to its plain version on "
+          f"the card's copies (images and labels, exactly) in "
+          f"{sum(cases.values())} cases: " + ", ".join(
+              f"{name} ({rows} rows)" for name, (_, _, rows) in hosts.items())
+          + " × float32/bfloat16 × eval/augment form; every copy equal to "
+          "its host bytes", flush=True)
+    return cases
+
+
+def stream_phase(out: dict, out_bf16: dict, resident_det: dict, card: str,
+                 tmp: str) -> tuple:
+    """The streaming data path through ``multigpu`` at world 1 over NCCL:
+    the reference's command at full width in float32 and bfloat16 (beside
+    the resident main path's runs ``out``/``out_bf16``), a resumed second
+    epoch, ``--device_augment`` and the composed strategy flags on 10,240
+    images; in deterministic mode, ``--device_augment`` streamed at depth
+    0 and at depth 2 (each process's own), each bit for bit against the
+    other and against the strategy phase's resident run ``resident_det``
+    of the same arguments; a narrow world-2 streamed epoch over gloo on the
+    card against the CPU.  First, :func:`stream_batch_cases`.  Returns the
+    path's gather_batch launches in float32 and in bfloat16, and the
+    streamed-batch case counts by dtype."""
+    cases = stream_batch_cases(torch.Generator(device="cuda").manual_seed(9))
+    n = MAIN_TRAIN_STEPS + MAIN_EVAL_STEPS
+    f32_path = os.path.join(tmp, "stream.pt")
+    res = stream_run(STREAM_ARGS, f32_path)
+    launches = res["kernel_launches"]
+    check(launches == {"gather_batch": n, "gather_batch_bf16": 0,
+                       "row_gather": 0, "conv3x3": 0},
+          f"the streaming path's kernel launches {launches}")
+    check(res["host_augment"] == "native" and not res["device_augment"],
+          f"the streaming path augmented on the host with "
+          f"{res['host_augment']}")
+    check(res["collectives"] == {"all_reduce": 2 * MAIN_TRAIN_STEPS + 2,
+                                 "broadcast": 1},
+          f"the streaming path's collectives {res['collectives']}")
+    check(len(res["loss_history"]) == MAIN_TRAIN_STEPS and
+          res["prefetch"]["batches"] == MAIN_TRAIN_STEPS,
+          f"the streaming path: {len(res['loss_history'])} losses, "
+          f"{res['prefetch']['batches']} batches")
+    ckpt = load_checkpoint(f32_path)
+    check(ckpt.step == MAIN_TRAIN_STEPS and ckpt.epoch == 0 and
+          _float32_file(ckpt), f"the streaming checkpoint: step "
+          f"{ckpt.step}, epoch {ckpt.epoch}")
+    print(f"streaming path, multigpu {' '.join(STREAM_ARGS)} ({card}): "
+          f"{_stream_line(res, MAIN_TRAIN_STEPS, 512)}; the resident main "
+          f"path in this process: {_stream_line(out, MAIN_TRAIN_STEPS, 512)};"
+          f" host_augment {res['host_augment']}, launches {launches}, "
+          f"first/last loss {res['loss_history'][0]:.4f}/"
+          f"{res['loss_history'][-1]:.4f}, accuracy {res['accuracy']:.2f}% "
+          f"(resident {out['accuracy']:.2f}%), train "
+          f"{res['training_seconds']:.2f} s, eval {res['eval_seconds']:.2f} "
+          f"s, wall {res['wall_s']:.2f} s; the checkpoint float32, step "
+          f"{ckpt.step}", flush=True)
+    stream_launches = launches["gather_batch"]
+
+    again = stream_run(["2"] + STREAM_ARGS[1:] + ["--resume"], f32_path)
+    ckpt = load_checkpoint(f32_path)
+    check(len(again["loss_history"]) == MAIN_TRAIN_STEPS and
+          ckpt.step == 2 * MAIN_TRAIN_STEPS and ckpt.epoch == 1 and
+          again["kernel_launches"]["gather_batch"] == n,
+          f"the resumed streaming run: {len(again['loss_history'])} steps, "
+          f"checkpoint step {ckpt.step} epoch {ckpt.epoch}, launches "
+          f"{again['kernel_launches']}")
+    stream_launches += n
+    print(f"streaming --resume ({card}): epoch 1 trained from the epoch-0 "
+          f"file, {len(again['loss_history'])} steps, "
+          f"{_stream_line(again, MAIN_TRAIN_STEPS, 512)}, first/last loss "
+          f"{again['loss_history'][0]:.4f}/{again['loss_history'][-1]:.4f}, "
+          f"accuracy {again['accuracy']:.2f}%, checkpoint step {ckpt.step}",
+          flush=True)
+
+    bf16_path = os.path.join(tmp, "stream_bf16.pt")
+    res16 = stream_run(STREAM_ARGS + ["--bf16"], bf16_path)
+    check(res16["kernel_launches"] == {"gather_batch": n,
+                                       "gather_batch_bf16": n,
+                                       "row_gather": 0, "conv3x3": 0} and
+          res16["compute_dtype"] == "bfloat16" and
+          len(res16["loss_history"]) == MAIN_TRAIN_STEPS,
+          f"the bf16 streaming path: {res16['compute_dtype']}, launches "
+          f"{res16['kernel_launches']}")
+    check(_float32_file(load_checkpoint(bf16_path)),
+          "the bf16 streaming checkpoint is not float32")
+    print(f"streaming path --bf16 ({card}): "
+          f"{_stream_line(res16, MAIN_TRAIN_STEPS, 512)}; the resident bf16 "
+          f"main path: {_stream_line(out_bf16, MAIN_TRAIN_STEPS, 512)}; "
+          f"launches {res16['kernel_launches']}, accuracy "
+          f"{res16['accuracy']:.2f}% (resident {out_bf16['accuracy']:.2f}%)",
+          flush=True)
+    bf16_launches = res16["kernel_launches"]["gather_batch_bf16"]
+
+    flag_n = FLAG_TRAIN_STEPS + FLAG_EVAL_STEPS
+    aug = stream_run(STREAM_FLAG_ARGS + ["--device_augment"],
+                     os.path.join(tmp, "aug.pt"))
+    check(aug["device_augment"] and aug["host_augment"] is None and
+          aug["kernel_launches"]["gather_batch"] == flag_n and
+          len(aug["loss_history"]) == FLAG_TRAIN_STEPS,
+          f"streaming --device_augment: launches {aug['kernel_launches']}")
+    composed = stream_run(STREAM_FLAG_ARGS + STRATEGY_FLAGS,
+                          os.path.join(tmp, "composed.pt"))
+    steps = FLAG_TRAIN_STEPS // 2
+    want, formula = expected_collectives(
+        steps, FLAG_TRAIN_STEPS, sync_bn=True, zero=True,
+        bn_layers=VGG_BN_LAYERS, saves=1)
+    check(composed["collectives"] == want and
+          len(composed["loss_history"]) == steps and
+          composed["kernel_launches"]["gather_batch"] == flag_n,
+          f"streaming {' '.join(STRATEGY_FLAGS)}: "
+          f"{len(composed['loss_history'])} steps, collectives "
+          f"{composed['collectives']} (expected {want}), launches "
+          f"{composed['kernel_launches']}")
+    stream_launches += 2 * flag_n
+    print(f"streaming --device_augment on 10,240 images ({card}): "
+          f"{_stream_line(aug, FLAG_TRAIN_STEPS, 512)}; streaming "
+          f"{' '.join(STRATEGY_FLAGS)}: {steps} optimizer steps, "
+          f"{_stream_line(composed, steps, 1024)}, collectives "
+          f"{composed['collectives']} = {formula}", flush=True)
+
+    # The copy stream's ordering and the streamed step against the resident
+    # one, in two processes: the same rows, device draws and kernel go
+    # through the same step, so depth 0, depth 2 and the resident run agree
+    # bit for bit.  (tests/test_torch_cuda.py holds host-augmented depths 0
+    # and 2 to each other too.)
+    t0 = time.time()
+    det = {f"--device_augment --prefetch_depth {d}": run_entries(
+        ["multigpu"], STREAM_FLAG_ARGS + ["--device_augment",
+                                          "--prefetch_depth", d],
+        deterministic=True)[0] for d in ("0", "2")}
+    det["--resident"] = resident_det
+    names = list(det)
+    for a, b in ((names[0], names[1]), (names[1], names[2])):
+        pair, = compare([det[a], det[b]])
+        print(f"streaming, {a} against {b} at world 1, deterministic mode "
+              f"({card}): {pair}", flush=True)
+        check(pair["bit_equal"], f"under deterministic mode {a} differs "
+              f"from {b}")
+    print(f"streaming deterministic runs: {time.time() - t0:.1f} s; median "
+          f"ms/step " + ", ".join(
+              f"{k} {statistics.median(v['step_ms']):.3f}"
+              for k, v in det.items()), flush=True)
+
+    # World 2 on the one card over gloo, each rank streaming its own
+    # host-augmented batches, against the same ranks on the CPU.
+    train, test = synthetic(n_train=40, n_test=24, seed=1)
+    model = VGG(DDP_ARCH, generator=torch.Generator().manual_seed(0))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        spec = drill.spec(DDP_ARCH, model.state_dict(), train, test,
+                          batch=8, lr=0.05, seed=STREAM_DRILL_SEED,
+                          augment=True, device=device, backend="gloo",
+                          streaming=True)
+        runs[device] = drill.run(spec, 2, same_device=True, timeout=300)
+    worst = 0.0
+    for got, want_rank in zip(runs["cuda"], runs["cpu"]):
+        check(got["backend"] == "gloo" and got["device"] == "cuda:0" and
+              got["steps"] == 3 and got["train_launches"] == 3 and
+              got["eval_launches"] == 2 and
+              bool(torch.isfinite(got["losses"]).all()),
+              f"streaming world-2 card rank {got['rank']}: "
+              f"{got['device']}, {got['steps']} steps, launches "
+              f"{got['train_launches']} + {got['eval_launches']}")
+        errs = [float((got["losses"] - want_rank["losses"]).abs().max())]
+        errs += [float((got["state_dict"][k] - v).abs().max())
+                 for k, v in want_rank["state_dict"].items()]
+        errs += [float((a - b).abs().max())
+                 for a, b in zip(got["momentum"], want_rank["momentum"])]
+        worst = max(worst, *errs)
+    check(worst <= PARITY_TOL, f"streaming world 2 on the card differs "
+          f"from the CPU by {worst:.3e}")
+    card_launches = sum(g["train_launches"] + g["eval_launches"]
+                        for g in runs["cuda"])
+    stream_launches += card_launches
+    print(f"streaming world 2 on one card over gloo ({card}): 3 steps at lr "
+          f"0.05, drill seed {STREAM_DRILL_SEED}, max |diff| against the CPU "
+          f"{worst:.3e} (losses, weights, BN buffers, momentum; tolerance "
+          f"{PARITY_TOL:g}); gather_batch launches on the card ranks "
+          f"{card_launches}", flush=True)
+    return stream_launches, bf16_launches, cases
+
+
 def bf16_serve_phase(snapshot: str, f32: dict) -> dict:
     """The serving engine in bf16 on the bf16 main path's epoch-0 file:
     four graphs, each bucket bit for bit against the eager bf16 forward
@@ -1906,8 +2241,13 @@ def main() -> int:
     snapshot_bf16 = os.path.join(snapshot_dir.name, "checkpoint_bf16.pt")
     out_bf16 = bf16_main_phase(out, card, snapshot_bf16)
     ddp_launches, ddp = ddp_phase(out, card)
-    strategy_launches, composed, margin = strategy_phase(ddp, card)
+    strategy_launches, composed, margin, resident_det = strategy_phase(
+        ddp, card)
     strategy_bf16_launches = bf16_strategy_phase(composed, margin, card)
+    t0 = time.time()
+    stream_launches, stream_bf16_launches, stream_cases = stream_phase(
+        out, out_bf16, resident_det, card, snapshot_dir.name)
+    print(f"streaming phase: {time.time() - t0:.1f} s", flush=True)
     serve = serve_phase(snapshot)
     print(f"serve: {json.dumps(serve)}", flush=True)
     serve_bf16 = bf16_serve_phase(snapshot_bf16, serve)
@@ -1930,6 +2270,8 @@ def main() -> int:
     batch.update(launches=launches, launches_main_path=launches,
                  launches_ddp_path=ddp_launches,
                  launches_strategy_path=strategy_launches,
+                 launches_stream_path=stream_launches,
+                 stream_batch_cases=stream_cases[torch.float32],
                  launches_serve_path=serve["warm_launches"]
                  + serve["http_profiled"]["gather_batch_kernel_launches"],
                  serve_warm_launches=serve["warm_launches"],
@@ -1955,6 +2297,8 @@ def main() -> int:
     bf16_main = out_bf16["launches"]["gather_batch_bf16"]
     batch_bf16.update(launches=bf16_main, launches_main_path=bf16_main,
                       launches_strategy_path=strategy_bf16_launches,
+                      launches_stream_path=stream_bf16_launches,
+                      stream_batch_cases=stream_cases[BF16],
                       launches_serve_path=serve_bf16["warm_launches"]
                       + serve_bf16["profiled_replay_launches"])
     print(json.dumps({"kernels": [row_gather, batch, batch_bf16, conv3x3]}))

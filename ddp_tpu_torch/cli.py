@@ -1,15 +1,26 @@
 """Command line of the port (counterpart of ``ddp_tpu/cli.py`` and
-``ddp_tpu/entry.py``), for the resident path on one card or data-parallel
-over several:
+``ddp_tpu/entry.py``), on one card or data-parallel over several:
 
     python -m ddp_tpu_torch.singlegpu <total_epochs> <save_every> \\
-        [--batch_size 512] --resident [--synthetic --synthetic_size N \\
-        [--synthetic_label_noise P]] [--seed 0] [--lr 0.4] \\
-        [--momentum 0.9] [--weight_decay 5e-4] [--grad_accum A] \\
-        [--sync_bn] [--shard_update] [--bf16] \\
+        [--batch_size 512] [--resident | [--device_augment] \\
+        [--prefetch_depth 2] [--prefetch_workers 4]] \\
+        [--synthetic --synthetic_size N [--synthetic_label_noise P]] \\
+        [--seed 0] [--lr 0.4] [--momentum 0.9] [--weight_decay 5e-4] \\
+        [--grad_accum A] [--sync_bn] [--shard_update] [--bf16] \\
         [--snapshot_path checkpoint.pt] [--resume] [--device cuda|cpu] \\
         [--result_json PATH]
     python -m ddp_tpu_torch.multigpu <same arguments> [--spawn N]
+
+Without ``--resident`` the data streams from the host, as the reference's
+does (RUNBOOK.md:66-67): each rank's batches are gathered and cropped and
+flipped on the host (the C++ library of ``data/native.py``, keyed as the
+JAX package keys them), or only gathered there with ``--device_augment``,
+which crops and flips on the card; a pool of ``--prefetch_workers``
+threads builds them up to ``--prefetch_depth`` steps ahead, and each is
+pinned and copied to the card on a side stream (``data/prefetch.py``).
+``--resident`` keeps the dataset on the card instead and implies
+``--device_augment``.  Either way every batch becomes the step's input in
+one ``gather_batch`` launch.
 
 ``singlegpu`` is one process at world 1.  ``multigpu`` is one process per
 rank: under a rendezvous environment (``torchrun``'s, or ``--spawn``'s) it
@@ -47,14 +58,15 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from .data import EvalLoader, ResidentData, TrainLoader, cifar10
+from .data import EvalLoader, ResidentData, TrainLoader, cifar10, native
+from .data.prefetch import PrefetchStats
 from .device import dtype_name, resolve_device, set_tf32
 from .models import get_model
 from .ops.conv_candidates import conv3x3_fused
 from .ops.gather import gather_batch, gather_rows
 from .optim import SGDConfig, triangular_lr
 from .parallel import dist
-from .train.evaluate import evaluate_resident
+from .train.evaluate import evaluate, evaluate_resident
 from .train.trainer import Trainer
 
 # The reference's unit constants: model sizes are kept in bits.
@@ -84,8 +96,21 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                         "(Bayes ceiling = 1 - 0.9*p)")
     p.add_argument("--resident", action="store_true",
                    help="Keep the whole dataset in device memory and gather "
-                        "each batch there (implies on-device augmentation); "
-                        "the only data path ported so far")
+                        "each batch there (implies on-device augmentation)")
+    p.add_argument("--device_augment", "--augment_device",
+                   action="store_true",
+                   help="Run RandomCrop+HFlip on the card inside the step "
+                        "instead of on the host (same distribution): the "
+                        "host ships raw uint8 rows")
+    p.add_argument("--prefetch_depth", default=2, type=int, metavar="D",
+                   help="Streaming: keep up to D prepared batches in flight "
+                        "beyond the augment workers' hands, so host "
+                        "augment, H2D and compute overlap; 0 builds and "
+                        "copies each batch inline (the reference's serial "
+                        "loop).  The batches are the same at every setting")
+    p.add_argument("--prefetch_workers", default=4, type=int, metavar="W",
+                   help="Streaming: host threads building batches (default "
+                        "4; the --grad_accum group stream uses one)")
     p.add_argument("--resume", action="store_true",
                    help="Resume from the checkpoint if present")
     p.add_argument("--snapshot_path", default="checkpoint.pt",
@@ -119,9 +144,10 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                         "cuda, world 1 on cpu)")
     p.add_argument("--result_json", default=None, metavar="PATH",
                    help="Rank 0 writes the run's summary here as JSON: "
-                        "world, backend, the strategy flags, the compute "
-                        "dtype, losses, step times, accuracy, and the "
-                        "port's kernel launches and the collectives in this "
+                        "world, backend, the data path and its prefetch "
+                        "times, the strategy flags, the compute dtype, "
+                        "losses, step times, accuracy, and the port's "
+                        "kernel launches and the collectives in this "
                         "process")
     return p
 
@@ -138,9 +164,6 @@ def build_schedule(args: argparse.Namespace,
 
 
 def _check_args(args: argparse.Namespace) -> None:
-    if not args.resident:
-        raise SystemExit("only the --resident data path is ported so far; "
-                         "pass --resident")
     if args.synthetic_label_noise > 0 and not args.synthetic:
         raise SystemExit(
             "--synthetic_label_noise only applies to the --synthetic "
@@ -186,8 +209,14 @@ def _train_and_evaluate(args: argparse.Namespace,
 
     generator = torch.Generator().manual_seed(args.seed)
     model = get_model("vgg", device=device, generator=generator)
+    device_augment = args.device_augment or args.resident
     train_loader = TrainLoader(train_ds, args.batch_size, world,
-                               seed=args.seed)
+                               seed=args.seed, augment=not device_augment,
+                               local_replicas=[rank])
+    # What crops and flips on the host: the C++ library (built here, before
+    # the clock starts) or numpy; None where the card does it.
+    host_augment = native.path() if train_loader.augment else None
+    prefetch = PrefetchStats()
     trainer = Trainer(
         model, train_loader, device=device,
         lr_schedule=build_schedule(args, train_loader),
@@ -195,7 +224,10 @@ def _train_and_evaluate(args: argparse.Namespace,
         seed=args.seed, save_every=args.save_every,
         snapshot_path=args.snapshot_path, resume=args.resume,
         grad_accum=args.grad_accum, sync_bn=args.sync_bn,
-        shard_update=args.shard_update, compute_dtype=compute_dtype)
+        shard_update=args.shard_update, compute_dtype=compute_dtype,
+        resident=args.resident, device_augment=device_augment,
+        prefetch_depth=args.prefetch_depth,
+        prefetch_workers=args.prefetch_workers, prefetch_stats=prefetch)
 
     start = time.time()
     trainer.train(args.total_epochs)
@@ -208,17 +240,28 @@ def _train_and_evaluate(args: argparse.Namespace,
         print(f"fp32 model has size={n_params * 32 / MiB:.2f} MiB")
 
     start = time.time()
-    accuracy = evaluate_resident(model, ResidentData(test_ds, device),
-                                 EvalLoader(test_ds, args.batch_size, world),
-                                 compute_dtype)
+    eval_loader = EvalLoader(test_ds, args.batch_size, world,
+                             local_replicas=[rank])
+    if args.resident:
+        accuracy = evaluate_resident(model, ResidentData(test_ds, device),
+                                     eval_loader, compute_dtype)
+    else:
+        accuracy = evaluate(model, eval_loader, compute_dtype)
     eval_seconds = time.time() - start
     out = {"accuracy": accuracy, "training_seconds": training_seconds,
            "eval_seconds": eval_seconds,
            "loss_history": list(trainer.loss_history),
-           "step_ms": list(trainer.step_ms), "rank": rank, "world": world,
-           "backend": dist.backend(), "grad_accum": args.grad_accum,
-           "sync_bn": args.sync_bn, "shard_update": args.shard_update,
-           "compute_dtype": dtype_name(compute_dtype)}
+           "step_ms": list(trainer.step_ms),
+           "epoch_seconds": list(trainer.epoch_seconds), "rank": rank,
+           "world": world, "backend": dist.backend(),
+           "grad_accum": args.grad_accum, "sync_bn": args.sync_bn,
+           "shard_update": args.shard_update,
+           "compute_dtype": dtype_name(compute_dtype),
+           "data_path": "resident" if args.resident else "streaming",
+           "device_augment": device_augment, "host_augment": host_augment,
+           "prefetch": None if args.resident else prefetch.per_step_ms(),
+           "prefetch_depth": args.prefetch_depth,
+           "prefetch_workers": args.prefetch_workers}
     if rank == 0:
         print(f"fp32 model has accuracy={accuracy:.2f}%")
         if args.result_json:
@@ -235,7 +278,7 @@ def _train_and_evaluate(args: argparse.Namespace,
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     """``singlegpu``: one process, world 1."""
-    args = build_parser("Single-card resident training (PyTorch port)"
+    args = build_parser("Single-card training (PyTorch port)"
                         ).parse_args(argv)
     if args.spawn:
         raise SystemExit("singlegpu runs one process; --spawn belongs to "
@@ -248,7 +291,7 @@ def main_multi(argv: Optional[List[str]] = None) -> Dict:
     ranks (see the module's docstring), which exits with their largest
     exit code.  A rank never spawns."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    args = build_parser("Data-parallel resident training (PyTorch port)"
+    args = build_parser("Data-parallel training (PyTorch port)"
                         ).parse_args(argv)
     if not dist.in_rendezvous():
         _check_args(args)

@@ -1,4 +1,6 @@
-"""Datasets, samplers, index matrices and the device-resident data path."""
+"""Datasets, samplers, loaders (host batches and index matrices), host
+augmentation, and the device-resident data path; the prefetch engine is
+``data/prefetch.py``."""
 from .cifar10 import Dataset, load, synthetic
 from .loader import EvalLoader, TrainLoader
 from .resident import ResidentData

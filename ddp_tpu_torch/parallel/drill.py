@@ -1,5 +1,5 @@
-"""One resident epoch and one sharded eval, data-parallel, from a given
-start: the data-parallel path below the CLI, for parity checks.
+"""One epoch and one sharded eval, data-parallel, from a given start: the
+data-parallel path below the CLI, for parity checks.
 
     python -m ddp_tpu_torch.parallel.drill SPEC OUT_DIR
 
@@ -9,14 +9,23 @@ runs as one rank of a process group (its rendezvous environment set, as
 results.  The spec (:func:`spec`) holds the model's architecture and
 weights, the datasets, the per-rank batch, the learning rate and seed,
 whether to crop and flip, the device, an optional backend, the strategy
-flags (``grad_accum``, ``sync_bn``, ``shard_update``) and the compute dtype
-(``compute_dtype``: ``"bfloat16"`` for ``--bf16``, ``""`` for float32).  Crop/flip draws come
-from numpy, keyed on ``(seed, rank, step)`` and, for micro-batch k > 0,
-``k`` after them, so a run on the card and a run on the CPU draw the same.
-Each rank runs its columns of the epoch in optimizer-step groups (the full
-batches, then the ragged tail; ``data/loader.py::optimizer_groups``)
-through :func:`~ddp_tpu_torch.train.epoch.make_train_epoch` and of the test
-set through :func:`~ddp_tpu_torch.train.epoch.make_eval_epoch`.
+flags (``grad_accum``, ``sync_bn``, ``shard_update``), the compute dtype
+(``compute_dtype``: ``"bfloat16"`` for ``--bf16``, ``""`` for float32) and
+the data path (``streaming``, with its ``prefetch_depth``).
+
+Resident (the default): crop/flip draws come from numpy, keyed on ``(seed,
+rank, step)`` and, for micro-batch k > 0, ``k`` after them, so a run on the
+card and a run on the CPU draw the same.  Each rank runs its columns of the
+epoch in optimizer-step groups (the full batches, then the ragged tail;
+``data/loader.py::optimizer_groups``) through
+:func:`~ddp_tpu_torch.train.epoch.make_train_epoch` and of the test set
+through :func:`~ddp_tpu_torch.train.epoch.make_eval_epoch`.
+
+Streaming: each rank runs the trainer's streaming epoch over its own
+replica's host batches (``TrainLoader(..., local_replicas=[rank])``,
+cropped and flipped on the host with the JAX package's keys when
+``augment``) through the prefetch engine, and the streaming eval
+(:func:`~ddp_tpu_torch.train.evaluate.eval_counts`).
 """
 from __future__ import annotations
 
@@ -37,7 +46,9 @@ from ..models.vgg import VGG
 from ..ops.gather import gather_batch
 from ..optim import SGDConfig, triangular_lr
 from ..train.epoch import make_eval_epoch, make_train_epoch
+from ..train.evaluate import eval_counts
 from ..train.step import init_train_state
+from ..train.trainer import Trainer
 from ..train.zero import init_opt_shard, opt_shard_to_list
 from . import dist
 
@@ -46,7 +57,8 @@ def spec(arch: Sequence[Union[int, str]], state_dict: Dict[str, torch.Tensor],
          train: Dataset, test: Dataset, *, batch: int, lr: float, seed: int,
          augment: bool, device: str, backend: Optional[str] = None,
          grad_accum: int = 1, sync_bn: bool = False,
-         shard_update: bool = False, compute_dtype: str = "") -> Dict:
+         shard_update: bool = False, compute_dtype: str = "",
+         streaming: bool = False, prefetch_depth: int = 2) -> Dict:
     """The drill's input as a dict of tensors and plain values."""
     return {"arch": list(arch),
             "state_dict": {k: v.detach().cpu().clone()
@@ -58,7 +70,8 @@ def spec(arch: Sequence[Union[int, str]], state_dict: Dict[str, torch.Tensor],
             "batch": batch, "lr": lr, "seed": seed, "augment": augment,
             "device": device, "backend": backend or "",
             "grad_accum": grad_accum, "sync_bn": sync_bn,
-            "shard_update": shard_update, "compute_dtype": compute_dtype}
+            "shard_update": shard_update, "compute_dtype": compute_dtype,
+            "streaming": streaming, "prefetch_depth": prefetch_depth}
 
 
 def draws_np(seed: int, rank: int, step: int, n: int, micro: int = 0):
@@ -89,42 +102,29 @@ def rank_main(spec_path: str, out_dir: str) -> None:
         model.load_state_dict(s["state_dict"])
         model.to(device)
         train, test = _dataset(s, "train"), _dataset(s, "test")
-        loader = TrainLoader(train, s["batch"], world, seed=s["seed"])
-        loader.set_epoch(0)
+        loader = TrainLoader(train, s["batch"], world, seed=s["seed"],
+                             augment=s["augment"] and s["streaming"],
+                             local_replicas=[rank])
         sched = functools.partial(
             triangular_lr, base_lr=s["lr"], num_epochs=1,
             steps_per_epoch=loader.optimizer_steps_per_epoch(
                 s["grad_accum"]))
-        state = init_train_state(model)
-        dist.broadcast_state(model, state.momentum)
-        if s["shard_update"]:
-            state.momentum = init_opt_shard(list(model.parameters()))
-        run = make_train_epoch(model, SGDConfig(lr=s["lr"]), sched,
-                               device_augment=s["augment"],
-                               sync_bn=s["sync_bn"],
-                               shard_update=s["shard_update"],
-                               compute_dtype=cd)
-
-        def draws(step: int, n: int, micro: int = 0):
-            return tuple(torch.from_numpy(d).to(device) for d in
-                         draws_np(s["seed"], rank, step, n, micro))
-
-        res = ResidentData(train, device)
-        full, tail = loader.rank_index_matrix(rank)
+        run = _streaming if s["streaming"] else _resident
         launches = gather_batch.launches
-        parts = [run(state, res.images, res.labels,
-                     torch.from_numpy(rows).to(device), draws)
-                 for rows in optimizer_groups(full, tail, s["grad_accum"])]
-        losses = dist.all_reduce_sum_(torch.cat(parts))
+        state, losses = run(s, model, loader, sched, cd, device, rank)
         train_launches = gather_batch.launches - launches
-
-        idx, mask = EvalLoader(test, s["batch"], world).rank_index_matrix(
-            rank)
-        tres = ResidentData(test, device)
         launches = gather_batch.launches
-        correct, total = make_eval_epoch(model, cd)(
-            tres.images, tres.labels, torch.from_numpy(idx).to(device),
-            torch.from_numpy(mask).to(device))
+        if s["streaming"]:
+            correct, total = eval_counts(
+                model, EvalLoader(test, s["batch"], world,
+                                  local_replicas=[rank]), cd)
+        else:
+            idx, mask = EvalLoader(test, s["batch"],
+                                   world).rank_index_matrix(rank)
+            tres = ResidentData(test, device)
+            correct, total = make_eval_epoch(model, cd)(
+                tres.images, tres.labels, torch.from_numpy(idx).to(device),
+                torch.from_numpy(mask).to(device))
         momentum = state.momentum
         if s["shard_update"]:
             momentum = opt_shard_to_list(list(model.parameters()),
@@ -143,6 +143,45 @@ def rank_main(spec_path: str, out_dir: str) -> None:
             os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.shutdown()
+
+
+def _resident(s: Dict, model: VGG, loader: TrainLoader, sched, cd,
+              device: torch.device, rank: int):
+    """The resident epoch with the drill's numpy draws: ``(state, the
+    global-mean losses)``."""
+    loader.set_epoch(0)
+    state = init_train_state(model)
+    dist.broadcast_state(model, state.momentum)
+    if s["shard_update"]:
+        state.momentum = init_opt_shard(list(model.parameters()))
+    run = make_train_epoch(model, SGDConfig(lr=s["lr"]), sched,
+                           device_augment=s["augment"], sync_bn=s["sync_bn"],
+                           shard_update=s["shard_update"], compute_dtype=cd)
+
+    def draws(step: int, n: int, micro: int = 0):
+        return tuple(torch.from_numpy(d).to(device) for d in
+                     draws_np(s["seed"], rank, step, n, micro))
+
+    res = ResidentData(loader.dataset, device)
+    full, tail = loader.rank_index_matrix(rank)
+    parts = [run(state, res.images, res.labels,
+                 torch.from_numpy(rows).to(device), draws)
+             for rows in optimizer_groups(full, tail, s["grad_accum"])]
+    return state, dist.all_reduce_sum_(torch.cat(parts))
+
+
+def _streaming(s: Dict, model: VGG, loader: TrainLoader, sched, cd,
+               device: torch.device, rank: int):
+    """The trainer's streaming epoch: ``(state, the global-mean
+    losses)``."""
+    trainer = Trainer(model, loader, device=device, lr_schedule=sched,
+                      sgd_config=SGDConfig(lr=s["lr"]), seed=s["seed"],
+                      snapshot_path=None, grad_accum=s["grad_accum"],
+                      sync_bn=s["sync_bn"], shard_update=s["shard_update"],
+                      compute_dtype=cd, resident=False,
+                      prefetch_depth=s["prefetch_depth"])
+    trainer.train(1)
+    return trainer.state, torch.tensor(trainer.loss_history)
 
 
 def run(drill_spec: Dict, world: int, *, same_device: bool = False,

@@ -1,7 +1,7 @@
 """Single-card training, the port's ``singlegpu.py``:
 
     python -m ddp_tpu_torch.singlegpu <total_epochs> <save_every> \\
-        [--batch_size N] --resident [--device cpu]
+        [--batch_size N] [--resident] [--device cpu]
 """
 from ddp_tpu_torch.cli import main
 

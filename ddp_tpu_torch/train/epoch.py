@@ -1,5 +1,7 @@
 """Device-resident epochs (counterpart of ``ddp_tpu/train/epoch.py`` and of
-the resident epochs of ``ddp_tpu/train/zero.py``).
+the resident epochs of ``ddp_tpu/train/zero.py``), and the streaming path's
+optimizer step (:func:`make_train_step`, the counterpart of the JAX
+package's per-step programs).
 
 The dataset stays on the card (``data/resident.py``); an epoch uploads its
 int32 index matrix once and runs one optimizer step per group of its
@@ -22,11 +24,64 @@ from ..ops.gather import gather_batch
 from ..optim import sgd as sgd_lib
 from ..parallel import dist
 from .step import (TrainState, make_accum_grads, make_eval_apply,
-                   make_group_update, make_local_grads, micro_from_table)
+                   make_group_update, make_local_grads, micro_from_batch,
+                   micro_from_table)
 from .zero import make_zero_update
 
 # (optimizer step, batch size, micro-batch) -> draws
 DrawFn = Callable[..., Draws]
+
+
+def _optimizer_step(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
+                    lr_schedule: Callable[[int], float], *, sync_bn: bool,
+                    shard_update: bool,
+                    compute_dtype: Optional[torch.dtype]):
+    """``step(state, get_micro, micros, draws) -> loss``: one optimizer
+    step, :func:`~ddp_tpu_torch.train.step.make_accum_grads` over
+    ``micros`` then the update stage (the replicated one, or the sharded
+    one of ``train/zero.py``); micro-batch k's draws are ``draws(state.step,
+    B, micro=k)``."""
+    local_grads = make_local_grads(model, sync_bn, compute_dtype)
+    update = (make_zero_update if shard_update else make_group_update)(
+        sgd_config, lr_schedule)
+
+    def step(state: TrainState, get_micro, micros,
+             draws: Optional[DrawFn]) -> torch.Tensor:
+        loss, grads = make_accum_grads(local_grads, get_micro)(
+            micros, lambda k, n: draws(state.step, n, micro=k))
+        update(state, grads)
+        return loss
+
+    return step
+
+
+def make_train_step(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
+                    lr_schedule: Callable[[int], float],
+                    device_augment: bool = False, *, sync_bn: bool = False,
+                    shard_update: bool = False,
+                    compute_dtype: Optional[torch.dtype] = None):
+    """``step_fn(state, micros, draws=None) -> loss``: one optimizer step of
+    the streaming path over ``micros``, its A micro-batches as device
+    batches ``{"image": uint8 [B,32,32,3], "label": int64 [B]}`` whose
+    copies the compute stream already waits for (the counterpart of
+    ``make_train_step``, ``make_train_step_accum`` and their ZeRO forms).
+    Each micro-batch goes through
+    :func:`~ddp_tpu_torch.train.step.micro_from_batch` (one ``gather_batch``
+    launch, cropped and flipped with ``draws(step, B, micro=k)`` under
+    ``device_augment``), then the step is :func:`make_train_epoch`'s.
+    ``loss`` is this rank's share of the step's global-mean loss, on the
+    device."""
+    step = _optimizer_step(model, sgd_config, lr_schedule, sync_bn=sync_bn,
+                           shard_update=shard_update,
+                           compute_dtype=compute_dtype)
+    get_micro = micro_from_batch(device_augment,
+                                 compute_dtype or torch.float32)
+
+    def step_fn(state: TrainState, micros, draws: Optional[DrawFn] = None
+                ) -> torch.Tensor:
+        return step(state, get_micro, micros, draws)
+
+    return step_fn
 
 
 def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
@@ -60,25 +115,20 @@ def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
     event recorded after each step is appended to it (step timing without a
     host sync).  The trainer calls this once per shape of group, as the JAX
     trainer does."""
-    local_grads = make_local_grads(model, sync_bn, compute_dtype)
-    update = (make_zero_update if shard_update else make_group_update)(
-        sgd_config, lr_schedule)
+    step = _optimizer_step(model, sgd_config, lr_schedule, sync_bn=sync_bn,
+                           shard_update=shard_update,
+                           compute_dtype=compute_dtype)
 
     def epoch_fn(state: TrainState, images: torch.Tensor,
                  labels: torch.Tensor, idx: torch.Tensor,
                  draws: Optional[DrawFn] = None,
                  events: Optional[List[torch.cuda.Event]] = None
                  ) -> torch.Tensor:
-        accum = make_accum_grads(local_grads, micro_from_table(
-            images, labels, device_augment,
-            compute_dtype or torch.float32))
+        get_micro = micro_from_table(images, labels, device_augment,
+                                     compute_dtype or torch.float32)
         losses = []
         for group in (idx[:, None] if idx.dim() == 2 else idx):
-            loss, grads = accum(
-                group, lambda k, n: draws(state.step, n, micro=k)
-                if device_augment else None)
-            update(state, grads)
-            losses.append(loss)
+            losses.append(step(state, get_micro, group, draws))
             if events is not None:
                 ev = torch.cuda.Event(enable_timing=True)
                 ev.record()

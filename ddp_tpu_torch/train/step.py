@@ -2,8 +2,10 @@
 ``ddp_tpu/train/step.py``).
 
 One optimizer step on each rank: for each of its micro-batches (one, or
-``--grad_accum`` A), the rank's batch from the resident table, cropped,
-flipped and scaled u8/255 by one kernel (``ops/gather.py::gather_batch``),
+``--grad_accum`` A), the rank's batch, from the resident table
+(:func:`micro_from_table`) or a streamed uint8 batch the host copied to the
+card (:func:`to_device`, :func:`micro_from_batch`), cropped, flipped and
+scaled u8/255 by one kernel (``ops/gather.py::gather_batch``),
 forward in training mode with BatchNorm on the rank's own batch statistics
 (the reference's unsynced BN, multigpu.py:127; ``--sync_bn`` takes them
 over every rank's batch), the rank's share ``ce_sum / (count * world)`` of
@@ -23,9 +25,11 @@ single-device one.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -108,30 +112,32 @@ def make_local_grads(model: nn.Module, sync_bn: bool = False,
 
 
 def make_accum_grads(local_grads, get_micro):
-    """``accum(idx_group [A, B], draws) -> (loss, grads)``: one optimizer
-    step's gradients over its A micro-batches in order (the counterpart of
+    """``accum(micros, draws) -> (loss, grads)``: one optimizer step's
+    gradients over its A micro-batches ``micros`` in order (an ``[A, B]``
+    index tensor's rows, or A streamed batches; the counterpart of
     ``ddp_tpu/train/step.py::make_accum_scan``), summed on the rank and
     divided by A, with ``loss`` the mean of the micro-batches' shares.
-    ``draws(micro, B)`` gives micro-batch ``micro``'s crop/flip draws (or
-    None).  The BatchNorm buffers chain through the micro-batches, each
+    ``get_micro(draws_k, micro)`` gives a micro-batch's images and labels,
+    calling ``draws_k(B)`` for its crop/flip draws when it augments on the
+    device; ``draws(k, B)`` gives micro-batch k's.  The BatchNorm buffers
+    chain through the micro-batches, each
     forward normalising with its own statistics, as torch does under
     accumulation.  No collective: the update stage reduces the gradients
     once a step, torch's ``no_sync`` (the JAX scan all-reduces each
     micro-batch's; the sums agree up to rounding).  At A = 1 the step's
     arithmetic is the single micro-batch's, op for op."""
 
-    def accum(idx_group: torch.Tensor,
-              draws: Callable[[int, int], Optional[Draws]]):
+    def accum(micros: Sequence, draws: Callable[[int, int], Draws]):
         loss, grads = None, None
-        for k, idx_row in enumerate(idx_group):
-            x, y = get_micro(draws(k, idx_row.shape[0]), idx_row)
+        for k, micro in enumerate(micros):
+            x, y = get_micro(functools.partial(draws, k), micro)
             micro_loss, micro_grads = local_grads(x, y)
             if grads is None:
                 loss, grads = micro_loss, micro_grads
             else:
                 loss = loss + micro_loss
                 grads = torch._foreach_add(grads, micro_grads)
-        a = idx_group.shape[0]
+        a = len(micros)
         if a > 1:
             loss, grads = loss / a, torch._foreach_div(grads, a)
         return loss, grads
@@ -163,16 +169,96 @@ def micro_from_table(images: torch.Tensor, labels: torch.Tensor,
                      device_augment: bool,
                      dtype: torch.dtype = torch.float32):
     """``get_micro(draws, idx_row) -> (images, labels)`` for the resident
-    path: the batch of ``dtype`` images, cropped and flipped with ``draws``
-    under ``device_augment``, and its labels, from one
+    path: the batch of ``dtype`` images, cropped and flipped with
+    ``draws(B)`` under ``device_augment``, and its labels, from one
     :func:`~ddp_tpu_torch.ops.gather.gather_batch` launch."""
 
-    def get_micro(draws: Optional[Draws], idx_row: torch.Tensor
+    def get_micro(draws: Callable[[int], Draws], idx_row: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         return gather_batch(images, labels, idx_row,
-                            draws if device_augment else None, dtype=dtype)
+                            draws(idx_row.shape[0]) if device_augment
+                            else None, dtype=dtype)
 
     return get_micro
+
+
+def micro_from_batch(device_augment: bool,
+                     dtype: torch.dtype = torch.float32):
+    """``get_micro(draws, batch) -> (images, labels)`` for the streaming
+    path (the counterpart of ``ddp_tpu/train/step.py::_micro_from_batch``
+    and ``_as_input``): the streamed uint8 ``[B,32,32,3]`` batch and its
+    int64 labels, on the device, through one
+    :func:`~ddp_tpu_torch.ops.gather.gather_batch` launch over its rows
+    ``arange(B)``: the eval form (u8/255 into channels-first ``dtype``),
+    or under ``device_augment`` cropped and flipped with ``draws(B)``.  The
+    kernel is the batch's only conversion to float."""
+    rows: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+    def get_micro(draws: Callable[[int], Draws], batch: Dict
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        images, labels = batch["image"], batch["label"]
+        key = (images.shape[0], images.device)
+        if key not in rows:
+            rows[key] = torch.arange(key[0], device=images.device)
+        return gather_batch(images, labels, rows[key],
+                            draws(key[0]) if device_augment else None,
+                            dtype=dtype)
+
+    return get_micro
+
+
+class DeviceBatch(dict):
+    """A host batch on the device: its tensors by key, as
+    :func:`to_device` enqueued their copies.  Call :meth:`wait` before the
+    first use: it makes the compute stream wait for the copies."""
+    ready: Optional["torch.cuda.Event"] = None
+    compute: Optional["torch.cuda.Stream"] = None
+
+    def wait(self) -> "DeviceBatch":
+        """Make the compute stream wait for the copies (once); a no-op on
+        the CPU."""
+        if self.ready is not None:
+            self.compute.wait_event(self.ready)
+            self.ready = None
+        return self
+
+
+def to_device(batch: Dict[str, np.ndarray], device: torch.device, *,
+              stream: Optional["torch.cuda.Stream"] = None,
+              compute: Optional["torch.cuda.Stream"] = None) -> DeviceBatch:
+    """A host batch of numpy arrays on ``device`` (the counterpart of
+    ``shard_batch``/``shard_batch_stacked``, ``ddp_tpu/train/step.py:
+    530-552``; any leading shape).
+
+    On the card each array is copied into pinned memory, then to the card
+    with ``non_blocking`` copies enqueued on the copy stream ``stream``
+    (from pageable memory such a copy would be synchronous), from whatever
+    thread calls this.  An event recorded after the copies is
+    :class:`DeviceBatch`'s ``ready``, which ``compute`` (the stream that
+    will read the batch; the calling thread's current stream when None)
+    waits on in :meth:`DeviceBatch.wait`.  Each device tensor is allocated
+    on the copy stream and read on ``compute``, so ``record_stream(compute)``
+    keeps the caching allocator from handing its memory out again before
+    the reading kernels have run.  On the CPU the arrays become tensors
+    without a copy (``torch.from_numpy``)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return DeviceBatch((k, torch.from_numpy(np.ascontiguousarray(v)))
+                           for k, v in batch.items())
+    if stream is None:
+        raise ValueError("to_device: a copy stream is needed on the card")
+    out = DeviceBatch()
+    with torch.cuda.device(device):
+        out.compute = compute or torch.cuda.current_stream(device)
+        with torch.cuda.stream(stream):
+            for k, v in batch.items():
+                host = torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                t = host.to(device, non_blocking=True)
+                t.record_stream(out.compute)
+                out[k] = t
+            out.ready = torch.cuda.Event()
+            out.ready.record(stream)
+    return out
 
 
 def make_eval_apply(model: nn.Module,

@@ -1,14 +1,26 @@
-"""The resident epoch loop (counterpart of the resident half of
-``ddp_tpu/train/trainer.py``): the dataset uploaded once, one epoch of
-device steps per call (one optimizer step per group of ``grad_accum``
-micro-batches), each epoch's losses summed over the ranks and read to the
-host once at its end and printed, a checkpoint every ``save_every`` epochs
-(written by rank 0), and ``resume`` from one at an epoch boundary."""
+"""The epoch loop (counterpart of ``ddp_tpu/train/trainer.py``), on the
+resident or the streaming data path: one optimizer step per batch, or per
+group of ``grad_accum`` micro-batches, enqueued without waiting for the
+device; each epoch's losses summed over the ranks and read to the host once
+at its end and printed; a checkpoint every ``save_every`` epochs (written
+by rank 0); and ``resume`` from one at an epoch boundary.
+
+Resident, the dataset is uploaded once and each epoch runs its index
+matrix.  Streaming (``_epoch_losses_streaming``,
+``ddp_tpu/train/trainer.py:461-553``), host batches come through the
+prefetch engine (``data/prefetch.py``): the loader's pool under
+``grad_accum`` 1, the group stream of :func:`_stack_groups` on one
+producer thread otherwise.  The JAX loop's per-step preemption check, the
+guard's condemned batches, the drift audit and the watchdog belong to the
+resilience slice and are not here; nor is a mid-epoch resume, although the
+epoch's batch offset reaches the prefetch engine.
+"""
 from __future__ import annotations
 
 import os
 import sys
-from typing import Callable, List, Optional
+import time
+from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -16,13 +28,51 @@ from torch import nn
 
 from ..data.device_augment import Draws, make_draws
 from ..data.loader import TrainLoader, optimizer_groups
+from ..data.prefetch import PrefetchStats, prefetch_to_device
 from ..data.resident import ResidentData
+from ..obs.tracer import get_tracer
 from ..optim.sgd import SGDConfig
 from ..parallel import dist
 from . import checkpoint as ckpt_lib
-from .epoch import make_train_epoch
+from .epoch import make_train_epoch, make_train_step
 from .step import init_train_state
 from .zero import list_to_opt_shard, opt_shard_to_list
+
+
+def _stack_groups(batches: Iterable[Dict[str, np.ndarray]], accum: int
+                  ) -> Iterator[Dict[str, np.ndarray]]:
+    """Consecutive host batches stacked into ``[A, B, ...]`` groups of up to
+    ``accum`` (``ddp_tpu/train/trainer.py:52-72``).  The ragged last batch
+    cannot join a group of full ones, so a change of batch size flushes the
+    group: it becomes an optimizer step of its own, as
+    :func:`~ddp_tpu_torch.data.loader.optimizer_groups` groups the resident
+    path's rows."""
+    group: list = []
+
+    def flush():
+        out = {k: np.stack([b[k] for b in group]) for k in group[0]}
+        group.clear()
+        return out
+
+    for b in batches:
+        if group and len(b["label"]) != len(group[0]["label"]):
+            yield flush()
+        group.append(b)
+        if len(group) == accum:
+            yield flush()
+    if group:
+        yield flush()
+
+
+def micro_batches(batch: Dict[str, torch.Tensor], grad_accum: int
+                  ) -> List[Dict[str, torch.Tensor]]:
+    """A streamed batch's micro-batches: the batch itself, or under
+    ``grad_accum`` > 1 each row ``i`` of a stacked ``[A, B, ...]`` group
+    as views into the group's tensors."""
+    if grad_accum == 1:
+        return [batch]
+    return [{k: v[i] for k, v in batch.items()}
+            for i in range(batch["label"].shape[0])]
 
 
 def draw_seed(seed: int, epoch: int, step: int, rank: int = 0,
@@ -43,23 +93,35 @@ def draw_seed(seed: int, epoch: int, step: int, rank: int = 0,
 
 
 class Trainer:
-    """Trains ``model`` on ``train_loader.dataset`` kept on ``device``, as
-    this process's rank of the process group (world 1 without one).
+    """Trains ``model`` on ``train_loader.dataset`` on ``device``, as this
+    process's rank of the process group (world 1 without one);
+    ``train_loader.num_replicas`` must be the world size.
 
-    Each rank runs its columns of the epoch's index matrix
-    (``train_loader.num_replicas`` must be the world size), grouped into
+    With ``resident`` (the default), the dataset is kept on the device and
+    each rank runs its columns of the epoch's index matrix, grouped into
     optimizer steps of ``grad_accum`` micro-batches
-    (``data/loader.py::optimizer_groups``).  Each micro-batch is cropped and
+    (``data/loader.py::optimizer_groups``); each micro-batch is cropped and
     flipped on the device (resident mode implies device augmentation, as in
-    the JAX CLI) with draws from a device :class:`torch.Generator` seeded by
-    :func:`draw_seed`.  ``sync_bn`` synchronises BatchNorm's statistics over
+    the JAX CLI).  Without it, each rank streams its own replica's host
+    batches (``train_loader.local_replicas`` must be ``[rank]``), cropped
+    and flipped on the host when the loader augments, or on the device with
+    ``device_augment``, through :func:`~ddp_tpu_torch.data.prefetch
+    .prefetch_to_device` at ``prefetch_depth``/``prefetch_workers``
+    (``prefetch_stats`` counts its time); every micro-batch goes through
+    ``gather_batch`` on the device either way.  Device draws come from a
+    device :class:`torch.Generator` seeded by :func:`draw_seed`, so a
+    streamed run with ``device_augment`` takes the resident run's steps bit
+    for bit.  ``sync_bn`` synchronises BatchNorm's statistics over
     the ranks; ``shard_update`` shards the weight update (``train/zero.py``;
     ``state.momentum`` is then the rank's flat slice).  ``compute_dtype``
     (``torch.bfloat16`` under ``--bf16``) is the step's compute dtype; the
     state and the checkpoint stay float32.  After :meth:`train`,
     ``loss_history`` holds every optimizer step's global-mean loss, the
-    same on every rank, and, on a CUDA device, ``step_ms`` every optimizer
-    step's device time on this rank.
+    same on every rank, ``epoch_seconds`` each epoch's wall time (its
+    first enqueue to its losses on the host) and, on a CUDA device,
+    ``step_ms`` every optimizer step's device time on this rank (between
+    CUDA events after consecutive steps).  The process tracer's
+    ``dispatch`` spans cover each step's enqueue.
 
     Every epoch with ``epoch % save_every == 0`` (epoch 0 included, as in
     the reference) ends with a checkpoint at ``snapshot_path``, written by
@@ -80,7 +142,10 @@ class Trainer:
                  snapshot_path: Optional[str] = "checkpoint.pt",
                  resume: bool = False, grad_accum: int = 1,
                  sync_bn: bool = False, shard_update: bool = False,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 resident: bool = True, device_augment: bool = False,
+                 prefetch_depth: int = 2, prefetch_workers: int = 4,
+                 prefetch_stats: Optional[PrefetchStats] = None):
         if train_loader.num_replicas != dist.world_size():
             raise ValueError(f"the train loader has "
                              f"{train_loader.num_replicas} replicas; the "
@@ -93,17 +158,37 @@ class Trainer:
         self.snapshot_path = snapshot_path
         self.grad_accum = grad_accum
         self.shard_update = shard_update
-        self.resident = ResidentData(train_loader.dataset, device)
+        self.prefetch_depth = prefetch_depth
+        self.prefetch_workers = prefetch_workers
+        self.prefetch_stats = prefetch_stats
         self.state = init_train_state(model)
-        self.train_epoch = make_train_epoch(
-            model, sgd_config, lr_schedule, device_augment=True,
-            sync_bn=sync_bn, shard_update=shard_update,
-            compute_dtype=compute_dtype)
+        self.resident: Optional[ResidentData] = None
+        kw = dict(sync_bn=sync_bn, shard_update=shard_update,
+                  compute_dtype=compute_dtype)
+        if resident:
+            if train_loader.augment:
+                raise ValueError(
+                    "the resident path never builds host batches, so the "
+                    "loader's host augmentation would be skipped without a "
+                    "word; build the TrainLoader with augment=False (the "
+                    "resident path crops and flips on the device)")
+            self.resident = ResidentData(train_loader.dataset, device)
+            self.train_epoch = make_train_epoch(
+                model, sgd_config, lr_schedule, device_augment=True, **kw)
+        else:
+            if train_loader.local_replicas != [self.rank]:
+                raise ValueError(
+                    f"the streaming loader builds replicas "
+                    f"{train_loader.local_replicas}; rank {self.rank} "
+                    f"streams its own: pass local_replicas=[{self.rank}]")
+            self.train_step = make_train_step(
+                model, sgd_config, lr_schedule, device_augment, **kw)
         self._generator = torch.Generator(device=device)
         self._epoch = 0
         self.start_epoch = 0
         self.loss_history: List[float] = []
         self.step_ms: List[float] = []
+        self.epoch_seconds: List[float] = []
         if resume and snapshot_path and os.path.exists(snapshot_path):
             self._resume(snapshot_path)
         dist.broadcast_state(self.state.model, self.state.momentum)
@@ -145,23 +230,59 @@ class Trainer:
                                               self.rank, micro))
         return make_draws(self._generator, n, self.device)
 
+    def _epoch_losses_resident(self, events) -> List[torch.Tensor]:
+        """The epoch's index matrix in optimizer-step groups, each group
+        one call of the resident epoch."""
+        full, tail = self.train_loader.rank_index_matrix(self.rank)
+        return [self.train_epoch(
+            self.state, self.resident.images, self.resident.labels,
+            torch.from_numpy(idx).to(self.device), self.draws, events)
+            for idx in optimizer_groups(full, tail, self.grad_accum)]
+
+    def _epoch_losses_streaming(self, events, start: int = 0
+                                ) -> List[torch.Tensor]:
+        """Per-step dispatch over streamed host batches (the reference's
+        loop, multigpu.py:104-107), from batch ``start``: each batch (or
+        stacked group) waits for its copy on the compute stream, then runs
+        one optimizer step."""
+        source = self.train_loader if self.grad_accum == 1 else \
+            _stack_groups(self.train_loader, self.grad_accum)
+        batches = prefetch_to_device(
+            source, self.device, depth=self.prefetch_depth,
+            workers=self.prefetch_workers, stats=self.prefetch_stats,
+            step0=self.state.step, start=start)
+        tracer = get_tracer()
+        losses = []
+        for batch in batches:
+            with tracer.span("dispatch", step=self.state.step):
+                losses.append(self.train_step(
+                    self.state, micro_batches(batch.wait(), self.grad_accum),
+                    self.draws))
+            if events is not None:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append(ev)
+        return losses
+
     def _run_epoch(self, epoch: int) -> None:
         loader = self.train_loader
         print(f"[GPU{self.rank}] Epoch {epoch} | Batchsize: "
               f"{loader.per_replica_batch} | Steps: {len(loader)}")
+        t0 = time.perf_counter()
         self._epoch = epoch
         loader.set_epoch(epoch)
-        full, tail = loader.rank_index_matrix(self.rank)
         events: Optional[List[torch.cuda.Event]] = None
         if self.device.type == "cuda":
             events = [torch.cuda.Event(enable_timing=True)]
             events[0].record()
-        parts = [self.train_epoch(
-            self.state, self.resident.images, self.resident.labels,
-            torch.from_numpy(idx).to(self.device), self.draws, events)
-            for idx in optimizer_groups(full, tail, self.grad_accum)]
+        if self.resident is not None:
+            parts = self._epoch_losses_resident(events)
+        else:
+            step_losses = self._epoch_losses_streaming(events)
+            parts = [torch.stack(step_losses)] if step_losses else []
         losses = dist.all_reduce_sum_(torch.cat(parts)).tolist() \
             if parts else []
+        self.epoch_seconds.append(time.perf_counter() - t0)
         if events is not None:
             self.step_ms.extend(a.elapsed_time(b)
                                 for a, b in zip(events, events[1:]))

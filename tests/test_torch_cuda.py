@@ -15,7 +15,10 @@ also checks that the counter of the route it should take moved, and only
 that one.  The serving engine's CUDA graphs compare exactly with the eager
 forward at each bucket: the same kernels on the same shapes, TF32 off.
 The data-parallel drill on the card against the CPU holds losses, weights,
-BN buffers and momentum at 1e-4, as the smoke's parity phase does.  The
+BN buffers and momentum at 1e-4, as the smoke's parity phase does, and so
+does a narrow streaming epoch.  A streamed batch's ``gather_batch`` equals
+its plain version bit for bit, and streamed epochs at prefetch depths 0
+and 2 equal each other bit for bit under deterministic mode.  The
 strategy flags at world 1 over NCCL compare bit for bit, under
 deterministic mode, with the same epochs run without a process group.  A
 bfloat16 resident epoch on the card against the CPU holds the CPU parity
@@ -44,14 +47,18 @@ from ddp_tpu_torch.device import set_tf32
 from ddp_tpu_torch.models.vgg import VGG
 from ddp_tpu_torch.ops.gather import (gather_batch, gather_batch_plain,
                                       gather_rows, gather_rows_plain)
-from ddp_tpu_torch.data import synthetic
+from ddp_tpu_torch.data import EvalLoader, TrainLoader, synthetic
 from ddp_tpu_torch.parallel import dist, drill
 from ddp_tpu_torch.serve import DynamicBatcher, ServeEngine
 from ddp_tpu_torch.optim import SGDConfig, triangular_lr
 from ddp_tpu_torch.data.resident import ResidentData
 from ddp_tpu_torch.train.epoch import make_train_epoch
+from ddp_tpu_torch.train.evaluate import eval_counts
 from ddp_tpu_torch.train.step import (_as_input, init_train_state,
-                                      make_eval_apply)
+                                      make_eval_apply, micro_from_batch,
+                                      to_device)
+from ddp_tpu_torch.train.trainer import Trainer
+from torch_float64 import float64_trajectory
 
 pytestmark = pytest.mark.cuda
 
@@ -592,3 +599,197 @@ def test_bf16_resident_steps_on_card_equal_cpu(cuda):
         got = sg[k].double() - sd0[k].double()
         assert float((got - want).abs().max()) <= \
             2.0 ** -3 * float(want.abs().max()), k
+
+
+# The streaming path: host batches copied on a side stream.
+
+
+@pytest.mark.parametrize("device_augment", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_batch_gather_equals_plain(cuda, dtype, device_augment):
+    """A host-augmented streamed batch (the ragged 336 rows of a 50,000-row
+    epoch's last batch shape, and 512), copied by ``to_device`` on a side
+    stream, through ``micro_from_batch``: the kernel's images and labels
+    bit for bit against the plain version on the host copy, one launch
+    each."""
+    train, _ = synthetic(n_train=848, n_test=8, seed=2)
+    loader = TrainLoader(train, 512, seed=0, augment=True,
+                         local_replicas=[0])
+    loader.set_epoch(0)
+    copy = torch.cuda.Stream(cuda)
+    get = micro_from_batch(device_augment, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for k in (0, 1):
+        host = loader.materialize(k)
+        n = len(host["label"])
+        draws = make_draws(gen, n, cuda)
+        batch = to_device(host, cuda, stream=copy).wait()
+        launches = gather_batch.launches
+        x, y = get(lambda m: draws, batch)
+        assert gather_batch.launches == launches + 1
+        want_x, want_y = gather_batch_plain(
+            torch.from_numpy(host["image"]), torch.from_numpy(host["label"]),
+            torch.arange(n), tuple(d.cpu() for d in draws)
+            if device_augment else None, dtype=dtype)
+        torch.cuda.synchronize()
+        assert x.dtype == dtype and torch.equal(x.cpu(), want_x)
+        assert torch.equal(y.cpu(), want_y)
+
+
+def _streaming_run(device, params_from, train, *, batch=64, seed=0, lr=0.02,
+                   depth=2, epochs=1):
+    model = VGG(NARROW)
+    model.load_state_dict(params_from)
+    model.to(device)
+    loader = TrainLoader(train, batch, seed=seed, augment=True,
+                         local_replicas=[0])
+    sched = lambda s: triangular_lr(  # noqa: E731
+        s, base_lr=lr, num_epochs=epochs, steps_per_epoch=len(loader))
+    tr = Trainer(model, loader, device=device, lr_schedule=sched,
+                 sgd_config=SGDConfig(lr=lr), seed=seed, snapshot_path=None,
+                 resident=False, prefetch_depth=depth)
+    launches = gather_batch.launches
+    tr.train(epochs)
+    return tr, model, gather_batch.launches - launches
+
+
+def _float64_streamed(start, train, *, batch, seed, lr):
+    """The float64 epoch (``tests/torch_float64.py``) over the host batches
+    :func:`_streaming_run` takes, with each step's margins."""
+    loader = TrainLoader(train, batch, seed=seed, augment=True)
+    loader.set_epoch(0)
+    return float64_trajectory(start, [list(loader)], lambda s: triangular_lr(
+        s, base_lr=lr, num_epochs=1, steps_per_epoch=len(loader)))
+
+
+KINK_MARGIN = 1e-6  # as chip_smoke.py's strategy phase requires
+
+
+def test_streaming_epoch_on_card_equals_cpu(cuda):
+    """A narrow streaming epoch at the CLI's lr 0.05 (host crop/flip, the
+    prefetch pool, copies on a side stream, one ``gather_batch`` a step) on
+    the card against the same epoch on the CPU: losses, weights, BN buffers
+    and momentum within 1e-4; then the streaming eval's counters.  64
+    images in batches of 16, seed 1: first the float64 epoch on the same
+    batches must keep every ReLU input and every max-pool window's top two
+    inputs at least ``KINK_MARGIN`` apart at every step, or a float32 run
+    may take either side of that decision and move one element's gradient
+    whole (``tests/stream_parity_probe.py`` shows it on the next test's
+    data)."""
+    set_tf32(False)
+    train, test = synthetic(n_train=64, n_test=100, seed=1)
+    start = VGG(NARROW, generator=torch.Generator().manual_seed(1)
+                ).state_dict()
+    *_, margins = _float64_streamed(start, train, batch=16, seed=1, lr=0.05)
+    assert min(min(m) for m in margins) >= KINK_MARGIN, margins
+    kw = dict(batch=16, seed=1, lr=0.05)
+    card, card_model, launches = _streaming_run(cuda, start, train, **kw)
+    cpu, cpu_model, _ = _streaming_run(torch.device("cpu"), start, train,
+                                       **kw)
+    assert launches == len(card.loss_history) == 4
+    np.testing.assert_allclose(card.loss_history, cpu.loss_history,
+                               rtol=1e-4, atol=1e-4)
+    for k, v in cpu_model.state_dict().items():
+        np.testing.assert_allclose(card_model.state_dict()[k].cpu(), v,
+                                   rtol=1e-4, atol=1e-4, err_msg=k)
+    for a, b in zip(card.state.momentum, cpu.state.momentum):
+        np.testing.assert_allclose(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    launches = gather_batch.launches
+    got = eval_counts(card_model, EvalLoader(test, 64, local_replicas=[0]))
+    assert gather_batch.launches == launches + 2
+    want = eval_counts(cpu_model, EvalLoader(test, 64, local_replicas=[0]))
+    assert float(got[1]) == float(want[1]) == 100.0
+    assert abs(float(got[0]) - float(want[0])) <= 1
+
+
+def test_streaming_epoch_at_lr_005_card_and_cpu_against_float64(cuda):
+    """10 steps of 64 on 600 images at lr 0.05: here the float64 epoch
+    passes within 2e-9 of a ReLU kink and 2e-8 of a max-pool tie, so the
+    card's and the CPU's float32 epochs part by more than 1e-4 (and two
+    card runs from each other).  The float64 epoch on the same host batches
+    is the referee: each float32 run's distance from it (the largest over
+    losses, weights, BN buffers and momentum) is printed, and the card's is
+    at most twice the CPU's.  A step fed a wrong or half-copied batch would
+    move the card's by the size of a whole batch's gradient."""
+    set_tf32(False)
+    train, _ = synthetic(n_train=600, n_test=100, seed=1)
+    start = VGG(NARROW, generator=torch.Generator().manual_seed(0)
+                ).state_dict()
+    runs = {d: _streaming_run(torch.device(d), start, train, lr=0.05)
+            for d in ("cuda", "cpu")}
+    flosses, fstate, fmom, _ = _float64_streamed(start, train, batch=64,
+                                                 seed=0, lr=0.05)
+
+    def far(tr, model):
+        sd = model.state_dict()
+        errs = [float(np.abs(np.array(tr.loss_history) - flosses).max())]
+        errs += [float((sd[k].cpu().double() - v).abs().max())
+                 for k, v in fstate.items()
+                 if not k.endswith("num_batches_tracked")]
+        errs += [float((a.cpu().double() - b).abs().max())
+                 for a, b in zip(tr.state.momentum, fmom)]
+        return max(errs)
+
+    card, cpu = (far(*runs[d][:2]) for d in ("cuda", "cpu"))
+    between = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        runs["cuda"][1].state_dict().values(),
+        runs["cpu"][1].state_dict().values()))
+    print(f"lr 0.05 streamed epoch against float64: card {card:.3e}, CPU "
+          f"{cpu:.3e}; card against CPU (weights, buffers) {between:.3e}")
+    assert card <= 2 * cpu
+
+
+_DEPTH_WORKER = r'''
+import sys
+import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.use_deterministic_algorithms(True)
+from ddp_tpu_torch.data import TrainLoader, synthetic
+from ddp_tpu_torch.device import set_tf32
+from ddp_tpu_torch.models.vgg import VGG
+from ddp_tpu_torch.optim import SGDConfig
+from ddp_tpu_torch.train.trainer import Trainer
+
+set_tf32(False)
+arch = [64, "M", 128, "M", 512, "M"]
+start = VGG(arch, generator=torch.Generator().manual_seed(0)).state_dict()
+train, _ = synthetic(n_train=2100, n_test=8, seed=1)
+dev = torch.device("cuda")
+out = {}
+for depth, workers in ((0, 1), (2, 4), (2, 1)):
+    model = VGG(arch)
+    model.load_state_dict(start)
+    model.to(dev)
+    loader = TrainLoader(train, 256, seed=0, augment=True, local_replicas=[0])
+    tr = Trainer(model, loader, device=dev, lr_schedule=lambda s: 0.02,
+                 sgd_config=SGDConfig(lr=0.02), seed=0, snapshot_path=None,
+                 resident=False, prefetch_depth=depth,
+                 prefetch_workers=workers)
+    tr.train(2)
+    out[f"{depth}/{workers}"] = {
+        "losses": tr.loss_history,
+        "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+torch.save(out, sys.argv[1])
+'''
+
+
+def test_streaming_depths_bit_equal_in_deterministic_mode(cuda, tmp_path):
+    """The copy stream's ordering: in deterministic mode, two streamed
+    epochs at prefetch depth 0 (each batch copied and consumed in turn) and
+    at depth 2 with 4 and 1 workers (copies enqueued ahead on the side
+    stream) give the same losses and weights bit for bit.  A missing wait
+    on the copy, or a buffer reused under a running step, would feed a step
+    a half-copied batch."""
+    path = tmp_path / "out.pt"
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    r = subprocess.run([sys.executable, "-c", _DEPTH_WORKER, str(path)],
+                       env=env, timeout=300)
+    assert r.returncode == 0
+    out = torch.load(path, weights_only=True)
+    ref = out["0/1"]
+    assert len(ref["losses"]) == 2 * 9  # 8 batches of 256 and 52
+    for key in ("2/4", "2/1"):
+        assert out[key]["losses"] == ref["losses"], key
+        for k, v in ref["state"].items():
+            assert torch.equal(out[key]["state"][k], v), (key, k)

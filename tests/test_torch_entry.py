@@ -29,7 +29,8 @@ print(len(names), bad)
 assert len(names) >= 20 and not bad, bad
 new = {"ddp_tpu_torch.multigpu", "ddp_tpu_torch.parallel",
        "ddp_tpu_torch.parallel.dist", "ddp_tpu_torch.parallel.drill",
-       "ddp_tpu_torch.repeat_check"}
+       "ddp_tpu_torch.repeat_check", "ddp_tpu_torch.data.native",
+       "ddp_tpu_torch.data.augment", "ddp_tpu_torch.data.prefetch"}
 assert new <= set(names), sorted(new - set(names))
 """
 
@@ -69,9 +70,19 @@ def test_cli_refuses_without_a_card(monkeypatch):
         cli.main(_ARGS)
 
 
-def test_cli_requires_resident():
-    with pytest.raises(SystemExit, match="--resident"):
-        cli.main(["1", "1", "--synthetic", "--device", "cpu"])
+def test_cli_data_path_follows_resident(tmp_path):
+    """``--resident`` is what selects the resident data path; without it
+    the CLI streams batches from the host instead of refusing."""
+    out = cli.main(["1", "1", "--synthetic", "--synthetic_size", "16",
+                    "--batch_size", "8", "--device", "cpu",
+                    "--snapshot_path", str(tmp_path / "c.pt")])
+    assert len(out["loss_history"]) == 2 and out["data_path"] == "streaming"
+    resident = cli.main(["1", "1", "--synthetic", "--synthetic_size", "16",
+                         "--batch_size", "8", "--device", "cpu",
+                         "--resident", "--snapshot_path",
+                         str(tmp_path / "r.pt")])
+    assert len(resident["loss_history"]) == 2
+    assert resident["data_path"] == "resident"
 
 
 def test_singlegpu_module_entry_point(tmp_path):

@@ -64,6 +64,7 @@ from ddp_tpu_torch.train import epoch as tepoch, zero as tzero
 from ddp_tpu_torch.train.step import (_as_input, init_train_state as tinit,
                                       make_local_grads)
 from ddp_tpu_torch.train.trainer import draw_seed
+from torch_float64 import float64_epoch as _float64_epoch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NARROW = [8, "M", 16, "M", 512, "M"]
@@ -458,75 +459,6 @@ def _expected_collectives(steps, micro, *, sync_bn, zero):
     if zero:
         want.update(reduce_scatter=steps, all_gather=steps + 1)
     return want
-
-
-def _float64_epoch(sd, train, groups, lr_at, *, world, sync_bn,
-                   momentum=0.9, wd=5e-4, eps=1e-5, bn_momentum=0.1):
-    """The epoch in float64 plain PyTorch, written apart from both
-    packages: for each optimizer step, the sum over its micro-batches and
-    ranks of the gradients of each rank's share of the global-mean loss,
-    over the micro-batch count; BatchNorm on each rank's batch with its
-    running buffers chained through the micro-batches and averaged over the
-    ranks, or with ``sync_bn`` on the whole global batch; SGD with momentum
-    and weight decay.  ``groups`` is the global ``[A, world * b]`` index
-    rows of each step.  Returns (losses, state dict, momentum list in
-    parameter order)."""
-    p = {k: v.detach().double().clone() for k, v in sd.items()}
-    names = [k for k in sd if not k.endswith(("running_mean", "running_var"))]
-    buf = {k: torch.zeros_like(p[k]) for k in names}
-    images = torch.from_numpy(train.images)
-    labels = torch.from_numpy(train.labels).long()
-    ch = lambda t: t[None, :, None, None]
-    losses = []
-    for step, group in enumerate(groups):
-        b = len(group[0]) // world
-        parts = [slice(0, world * b)] if sync_bn else \
-            [slice(r * b, (r + 1) * b) for r in range(world)]
-        running = [{k: v.clone() for k, v in p.items() if "running" in k}
-                   for _ in parts]
-        grads = {k: torch.zeros_like(p[k]) for k in names}
-        total = 0.0
-        for row in group:
-            for j, part in enumerate(parts):
-                idx = torch.from_numpy(np.asarray(row[part])).long()
-                x = images[idx].permute(0, 3, 1, 2).double() / 255.0
-                q = {k: p[k].clone().requires_grad_() for k in names}
-                i = 0
-                for a in NARROW:
-                    if a == "M":
-                        x = torch.nn.functional.max_pool2d(x, 2, 2)
-                        continue
-                    x = torch.nn.functional.conv2d(
-                        x, q[f"backbone.conv{i}.weight"], padding=1)
-                    mean = x.mean((0, 2, 3))
-                    var = x.var((0, 2, 3), unbiased=False)
-                    n = x.shape[0] * x.shape[2] * x.shape[3]
-                    for key, v in (("running_mean", mean),
-                                   ("running_var", var * n / (n - 1))):
-                        k = f"backbone.bn{i}.{key}"
-                        running[j][k] = ((1 - bn_momentum) * running[j][k]
-                                         + bn_momentum * v.detach())
-                    x = torch.relu((x - ch(mean)) / ch(torch.sqrt(var + eps))
-                                   * ch(q[f"backbone.bn{i}.weight"])
-                                   + ch(q[f"backbone.bn{i}.bias"]))
-                    i += 1
-                logits = torch.nn.functional.linear(
-                    x.mean((2, 3)), q["classifier.weight"],
-                    q["classifier.bias"])
-                loss = torch.nn.functional.cross_entropy(
-                    logits, labels[idx], reduction="sum") / (b * world)
-                for k, g in zip(names, torch.autograd.grad(
-                        loss, [q[k] for k in names])):
-                    grads[k] += g / len(group)
-                total += float(loss.detach()) / len(group)
-        for k in running[0]:
-            p[k] = sum(r[k] for r in running) / len(running)
-        lr_t = float(lr_at(step))
-        for k in names:
-            buf[k] = momentum * buf[k] + grads[k] + wd * p[k]
-            p[k] = p[k] - lr_t * buf[k]
-        losses.append(total)
-    return np.array(losses), p, [buf[k] for k in names]
 
 
 def _check_against_jax(want, ranks, steps, micro, flags, sd, train):
