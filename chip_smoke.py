@@ -70,7 +70,8 @@
    a checkpoint at step 50; its ms per optimizer step, samples/s, process
    wall time and accuracy beside the DDP phase's run.  Then each flag alone
    on a 10,240-image epoch (20 batches of 512) beside no flag, for its
-   ms/step and collective counts; under deterministic mode
+   ms/step and collective counts (``multigpu`` run in this process as rank
+   0 of a world-1 NCCL group, ``model_run``); under deterministic mode
    ``--shard_update`` and ``--grad_accum 1`` bit for bit against no flag;
    and a narrow world-2 epoch with the flags composed on the card over gloo
    against the CPU within ``PARITY_TOL``, one ``gather_batch`` launch a
@@ -103,6 +104,28 @@
    strategy phase's deterministic resident run of the same arguments; a
    narrow world-2 streamed epoch over gloo on the card against the CPU
    within ``PARITY_TOL`` (lr 0.05, drill seed ``STREAM_DRILL_SEED``).
+   Models phase (``--model deepnn`` and ``resnet18``, each at its full and
+   only width, ``MODEL_ARGS``): ``multigpu`` in this process as rank 0 of a
+   world-1 NCCL group, its counts zeroed before each run and read after,
+   on 50,000 images resident in float32 (123 ``gather_batch`` launches, the
+   collectives counted from the code, a float32 checkpoint that restores
+   bit for bit) and with ``--bf16`` (123 of the bf16 form), each beside
+   VGG-11's ms/step from this process, then ``--resume`` training epoch 1
+   from the float32 file; streaming and the composed strategy flags on
+   10,240 images (25 launches; all-reduces ``model_collectives``: 71 a
+   ResNet-18 micro-batch under ``--sync_bn``, none for DeepNN, which has no
+   buffers to average); serving the epoch-0 files at buckets 1, 8, 32 and
+   128 in float32 and bfloat16 (logits bit for bit against the eager
+   forward, replay ms, accuracy equal to ``evaluate_resident``'s);
+   ``--export_torch`` then ``--init_from_torch`` back bit for bit through
+   a strict load.  Then, six processes at once, ``singlegpu`` and world-1
+   ``multigpu`` of each model under deterministic mode (``repeat_check``),
+   bit for bit, and each model's step under the profiler
+   (``profile_resident --model``: kernels a step, one
+   ``gather_batch_kernel`` a step); and each model's world-2 drill over gloo on the card against the CPU (``MODEL_DRILLS``,
+   sync-BN and the sharded update), after ``drill.margins`` shows every
+   ReLU and max-pool decision at least 1e-6 from flipping, within
+   ``PARITY_TOL``.
 9. Serving phase: ``ServeEngine.from_checkpoint`` on that epoch-0 file at
    full width with buckets 1, 8, 32 and 128; ``warm()`` must capture exactly
    4 CUDA graphs (the ``gather_batch`` wrapper runs once eagerly and once at
@@ -160,8 +183,9 @@
     the serving path: the eager runs in ``warm()`` and the launches of the
     profiled HTTP load, on the DDP path: the world-1 run's and the card
     ranks' of the world-2 run, on the strategy path: the composed
-    world-1 run's and the card ranks' of its world-2 run, and on the
-    streaming path: every card run of the streaming phase; both entries
+    world-1 run's and the card ranks' of its world-2 run, on the
+    streaming path: every card run of the streaming phase, and on the
+    models path: the models phase's runs, serving and drills; both entries
     give ``stream_batch_cases``, the streamed-batch comparisons in their
     dtype, whose launches are not counted), the card line, and last
     ``{"ok": true, "device": {...}}``.
@@ -197,6 +221,8 @@ from ddp_tpu_torch.data import (EvalLoader, ResidentData, TrainLoader,
 from ddp_tpu_torch.data.device_augment import crop_flip, make_draws
 from ddp_tpu_torch.device import set_tf32
 from ddp_tpu_torch.data.loader import optimizer_groups
+from ddp_tpu_torch.models import get_model
+from ddp_tpu_torch.models.modules import BatchNorm
 from ddp_tpu_torch.models.vgg import VGG, BNReLU
 from ddp_tpu_torch.ops import conv_candidates, pool_candidates
 from ddp_tpu_torch.ops.conv_candidates import (ROUTES, TARGET_SHAPES,
@@ -215,7 +241,8 @@ from ddp_tpu_torch.profile_resident import (_group, device_events,
 from ddp_tpu_torch.repeat_check import compare, run_entries
 from ddp_tpu_torch.serve import (DynamicBatcher, ServeEngine,
                                  ServeHTTPServer, percentiles)
-from ddp_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from ddp_tpu_torch.train.checkpoint import (load_checkpoint, restore,
+                                           save_checkpoint)
 from ddp_tpu_torch.train.epoch import make_train_epoch
 from ddp_tpu_torch.train.evaluate import evaluate_resident
 from ddp_tpu_torch.train.step import (_as_input, init_train_state,
@@ -551,7 +578,7 @@ def checkpoint_phase(out: dict, path: str) -> None:
     then a resumed run of the CLI that must train no step."""
     ckpt = load_checkpoint(path)
     state = out["state"]
-    saved = interop.vgg_state_dict_from_jax(ckpt.params, ckpt.batch_stats)
+    saved = interop.state_dict_from_jax("vgg", ckpt.params, ckpt.batch_stats)
     live = state.model.state_dict()
     check(set(saved) == set(live), "checkpoint keys differ from the model's")
     check(all(torch.equal(saved[k], live[k].cpu()) for k in live),
@@ -826,7 +853,11 @@ def strategy_phase(ddp: dict, card: str) -> tuple:
             ([], 1, False, False), (["--grad_accum", "2"], 2, False, False),
             (["--sync_bn"], 1, True, False),
             (["--shard_update"], 1, False, True)):
-        one, wall_s, ckpt = run_multigpu(FLAG_ARGS + flags)
+        # In this process (``model_run``): the DDP phase's subprocesses
+        # already cover the spawner, and each process would add ~20 s.
+        with tempfile.TemporaryDirectory() as tmp:
+            one = model_run(FLAG_ARGS + flags, os.path.join(tmp, "c.pt"))
+        wall_s = one["wall_s"]
         n = FLAG_TRAIN_STEPS // accum
         want, formula = expected_collectives(
             n, FLAG_TRAIN_STEPS, sync_bn=sync_bn, zero=zero,
@@ -1571,11 +1602,12 @@ def batch_bf16_phase(gen: torch.Generator) -> dict:
 
 def _float32_file(ckpt) -> bool:
     """Whether every weight, buffer and momentum array of a checkpoint is
-    float32."""
-    arrays = [*interop.vgg_state_dict_from_jax(ckpt.params,
-                                               ckpt.batch_stats).values()]
-    arrays += interop.momentum_list_from_tree(VGG(), ckpt.momentum)
-    return all(a.dtype == torch.float32 for a in arrays)
+    float32 as the file holds it."""
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, dict) else (v,)
+    return all(np.asarray(a).dtype == np.float32 for tree in (
+        ckpt.params, ckpt.batch_stats, ckpt.momentum) for a in leaves(tree))
 
 
 def bf16_main_phase(out: dict, card: str, path: str) -> dict:
@@ -1742,26 +1774,10 @@ def world1_rendezvous():
 
 
 def stream_run(args: list, snapshot: str) -> dict:
-    """``python -m ddp_tpu_torch.multigpu args`` run in this process as
-    rank 0 of a world-1 NCCL group (the rank a one-card machine spawns),
-    with every count set to 0 just before and read just after: its
-    ``--result_json`` summary, with ``wall_s``."""
-    gather_batch.launches = gather_batch.launches_bf16 = 0
-    gather_rows.launches = conv3x3_fused.launches = 0
-    dist.collective_calls.clear()
-    path = snapshot + ".json"
-    t0 = time.time()
-    with world1_rendezvous():
-        cli.main_multi(args + ["--snapshot_path", snapshot,
-                               "--result_json", path])
-    with open(path) as f:
-        res = json.load(f)
-    res["wall_s"] = time.time() - t0
-    check((res["world"], res["backend"], res["data_path"]) ==
-          (1, "nccl", "streaming"), f"multigpu {' '.join(args)}: world "
-          f"{res['world']}, {res['backend']}, {res['data_path']}")
-    check(all(math.isfinite(x) for x in res["loss_history"]),
-          f"multigpu {' '.join(args)}: a loss is not finite")
+    """:func:`model_run` of a streaming ``multigpu`` run."""
+    res = model_run(args, snapshot)
+    check(res["data_path"] == "streaming", f"multigpu {' '.join(args)}: "
+          f"{res['data_path']}")
     return res
 
 
@@ -2178,6 +2194,467 @@ def anchor_phase(path: str, compute_dtype, card: str) -> dict:
 
 
 
+# The models phase (DeepNN and ResNet-18 through --model).  Each model's
+# world-2 drill (sync-BN and --shard_update composed, crop and flip, lr
+# 0.05): its images (``synthetic(n_train, seed=data)``), per-rank batch,
+# --grad_accum and seed, chosen so that at the start weights every ReLU
+# input and every max-pool window's top two lie at least MODEL_MARGIN apart
+# (``drill.margins``), and float32 rounding on the card and on the CPU takes
+# the same side.  ResNet-18: 40 images, 8 a rank in groups of 2 (the
+# ragged 4 alone), seed 5: its decisions clear 2.5e-6, and the card and the
+# CPU part by 7.2e-5, at the stem kernel's momentum.  That gradient is where
+# the CPU loses: ``python tests/models_parity_probe.py --stem`` puts the
+# CPU's float32 stem gradient 1.6e-1 from float64 on 8 images and 1.2e-2 on
+# 16 (the card's 9.7e-5 and 2.6e-5): BatchNorm's backward over small counts
+# amplifies the rounding of the CPU's sums.  DeepNN has no BatchNorm and
+# some 220,000 ReLU inputs an image: at two images a rank no seed pair
+# tried clears 3.3e-7, so its drill is one step of one image a rank, at the
+# data seed and seed (28, 0), whose decisions clear 1.2e-6
+# (``tests/models_parity_probe.py --margins``: 2 of 120 pairs clear 1e-6).
+MODELS = ("deepnn", "resnet18")
+# Each model's arguments.  DeepNN has no BatchNorm: at the reference's peak
+# lr 0.4 its losses left the finite range within this phase's first epoch,
+# and ``singlegpu --model deepnn --batch_size 128 --synthetic_size 2560
+# --lr 0.4`` spikes to 81 within 20 steps on the CPU, so it trains at 0.05,
+# as the repo's other DeepNN runs do.
+MODEL_ARGS = {"deepnn": ["--model", "deepnn", "--lr", "0.05"],
+              "resnet18": ["--model", "resnet18"]}
+MODEL_MARGIN = 1e-6
+MODEL_DRILLS = {
+    "deepnn": {"n_train": 2, "data": 28, "batch": 1, "accum": 1,
+               "seed": 0},
+    "resnet18": {"n_train": 40, "data": 1, "batch": 8, "accum": 2,
+                 "seed": 5}}
+
+
+def sync_bn_all_reduces(model: torch.nn.Module) -> int:
+    """The sync-BN all-reduces of one micro-batch, counted from the code: 3
+    a fused BN+ReLU (2 for the statistics, 1 for dβ/dγ in its backward)
+    and 4 a plain BatchNorm (its 2 statistics and, in the backward,
+    ``_MeanOverRanks``'s transpose of each)."""
+    return sum(3 if isinstance(m, BNReLU) else 4 if isinstance(m, BatchNorm)
+               else 0 for m in model.modules())
+
+
+def model_collectives(model: torch.nn.Module, steps: int, micro: int, *,
+                      sync_bn: bool, zero: bool, saves: int) -> tuple:
+    """``expected_collectives`` for any model: a model without buffers
+    (DeepNN) averages none a step."""
+    per_micro = sync_bn_all_reduces(model) * sync_bn
+    per_step = (not zero) + bool(dist._buffers(model))
+    want = {"all_reduce": per_micro * micro + per_step * steps + 2,
+            "broadcast": 1}
+    formula = (f"all_reduce = {per_micro}*{micro} micro + {per_step}*"
+               f"{steps} steps + 2")
+    if zero:
+        want.update(reduce_scatter=steps, all_gather=steps + saves)
+        formula += (f", reduce_scatter = {steps} steps, all_gather = "
+                    f"{steps} steps + {saves} momentum gather(s)")
+    return want, formula
+
+
+def model_run(args: list, snapshot: str) -> dict:
+    """``python -m ddp_tpu_torch.multigpu args`` run in this process as rank
+    0 of a world-1 NCCL group, every count set to 0 just before and read
+    just after: its ``--result_json`` summary with ``wall_s``, ``state``
+    and ``launches``."""
+    gather_batch.launches = gather_batch.launches_bf16 = 0
+    gather_rows.launches = conv3x3_fused.launches = 0
+    dist.collective_calls.clear()
+    path = snapshot + ".json"
+    t0 = time.time()
+    with world1_rendezvous():
+        out = cli.main_multi(args + ["--snapshot_path", snapshot,
+                                     "--result_json", path])
+    with open(path) as f:
+        res = json.load(f)
+    res.update(wall_s=time.time() - t0, state=out["state"],
+               launches={"gather_batch": gather_batch.launches,
+                         "gather_batch_bf16": gather_batch.launches_bf16,
+                         "row_gather": gather_rows.launches,
+                         "conv3x3": conv3x3_fused.launches})
+    check((res["world"], res["backend"]) == (1, "nccl") and
+          all(math.isfinite(x) for x in res["loss_history"]) and
+          math.isfinite(res["accuracy"]) and 0 <= res["accuracy"] <= 100,
+          f"multigpu {' '.join(args)}: world {res['world']}, "
+          f"{res['backend']}, accuracy {res['accuracy']}, a loss not finite")
+    return res
+
+
+def _launches(n: int, bf16: bool = False) -> dict:
+    return {"gather_batch": n, "gather_batch_bf16": n if bf16 else 0,
+            "row_gather": 0, "conv3x3": 0}
+
+
+def _step_line(res: dict, steps: int, batch: int = 512) -> str:
+    event = statistics.median(res["step_ms"])
+    wall = sum(res["epoch_seconds"]) * 1e3 / steps
+    return (f"event median {event:.3f} ms/step "
+            f"({batch / event * 1e3:.1f} samples/s), wall {wall:.3f} ms/step "
+            f"({batch / wall * 1e3:.1f} samples/s)")
+
+
+def model_serve(name: str, snapshot: str, dtype, test_ds) -> dict:
+    """The serving engine for ``name`` on ``snapshot`` at SERVE_BUCKETS in
+    ``dtype``: four graphs (the wrapper run once eagerly and once at
+    capture a bucket), each bucket's logits bit for bit against the eager
+    ``gather_batch`` + eval forward, its replay ms, and the served accuracy
+    equal to evaluate_resident's.  The graphs are VGG's programs
+    (``EvalProgram``), whose replays the serving phase counts under the
+    profiler; here, late in a long process, the profiler dropped one
+    replay's kernel of five (ROADMAP C3), so the models' replays are not
+    counted that way."""
+    gather_batch.launches = gather_batch.launches_bf16 = 0
+    engine = ServeEngine.from_checkpoint(snapshot, name,
+                                         buckets=SERVE_BUCKETS,
+                                         compute_dtype=dtype)
+    captured = engine.warm()
+    check(captured == len(SERVE_BUCKETS) and
+          gather_batch.launches == 2 * len(SERVE_BUCKETS),
+          f"{name} serve: {captured} graphs, {gather_batch.launches} "
+          f"wrapper calls in warm()")
+    warm_launches = gather_batch.launches - captured
+    rng = np.random.default_rng(7)
+    apply_fn = make_eval_apply(engine.model, dtype)
+    replay = {}
+    for b in engine.buckets:
+        x = rng.integers(0, 256, (b, 32, 32, 3), dtype=np.uint8)
+        images, _ = gather_batch(
+            torch.from_numpy(x).cuda(),
+            torch.zeros(b, dtype=torch.int64, device="cuda"),
+            torch.arange(b, dtype=torch.int32, device="cuda"),
+            dtype=dtype or torch.float32)
+        want = apply_fn(images).cpu().numpy()
+        got = engine.forward(x)
+        check(np.array_equal(got, want), f"{name} served logits at bucket "
+              f"{b} ({dtype}) differ from the eager forward: max|diff| "
+              f"{float(np.abs(got - want).max()):.3e}")
+        prog = engine._programs[b]
+        replay[b] = median_ms(lambda _: prog.graph.replay(), [None], 30)
+    correct = 0
+    for start in range(0, len(test_ds), SERVE_BUCKETS[-1]):
+        stop = start + SERVE_BUCKETS[-1]
+        correct += int((engine.predict(test_ds.images[start:stop])
+                        == test_ds.labels[start:stop]).sum())
+    served = correct / len(test_ds) * 100.0
+    evaluated = evaluate_resident(engine.model,
+                                  ResidentData(test_ds, torch.device("cuda")),
+                                  EvalLoader(test_ds, SERVE_BUCKETS[-1]),
+                                  dtype)
+    check(served == evaluated, f"{name} served accuracy {served} != "
+          f"evaluate_resident's {evaluated} ({dtype})")
+    return {"replay_ms": replay, "accuracy": served,
+            "launches": warm_launches}
+
+
+def _restored_equal(ckpt, state) -> bool:
+    """Whether a checkpoint restores bit for bit into a fresh model of
+    ``state``'s and momentum."""
+    model = copy.deepcopy(state.model)
+    momentum = [torch.zeros_like(m) for m in state.momentum]
+    restore(ckpt, model, momentum)
+    live = state.model.state_dict()
+    return all(torch.equal(v, live[k]) for k, v in
+               model.state_dict().items()) and \
+        all(torch.equal(a, b) for a, b in zip(momentum, state.momentum))
+
+
+def model_phase(name: str, main: dict, main_bf16: dict, card: str,
+                tmp: str) -> dict:
+    """One model through the port's entry points on the card (world-1 NCCL
+    ``multigpu`` in this process): f32 and bf16 on 50,000 images, the
+    resume of the f32 file, streaming and the composed flags on 10,240,
+    serving in both dtypes, the torch export round trip and the step's
+    kernels by group.  Returns its launches by path and numbers."""
+    margs = MODEL_ARGS[name]
+    snap = os.path.join(tmp, f"{name}.pt")
+    n = MAIN_TRAIN_STEPS + MAIN_EVAL_STEPS
+    f32 = model_run(MAIN_ARGS + margs, snap)
+    check(f32["model"] == name and f32["launches"] == _launches(n) and
+          len(f32["loss_history"]) == MAIN_TRAIN_STEPS,
+          f"{name} f32: model {f32['model']}, launches {f32['launches']}, "
+          f"{len(f32['loss_history'])} losses")
+    want, formula = model_collectives(f32["state"].model, MAIN_TRAIN_STEPS,
+                                      MAIN_TRAIN_STEPS, sync_bn=False,
+                                      zero=False, saves=0)
+    check(f32["collectives"] == want, f"{name} f32 collectives "
+          f"{f32['collectives']}, expected {want} ({formula})")
+    ckpt = load_checkpoint(snap)
+    check(ckpt.step == MAIN_TRAIN_STEPS and ckpt.epoch == 0 and
+          _float32_file(ckpt) and _restored_equal(ckpt, f32["state"]),
+          f"{name} checkpoint: step {ckpt.step}, epoch {ckpt.epoch}, or "
+          f"not float32, or it does not restore bit for bit")
+    epoch0 = snap + ".epoch0"
+    with open(snap, "rb") as src, open(epoch0, "wb") as dst:
+        dst.write(src.read())
+    n_params = sum(p.numel() for p in f32["state"].model.parameters())
+    print(f"models, {name} f32 ({card}): {n_params} parameters; "
+          f"{_step_line(f32, MAIN_TRAIN_STEPS)}; VGG-11 in this process "
+          f"{_step_line(main, MAIN_TRAIN_STEPS)}; train "
+          f"{f32['training_seconds']:.2f} s, eval {f32['eval_seconds']:.2f} "
+          f"s, wall {f32['wall_s']:.2f} s; launches {f32['launches']}; "
+          f"collectives {f32['collectives']} = {formula}; first/last loss "
+          f"{f32['loss_history'][0]:.4f}/{f32['loss_history'][-1]:.4f}; "
+          f"accuracy {f32['accuracy']:.2f}%; checkpoint float32, restores "
+          f"bit for bit", flush=True)
+
+    resumed = model_run(["2"] + MAIN_ARGS[1:] + margs + ["--resume"], snap)
+    ckpt = load_checkpoint(snap)
+    check(len(resumed["loss_history"]) == MAIN_TRAIN_STEPS and
+          resumed["launches"] == _launches(n) and
+          ckpt.step == 2 * MAIN_TRAIN_STEPS and ckpt.epoch == 1,
+          f"{name} --resume: {len(resumed['loss_history'])} losses, "
+          f"launches {resumed['launches']}, checkpoint step {ckpt.step} "
+          f"epoch {ckpt.epoch}")
+    print(f"models, {name} --resume ({card}): epoch 1 from the epoch-0 "
+          f"file, {_step_line(resumed, MAIN_TRAIN_STEPS)}; first/last loss "
+          f"{resumed['loss_history'][0]:.4f}/"
+          f"{resumed['loss_history'][-1]:.4f}; accuracy "
+          f"{resumed['accuracy']:.2f}%; checkpoint step {ckpt.step}",
+          flush=True)
+
+    snap_bf16 = os.path.join(tmp, f"{name}_bf16.pt")
+    bf16 = model_run(MAIN_ARGS + margs + ["--bf16"], snap_bf16)
+    ckpt = load_checkpoint(snap_bf16)
+    check(bf16["compute_dtype"] == "bfloat16" and
+          bf16["launches"] == _launches(n, bf16=True) and
+          len(bf16["loss_history"]) == MAIN_TRAIN_STEPS and
+          _float32_file(ckpt), f"{name} bf16: {bf16['compute_dtype']}, "
+          f"launches {bf16['launches']}, float32 file {_float32_file(ckpt)}")
+    print(f"models, {name} --bf16 ({card}): "
+          f"{_step_line(bf16, MAIN_TRAIN_STEPS)}; VGG-11 --bf16 "
+          f"{_step_line(main_bf16, MAIN_TRAIN_STEPS)}; launches "
+          f"{bf16['launches']}; first/last loss "
+          f"{bf16['loss_history'][0]:.4f}/{bf16['loss_history'][-1]:.4f}; "
+          f"accuracy {bf16['accuracy']:.2f}% (f32 {f32['accuracy']:.2f}%); "
+          f"checkpoint float32", flush=True)
+
+    m = FLAG_TRAIN_STEPS + FLAG_EVAL_STEPS
+    stream = model_run(STREAM_FLAG_ARGS + margs,
+                       os.path.join(tmp, f"{name}_s.pt"))
+    check(stream["data_path"] == "streaming" and
+          stream["launches"] == _launches(m) and
+          len(stream["loss_history"]) == FLAG_TRAIN_STEPS,
+          f"{name} streaming: {stream['data_path']}, launches "
+          f"{stream['launches']}")
+    composed = model_run(FLAG_ARGS + STRATEGY_FLAGS + margs,
+                         os.path.join(tmp, f"{name}_c.pt"))
+    steps = FLAG_TRAIN_STEPS // 2
+    want, formula = model_collectives(composed["state"].model, steps,
+                                      FLAG_TRAIN_STEPS, sync_bn=True,
+                                      zero=True, saves=1)
+    check(composed["collectives"] == want and
+          composed["launches"] == _launches(m) and
+          len(composed["loss_history"]) == steps,
+          f"{name} composed flags: collectives {composed['collectives']}, "
+          f"expected {want} ({formula}); launches {composed['launches']}")
+    print(f"models, {name} streaming on {FLAG_TRAIN_STEPS * 512} images "
+          f"({card}): {_step_line(stream, FLAG_TRAIN_STEPS)}; launches "
+          f"{stream['launches']}; host augment {stream['host_augment']}. "
+          f"{' '.join(STRATEGY_FLAGS)}: {steps} optimizer steps of 2 x 512, "
+          f"{_step_line(composed, steps, 1024)}; collectives "
+          f"{composed['collectives']} = {formula}; launches "
+          f"{composed['launches']}", flush=True)
+
+    _, test_ds = synthetic(n_train=int(MAIN_ARGS[-1]),
+                           n_test=int(MAIN_ARGS[-1]) // 4)
+    serve = model_serve(name, epoch0, None, test_ds)
+    serve_bf16 = model_serve(name, snap_bf16, BF16, test_ds)
+    print(f"models, {name} serving ({card}): replay ms by bucket f32 "
+          f"{serve['replay_ms']}, bf16 {serve_bf16['replay_ms']}; logits "
+          f"bit for bit against the eager forward at every bucket; accuracy "
+          f"{serve['accuracy']:.4f}% / {serve_bf16['accuracy']:.4f}% equal "
+          f"to evaluate_resident's at batch {SERVE_BUCKETS[-1]} (the run's "
+          f"eval at batch 512: {f32['accuracy']:.4f}%)", flush=True)
+
+    exported = os.path.join(tmp, f"{name}_ref.pt")
+    cli.export_torch(f32["state"].model, exported)
+    ref = torch.load(exported, weights_only=True)
+    fresh = get_model(name, device="cuda",
+                      generator=torch.Generator().manual_seed(99))
+    cli.load_torch_init(fresh, exported)
+    live = f32["state"].model.state_dict()
+    tracked = [k for k in ref if k.endswith("num_batches_tracked")]
+    check(all(torch.equal(v, live[k]) for k, v in fresh.state_dict().items())
+          and len(tracked) == len(dist._buffers(fresh)) // 2 and
+          set(ref) - set(tracked) == set(live),
+          f"{name} export round trip: weights differ, or keys "
+          f"{sorted(set(ref) ^ set(live))[:6]}")
+    print(f"models, {name} --export_torch/--init_from_torch: {len(ref)} keys "
+          f"({len(tracked)} num_batches_tracked), every weight and buffer "
+          f"back bit for bit through a strict load", flush=True)
+
+    return {"launches_f32": n * 2 + m * 2 + serve["launches"],
+            "launches_bf16": n + serve_bf16["launches"],
+            "f32_ms": statistics.median(f32["step_ms"]),
+            "bf16_ms": statistics.median(bf16["step_ms"])}
+
+
+def _profile_process(name: str) -> dict:
+    """``python -m ddp_tpu_torch.profile_resident --model name`` in a
+    process of its own (late in this one the profiler loses the start of
+    a session, ROADMAP C3): its JSON summary."""
+    r = subprocess.run(
+        [sys.executable, "-m", "ddp_tpu_torch.profile_resident", "--model",
+         name, "--steps", "10"], capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"profile_resident --model {name} exited with "
+          f"{r.returncode}: {r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def models_processes(card: str) -> None:
+    """In processes of their own, six at once: ``singlegpu`` and world-1
+    ``multigpu`` of each model in deterministic mode on 10,240 images
+    (``repeat_check``'s ``run_entries``), each model's two loss histories
+    bit for bit; and each model's step under the profiler, for its kernels
+    a step and one gather_batch_kernel a step (its times, taken beside the
+    other processes, are not kept)."""
+    t0 = time.time()
+    results, errors = {}, []
+
+    def one(name, entry):
+        try:
+            results[name, entry] = _profile_process(name) \
+                if entry == "profile" else run_entries(
+                    [entry], FLAG_ARGS + MODEL_ARGS[name],
+                    deterministic=True)[0]
+        except Exception as e:  # re-raised below, after every join
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(n, e)) for n in MODELS
+               for e in ("singlegpu", "multigpu", "profile")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    for name in MODELS:
+        prof = results[name, "profile"]
+        check(prof["gather_batch_kernel_launches"] == 10,
+              f"{name} profile: {prof['gather_batch_kernel_launches']} "
+              f"gather_batch_kernel launches in 10 steps")
+        print(f"models, {name} under the profiler ({card}): "
+              f"{prof['kernels_per_step']:g} CUDA kernels launched a step, "
+              f"gather_batch_kernel 10 times in 10 steps", flush=True)
+        pair, = compare([results[name, "singlegpu"],
+                         results[name, "multigpu"]])
+        print(f"models, {name}: world-1 multigpu against singlegpu, "
+              f"deterministic mode ({card}): {pair}", flush=True)
+        check(pair["bit_equal"], f"{name}: under deterministic mode the "
+              f"world-1 history differs from singlegpu's")
+    print(f"models processes: {time.time() - t0:.1f} s", flush=True)
+
+
+def models_drills(card: str) -> int:
+    """Each model's world-2 epoch of MODEL_DRILLS on the one card over gloo
+    against the same two ranks on the CPU, sync-BN and --shard_update
+    composed (margins checked first); the four drills at once.  Returns the
+    card ranks' gather_batch launches."""
+    specs, models, counts = {}, {}, {}
+    for name in MODELS:
+        cfg = MODEL_DRILLS[name]
+        train, test = synthetic(n_train=cfg["n_train"], n_test=24,
+                                seed=cfg["data"])
+        models[name] = get_model(name,
+                                 generator=torch.Generator().manual_seed(0))
+        kink, gap = drill.margins(models[name], train, batch=cfg["batch"],
+                                  seed=cfg["seed"], world=2,
+                                  accum=cfg["accum"])
+        check(min(kink, gap) >= MODEL_MARGIN, f"{name}'s world-2 drill "
+              f"{cfg}: a ReLU input {kink:.3e} from the kink or a max-pool "
+              f"gap {gap:.3e}")
+        loader = TrainLoader(train, cfg["batch"], 2)
+        groups = optimizer_groups(*loader.rank_index_matrix(0), cfg["accum"])
+        counts[name] = (sum(g.shape[0] for g in groups),
+                        sum(g.shape[0] * g.shape[1] for g in groups),
+                        -(-len(test) // 2 // cfg["batch"]))
+        print(f"models, {name} drill {cfg}: nearest ReLU input {kink:.3e} "
+              f"from the kink, smallest max-pool gap {gap:.3e}; steps, "
+              f"micro-batches and eval batches a rank {counts[name]}",
+              flush=True)
+        for device in ("cuda", "cpu"):
+            specs[name, device] = drill.spec(
+                name, models[name].state_dict(), train, test,
+                batch=cfg["batch"], lr=0.05, seed=cfg["seed"], augment=True,
+                device=device, backend="gloo", grad_accum=cfg["accum"],
+                sync_bn=True, shard_update=True)
+    runs, errors = {}, []
+
+    def one(key):
+        try:
+            runs[key] = drill.run(specs[key], 2, same_device=True,
+                                  timeout=300)
+        except Exception as e:  # re-raised below, after every join
+            errors.append(e)
+
+    t0 = time.time()
+    threads = [threading.Thread(target=one, args=(k,)) for k in specs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    launches = 0
+    for name in MODELS:
+        steps, micro, evals = counts[name]
+        want, formula = model_collectives(models[name], steps, micro,
+                                          sync_bn=True, zero=True, saves=1)
+        worst = 0.0
+        for got, ref in zip(runs[name, "cuda"], runs[name, "cpu"]):
+            check(got["device"] == "cuda:0" and got["steps"] == steps and
+                  got["collectives"] == want and
+                  (got["train_launches"], got["eval_launches"]) ==
+                  (micro, evals) and
+                  bool(torch.isfinite(got["losses"]).all()),
+                  f"{name} world-2 card rank {got['rank']}: {got['device']}, "
+                  f"{got['steps']} steps, collectives {got['collectives']} "
+                  f"(expected {want}), launches {got['train_launches']} + "
+                  f"{got['eval_launches']}")
+            pairs = [("losses", got["losses"], ref["losses"])]
+            pairs += [(k, got["state_dict"][k], v)
+                      for k, v in ref["state_dict"].items()]
+            pairs += [(f"momentum {k}", a, b) for k, (a, b) in enumerate(
+                zip(got["momentum"], ref["momentum"]))]
+            for key, a, b in pairs:
+                err = float((a - b).abs().max())
+                if err >= worst:
+                    worst, at = err, (key, float(b.abs().max()))
+            launches += got["train_launches"] + got["eval_launches"]
+        check(worst <= PARITY_TOL, f"{name} world 2 on the card differs "
+              f"from the CPU by {worst:.3e} (at {at[0]}, max |value| "
+              f"{at[1]:.3e})")
+        print(f"models, {name} world 2 on one card over gloo ({card}): "
+              f"{steps} optimizer step(s), {micro} micro-batch(es) a rank, "
+              f"sync-BN, sharded update; max |diff| against the CPU "
+              f"{worst:.3e} at {at[0]} (max |value| {at[1]:.3e}; losses, "
+              f"weights, buffers, momentum; tolerance {PARITY_TOL:g}); "
+              f"collectives a rank "
+              f"{runs[name, 'cuda'][0]['collectives']} = {formula}",
+              flush=True)
+    print(f"models drills: {time.time() - t0:.1f} s", flush=True)
+    return launches
+
+
+def models_phases(main: dict, main_bf16: dict, card: str) -> dict:
+    """DeepNN and ResNet-18 through the port's entry points, their
+    deterministic repeats and their world-2 drills.  Returns each model's
+    numbers and the launches of gather_batch's two forms on these paths."""
+    t0 = time.time()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in MODELS:
+            out[name] = model_phase(name, main, main_bf16, card, tmp)
+    models_processes(card)
+    drill_launches = models_drills(card)
+    out["launches_f32"] = drill_launches + sum(
+        out[n]["launches_f32"] for n in MODELS)
+    out["launches_bf16"] = sum(out[n]["launches_bf16"] for n in MODELS)
+    print(f"models phase: {time.time() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -2248,6 +2725,7 @@ def main() -> int:
     stream_launches, stream_bf16_launches, stream_cases = stream_phase(
         out, out_bf16, resident_det, card, snapshot_dir.name)
     print(f"streaming phase: {time.time() - t0:.1f} s", flush=True)
+    models = models_phases(out, out_bf16, card)
     serve = serve_phase(snapshot)
     print(f"serve: {json.dumps(serve)}", flush=True)
     serve_bf16 = bf16_serve_phase(snapshot_bf16, serve)
@@ -2271,6 +2749,7 @@ def main() -> int:
                  launches_ddp_path=ddp_launches,
                  launches_strategy_path=strategy_launches,
                  launches_stream_path=stream_launches,
+                 launches_models_path=models["launches_f32"],
                  stream_batch_cases=stream_cases[torch.float32],
                  launches_serve_path=serve["warm_launches"]
                  + serve["http_profiled"]["gather_batch_kernel_launches"],
@@ -2298,6 +2777,7 @@ def main() -> int:
     batch_bf16.update(launches=bf16_main, launches_main_path=bf16_main,
                       launches_strategy_path=strategy_bf16_launches,
                       launches_stream_path=stream_bf16_launches,
+                      launches_models_path=models["launches_bf16"],
                       stream_batch_cases=stream_cases[BF16],
                       launches_serve_path=serve_bf16["warm_launches"]
                       + serve_bf16["profiled_replay_launches"])

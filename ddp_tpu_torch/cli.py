@@ -2,7 +2,9 @@
 ``ddp_tpu/entry.py``), on one card or data-parallel over several:
 
     python -m ddp_tpu_torch.singlegpu <total_epochs> <save_every> \\
-        [--batch_size 512] [--resident | [--device_augment] \\
+        [--batch_size 512] [--model vgg|deepnn|resnet18] \\
+        [--init_from_torch STATE_DICT] [--export_torch PATH] \\
+        [--resident | [--device_augment] \\
         [--prefetch_depth 2] [--prefetch_workers 4]] \\
         [--synthetic --synthetic_size N [--synthetic_label_noise P]] \\
         [--seed 0] [--lr 0.4] [--momentum 0.9] [--weight_decay 5e-4] \\
@@ -10,6 +12,14 @@
         [--snapshot_path checkpoint.pt] [--resume] [--device cuda|cpu] \\
         [--result_json PATH]
     python -m ddp_tpu_torch.multigpu <same arguments> [--spawn N]
+
+``--model`` trains VGG-11 (the default, the reference's model), DeepNN (the
+reference's second model) or ResNet-18 at their full widths, each through
+every path and flag below.  ``--init_from_torch`` starts from a reference
+torch ``state_dict`` file instead of random weights (the reference's
+``checkpoint.pt``; torchvision's ``resnet18`` keys for ResNet-18), and
+``--export_torch`` makes rank 0 write the trained model in that format
+after training (``interop.py``).
 
 Without ``--resident`` the data streams from the host, as the reference's
 does (RUNBOOK.md:66-67): each rank's batches are gathered and cropped and
@@ -35,7 +45,7 @@ steps), ``--sync_bn`` takes BatchNorm's statistics over every rank's batch,
 ``--shard_update`` shards the weight update (ZeRO-1).  At world 1 without a
 process group (``singlegpu``) each collective is the identity.  ``--bf16``
 computes in bfloat16 where the JAX package's ``compute_dtype`` does
-(``models/vgg.py``), training and eval alike, and composes with all of
+(``models/``), training and eval alike, and composes with all of
 them; weights, momentum, BatchNorm's buffers and the checkpoint stay
 float32.
 
@@ -58,10 +68,11 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from . import interop
 from .data import EvalLoader, ResidentData, TrainLoader, cifar10, native
 from .data.prefetch import PrefetchStats
 from .device import dtype_name, resolve_device, set_tf32
-from .models import get_model
+from .models import NAMES as MODEL_NAMES, get_model
 from .ops.conv_candidates import conv3x3_fused
 from .ops.gather import gather_batch, gather_rows
 from .optim import SGDConfig, triangular_lr
@@ -83,6 +94,8 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                         "included)")
     p.add_argument("--batch_size", default=512, type=int,
                    help="Input batch size (default: 512)")
+    p.add_argument("--model", default="vgg", choices=list(MODEL_NAMES),
+                   help="Model to train (reference trains VGG)")
     p.add_argument("--data_root", default=cifar10.DEFAULT_ROOT,
                    help="CIFAR-10 root holding cifar-10-batches-py")
     p.add_argument("--synthetic", action="store_true",
@@ -135,6 +148,15 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                         "plain DP, 1/R optimizer memory)")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (BASELINE.json config #4)")
+    p.add_argument("--init_from_torch", default=None, metavar="STATE_DICT",
+                   help="Initialise weights from a torch state_dict "
+                        "checkpoint of the reference (e.g. its "
+                        "checkpoint.pt) instead of random init")
+    p.add_argument("--export_torch", default=None, metavar="PATH",
+                   help="After training, also write the model in the "
+                        "reference's torch state_dict checkpoint format "
+                        "(reference keys for vgg/deepnn, torchvision keys "
+                        "for resnet18)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; without a card, cuda is an "
                         "error")
@@ -161,6 +183,21 @@ def build_schedule(args: argparse.Namespace,
         triangular_lr, base_lr=args.lr, num_epochs=args.total_epochs,
         steps_per_epoch=train_loader.optimizer_steps_per_epoch(
             args.grad_accum))
+
+
+def load_torch_init(model: torch.nn.Module, path: str) -> None:
+    """``--init_from_torch``: ``model``'s weights and BatchNorm buffers from
+    a reference torch ``state_dict`` file (``ddp_tpu/cli.py:449-465``),
+    loaded strictly: a file of another model or width raises."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(interop.from_reference(model.name, sd))
+
+
+def export_torch(model: torch.nn.Module, path: str) -> None:
+    """``--export_torch``: ``model`` as the reference's torch ``state_dict``
+    file (``ddp_tpu/cli.py:482-507``)."""
+    torch.save(interop.to_reference(model.name, model.state_dict()), path)
+    print(f"Torch state_dict exported to {path}")
 
 
 def _check_args(args: argparse.Namespace) -> None:
@@ -208,7 +245,9 @@ def _train_and_evaluate(args: argparse.Namespace,
         train_ds, test_ds = cifar10.load(args.data_root)
 
     generator = torch.Generator().manual_seed(args.seed)
-    model = get_model("vgg", device=device, generator=generator)
+    model = get_model(args.model, device=device, generator=generator)
+    if args.init_from_torch:
+        load_torch_init(model, args.init_from_torch)
     device_augment = args.device_augment or args.resident
     train_loader = TrainLoader(train_ds, args.batch_size, world,
                                seed=args.seed, augment=not device_augment,
@@ -238,6 +277,8 @@ def _train_and_evaluate(args: argparse.Namespace,
     if rank == 0:
         print(f"Total training time: {training_seconds:.2f} seconds")
         print(f"fp32 model has size={n_params * 32 / MiB:.2f} MiB")
+        if args.export_torch:
+            export_torch(model, args.export_torch)
 
     start = time.time()
     eval_loader = EvalLoader(test_ds, args.batch_size, world,
@@ -253,7 +294,7 @@ def _train_and_evaluate(args: argparse.Namespace,
            "loss_history": list(trainer.loss_history),
            "step_ms": list(trainer.step_ms),
            "epoch_seconds": list(trainer.epoch_seconds), "rank": rank,
-           "world": world, "backend": dist.backend(),
+           "world": world, "backend": dist.backend(), "model": args.model,
            "grad_accum": args.grad_accum, "sync_bn": args.sync_bn,
            "shard_update": args.shard_update,
            "compute_dtype": dtype_name(compute_dtype),

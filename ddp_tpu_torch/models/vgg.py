@@ -23,62 +23,14 @@ import torch
 from torch import nn
 
 from ..ops import initializers as init_lib
-from ..ops.layers import (BatchNormState, bn_relu, conv2d, global_avg_pool,
-                          linear, max_pool)
+from ..ops.layers import global_avg_pool, max_pool
+from .modules import BNReLU, Conv, Linear
 
 NAME = "vgg"
 NUM_CLASSES = 10
 ARCH = [64, 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"]
 # The classifier reads 512 features, whatever the last conv's position.
 CLASSIFIER_IN = 512
-
-
-class Conv(nn.Module):
-    """3x3 convolution, padding 1, no bias."""
-
-    def __init__(self, weight: torch.Tensor):
-        super().__init__()
-        self.weight = nn.Parameter(weight)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d(x, self.weight.to(x.dtype), stride=1, padding=1)
-
-
-class BNReLU(nn.Module):
-    """BatchNorm2d (torch defaults) followed by ReLU, through the fused
-    :func:`~ddp_tpu_torch.ops.layers.bn_relu`.  In training the running
-    buffers are updated in place; ``sync_bn`` takes the batch statistics
-    over every rank's batch (``--sync_bn``)."""
-
-    def __init__(self, num_features: int, device=None):
-        super().__init__()
-        scale, bias = init_lib.batch_norm_params(num_features, device)
-        mean, var = init_lib.batch_norm_stats(num_features, device)
-        self.weight = nn.Parameter(scale)
-        self.bias = nn.Parameter(bias)
-        self.register_buffer("running_mean", mean)
-        self.register_buffer("running_var", var)
-
-    def forward(self, x: torch.Tensor, sync_bn: bool = False
-                ) -> torch.Tensor:
-        z, new = bn_relu(x, self.weight, self.bias,
-                         BatchNormState(self.running_mean, self.running_var),
-                         train=self.training, sync=sync_bn)
-        if self.training:
-            with torch.no_grad():
-                self.running_mean.copy_(new.mean)
-                self.running_var.copy_(new.var)
-        return z
-
-
-class Linear(nn.Module):
-    def __init__(self, weight: torch.Tensor, bias: torch.Tensor):
-        super().__init__()
-        self.weight = nn.Parameter(weight)
-        self.bias = nn.Parameter(bias)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class VGG(nn.Module):
@@ -90,7 +42,10 @@ class VGG(nn.Module):
     ``forward(x, sync_bn=True)`` synchronises every BatchNorm layer's
     training statistics over the process group; ``compute_dtype``
     (``torch.bfloat16`` under ``--bf16``; None keeps ``x``'s dtype) is the
-    activations' dtype."""
+    activations' dtype; ``generator`` is ignored (VGG has no dropout; the
+    argument keeps one forward signature for every model)."""
+
+    name = NAME
 
     def __init__(self, arch: Optional[Sequence[Union[int, str]]] = None,
                  *, device=None, generator: Optional[torch.Generator] = None):
@@ -114,7 +69,9 @@ class VGG(nn.Module):
                                  device))
 
     def forward(self, x: torch.Tensor, sync_bn: bool = False,
-                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                compute_dtype: Optional[torch.dtype] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         x = x.to(compute_dtype or x.dtype)
         i = 0
         for a in self.arch:

@@ -54,6 +54,45 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
     return y if bias is None else y + bias
 
 
+def keep_mask(shape, keep: float, generator: torch.Generator,
+              device) -> torch.Tensor:
+    """A boolean mask of ``shape``, each element True with probability
+    ``keep`` (``uniform < keep``, as ``jax.random.bernoulli``), drawn from
+    ``generator`` on the generator's device and moved to ``device``: a CPU
+    generator gives the same mask on the card as on the CPU (the parity
+    drills' choice); a CUDA generator draws on the card without a host
+    round trip (the trainer's).  The streams are torch's, not JAX's."""
+    u = torch.rand(tuple(shape), generator=generator,
+                   device=generator.device)
+    return (u < keep).to(device)
+
+
+def dropout(x: torch.Tensor, rate: float, *, train: bool,
+            generator: Optional[torch.Generator] = None,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverted dropout in the torch convention (``ddp_tpu/ops/layers.py:
+    313-322``): in training each element is kept with probability ``keep =
+    1 - rate`` and divided by ``keep``; otherwise ``x`` unchanged.  The
+    arithmetic is JAX's ``where(mask, x / keep, 0)``, where ``keep`` takes
+    ``x``'s dtype (0.8984375 in bfloat16) and the quotient is rounded once:
+    the divisor is a tensor of ``x``'s dtype on its device, as
+    ``train/step.py::_as_input`` divides, where a Python float would divide
+    by the float32 0.9 (and on the card multiply by its reciprocal).  The
+    mask is ``mask`` when given (a test passes the one JAX drew), else
+    :func:`keep_mask` from ``generator``, which training needs."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    if mask is None:
+        if generator is None:
+            raise ValueError("dropout in training needs a generator or a "
+                             "mask")
+        mask = keep_mask(x.shape, keep, generator, x.device)
+    divisor = torch.full((), keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x / divisor, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """[N,C,H,W] -> [N,C], the mean over the spatial dims."""
     return x.mean(dim=(2, 3))

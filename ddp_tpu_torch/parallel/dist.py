@@ -137,10 +137,12 @@ def _buffers(model: nn.Module) -> List[torch.Tensor]:
 def average_buffers(model: nn.Module) -> None:
     """BatchNorm's running buffers averaged over the ranks, in place: one
     ``all_reduce`` (SUM) of one flat copy, divided by the world (the JAX
-    step's ``pmean(new_stats)``, ``ddp_tpu/train/step.py:132``)."""
-    if not tdist.is_initialized():
-        return
+    step's ``pmean(new_stats)``, ``ddp_tpu/train/step.py:132``).  A model
+    without buffers (DeepNN) issues none, as JAX's ``pmean`` of an empty
+    tree issues none."""
     bufs = _buffers(model)
+    if not tdist.is_initialized() or not bufs:
+        return
     flat = _flat(bufs)
     _all_reduce_sum(flat)
     flat.div_(tdist.get_world_size())

@@ -1,7 +1,8 @@
-"""Where a resident training step's device time goes, at full VGG-11 width:
+"""Where a resident training step's device time goes, at a model's full
+width (VGG-11 unless ``--model`` says otherwise):
 
     python -m ddp_tpu_torch.profile_resident [--steps 10] [--warmup 5] \
-        [--data_parallel] [--bf16]
+        [--data_parallel] [--bf16] [--model vgg|deepnn|resnet18]
 
 Runs resident train steps of the port (batch 512 from a 50,000-image
 synthetic table on the card, crop/flip on), the measured window under
@@ -25,7 +26,7 @@ from torch.profiler import ProfilerActivity, profile, schedule
 
 from .data import TrainLoader, synthetic
 from .device import dtype_name, resolve_device, set_tf32
-from .models import get_model
+from .models import NAMES as MODEL_NAMES, get_model
 from .optim import SGDConfig, triangular_lr
 from .parallel import dist
 from .train.trainer import Trainer
@@ -33,9 +34,10 @@ from .train.trainer import Trainer
 # Kernel name fragments -> group, first match wins.  cuDNN runs VGG's
 # convolutions as implicit GEMM, Winograd, FFT (complex cf32 GEMMs between
 # fft2d transforms) or plain GEMM kernels, and in bfloat16 as CUTLASS or
-# cuBLAS (``nvjet``) kernels; the one true matrix product, the 512x10
-# classifier, is negligible beside them, so every GEMM counts as
-# convolution.  Dtype casts (``--bf16``'s weight casts) and copies are
+# cuBLAS (``nvjet``) kernels; the true matrix products (the 512x10
+# classifiers, DeepNN's 2048x512 linear) are small beside them, so every
+# GEMM counts as convolution.  DeepNN's dropout draws its masks with ``distribution``
+# kernels.  Dtype casts (``--bf16``'s weight casts) and copies are
 # PyTorch's ``direct_copy`` kernels.
 GROUPS = (("nccl", "collectives (NCCL)"),
           ("gather_batch", "resident batch (port kernel)"),
@@ -46,6 +48,7 @@ GROUPS = (("nccl", "collectives (NCCL)"),
           ("gemm", "convolution"), ("cutlass", "convolution"),
           ("nvjet", "convolution"), ("max_pool", "max pool"),
           ("direct_copy", "casts and copies"),
+          ("distribution", "dropout masks (DeepNN)"),
           ("reduce", "reduction (BN stats, sums)"),
           ("index", "indexing (crop/flip, labels)"),
           ("gather", "indexing (crop/flip, labels)"),
@@ -94,6 +97,8 @@ def main(argv=None) -> dict:
                    help="run as rank 0 of a world-1 NCCL process group")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute, as the trainer's --bf16")
+    p.add_argument("--model", default="vgg", choices=list(MODEL_NAMES),
+                   help="the model to step (default vgg)")
     args = p.parse_args(argv)
     device = resolve_device("cuda")
     # A world-1 rendezvous of this process's own, unless it is a rank
@@ -117,7 +122,7 @@ def _profile(args: argparse.Namespace, device: torch.device) -> dict:
     compute_dtype = torch.bfloat16 if args.bf16 else None
     train_ds, _ = synthetic(n_train=50000, n_test=64)
     loader = TrainLoader(train_ds, 512, seed=0)
-    model = get_model("vgg", device=device,
+    model = get_model(args.model, device=device,
                       generator=torch.Generator().manual_seed(0))
     trainer = Trainer(model, loader, device=device,
                       lr_schedule=lambda s: triangular_lr(
@@ -130,7 +135,7 @@ def _profile(args: argparse.Namespace, device: torch.device) -> dict:
 
     def run(a: int, b: int) -> None:
         trainer.train_epoch(trainer.state, res.images, res.labels, rows[a:b],
-                            trainer.draws)
+                            trainer.draws, None, trainer.dropout)
 
     w = args.warmup
     # The warm-up steps run in the profiler's own warm-up phase, traced and
@@ -156,7 +161,8 @@ def _profile(args: argparse.Namespace, device: torch.device) -> dict:
     for name, (ms, _) in kernels.items():
         groups[_group(name)] = groups.get(_group(name), 0.0) + ms
     card = torch.cuda.get_device_name(0)
-    print(f"{card}: {dtype_name(compute_dtype)}, {args.steps} steps, wall "
+    print(f"{card}: {args.model}, {dtype_name(compute_dtype)}, "
+          f"{args.steps} steps, wall "
           f"{wall_ms / args.steps:.3f} ms/step, device busy {busy_ms / args.steps:.3f} ms/step "
           f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}, "
           f"{launches / args.steps:g} CUDA kernels launched per step, "
@@ -169,7 +175,7 @@ def _profile(args: argparse.Namespace, device: torch.device) -> dict:
     for name, (ms, n) in top:
         print(f"  {ms / args.steps:9.3f} ms/step  x{n // args.steps:<4d} "
               f"{name[:100]}")
-    summary = {"device": card, "steps": args.steps,
+    summary = {"device": card, "model": args.model, "steps": args.steps,
                "backend": dist.backend(),
                "compute_dtype": dtype_name(compute_dtype),
                "wall_ms_per_step": wall_ms / args.steps,

@@ -36,9 +36,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--snapshot_path", default="checkpoint.pt",
                    help="Checkpoint head file (the trainer's "
                         "--snapshot_path; default: checkpoint.pt)")
-    p.add_argument("--model", default="vgg", choices=["vgg"],
+    p.add_argument("--model", default="vgg",
+                   choices=["vgg", "deepnn", "resnet18"],
                    help="Model architecture the checkpoint was trained "
-                        "with (the port has vgg only)")
+                        "with")
     p.add_argument("--host", default="127.0.0.1",
                    help="Bind address (default 127.0.0.1; 0.0.0.0 to "
                         "expose)")

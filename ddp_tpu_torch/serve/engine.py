@@ -139,16 +139,19 @@ class ServeEngine:
                         buckets: Sequence[int] = (1, 8, 32, 128),
                         compute_dtype: Optional[torch.dtype] = None,
                         tracer=None, registry=None) -> "ServeEngine":
-        """An engine on the v1 checkpoint file ``snapshot_path``, read by
-        :func:`~ddp_tpu_torch.train.checkpoint.load_checkpoint`.
+        """An engine for model ``model_name`` (``vgg``, ``deepnn`` or
+        ``resnet18``) on the v1 checkpoint file ``snapshot_path``, read by
+        :func:`~ddp_tpu_torch.train.checkpoint.load_checkpoint` and loaded by
+        :func:`~ddp_tpu_torch.train.checkpoint.restore`: a file of another
+        model raises :class:`~ddp_tpu_torch.train.checkpoint.CheckpointError`.
 
         The JAX engine walks the checkpoint lineage (a directory, or a torn
         head falling back to a retained snapshot); that walk is not ported
         yet, so a directory or a sharded (v2) index raises
         :class:`~ddp_tpu_torch.train.checkpoint.CheckpointError` saying so."""
-        from .. import interop
         from ..models import get_model
-        from ..train.checkpoint import CheckpointError, load_checkpoint
+        from ..train.checkpoint import (CheckpointError, load_checkpoint,
+                                        restore)
         if os.path.isdir(snapshot_path):
             raise CheckpointError(
                 f"{snapshot_path!r} is a directory; the port's serve engine "
@@ -164,8 +167,11 @@ class ServeEngine:
                 f"engine needs a trained snapshot (run training with "
                 f"--snapshot_path first)") from None
         model = get_model(model_name)
-        model.load_state_dict(
-            interop.vgg_state_dict_from_jax(ckpt.params, ckpt.batch_stats))
+        try:
+            restore(ckpt, model)
+        except CheckpointError as e:
+            raise CheckpointError(f"checkpoint {snapshot_path!r}: {e}"
+                                  ) from None
         engine = cls(model, device=device, buckets=buckets,
                      compute_dtype=compute_dtype, tracer=tracer,
                      registry=registry)

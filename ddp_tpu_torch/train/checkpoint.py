@@ -2,16 +2,22 @@
 ``ddp_tpu/train/checkpoint.py``).
 
 The file is the JAX package's v1 file, key for key and layout for layout,
-so either package restores what the other wrote: one ``.npz`` of flat
-``section/key/subkey`` arrays (``/`` joins the nesting),
+so either package restores what the other wrote, for each of the three
+models: one ``.npz`` of flat ``section/key/subkey`` arrays (``/`` joins the
+nesting; ResNet's keys hold dots, ``layer1.block0``),
 
-- ``params/backbone/conv{i}/kernel`` (HWIO), ``params/backbone/bn{i}/scale``
-  and ``/bias``, ``params/classifier/weight`` (``[in, out]``) and ``/bias``;
-- ``batch_stats/bn{i}/mean`` and ``/var``;
+- ``params/...``, the model's JAX tree (for VGG
+  ``params/backbone/conv{i}/kernel`` (HWIO), ``params/backbone/bn{i}/scale``
+  and ``/bias``, ``params/classifier/weight`` (``[in, out]``) and
+  ``/bias``);
+- ``batch_stats/...`` (for VGG ``batch_stats/bn{i}/mean`` and ``/var``;
+  none for DeepNN, which has no BatchNorm);
 - ``momentum/...``, mirroring ``params``;
 - ``meta/step``, ``meta/epoch``, ``meta/format_version`` (1) and
   ``meta/data_state_json`` (the resume position as a uint8 JSON blob).
 
+The file does not name its model: :func:`restore` checks its trees against
+the model it is given and refuses a mismatch before it copies anything.
 The layouts go through :mod:`ddp_tpu_torch.interop`.  The write is atomic
 (a temporary file, then a rename) and hashed while it is written.  Reads
 are eager: every array is read at load time (the JAX package reads lazily,
@@ -128,7 +134,8 @@ def save_checkpoint(path: str, model: nn.Module,
     """Write ``model``'s weights and BatchNorm buffers, the SGD
     ``momentum`` (parallel to ``model.parameters()``), ``step`` and
     ``epoch`` to ``path`` as a v1 file, atomically; returns its sha256."""
-    params, stats = interop.vgg_jax_from_state_dict(model.state_dict())
+    params, stats = interop.jax_from_state_dict(model.name,
+                                                model.state_dict())
     trees = (params, stats, interop.momentum_tree_from_list(model, momentum))
     flat: Dict[str, np.ndarray] = {}
     for section, tree in zip(_SECTIONS, trees):
@@ -222,15 +229,57 @@ def load_checkpoint(path: str) -> Checkpoint:
         data_state=_decode_data_state(flat.get("meta/data_state_json")))
 
 
+def _mismatch(ckpt: Checkpoint, model: nn.Module, why: str
+              ) -> CheckpointError:
+    found = interop.model_of_tree(ckpt.params)
+    return CheckpointError(
+        f"the checkpoint holds {'a ' + found if found else 'an unknown'} "
+        f"tree and the model is {model.name} ({why}); restore it with the "
+        f"model it was trained with (--model)")
+
+
+def _same_shapes(got: Dict[str, torch.Tensor],
+                 want: Dict[str, torch.Tensor]) -> Optional[str]:
+    """Why ``got`` cannot load into tensors shaped as ``want``, or None."""
+    if set(got) != set(want):
+        return (f"missing {sorted(set(want) - set(got))[:4]}, unexpected "
+                f"{sorted(set(got) - set(want))[:4]}")
+    for k, v in want.items():
+        if tuple(got[k].shape) != tuple(v.shape):
+            return f"{k} is {tuple(got[k].shape)}, not {tuple(v.shape)}"
+    return None
+
+
+def _checked(ckpt: Checkpoint, model: nn.Module, tree: Dict[str, Any],
+             stats: Dict[str, Any], want: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+    """``(tree, stats)`` of ``ckpt`` as the port's tensors keyed as
+    ``want``, or :class:`CheckpointError` when they do not fit it."""
+    try:
+        got = interop.state_dict_from_jax(model.name, tree, stats)
+    except ValueError as e:
+        raise _mismatch(ckpt, model, str(e)) from None
+    why = _same_shapes(got, want)
+    if why:
+        raise _mismatch(ckpt, model, why)
+    return got
+
+
 @torch.no_grad()
 def restore(ckpt: Checkpoint, model: nn.Module,
-            momentum: List[torch.Tensor]) -> None:
-    """Copy ``ckpt``'s weights and BatchNorm buffers into ``model`` and its
-    momentum into ``momentum`` (parallel to ``model.parameters()``), in
-    place, on their devices."""
-    model.load_state_dict(
-        interop.vgg_state_dict_from_jax(ckpt.params, ckpt.batch_stats))
-    for buf, saved in zip(momentum,
-                          interop.momentum_list_from_tree(model,
-                                                          ckpt.momentum)):
-        buf.copy_(saved)
+            momentum: Optional[List[torch.Tensor]] = None) -> None:
+    """Copy ``ckpt``'s weights and BatchNorm buffers into ``model`` and,
+    unless ``momentum`` is None (serving), its momentum into ``momentum``
+    (parallel to ``model.parameters()``), in place, on their devices.  A
+    file whose trees are not ``model``'s (another model, another width)
+    raises :class:`CheckpointError` naming both, before anything is
+    copied."""
+    sd = _checked(ckpt, model, ckpt.params, ckpt.batch_stats,
+                  model.state_dict())
+    params = dict(model.named_parameters())
+    saved = None if momentum is None else \
+        _checked(ckpt, model, ckpt.momentum, {}, params)
+    model.load_state_dict(sd)
+    if saved is not None:
+        for buf, name in zip(momentum, params):
+            buf.copy_(saved[name])

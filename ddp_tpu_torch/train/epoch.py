@@ -30,25 +30,31 @@ from .zero import make_zero_update
 
 # (optimizer step, batch size, micro-batch) -> draws
 DrawFn = Callable[..., Draws]
+# (optimizer step, micro-batch) -> the generator of its dropout mask
+DropoutFn = Callable[..., torch.Generator]
 
 
 def _optimizer_step(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
                     lr_schedule: Callable[[int], float], *, sync_bn: bool,
                     shard_update: bool,
                     compute_dtype: Optional[torch.dtype]):
-    """``step(state, get_micro, micros, draws) -> loss``: one optimizer
-    step, :func:`~ddp_tpu_torch.train.step.make_accum_grads` over
+    """``step(state, get_micro, micros, draws, dropout=None) -> loss``: one
+    optimizer step, :func:`~ddp_tpu_torch.train.step.make_accum_grads` over
     ``micros`` then the update stage (the replicated one, or the sharded
     one of ``train/zero.py``); micro-batch k's draws are ``draws(state.step,
-    B, micro=k)``."""
+    B, micro=k)`` and its dropout generator ``dropout(state.step,
+    micro=k)``."""
     local_grads = make_local_grads(model, sync_bn, compute_dtype)
     update = (make_zero_update if shard_update else make_group_update)(
         sgd_config, lr_schedule)
 
     def step(state: TrainState, get_micro, micros,
-             draws: Optional[DrawFn]) -> torch.Tensor:
+             draws: Optional[DrawFn],
+             dropout: Optional[DropoutFn] = None) -> torch.Tensor:
         loss, grads = make_accum_grads(local_grads, get_micro)(
-            micros, lambda k, n: draws(state.step, n, micro=k))
+            micros, lambda k, n: draws(state.step, n, micro=k),
+            None if dropout is None else
+            lambda k: dropout(state.step, micro=k))
         update(state, grads)
         return loss
 
@@ -60,7 +66,8 @@ def make_train_step(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
                     device_augment: bool = False, *, sync_bn: bool = False,
                     shard_update: bool = False,
                     compute_dtype: Optional[torch.dtype] = None):
-    """``step_fn(state, micros, draws=None) -> loss``: one optimizer step of
+    """``step_fn(state, micros, draws=None, dropout=None) -> loss``: one
+    optimizer step of
     the streaming path over ``micros``, its A micro-batches as device
     batches ``{"image": uint8 [B,32,32,3], "label": int64 [B]}`` whose
     copies the compute stream already waits for (the counterpart of
@@ -68,7 +75,8 @@ def make_train_step(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
     Each micro-batch goes through
     :func:`~ddp_tpu_torch.train.step.micro_from_batch` (one ``gather_batch``
     launch, cropped and flipped with ``draws(step, B, micro=k)`` under
-    ``device_augment``), then the step is :func:`make_train_epoch`'s.
+    ``device_augment``), then the step is :func:`make_train_epoch`'s, with
+    ``dropout(step, micro=k)`` its dropout generator.
     ``loss`` is this rank's share of the step's global-mean loss, on the
     device."""
     step = _optimizer_step(model, sgd_config, lr_schedule, sync_bn=sync_bn,
@@ -77,9 +85,9 @@ def make_train_step(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
     get_micro = micro_from_batch(device_augment,
                                  compute_dtype or torch.float32)
 
-    def step_fn(state: TrainState, micros, draws: Optional[DrawFn] = None
-                ) -> torch.Tensor:
-        return step(state, get_micro, micros, draws)
+    def step_fn(state: TrainState, micros, draws: Optional[DrawFn] = None,
+                dropout: Optional[DropoutFn] = None) -> torch.Tensor:
+        return step(state, get_micro, micros, draws, dropout)
 
     return step_fn
 
@@ -89,8 +97,9 @@ def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
                      device_augment: bool = False, *, sync_bn: bool = False,
                      shard_update: bool = False,
                      compute_dtype: Optional[torch.dtype] = None):
-    """``epoch_fn(state, images, labels, idx, draws=None, events=None) ->
-    losses``: one optimizer step per group of the device index tensor
+    """``epoch_fn(state, images, labels, idx, draws=None, events=None,
+    dropout=None) -> losses``: one optimizer step per group of the device
+    index tensor
     ``idx``, over the resident ``images``/``labels``.  ``idx`` is
     ``[G, A, B]``, G groups of A micro-batch rows
     (``data/loader.py::optimizer_groups``; the counterpart of
@@ -106,7 +115,9 @@ def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
     each micro-batch's images, as the kernel writes them, and of the
     model's activations; the gradients and the update stay float32.
     ``draws(step, B, micro=k)`` gives micro-batch k's crop/flip draws under
-    ``device_augment``.  ``losses`` is the ``[G]`` tensor of this rank's
+    ``device_augment``, and ``dropout(step, micro=k)`` its dropout
+    generator (DeepNN's; the other models draw none).  ``losses`` is the
+    ``[G]`` tensor of this rank's
     shares of the per-step global-mean losses (each the mean over the
     step's micro-batches), on the device (at world 1, the losses
     themselves): the caller sums it over the ranks once an epoch
@@ -122,13 +133,13 @@ def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
     def epoch_fn(state: TrainState, images: torch.Tensor,
                  labels: torch.Tensor, idx: torch.Tensor,
                  draws: Optional[DrawFn] = None,
-                 events: Optional[List[torch.cuda.Event]] = None
-                 ) -> torch.Tensor:
+                 events: Optional[List[torch.cuda.Event]] = None,
+                 dropout: Optional[DropoutFn] = None) -> torch.Tensor:
         get_micro = micro_from_table(images, labels, device_augment,
                                      compute_dtype or torch.float32)
         losses = []
         for group in (idx[:, None] if idx.dim() == 2 else idx):
-            losses.append(step(state, get_micro, group, draws))
+            losses.append(step(state, get_micro, group, draws, dropout))
             if events is not None:
                 ev = torch.cuda.Event(enable_timing=True)
                 ev.record()

@@ -15,7 +15,7 @@ one all-reduce of the gradients and one of BatchNorm's running buffers
 (``parallel/dist.py``) and the SGD update at ``lr_schedule(step)``
 (:func:`make_group_update`), or the sharded update of ``train/zero.py``.
 Under ``--bf16`` (``compute_dtype=torch.bfloat16``) the batch comes out of
-the kernel in bfloat16 and the model computes in it (``models/vgg.py``);
+the kernel in bfloat16 and the model computes in it (``models/``);
 the loss, the gradients, momentum and BatchNorm's buffers stay float32.
 PyTorch runs it eagerly, one process per rank, where the JAX package runs
 one ``shard_map`` program over the mesh.  The forward updates the running
@@ -79,11 +79,12 @@ def init_train_state(model: nn.Module) -> TrainState:
 
 def make_local_grads(model: nn.Module, sync_bn: bool = False,
                      compute_dtype: Optional[torch.dtype] = None):
-    """``fn(images [B,32,32,3], labels [B]) -> (loss, grads)`` on this
-    rank's batch, with no collective but sync-BN's: the forward in training
-    mode (BatchNorm over every rank's batch with ``sync_bn``) in
-    ``compute_dtype``, and the float32 gradients of the rank's share ``ce_sum / (count * world)`` of the
-    global-mean loss (the JAX package's local objective,
+    """``fn(images [B,32,32,3], labels [B], generator=None) -> (loss,
+    grads)`` on this rank's batch, with no collective but sync-BN's: the
+    forward in training mode (BatchNorm over every rank's batch with
+    ``sync_bn``, dropout's mask from ``generator``) in ``compute_dtype``,
+    and the float32 gradients of the rank's share ``ce_sum / (count *
+    world)`` of the global-mean loss (the JAX package's local objective,
     ``ddp_tpu/train/zero.py::_make_local_grads``).
 
     Every rank's batch has the same ``count`` (the sampler pads the shards
@@ -100,10 +101,11 @@ def make_local_grads(model: nn.Module, sync_bn: bool = False,
     params = list(model.parameters())
     world = dist.world_size()
 
-    def local_grads(images: torch.Tensor, labels: torch.Tensor):
+    def local_grads(images: torch.Tensor, labels: torch.Tensor,
+                    generator: Optional[torch.Generator] = None):
         model.train()
         logits = model(_as_input(images, compute_dtype), sync_bn=sync_bn,
-                       compute_dtype=compute_dtype)
+                       compute_dtype=compute_dtype, generator=generator)
         ce_sum, count = cross_entropy_sum_count(logits, labels)
         loss = ce_sum / (count * world)
         return loss.detach(), list(torch.autograd.grad(loss, params))
@@ -112,14 +114,17 @@ def make_local_grads(model: nn.Module, sync_bn: bool = False,
 
 
 def make_accum_grads(local_grads, get_micro):
-    """``accum(micros, draws) -> (loss, grads)``: one optimizer step's
+    """``accum(micros, draws, dropout=None) -> (loss, grads)``: one
+    optimizer step's
     gradients over its A micro-batches ``micros`` in order (an ``[A, B]``
     index tensor's rows, or A streamed batches; the counterpart of
     ``ddp_tpu/train/step.py::make_accum_scan``), summed on the rank and
     divided by A, with ``loss`` the mean of the micro-batches' shares.
     ``get_micro(draws_k, micro)`` gives a micro-batch's images and labels,
     calling ``draws_k(B)`` for its crop/flip draws when it augments on the
-    device; ``draws(k, B)`` gives micro-batch k's.  The BatchNorm buffers
+    device; ``draws(k, B)`` gives micro-batch k's, and ``dropout(k)`` the
+    generator of its dropout mask (a model without dropout ignores it;
+    None passes none).  The BatchNorm buffers
     chain through the micro-batches, each
     forward normalising with its own statistics, as torch does under
     accumulation.  No collective: the update stage reduces the gradients
@@ -127,11 +132,13 @@ def make_accum_grads(local_grads, get_micro):
     micro-batch's; the sums agree up to rounding).  At A = 1 the step's
     arithmetic is the single micro-batch's, op for op."""
 
-    def accum(micros: Sequence, draws: Callable[[int, int], Draws]):
+    def accum(micros: Sequence, draws: Callable[[int, int], Draws],
+              dropout: Optional[Callable[[int], torch.Generator]] = None):
         loss, grads = None, None
         for k, micro in enumerate(micros):
             x, y = get_micro(functools.partial(draws, k), micro)
-            micro_loss, micro_grads = local_grads(x, y)
+            micro_loss, micro_grads = local_grads(
+                x, y, None if dropout is None else dropout(k))
             if grads is None:
                 loss, grads = micro_loss, micro_grads
             else:

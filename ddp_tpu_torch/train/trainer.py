@@ -88,8 +88,29 @@ def draw_seed(seed: int, epoch: int, step: int, rank: int = 0,
     draws what ``singlegpu`` draws."""
     key = [seed, epoch, step] + ([rank] if rank or micro else []) + \
         ([micro] if micro else [])
+    return _seed_of(key)
+
+
+def _seed_of(key: List[int]) -> int:
     state = np.random.SeedSequence(key).generate_state(1, np.uint64)
     return int(state[0]) & ((1 << 63) - 1)
+
+
+# Appended to the dropout stream's key: draw_seed's keys are at most five
+# long, so the two streams never share a key.
+_DROPOUT_STREAM = 0xD80
+
+
+def dropout_seed(seed: int, epoch: int, step: int, rank: int = 0,
+                 micro: int = 0) -> int:
+    """The dropout generator's seed for micro-batch ``micro`` of optimizer
+    step ``step`` of rank ``rank``: keyed on all five and a stream tag, a
+    stream apart from :func:`draw_seed`'s, as the JAX step keeps dropout's
+    key apart from augmentation's ``fold_in(rng, 1)``
+    (``ddp_tpu/train/step.py:206-213,243-249``).  Rank 0's stream does not
+    depend on the world, so a world-1 ``multigpu`` run draws what
+    ``singlegpu`` draws."""
+    return _seed_of([seed, epoch, step, rank, micro, _DROPOUT_STREAM])
 
 
 class Trainer:
@@ -109,7 +130,9 @@ class Trainer:
     .prefetch_to_device` at ``prefetch_depth``/``prefetch_workers``
     (``prefetch_stats`` counts its time); every micro-batch goes through
     ``gather_batch`` on the device either way.  Device draws come from a
-    device :class:`torch.Generator` seeded by :func:`draw_seed`, so a
+    device :class:`torch.Generator` seeded by :func:`draw_seed`, and each
+    micro-batch's dropout mask (DeepNN) from another seeded by
+    :func:`dropout_seed`, so a
     streamed run with ``device_augment`` takes the resident run's steps bit
     for bit.  ``sync_bn`` synchronises BatchNorm's statistics over
     the ranks; ``shard_update`` shards the weight update (``train/zero.py``;
@@ -184,6 +207,7 @@ class Trainer:
             self.train_step = make_train_step(
                 model, sgd_config, lr_schedule, device_augment, **kw)
         self._generator = torch.Generator(device=device)
+        self._dropout_generator = torch.Generator(device=device)
         self._epoch = 0
         self.start_epoch = 0
         self.loss_history: List[float] = []
@@ -210,7 +234,11 @@ class Trainer:
             self.start_epoch = ckpt.epoch + 1
             print("WARNING: checkpoint has no data_state record; resuming "
                   "at the next epoch boundary", file=sys.stderr)
-        ckpt_lib.restore(ckpt, self.state.model, self.state.momentum)
+        try:
+            ckpt_lib.restore(ckpt, self.state.model, self.state.momentum)
+        except ckpt_lib.CheckpointError as e:
+            raise ckpt_lib.CheckpointError(f"checkpoint {path!r}: {e}"
+                                           ) from None
         self.state.step = ckpt.step
         print(f"Resuming training from snapshot at Epoch {ckpt.epoch}")
 
@@ -230,13 +258,20 @@ class Trainer:
                                               self.rank, micro))
         return make_draws(self._generator, n, self.device)
 
+    def dropout(self, step: int, micro: int = 0) -> torch.Generator:
+        """This rank's dropout generator for micro-batch ``micro`` of
+        optimizer step ``step``, seeded by :func:`dropout_seed`."""
+        return self._dropout_generator.manual_seed(dropout_seed(
+            self.seed, self._epoch, step, self.rank, micro))
+
     def _epoch_losses_resident(self, events) -> List[torch.Tensor]:
         """The epoch's index matrix in optimizer-step groups, each group
         one call of the resident epoch."""
         full, tail = self.train_loader.rank_index_matrix(self.rank)
         return [self.train_epoch(
             self.state, self.resident.images, self.resident.labels,
-            torch.from_numpy(idx).to(self.device), self.draws, events)
+            torch.from_numpy(idx).to(self.device), self.draws, events,
+            self.dropout)
             for idx in optimizer_groups(full, tail, self.grad_accum)]
 
     def _epoch_losses_streaming(self, events, start: int = 0
@@ -257,7 +292,7 @@ class Trainer:
             with tracer.span("dispatch", step=self.state.step):
                 losses.append(self.train_step(
                     self.state, micro_batches(batch.wait(), self.grad_accum),
-                    self.draws))
+                    self.draws, self.dropout))
             if events is not None:
                 ev = torch.cuda.Event(enable_timing=True)
                 ev.record()

@@ -347,7 +347,7 @@ def _narrow_start(seed=SEED):
                  .astype(np.float32)} for k, v in stats.items()}
     params = jax.tree_util.tree_map(np.asarray, params)
     model = VGG(NARROW)
-    model.load_state_dict(interop.vgg_state_dict_from_jax(params, stats))
+    model.load_state_dict(interop.state_dict_from_jax("vgg", params, stats))
     return params, stats, model
 
 
@@ -444,7 +444,7 @@ def test_one_resident_step_matches_jax(narrow):
         init_train_state(params, stats), jnp.asarray(jtrain.images),
         jnp.asarray(jtrain.labels), put_index_matrix(rows, mesh),
         jax.random.key(0))
-    want = interop.vgg_state_dict_from_jax(
+    want = interop.state_dict_from_jax("vgg",
         jax.tree_util.tree_map(np.asarray, jstate.params),
         jax.tree_util.tree_map(np.asarray, jstate.batch_stats))
     loss_err = abs(float(losses[0]) - float(jlosses[0])) / abs(float(jlosses[0]))
@@ -505,7 +505,7 @@ def test_composed_flags_world2_bf16_matches_jax(narrow):
     jl_np = np.asarray(jlosses)
     loss_err = float(np.max(np.abs(got["losses"].numpy() - jl_np)
                             / np.abs(jl_np)))
-    want = interop.vgg_state_dict_from_jax(
+    want = interop.state_dict_from_jax("vgg",
         jax.tree_util.tree_map(np.asarray, jstate.params),
         jax.tree_util.tree_map(np.asarray, jstate.batch_stats))
     upd = _updates(sd0, got["state_dict"], sd0, want)

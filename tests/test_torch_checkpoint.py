@@ -99,7 +99,7 @@ def test_jax_checkpoint_restores_in_the_port(narrow, tmp_path):
                                rtol=1e-5, atol=1e-5)
     _assert_trees_equal(interop.momentum_tree_from_list(model, buffers),
                         momentum)
-    _assert_trees_equal(interop.vgg_jax_from_state_dict(model.state_dict()),
+    _assert_trees_equal(interop.jax_from_state_dict("vgg", model.state_dict()),
                         (params, stats))
 
 
@@ -135,7 +135,7 @@ def test_both_packages_write_the_same_file(narrow, tmp_path):
     jckpt.save_checkpoint(jpath, params, stats, SGDState(momentum), step=9,
                           epoch=2, data_state=DATA_STATE)
     model = VGG(narrow)
-    model.load_state_dict(interop.vgg_state_dict_from_jax(params, stats))
+    model.load_state_dict(interop.state_dict_from_jax("vgg", params, stats))
     tckpt.save_checkpoint(tpath, model,
                           interop.momentum_list_from_tree(model, momentum),
                           step=9, epoch=2, data_state=DATA_STATE)

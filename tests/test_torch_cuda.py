@@ -793,3 +793,94 @@ def test_streaming_depths_bit_equal_in_deterministic_mode(cuda, tmp_path):
         assert out[key]["losses"] == ref["losses"], key
         for k, v in ref["state"].items():
             assert torch.equal(out[key]["state"][k], v), (key, k)
+
+
+# One image of DeepNN and eight of ResNet-18 whose float64 forward keeps
+# every ReLU input and max-pool gap at least 1e-6 from flipping
+# (``drill.Margins``; DeepNN's some 220,000 ReLU inputs an image leave no
+# larger batch that does): (model, images, data seed).
+MODEL_STEPS = [("deepnn", 1, 32), ("resnet18", 8, 11)]
+
+
+@pytest.mark.parametrize("name,n,data_seed", MODEL_STEPS)
+def test_model_step_on_card_equals_cpu(cuda, name, n, data_seed):
+    """One training step's loss and gradients of each model at full width
+    on the card against the CPU, from the same weights, images and dropout
+    mask (drawn from a CPU generator, so the same on both), TF32 off:
+    1e-4, the card-against-CPU parity tolerance, after the float64 forward
+    shows its decisions at least 1e-6 from flipping."""
+    from ddp_tpu_torch.models import get_model
+    from ddp_tpu_torch.train.step import make_local_grads
+    set_tf32(False)
+    train, _ = synthetic(n_train=n, n_test=8, seed=data_seed)
+    start = get_model(name, generator=torch.Generator().manual_seed(0))
+    m64 = get_model(name).double().train()
+    m64.load_state_dict(start.state_dict())
+    seen = drill.Margins()
+    with torch.no_grad(), seen:
+        m64(_as_input(torch.from_numpy(train.images)).double(),
+            generator=torch.Generator().manual_seed(1))
+    assert min(seen.kink, seen.gap) >= 1e-6, (seen.kink, seen.gap)
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = get_model(name).to(device)
+        model.load_state_dict(start.state_dict())
+        loss, grads = make_local_grads(model)(
+            torch.from_numpy(train.images).to(device),
+            torch.from_numpy(train.labels).long().to(device),
+            torch.Generator().manual_seed(1))
+        out[device] = (loss.cpu(), [g.cpu() for g in grads])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_dropout_stream_repeats_on_the_card(cuda):
+    """The trainer's dropout generator on the card: one seed, step and
+    micro-batch give the same mask and the same DeepNN training logits bit
+    for bit; another micro-batch another mask; about 9 in 10 kept."""
+    from ddp_tpu_torch.models import get_model
+    from ddp_tpu_torch.ops.layers import keep_mask
+    set_tf32(False)
+    train, _ = synthetic(n_train=64, n_test=8, seed=1)
+    trainer = Trainer(get_model("deepnn", device=cuda),
+                      TrainLoader(train, 64, seed=0), device=cuda,
+                      lr_schedule=lambda s: 0.0, seed=7,
+                      snapshot_path=None)
+    a = keep_mask((512, 512), 0.9, trainer.dropout(3, 1), cuda)
+    b = keep_mask((512, 512), 0.9, trainer.dropout(3, 1), cuda)
+    c = keep_mask((512, 512), 0.9, trainer.dropout(3, 0), cuda)
+    assert a.device.type == "cuda" and torch.equal(a, b)
+    assert not torch.equal(a, c) and 0.89 < float(a.float().mean()) < 0.91
+    model = trainer.state.model.train()
+    x = _as_input(torch.from_numpy(train.images).to(cuda))
+    with torch.no_grad():
+        first = model(x, generator=trainer.dropout(5))
+        again = model(x, generator=trainer.dropout(5))
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("name", ["deepnn", "resnet18"])
+def test_model_serve_graphs_equal_eager_forward(cuda, name):
+    """Each model's serving graphs, one per bucket, equal the eager
+    gather_batch + eval forward at that shape bit for bit, in float32 and
+    bfloat16."""
+    from ddp_tpu_torch.models import get_model
+    set_tf32(False)
+    model = get_model(name, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    for dtype in (None, torch.bfloat16):
+        engine = ServeEngine(model, device=cuda, buckets=(1, 8, 32),
+                             compute_dtype=dtype)
+        assert engine.warm() == 3
+        apply_fn = make_eval_apply(engine.model, dtype)
+        for b in engine.buckets:
+            x = rng.integers(0, 256, (b, 32, 32, 3), dtype=np.uint8)
+            images, _ = gather_batch(
+                torch.from_numpy(x).to(cuda),
+                torch.zeros(b, dtype=torch.int64, device=cuda),
+                torch.arange(b, dtype=torch.int32, device=cuda),
+                dtype=dtype or torch.float32)
+            np.testing.assert_array_equal(engine.forward(x),
+                                          apply_fn(images).cpu().numpy())

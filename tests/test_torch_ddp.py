@@ -127,7 +127,7 @@ def test_world2_epoch_and_eval_match_jax_mesh(narrow):
     ttrain, ttest = tcifar.synthetic(n_train=28, n_test=20)
     params, stats = jvgg.init(jax.random.key(seed))
     # Before the JAX epoch, which donates the state it is given.
-    sd = interop.vgg_state_dict_from_jax(_jax_state(params),
+    sd = interop.state_dict_from_jax("vgg", _jax_state(params),
                                          _jax_state(stats))
     jlosses, state, counts, rows = _jax_world2(params, stats, jtrain, jtest,
                                                batch, lr, seed)
@@ -141,7 +141,7 @@ def test_world2_epoch_and_eval_match_jax_mesh(narrow):
     got = ranks[0]
     np.testing.assert_allclose(got["losses"].numpy(), jlosses, rtol=1e-4,
                                atol=1e-4)
-    port_p, port_s = interop.vgg_jax_from_state_dict(got["state_dict"])
+    port_p, port_s = interop.jax_from_state_dict("vgg", got["state_dict"])
     for a, b in zip(jax.tree_util.tree_leaves((port_p, port_s)),
                     jax.tree_util.tree_leaves(_jax_state(
                         (state.params, state.batch_stats)))):
@@ -221,7 +221,7 @@ def _check_float64(got, state, arch, sd, train, rows, lr):
         arch, sd, train, rows, 2, lr,
         lambda s: jlr(s, base_lr=lr, num_epochs=1, steps_per_epoch=len(rows)))
     model = VGG(arch)
-    jsd = interop.vgg_state_dict_from_jax(
+    jsd = interop.state_dict_from_jax("vgg",
         *_jax_state((state.params, state.batch_stats)))
     jmomentum = interop.momentum_list_from_tree(
         model, _jax_state(state.opt_state.momentum_buf))
@@ -254,7 +254,7 @@ def test_world2_epoch_matches_a_float64_reference(narrow):
     jtrain, jtest = jcifar.synthetic(n_train=55, n_test=20)
     ttrain, ttest = tcifar.synthetic(n_train=55, n_test=20)
     params, stats = jvgg.init(jax.random.key(seed))
-    sd = interop.vgg_state_dict_from_jax(_jax_state(params),
+    sd = interop.state_dict_from_jax("vgg", _jax_state(params),
                                          _jax_state(stats))
     jlosses, state, counts, rows = _jax_world2(params, stats, jtrain, jtest,
                                                batch, lr, seed)

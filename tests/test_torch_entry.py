@@ -30,7 +30,9 @@ assert len(names) >= 20 and not bad, bad
 new = {"ddp_tpu_torch.multigpu", "ddp_tpu_torch.parallel",
        "ddp_tpu_torch.parallel.dist", "ddp_tpu_torch.parallel.drill",
        "ddp_tpu_torch.repeat_check", "ddp_tpu_torch.data.native",
-       "ddp_tpu_torch.data.augment", "ddp_tpu_torch.data.prefetch"}
+       "ddp_tpu_torch.data.augment", "ddp_tpu_torch.data.prefetch",
+       "ddp_tpu_torch.models.deepnn", "ddp_tpu_torch.models.resnet",
+       "ddp_tpu_torch.models.modules"}
 assert new <= set(names), sorted(new - set(names))
 """
 

@@ -435,7 +435,7 @@ def _world2(flags, n_train=48):
     jtrain, jtest = jcifar.synthetic(n_train=n_train, n_test=20)
     ttrain, ttest = tcifar.synthetic(n_train=n_train, n_test=20)
     params, stats = jvgg.init(jax.random.key(SEED))
-    sd = interop.vgg_state_dict_from_jax(_np(params), _np(stats))
+    sd = interop.state_dict_from_jax("vgg", _np(params), _np(stats))
     ranks = drill.run(drill.spec(NARROW, sd, ttrain, ttest, batch=BATCH,
                                  lr=LR, seed=SEED, augment=False,
                                  device="cpu", **flags),
@@ -478,7 +478,7 @@ def _check_against_jax(want, ranks, steps, micro, flags, sd, train):
         assert torch.equal(v, ranks[1]["state_dict"][k]), k
     got = ranks[0]
     _close(got["losses"], jlosses, 1e-4)
-    port_p, port_s = interop.vgg_jax_from_state_dict(got["state_dict"])
+    port_p, port_s = interop.jax_from_state_dict("vgg", got["state_dict"])
     for a, b in zip(jax.tree_util.tree_leaves((port_p, port_s)),
                     jax.tree_util.tree_leaves((jparams, jstats))):
         _close(a, b, 1e-4)

@@ -358,7 +358,7 @@ def _jax_start(seed=SEED):
 
 def _port_model(params, stats):
     model = VGG(NARROW)
-    model.load_state_dict(interop.vgg_state_dict_from_jax(params, stats))
+    model.load_state_dict(interop.state_dict_from_jax("vgg", params, stats))
     return model
 
 
@@ -401,7 +401,7 @@ def _port_streaming(model, train, *, grad_accum=1, compute_dtype=None,
 
 
 def _worst(got_sd, jstate):
-    want = interop.vgg_state_dict_from_jax(
+    want = interop.state_dict_from_jax("vgg",
         *(jax.tree_util.tree_map(np.asarray, t)
           for t in (jstate.params, jstate.batch_stats)))
     return max(float((got_sd[k].double() - v.double()).abs().max())
@@ -514,7 +514,7 @@ def test_streaming_world2_matches_jax_mesh(narrow):
     params, stats = _jax_start()
     train, test = tcifar.synthetic(n_train=28, n_test=20)
     jtrain, jtest = jcifar.synthetic(n_train=28, n_test=20)
-    sd = interop.vgg_state_dict_from_jax(params, stats)
+    sd = interop.state_dict_from_jax("vgg", params, stats)
     jtr, jacc = _jax_streaming(params, stats, jtrain, jtest, 2, batch=4)
     ranks = drill.run(drill.spec(NARROW, sd, train, test, batch=4,
                                  lr=LR, seed=SEED, augment=True,
@@ -549,7 +549,7 @@ def test_streaming_bf16_matches_jax(narrow):
     tr = _port_streaming(model, train, compute_dtype=torch.bfloat16)
     losses, jlosses = np.array(tr.loss_history), np.array(jtr.loss_history)
     loss_err = float(np.max(np.abs(losses - jlosses) / np.abs(jlosses)))
-    want = interop.vgg_state_dict_from_jax(
+    want = interop.state_dict_from_jax("vgg",
         *(jax.tree_util.tree_map(np.asarray, t)
           for t in (jtr.state.params, jtr.state.batch_stats)))
     upd = 0.0

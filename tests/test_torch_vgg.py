@@ -44,7 +44,7 @@ NARROW = [8, "M", 16, "M", 512, "M"]
 
 def _port_model(params, stats, arch=None):
     model = VGG(arch)
-    model.load_state_dict(interop.vgg_state_dict_from_jax(params, stats))
+    model.load_state_dict(interop.state_dict_from_jax("vgg", params, stats))
     return model
 
 
@@ -62,7 +62,7 @@ def test_parameter_count_and_names():
     model = VGG()
     assert sum(p.numel() for p in model.parameters()) == 9_228_362
     params, stats = jvgg.init(jax.random.key(0))
-    sd = interop.vgg_state_dict_from_jax(_jax_state(params),
+    sd = interop.state_dict_from_jax("vgg", _jax_state(params),
                                          _jax_state(stats))
     assert set(sd) == set(model.state_dict())
     for k, v in model.state_dict().items():
@@ -71,8 +71,8 @@ def test_parameter_count_and_names():
 
 def test_interop_roundtrip_exact():
     params, stats = _jax_state(jvgg.init(jax.random.key(1)))
-    back_p, back_s = interop.vgg_jax_from_state_dict(
-        interop.vgg_state_dict_from_jax(params, stats))
+    back_p, back_s = interop.jax_from_state_dict("vgg",
+        interop.state_dict_from_jax("vgg", params, stats))
     for a, b in zip(jax.tree_util.tree_leaves((params, stats)),
                     jax.tree_util.tree_leaves((back_p, back_s))):
         np.testing.assert_array_equal(a, b)
@@ -105,7 +105,7 @@ def test_narrow_train_forward_and_new_stats(narrow):
     got = model(tstep._as_input(torch.from_numpy(imgs)))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                rtol=1e-5, atol=1e-5)
-    _, port_stats = interop.vgg_jax_from_state_dict(model.state_dict())
+    _, port_stats = interop.jax_from_state_dict("vgg", model.state_dict())
     for a, b in zip(jax.tree_util.tree_leaves(port_stats),
                     jax.tree_util.tree_leaves(_jax_state(new_stats))):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
@@ -155,7 +155,7 @@ def test_resident_epoch_and_eval_match(narrow):
 
     np.testing.assert_allclose(tlosses.numpy(), jlosses, rtol=1e-4,
                                atol=1e-4)
-    port_p, port_s = interop.vgg_jax_from_state_dict(model.state_dict())
+    port_p, port_s = interop.jax_from_state_dict("vgg", model.state_dict())
     for a, b in zip(jax.tree_util.tree_leaves((port_p, port_s)),
                     jax.tree_util.tree_leaves(
                         _jax_state((state.params, state.batch_stats)))):

@@ -1,16 +1,97 @@
-"""A float64 epoch of the narrow VGG in plain PyTorch, written apart from
-both packages: the exact epoch the float32 runs of the JAX package and of
-the port (on the CPU or on the card) are held against.  Imports no JAX, so
-the card's tests use it too."""
+"""A float64 epoch of the narrow VGG, DeepNN or ResNet-18 in plain PyTorch,
+written apart from both packages: the exact epoch the float32 runs of the
+JAX package and of the port (on the CPU or on the card) are held against.
+Imports no JAX, so the card's tests use it too."""
+from contextlib import nullcontext
+
 import numpy as np
 import torch
+
+from ddp_tpu_torch.parallel.drill import Margins
 
 NARROW = [8, "M", 16, "M", 512, "M"]
 
 
+def vgg_forward64(arch):
+    """The VGG of layer list ``arch`` as ``forward(q, x, bn, mask)``."""
+    def forward(q, x, bn, mask=None):
+        i = 0
+        for a in arch:
+            if a == "M":
+                x = torch.nn.functional.max_pool2d(x, 2, 2)
+                continue
+            x = torch.relu(bn(torch.nn.functional.conv2d(
+                x, q[f"backbone.conv{i}.weight"], padding=1),
+                f"backbone.bn{i}"))
+            i += 1
+        return torch.nn.functional.linear(
+            x.mean((2, 3)), q["classifier.weight"], q["classifier.bias"])
+    return forward
+
+
+def deepnn_forward64(q, x, bn, mask=None):
+    """DeepNN (``ddp_tpu_torch/models/deepnn.py``) on the port's keys; in
+    training ``mask`` is the dropout's keep mask."""
+    F = torch.nn.functional
+    for slot, pool in ((0, False), (2, True), (5, False), (7, True)):
+        x = torch.relu(F.conv2d(x, q[f"features.{slot}.weight"],
+                                q[f"features.{slot}.bias"], padding=1))
+        if pool:
+            x = F.max_pool2d(x, 2, 2)
+    x = torch.relu(F.linear(x.flatten(1), q["classifier.0.weight"],
+                            q["classifier.0.bias"]))
+    if mask is not None:
+        x = torch.where(mask, x / 0.9, torch.zeros((), dtype=x.dtype))
+    return F.linear(x, q["classifier.3.weight"], q["classifier.3.bias"])
+
+
+def resnet18_forward64(q, x, bn, mask=None):
+    """ResNet-18 (``ddp_tpu_torch/models/resnet.py``) on torchvision's
+    keys."""
+    F = torch.nn.functional
+    x = torch.relu(bn(F.conv2d(x, q["conv1.weight"], stride=2, padding=3),
+                      "bn1"))
+    x = F.max_pool2d(x, 3, 2, 1)
+    for s in range(1, 5):
+        for b in range(2):
+            p, stride = f"layer{s}.{b}", 2 if s > 1 and b == 0 else 1
+            y = torch.relu(bn(F.conv2d(x, q[f"{p}.conv1.weight"],
+                                       stride=stride, padding=1), f"{p}.bn1"))
+            y = bn(F.conv2d(y, q[f"{p}.conv2.weight"], padding=1), f"{p}.bn2")
+            if f"{p}.downsample.0.weight" in q:
+                x = bn(F.conv2d(x, q[f"{p}.downsample.0.weight"],
+                                stride=stride), f"{p}.downsample.1")
+            x = torch.relu(y + x)
+    return F.linear(x.mean((2, 3)), q["fc.weight"], q["fc.bias"])
+
+
+FORWARDS = {"deepnn": deepnn_forward64, "resnet18": resnet18_forward64}
+
+
+def batch_norm64(q, running, bn_momentum=0.1, eps=1e-5):
+    """``bn(x, prefix)``: training-mode BatchNorm on ``x``'s batch that
+    blends its statistics into ``running`` (torch's: the unbiased variance,
+    its factor clamped at a count of 1 as the packages clamp it)."""
+    ch = lambda t: t[None, :, None, None]
+
+    def bn(x, prefix):
+        mean = x.mean((0, 2, 3))
+        var = x.var((0, 2, 3), unbiased=False)
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        for key, v in (("running_mean", mean),
+                       ("running_var", var * n / max(n - 1, 1))):
+            k = f"{prefix}.{key}"
+            running[k] = ((1 - bn_momentum) * running[k]
+                          + bn_momentum * v.detach())
+        return (x - ch(mean)) / ch(torch.sqrt(var + eps)) \
+            * ch(q[f"{prefix}.weight"]) + ch(q[f"{prefix}.bias"])
+    return bn
+
+
 def float64_epoch(sd, train, groups, lr_at, *, world, sync_bn,
                   momentum=0.9, wd=5e-4, eps=1e-5, bn_momentum=0.1,
-                  state=None, step0=0, arch=NARROW):
+                  state=None, step0=0, arch=NARROW, model=None,
+                  masks=None, margins=None):
     """The epoch in float64 plain PyTorch, written apart from both
     packages: for each optimizer step, the sum over its micro-batches and
     ranks of the gradients of each rank's share of the global-mean loss,
@@ -20,10 +101,15 @@ def float64_epoch(sd, train, groups, lr_at, *, world, sync_bn,
     and weight decay.  ``groups`` is the global ``[A, world * b]`` index
     rows of each step.  ``state``, the ``(weights, momentum)`` dicts of an
     earlier call, continues that run (they are updated in place), with the
-    learning rate of step ``step0 + s``.  ``arch`` is the VGG's layer list
+    learning rate of step ``step0 + s``.  The model is ``model`` (a name of
+    :data:`FORWARDS`) or else the VGG of layer list ``arch``
     (``ddp_tpu_torch/models/vgg.py``: convolutions with BN+ReLU, ``"M"``
-    max pools, global average pool, linear).  Returns (losses, state dict,
-    momentum list in parameter order)."""
+    max pools, global average pool, linear); ``masks(step, k, r)`` gives
+    DeepNN's dropout keep mask of micro-batch k of rank r.  When
+    ``margins`` is a list, each step appends the ``(kink, gap)`` of its
+    forwards (``ddp_tpu_torch.parallel.drill.Margins``).  Returns (losses,
+    state dict, momentum list in parameter order)."""
+    forward = FORWARDS[model] if model else vgg_forward64(arch)
     names = [k for k in sd if not k.endswith(("running_mean", "running_var"))]
     if state is None:
         p = {k: v.detach().double().clone() for k, v in sd.items()}
@@ -32,7 +118,6 @@ def float64_epoch(sd, train, groups, lr_at, *, world, sync_bn,
         p, buf = state
     images = torch.from_numpy(train.images)
     labels = torch.from_numpy(train.labels).long()
-    ch = lambda t: t[None, :, None, None]
     losses = []
     for step, group in enumerate(groups):
         b = len(group[0]) // world
@@ -42,39 +127,25 @@ def float64_epoch(sd, train, groups, lr_at, *, world, sync_bn,
                    for _ in parts]
         grads = {k: torch.zeros_like(p[k]) for k in names}
         total = 0.0
-        for row in group:
+        seen = Margins()
+        for m, row in enumerate(group):
             for j, part in enumerate(parts):
                 idx = torch.from_numpy(np.asarray(row[part])).long()
                 x = images[idx].permute(0, 3, 1, 2).double() / 255.0
                 q = {k: p[k].clone().requires_grad_() for k in names}
-                i = 0
-                for a in arch:
-                    if a == "M":
-                        x = torch.nn.functional.max_pool2d(x, 2, 2)
-                        continue
-                    x = torch.nn.functional.conv2d(
-                        x, q[f"backbone.conv{i}.weight"], padding=1)
-                    mean = x.mean((0, 2, 3))
-                    var = x.var((0, 2, 3), unbiased=False)
-                    n = x.shape[0] * x.shape[2] * x.shape[3]
-                    for key, v in (("running_mean", mean),
-                                   ("running_var", var * n / (n - 1))):
-                        k = f"backbone.bn{i}.{key}"
-                        running[j][k] = ((1 - bn_momentum) * running[j][k]
-                                         + bn_momentum * v.detach())
-                    x = torch.relu((x - ch(mean)) / ch(torch.sqrt(var + eps))
-                                   * ch(q[f"backbone.bn{i}.weight"])
-                                   + ch(q[f"backbone.bn{i}.bias"]))
-                    i += 1
-                logits = torch.nn.functional.linear(
-                    x.mean((2, 3)), q["classifier.weight"],
-                    q["classifier.bias"])
+                mask = None if masks is None else \
+                    masks(step0 + step, m, j)
+                with seen if margins is not None else nullcontext():
+                    logits = forward(q, x, batch_norm64(
+                        q, running[j], bn_momentum, eps), mask)
                 loss = torch.nn.functional.cross_entropy(
                     logits, labels[idx], reduction="sum") / (b * world)
                 for k, g in zip(names, torch.autograd.grad(
                         loss, [q[k] for k in names])):
                     grads[k] += g / len(group)
                 total += float(loss.detach()) / len(group)
+        if margins is not None:
+            margins.append((seen.kink, seen.gap))
         for k in running[0]:
             p[k] = sum(r[k] for r in running) / len(running)
         lr_t = float(lr_at(step0 + step))
