@@ -25,13 +25,14 @@ the port's ``state_dict`` plus BatchNorm's ``num_batches_tracked`` counters
 """
 from __future__ import annotations
 
-import math
 import re
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from .models import get_model
 
 
 class Rule(NamedTuple):
@@ -192,14 +193,15 @@ def state_dict_from_jax(name: str, params: Dict[str, Any],
                         batch_stats: Dict[str, Any]
                         ) -> Dict[str, torch.Tensor]:
     """``ddp_tpu``'s ``(params, batch_stats)`` of model ``name`` -> the
-    port's ``state_dict`` (CPU tensors; ``load_state_dict`` moves them).  A
-    tree path no rule of the model matches raises ValueError."""
-    entries = []
+    port's ``state_dict`` (CPU tensors; ``load_state_dict`` moves them), in
+    the model's own order whatever order the tree's dicts hold (JAX sorts
+    their keys; a narrower VGG's keys are a subset of VGG-11's).  A tree
+    path no rule of the model matches raises ValueError."""
+    out = {}
     rules = _rules(name)
-    for s, (section, tree) in enumerate((("params", params),
-                                         ("batch_stats", batch_stats))):
+    for section, tree in (("params", params), ("batch_stats", batch_stats)):
         for path, value in _leaves(tree):
-            for r, (_, tree_path, rule) in enumerate(rules):
+            for _, tree_path, rule in rules:
                 m = tree_path.match(path) if rule.section == section \
                     else None
                 if m:
@@ -207,23 +209,12 @@ def state_dict_from_jax(name: str, params: Dict[str, Any],
             else:
                 raise ValueError(f"{section}/{path} is not a {name} tree "
                                  f"path")
-            entries.append(((s, _layer_order(rules, r, m), r),
-                            rule.port.format(**m.groupdict()),
-                            _t(_from_tree(np.asarray(value), rule.layout))))
-    # The model's order (parameters, then buffers), whatever order the
-    # tree's dicts hold: JAX sorts their keys.
-    return {key: t for _, key, t in sorted(entries, key=lambda e: e[0])}
-
-
-def _layer_order(rules, r: int, m: "re.Match") -> Tuple[float, ...]:
-    """Where rule ``r``'s layer stands in its model: the rule's numbers
-    (``{i}``, ``{s}``/``{b}``), or for a rule without numbers before the
-    first numbered rule, or after it (a stem, a head)."""
-    if m.groupdict():
-        return tuple(int(v) for v in m.groupdict().values())
-    first = next((i for i, (_, _, rule) in enumerate(rules)
-                  if "{" in rule.port), len(rules))
-    return (-math.inf,) if r < first else (math.inf,)
+            out[rule.port.format(**m.groupdict())] = _t(
+                _from_tree(np.asarray(value), rule.layout))
+    ordered = {k: out[k] for k in get_model(name, device="meta").state_dict()
+               if k in out}
+    ordered.update(out)
+    return ordered
 
 
 def momentum_tree_from_list(model: nn.Module,

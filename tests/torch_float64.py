@@ -7,7 +7,11 @@ from contextlib import nullcontext
 import numpy as np
 import torch
 
-from ddp_tpu_torch.parallel.drill import Margins
+from ddp_tpu_torch.data.augment import _numpy_crop_flip
+from ddp_tpu_torch.data.loader import TrainLoader, optimizer_groups
+from ddp_tpu_torch.ops.layers import keep_mask
+from ddp_tpu_torch.optim import triangular_lr
+from ddp_tpu_torch.parallel.drill import Margins, draws_np, dropout_generator
 
 NARROW = [8, "M", 16, "M", 512, "M"]
 
@@ -66,6 +70,22 @@ def resnet18_forward64(q, x, bn, mask=None):
 
 
 FORWARDS = {"deepnn": deepnn_forward64, "resnet18": resnet18_forward64}
+
+
+def grads64(model, sd, images, labels, mask=None):
+    """The float64 gradient of the mean cross entropy of uint8
+    ``[B,32,32,3]`` ``images`` through :data:`FORWARDS`' ``model`` from the
+    state dict ``sd`` in training mode (``mask``: DeepNN's keep mask):
+    ``(loss, {parameter name: gradient})``."""
+    names = [k for k in sd if "running" not in k]
+    q = {k: sd[k].double().requires_grad_() for k in names}
+    running = {k: v.double() for k, v in sd.items() if "running" in k}
+    x = torch.from_numpy(images).permute(0, 3, 1, 2).double() / 255.0
+    logits = FORWARDS[model](q, x, batch_norm64(q, running), mask)
+    loss = torch.nn.functional.cross_entropy(logits,
+                                             torch.from_numpy(labels).long())
+    return float(loss.detach()), dict(zip(names, torch.autograd.grad(
+        loss, [q[k] for k in names])))
 
 
 def batch_norm64(q, running, bn_momentum=0.1, eps=1e-5):
@@ -154,6 +174,68 @@ def float64_epoch(sd, train, groups, lr_at, *, world, sync_bn,
             p[k] = p[k] - lr_t * buf[k]
         losses.append(total)
     return np.array(losses), p, [buf[k] for k in names]
+
+
+def float64_drill(sd, train, *, batch, lr, seed, world, accum, sync_bn,
+                  model=None, arch=NARROW, margins=None):
+    """The float64 epoch of a resident drill
+    (``ddp_tpu_torch/parallel/drill.py`` with ``augment=True``) from the
+    state dict ``sd``: each rank's rows of each micro-batch (its
+    ``TrainLoader`` columns in ``optimizer_groups``) cropped and flipped
+    with the drill's draws, DeepNN's keep masks from the drill's dropout
+    generators, the drill's learning-rate schedule.  Returns
+    :func:`float64_epoch`'s result; ``margins`` as there."""
+    loader = TrainLoader(train, batch, world, seed=seed)
+    loader.set_epoch(0)
+    images, labels, groups, masks, at, step = [], [], [], {}, 0, 0
+    for calls in zip(*(optimizer_groups(*loader.rank_index_matrix(r), accum)
+                       for r in range(world))):
+        for g in range(calls[0].shape[0]):
+            rows = []
+            for k in range(calls[0].shape[1]):
+                row = []
+                for r, c in enumerate(calls):
+                    idx = c[g, k]
+                    images.append(_numpy_crop_flip(
+                        train.images[idx],
+                        *draws_np(seed, r, step, len(idx), k)))
+                    labels.append(train.labels[idx])
+                    row.append(np.arange(at, at + len(idx)))
+                    at += len(idx)
+                    masks[step, k, r] = keep_mask(
+                        (len(idx), 512), 0.9,
+                        dropout_generator(seed, r, step, k), "cpu")
+                rows.append(np.concatenate(row))
+            groups.append(np.stack(rows))
+            step += 1
+
+    class _Data:  # the fields float64_epoch reads
+        pass
+
+    data = _Data()
+    data.images, data.labels = np.concatenate(images), np.concatenate(labels)
+    steps = loader.optimizer_steps_per_epoch(accum)
+    return float64_epoch(
+        sd, data, groups, lambda s: triangular_lr(
+            s, base_lr=lr, num_epochs=1, steps_per_epoch=steps),
+        world=world, sync_bn=sync_bn, model=model, arch=arch,
+        masks=lambda s, k, j: torch.cat([masks[s, k, r] for r in (
+            range(world) if sync_bn else [j])]),
+        margins=margins)
+
+
+def drill_distance(got, ref):
+    """The largest distance of a drill rank's result (a dict of
+    ``ddp_tpu_torch.parallel.drill.run``) from :func:`float64_drill`'s
+    ``(losses, state, momentum)`` over losses, weights, buffers and
+    momentum: ``(distance, where, the largest |value| there)``."""
+    losses, state, mom = ref
+    pairs = [("losses", got["losses"], torch.from_numpy(losses))]
+    pairs += [(k, got["state_dict"][k], v) for k, v in state.items()]
+    pairs += [(f"momentum {k}", a, b) for k, (a, b) in enumerate(
+        zip(got["momentum"], mom))]
+    return max((float((a.double() - b).abs().max()), key,
+                float(b.abs().max())) for key, a, b in pairs)
 
 
 def margins(p, images, arch=NARROW):
