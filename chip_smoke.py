@@ -5,7 +5,8 @@
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch and
    CUDA versions.
 2. Builds every CUDA kernel of ``ddp_tpu_torch/csrc`` and prints the build
-   seconds.
+   seconds.  Its child processes share one bytecode cache in a temporary
+   directory (``PYTHONPYCACHEPREFIX``).
 3. Kernel phase: the ``row_gather`` kernel against its plain PyTorch version
    at the main path's shapes, with exact equality (clamped out-of-range and
    negative indices, a float32 table, row sizes that are not a multiple of
@@ -44,6 +45,25 @@
    before and read just after: 98 finite losses, 123 launches of
    ``gather_batch``'s bfloat16 form, none of ``row_gather`` or ``conv3x3``,
    a float32 checkpoint; its ms/step and samples/s beside the float32 run's.
+   Bench phase (``python -m ddp_tpu_torch.bench``, one process each, so
+   this process's cuDNN and allocator state stay out of its windows):
+   VGG-11 at the default contract (its stdout record, the resident-epoch
+   and the bf16 records from stderr), DeepNN and ResNet-18 at ``--steps 20
+   --repeats 3``, and VGG-11 ``--e2e --resident --e2e_steps 16``; each
+   record printed on its own line, with every field, a finite positive
+   value, an MFU in (0, 1.05] against the data sheet's peak for its
+   dtype, the card's name and power limit, and the child's ``gather_batch``
+   launches equal to the train steps it ran, by form; VGG's float32
+   median ms/step within 3% of the main path's event median.
+   Run-shape phase on 10,240 images: in deterministic mode
+   (``repeat_check``'s), ``singlegpu 1 1 --schedule_epochs 2`` then ``2 1
+   --resume --schedule_epochs 2`` against an uninterrupted ``2 1``, the
+   loss histories bit for bit; then a streamed ``2 1 --metrics_path
+   --log_every 5`` run in this process, its counts zeroed before and read
+   after (45 ``gather_batch`` launches): each step record's lr the
+   schedule's; each live record's median step (timed by CUDA events) the
+   median of its window of the run's ``step_ms``, within 3% of the main
+   path's event median, and its MFU in (0, 1.05].
 8. DDP phase: ``python -m ddp_tpu_torch.multigpu`` with the main path's
    arguments as a subprocess, which spawns one rank per card: at world 1
    over NCCL it must launch ``gather_batch`` 123 times and neither
@@ -118,12 +138,12 @@
    128 in float32 and bfloat16 (logits bit for bit against the eager
    forward, replay ms, accuracy equal to ``evaluate_resident``'s);
    ``--export_torch`` then ``--init_from_torch`` back bit for bit through
-   a strict load.  Then, six processes at once, ``singlegpu`` and world-1
-   ``multigpu`` of each model under deterministic mode (``repeat_check``),
-   bit for bit, and each model's step under the profiler
-   (``profile_resident --model``: kernels a step, one
-   ``gather_batch_kernel`` a step); and each model's world-2 drill over
-   gloo on the card and on the CPU (``MODEL_DRILLS``, sync-BN and the
+   a strict load.  Then each model's step under the profiler, two
+   processes at once (``profile_resident --model``: kernels a step, one
+   ``gather_batch_kernel`` a step), and after them, four processes at
+   once, ``singlegpu`` and world-1 ``multigpu`` of each model under
+   deterministic mode (``repeat_check``), bit for bit; and each model's
+   world-2 drill over gloo on the card and on the CPU (``MODEL_DRILLS``, sync-BN and the
    sharded update), after ``drill.margins`` shows every ReLU and max-pool
    decision at least 1e-6 from flipping: each card rank within
    ``PARITY_TOL`` of the drill's float64 epoch
@@ -188,7 +208,10 @@
     ranks' of the world-2 run, on the strategy path: the composed
     world-1 run's and the card ranks' of its world-2 run, on the
     streaming path: every card run of the streaming phase, and on the
-    models path: the models phase's runs, serving and drills; both entries
+    models path: the models phase's runs, serving and drills, on the bench
+    path: the train steps the bench's processes ran in that form, and on
+    the run-shape path: the split, uninterrupted and streamed runs; both
+    entries
     give ``stream_batch_cases``, the streamed-batch comparisons in their
     dtype, whose launches are not counted), the card line, and last
     ``{"ok": true, "device": {...}}``.
@@ -2450,12 +2473,14 @@ def _profile_process(name: str) -> dict:
 
 
 def models_processes(card: str) -> None:
-    """In processes of their own, six at once: ``singlegpu`` and world-1
-    ``multigpu`` of each model in deterministic mode on 10,240 images
-    (``repeat_check``'s ``run_entries``), each model's two loss histories
-    bit for bit; and each model's step under the profiler, for its kernels
-    a step and one gather_batch_kernel a step (its times, taken beside the
-    other processes, are not kept)."""
+    """In processes of their own: each model's step under the profiler,
+    both at once, for its kernels a step and one gather_batch_kernel a step
+    (its times, taken beside the other process, are not kept); then
+    ``singlegpu`` and world-1 ``multigpu`` of each model in deterministic
+    mode on 10,240 images (``repeat_check``'s ``run_entries``), four at
+    once, each model's two loss histories bit for bit.  The profiled
+    processes run apart from the four: beside them the profiler once
+    missed a ``gather_batch_kernel`` launch (ROADMAP C3)."""
     t0 = time.time()
     results, errors = {}, []
 
@@ -2468,12 +2493,13 @@ def models_processes(card: str) -> None:
         except Exception as e:  # re-raised below, after every join
             errors.append(e)
 
-    threads = [threading.Thread(target=one, args=(n, e)) for n in MODELS
-               for e in ("singlegpu", "multigpu", "profile")]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
+    for entries in (("profile",), ("singlegpu", "multigpu")):
+        threads = [threading.Thread(target=one, args=(n, e))
+                   for n in MODELS for e in entries]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
     if errors:
         raise errors[0]
     for name in MODELS:
@@ -2610,6 +2636,199 @@ def models_phases(main: dict, main_bf16: dict, card: str) -> dict:
     return out
 
 
+BENCH_RUNS = (("vgg", []),
+              ("deepnn", ["--steps", "20", "--repeats", "3"]),
+              ("resnet18", ["--steps", "20", "--repeats", "3"]),
+              ("vgg", ["--e2e", "--resident", "--e2e_steps", "16"]))
+# The bench's fixed batch, the streamed step of a live record (CUDA events)
+# and the main path's resident step run the same device-bound VGG-11 work
+# (2.7% idle, PERF.md section 5; within 0.7% of each other, section 6): the
+# bench's median window and each live record's median against the main
+# path's event median.
+MAIN_MEDIAN_TOL = 0.03
+MFU_MAX = 1.05
+
+
+def run_bench(args: list) -> dict:
+    """``python -m ddp_tpu_torch.bench args`` in a process of its own (no
+    cuDNN or allocator state of this one): its ``--result_json`` summary,
+    whose first record must be the one stdout line."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bench.json")
+        r = subprocess.run(
+            [sys.executable, "-m", "ddp_tpu_torch.bench", *args,
+             "--result_json", path], capture_output=True, text=True,
+            timeout=600)
+        check(r.returncode == 0, f"bench {' '.join(args)} exited with "
+              f"{r.returncode}: {r.stderr[-2000:]}")
+        lines = r.stdout.strip().splitlines()
+        check(len(lines) == 1, f"bench {' '.join(args)} printed "
+              f"{len(lines)} stdout lines, not 1")
+        with open(path) as f:
+            summary = json.load(f)
+    check(json.loads(lines[0]) == summary["records"][0],
+          "the bench's stdout line is not its first record")
+    print(f"bench {' '.join(args)}: process {time.time() - t0:.1f} s",
+          flush=True)
+    return summary
+
+
+def check_bench_record(rec: dict, fields: tuple) -> None:
+    what = rec.get("metric")
+    check(tuple(rec) == fields, f"bench record {what}: fields {list(rec)}")
+    check(math.isfinite(rec["value"]) and rec["value"] > 0,
+          f"bench record {what}: value {rec['value']}")
+    check(rec["mfu_peak_source"] == "datasheet"
+          and 0 < rec["mfu"] <= MFU_MAX,
+          f"bench record {what}: mfu {rec['mfu']} against a "
+          f"{rec['mfu_peak_source']} peak")
+    check(rec["power_limit_w"] is not None and rec["power_limit_w"] > 0,
+          f"bench record {what}: power limit {rec['power_limit_w']}")
+    check(rec["device"] == {"name": torch.cuda.get_device_name(0),
+                            "count": 1},
+          f"bench record {what}: device {rec['device']}")
+
+
+def bench_phase(main_ms: float, card: str) -> dict:
+    """``python -m ddp_tpu_torch.bench`` for VGG-11 at its default contract
+    (fixed batch, resident epoch, bf16), DeepNN and ResNet-18 at 20 steps
+    by 3 windows, and VGG-11's ``--e2e --resident``, one process each:
+    every record's fields, value, MFU, card and power limit; one
+    ``gather_batch`` launch a train step, by form; VGG's float32 median
+    within ``MAIN_MEDIAN_TOL`` of the main path's.  Returns the launches of
+    each form."""
+    from ddp_tpu_torch.bench import E2E_FIELDS, RECORD_FIELDS
+    t0 = time.time()
+    launches = {"float32": 0, "bfloat16": 0}
+    for model, extra in BENCH_RUNS:
+        e2e = "--e2e" in extra
+        summary = run_bench(["--model", model, *extra])
+        recs = summary["records"]
+        check(len(recs) == (1 if e2e else 3), f"bench {model} {extra}: "
+              f"{len(recs)} records")
+        for rec in recs:
+            check_bench_record(rec, E2E_FIELDS if e2e else RECORD_FIELDS)
+            print(f"bench record ({card}): {json.dumps(rec)}", flush=True)
+        steps, moved = summary["steps"], summary["launches"]
+        check(moved == {"gather_batch": steps["float32"] + steps["bfloat16"],
+                        "gather_batch_bf16": steps["bfloat16"]},
+              f"bench {model} {extra}: launches {moved} for train steps "
+              f"{steps}")
+        launches["float32"] += moved["gather_batch"] - \
+            moved["gather_batch_bf16"]
+        launches["bfloat16"] += moved["gather_batch_bf16"]
+        if model == "vgg" and not e2e:
+            ms = recs[0]["median_ms_per_step"]
+            check(abs(ms - main_ms) <= MAIN_MEDIAN_TOL * main_ms,
+                  f"bench VGG f32 median {ms:.3f} ms/step against the main "
+                  f"path's {main_ms:.3f}")
+            print(f"bench VGG f32 median {ms:.3f} ms/step against the main "
+                  f"path's event median {main_ms:.3f} ({card})", flush=True)
+    print(f"bench phase: {time.time() - t0:.1f} s, gather_batch launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+def runshape_phase(main_ms: float, card: str) -> int:
+    """The run-shape flags on 10,240 images: in deterministic mode
+    (``repeat_check``'s), ``1 1 --schedule_epochs 2`` then ``2 1 --resume
+    --schedule_epochs 2`` against an uninterrupted ``2 1`` (run beside
+    them), the histories bit for bit; then a streamed ``2 1
+    --metrics_path --log_every 5`` run in this process, its counts zeroed
+    before and read after: each step's lr the schedule's; each live
+    record's median step the median of its window of the run's own event
+    times, within ``MAIN_MEDIAN_TOL`` of the main path's event median, and its
+    MFU in (0, ``MFU_MAX``].  Returns the launches of this path."""
+    t0 = time.time()
+    args = FLAG_ARGS[2:]
+    steps, evals = FLAG_TRAIN_STEPS, FLAG_EVAL_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, errors = [], []
+
+        def uninterrupted():
+            try:
+                whole.extend(run_entries(["singlegpu"], ["2", "1", *args],
+                                         deterministic=True))
+            except Exception as e:  # re-raised below, after the join
+                errors.append(e)
+
+        thread = threading.Thread(target=uninterrupted)
+        thread.start()
+        try:
+            split = os.path.join(tmp, "split.pt")
+            first, = run_entries(
+                ["singlegpu"], ["1", "1", *args, "--schedule_epochs", "2"],
+                deterministic=True, snapshot_path=split)
+            second, = run_entries(
+                ["singlegpu"], ["2", "1", *args, "--schedule_epochs", "2",
+                                "--resume"],
+                deterministic=True, snapshot_path=split)
+        finally:
+            thread.join()
+        if errors:
+            raise errors[0]
+        whole, = whole
+        runs = (first, second, whole)
+        for res, n in zip(runs, (steps, steps, 2 * steps)):
+            got = res["kernel_launches"]["gather_batch"]
+            check(len(res["loss_history"]) == n and got == n + evals,
+                  f"run shape: {len(res['loss_history'])} steps and {got} "
+                  f"gather_batch launches, expected {n} and {n + evals}")
+        pair, = compare([whole, {**second, "loss_history":
+                                 first["loss_history"]
+                                 + second["loss_history"]}])
+        print(f"run shape, split run (1 1 --schedule_epochs 2, then 2 1 "
+              f"--resume) against 2 1, deterministic mode ({card}): "
+              f"{pair}", flush=True)
+        check(pair["bit_equal"] and second["accuracy"] == whole["accuracy"],
+              "the split run's history differs from the uninterrupted "
+              "run's")
+
+        metrics = os.path.join(tmp, "metrics.jsonl")
+        argv = ["2", "1", *[a for a in args if a != "--resident"],
+                "--metrics_path", metrics, "--log_every", "5",
+                "--snapshot_path", os.path.join(tmp, "stream.pt")]
+        gather_batch.launches = gather_batch.launches_bf16 = 0
+        out = cli.main(argv)
+        launches = gather_batch.launches
+        check(launches == 2 * steps + evals, f"run shape: the streamed "
+              f"metrics run launched gather_batch {launches} times")
+        with open(metrics) as f:
+            recs = [json.loads(line) for line in f]
+    schedule = cli.build_schedule(
+        cli.build_parser("").parse_args(argv),
+        TrainLoader(synthetic(n_train=10240, n_test=1)[0], 512))
+    lrs = [r["lr"] for r in recs if "loss" in r]
+    check(lrs == [round(schedule(s), 8) for s in range(2 * steps)],
+          "run shape: the metrics stream's lrs are not the schedule's")
+    check([r["loss"] for r in recs if "loss" in r]
+          == [round(x, 6) for x in out["loss_history"]],
+          "run shape: the metrics stream's losses are not the run's")
+    lives = [r for r in recs if r.get("event") == "live"]
+    check([r["step"] for r in lives] == list(range(4, 2 * steps, 5)),
+          f"run shape: live records at steps {[r['step'] for r in lives]}")
+    window = 100  # max(100, --log_every)
+    for r in lives:
+        own = statistics.median(
+            out["step_ms"][max(r["step"] + 1 - window, 0):r["step"] + 1])
+        ms = r["step_ms_median"]
+        check(abs(ms - own) <= 1e-3
+              and abs(ms - main_ms) <= MAIN_MEDIAN_TOL * main_ms
+              and 0 < r["mfu"] <= MFU_MAX and r["compute_dtype"] == "float32",
+              f"run shape: live record {r} against the run's event median "
+              f"{own:.3f} ms and the main path's {main_ms:.3f}")
+    check(recs[-1].get("final") and recs[-1]["eval_accuracy"]
+          == round(out["accuracy"], 4), f"run shape: last record {recs[-1]}")
+    summary = [(r["step"], r["step_ms_median"], r["step_ms_p90"], r["mfu"],
+                r["prefetch_occupancy"]) for r in lives]
+    print(f"run shape, streamed --metrics_path --log_every 5 ({card}): "
+          f"{len(lrs)} step records with the schedule's lrs, live records "
+          f"(step, median ms, p90 ms, mfu, occupancy) {summary}", flush=True)
+    print(f"run-shape phase: {time.time() - t0:.1f} s", flush=True)
+    return sum(r["kernel_launches"]["gather_batch"] for r in runs) + launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -2619,6 +2838,13 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     set_tf32(False)
+    # Each child process (the bench, the deterministic and drill runs)
+    # would otherwise compile torch's modules from source again wherever
+    # PYTHONDONTWRITEBYTECODE is set or the site's packages are read-only:
+    # the children share one bytecode cache, removed at exit.
+    pycache = tempfile.TemporaryDirectory(prefix="chip_smoke_pycache_")
+    os.environ["PYTHONPYCACHEPREFIX"] = pycache.name
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
 
     t0 = time.time()
     _build.build_all()
@@ -2672,6 +2898,8 @@ def main() -> int:
     checkpoint_phase(out, snapshot)
     snapshot_bf16 = os.path.join(snapshot_dir.name, "checkpoint_bf16.pt")
     out_bf16 = bf16_main_phase(out, card, snapshot_bf16)
+    bench = bench_phase(step_ms, card)
+    runshape_launches = runshape_phase(step_ms, card)
     ddp_launches, ddp = ddp_phase(out, card)
     strategy_launches, composed, margin, resident_det = strategy_phase(
         ddp, card)
@@ -2705,6 +2933,8 @@ def main() -> int:
                  launches_strategy_path=strategy_launches,
                  launches_stream_path=stream_launches,
                  launches_models_path=models["launches_f32"],
+                 launches_bench_path=bench["float32"],
+                 launches_runshape_path=runshape_launches,
                  stream_batch_cases=stream_cases[torch.float32],
                  launches_serve_path=serve["warm_launches"]
                  + serve["http_profiled"]["gather_batch_kernel_launches"],
@@ -2733,9 +2963,11 @@ def main() -> int:
                       launches_strategy_path=strategy_bf16_launches,
                       launches_stream_path=stream_bf16_launches,
                       launches_models_path=models["launches_bf16"],
+                      launches_bench_path=bench["bfloat16"],
                       stream_batch_cases=stream_cases[BF16],
                       launches_serve_path=serve_bf16["warm_launches"]
                       + serve_bf16["profiled_replay_launches"])
+    pycache.cleanup()
     print(json.dumps({"kernels": [row_gather, batch, batch_bf16, conv3x3]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@
         [--seed 0] [--lr 0.4] [--momentum 0.9] [--weight_decay 5e-4] \\
         [--grad_accum A] [--sync_bn] [--shard_update] [--bf16] \\
         [--snapshot_path checkpoint.pt] [--resume] [--device cuda|cpu] \\
-        [--result_json PATH]
+        [--schedule_epochs E] [--schedule_steps_per_epoch S] \\
+        [--eval_every E] [--metrics_path PATH [--log_every 50]] \\
+        [--tensorboard_dir DIR] [--num_devices N] [--result_json PATH]
     python -m ddp_tpu_torch.multigpu <same arguments> [--spawn N]
 
 ``--model`` trains VGG-11 (the default, the reference's model), DeepNN (the
@@ -32,14 +34,16 @@ pinned and copied to the card on a side stream (``data/prefetch.py``).
 ``--device_augment``.  Either way every batch becomes the step's input in
 one ``gather_batch`` launch.
 
-``singlegpu`` is one process at world 1.  ``multigpu`` is one process per
-rank: under a rendezvous environment (``torchrun``'s, or ``--spawn``'s) it
-is that rank; otherwise it spawns ``--spawn N`` local ranks, or on ``cuda``
-one per visible card (the reference's ``mp.spawn`` over
-``torch.cuda.device_count()``, multigpu.py:262-263), and returns the
-largest exit code of its ranks.  ``--batch_size`` is the per-rank batch.
-The strategy flags have the JAX CLI's meaning (``ddp_tpu/cli.py:215-227``)
-and compose with each other and with ``--resume``: ``--grad_accum A`` takes
+``singlegpu`` is one process at world 1 (``--num_devices`` may only say
+1).  ``multigpu`` is one process per rank: under a rendezvous environment
+(``torchrun``'s, or ``--spawn``'s) it is that rank; otherwise it spawns
+``--num_devices N`` or ``--spawn N`` local ranks (the two are one world
+size and must agree), or on ``cuda`` one per visible card (the reference's
+``mp.spawn`` over ``torch.cuda.device_count()``, multigpu.py:262-263), and
+returns the largest exit code of its ranks.  ``--batch_size`` is the
+per-rank batch.  The strategy flags have the JAX CLI's meaning
+(``ddp_tpu/cli.py:215-227``) and compose with each other and with
+``--resume``: ``--grad_accum A`` takes
 one optimizer step per A micro-batches (the LR schedule counts optimizer
 steps), ``--sync_bn`` takes BatchNorm's statistics over every rank's batch,
 ``--shard_update`` shards the weight update (ZeRO-1).  At world 1 without a
@@ -48,6 +52,24 @@ computes in bfloat16 where the JAX package's ``compute_dtype`` does
 (``models/``), training and eval alike, and composes with all of
 them; weights, momentum, BatchNorm's buffers and the checkpoint stay
 float32.
+
+The run's shape (``ddp_tpu/cli.py``'s flags): ``--schedule_epochs`` and
+``--schedule_steps_per_epoch`` pin the LR triangle's span and its steps an
+epoch (default ``total_epochs`` and the loader's optimizer steps an epoch),
+so a run split in two (``1 1 --schedule_epochs 2``, then ``2 1 --resume
+--schedule_epochs 2``) takes the uninterrupted run's steps.
+``--eval_every E`` evaluates after every E-th epoch on every rank (rank 0
+prints ``Epoch {e} | eval accuracy=...%``), and the final accuracy reuses
+the last of these when it came after the last epoch.  ``--metrics_path``
+makes rank 0 append the JAX package's JSONL records (``utils/metrics.py``):
+one ``{step, epoch, loss, lr}`` an optimizer step, the periodic and final
+eval accuracies and, on the streaming path, a ``live`` record every
+``--log_every`` steps (``obs/live.py``: rolling median and p90 step time,
+on a card the device's between CUDA events, samples/s, MFU against the card's data-sheet peak for the compute dtype,
+prefetch occupancy).  The resident path has no consumer loop to time and
+says so on stderr instead, as the JAX CLI does.  ``--tensorboard_dir``
+mirrors the curves where a TensorBoard writer is installed, and is refused
+otherwise.
 
 Prints what the JAX CLI prints: each epoch's header and loss on every rank
 (``[GPU{rank}]``), the checkpoint line of every ``save_every``-th epoch,
@@ -71,14 +93,16 @@ import torch
 from . import interop
 from .data import EvalLoader, ResidentData, TrainLoader, cifar10, native
 from .data.prefetch import PrefetchStats
-from .device import dtype_name, resolve_device, set_tf32
+from .device import device_kind, dtype_name, resolve_device, set_tf32
 from .models import NAMES as MODEL_NAMES, get_model
+from .obs.live import LiveStats
 from .ops.conv_candidates import conv3x3_fused
 from .ops.gather import gather_batch, gather_rows
 from .optim import SGDConfig, triangular_lr
 from .parallel import dist
 from .train.evaluate import evaluate, evaluate_resident
 from .train.trainer import Trainer
+from .utils.metrics import MetricsLogger, require_tensorboard
 
 # The reference's unit constants: model sizes are kept in bits.
 MiB = 1024 * 1024 * 8
@@ -164,25 +188,59 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    help="multigpu: run N local ranks wired by a fresh "
                         "rendezvous (default: one per visible card on "
                         "cuda, world 1 on cpu)")
+    p.add_argument("--num_devices", default=None, type=int, metavar="N",
+                   help="World size: multigpu's rank count (the same as "
+                        "--spawn, which must agree); singlegpu takes only "
+                        "1")
+    p.add_argument("--schedule_epochs", default=None, type=int,
+                   help="Pin the LR triangle's epoch span (the reference "
+                        "hardcodes 20, multigpu.py:136; default: "
+                        "total_epochs)")
+    p.add_argument("--schedule_steps_per_epoch", default=None, type=int,
+                   help="Pin steps_per_epoch in the LR schedule (the "
+                        "reference hardcodes 98/49, multigpu.py:137; "
+                        "default: derived from the real shard size)")
+    p.add_argument("--eval_every", type=int, default=0, metavar="E",
+                   help="Evaluate on the test set every E epochs during "
+                        "training (0 = only the reference's single "
+                        "end-of-run eval)")
+    p.add_argument("--metrics_path", default=None,
+                   help="Append per-step {step, epoch, loss, lr, wall_s} "
+                        "JSON lines here (rank 0), with the eval "
+                        "accuracies and the live records")
+    p.add_argument("--log_every", default=50, type=int, metavar="N",
+                   help="Write a live record (rolling median/p90 step "
+                        "time, samples/s, MFU, prefetch occupancy) into "
+                        "the metrics stream every N steps of the streaming "
+                        "path (rank 0; needs --metrics_path or "
+                        "--tensorboard_dir; 0 = off)")
+    p.add_argument("--tensorboard_dir", default=None,
+                   help="Also mirror the loss, LR, eval accuracy and live "
+                        "curves as TensorBoard scalars here (rank 0; needs "
+                        "the tensorboard package)")
     p.add_argument("--result_json", default=None, metavar="PATH",
                    help="Rank 0 writes the run's summary here as JSON: "
                         "world, backend, the data path and its prefetch "
-                        "times, the strategy flags, the compute dtype, "
-                        "losses, step times, accuracy, and the port's "
-                        "kernel launches and the collectives in this "
-                        "process")
+                        "times, the strategy and run-shape flags, the "
+                        "compute dtype, losses, step times, the periodic "
+                        "and final accuracies, and the port's kernel "
+                        "launches and the collectives in this process")
     return p
 
 
 def build_schedule(args: argparse.Namespace,
                    train_loader: TrainLoader) -> Callable[[int], float]:
-    """The triangular LR over ``args.total_epochs``, advanced per optimizer
-    step: ``train_loader.optimizer_steps_per_epoch(args.grad_accum)`` steps
-    an epoch (``ddp_tpu/cli.py:760``, ``build_schedule``)."""
+    """The triangular LR advanced per optimizer step
+    (``ddp_tpu/cli.py::build_schedule``): over ``--schedule_epochs`` or
+    else ``total_epochs``, at ``--schedule_steps_per_epoch`` or else
+    ``train_loader.optimizer_steps_per_epoch(args.grad_accum)`` steps an
+    epoch."""
     return functools.partial(
-        triangular_lr, base_lr=args.lr, num_epochs=args.total_epochs,
-        steps_per_epoch=train_loader.optimizer_steps_per_epoch(
-            args.grad_accum))
+        triangular_lr, base_lr=args.lr,
+        num_epochs=args.schedule_epochs or args.total_epochs,
+        steps_per_epoch=(args.schedule_steps_per_epoch
+                         or train_loader.optimizer_steps_per_epoch(
+                             args.grad_accum)))
 
 
 def load_torch_init(model: torch.nn.Module, path: str) -> None:
@@ -209,6 +267,12 @@ def _check_args(args: argparse.Namespace) -> None:
     if args.grad_accum < 1:
         raise SystemExit(f"--grad_accum must be at least 1, not "
                          f"{args.grad_accum}")
+    if args.num_devices is not None and args.num_devices < 1:
+        raise SystemExit(f"--num_devices must be at least 1, not "
+                         f"{args.num_devices}")
+    if args.tensorboard_dir:
+        # Every rank refuses, before any of them joins a collective.
+        require_tensorboard()
 
 
 def run(args: argparse.Namespace, *, data_parallel: bool = False) -> Dict:
@@ -225,6 +289,10 @@ def run(args: argparse.Namespace, *, data_parallel: bool = False) -> Dict:
     if data_parallel:
         device = dist.initialize(device)
     try:
+        if args.num_devices and args.num_devices != dist.world_size():
+            raise SystemExit(
+                f"--num_devices {args.num_devices} contradicts this run's "
+                f"world of {dist.world_size()}")
         return _train_and_evaluate(args, device)
     finally:
         if data_parallel:
@@ -233,6 +301,16 @@ def run(args: argparse.Namespace, *, data_parallel: bool = False) -> Dict:
 
 def _train_and_evaluate(args: argparse.Namespace,
                         device: torch.device) -> Dict:
+    metrics = MetricsLogger(args.metrics_path, enabled=dist.rank() == 0,
+                            tensorboard_dir=args.tensorboard_dir)
+    try:
+        return _train(args, device, metrics)
+    finally:
+        metrics.close()
+
+
+def _train(args: argparse.Namespace, device: torch.device,
+           metrics: MetricsLogger) -> Dict:
     rank, world = dist.rank(), dist.world_size()
     set_tf32(False)
     compute_dtype = torch.bfloat16 if args.bf16 else None
@@ -256,6 +334,24 @@ def _train_and_evaluate(args: argparse.Namespace,
     # the clock starts) or numpy; None where the card does it.
     host_augment = native.path() if train_loader.augment else None
     prefetch = PrefetchStats()
+    live = None
+    if args.log_every > 0 and metrics.active:
+        if args.resident:
+            print("note: live telemetry (--log_every) covers the streaming "
+                  "path only; --resident epochs have no consumer loop to "
+                  "time (python -m ddp_tpu_torch.profile_resident splits "
+                  "the step)", file=sys.stderr)
+        else:
+            # One live step is one optimizer step of grad_accum
+            # micro-batches on every rank; the window spans at least the
+            # cadence.
+            live = LiveStats(
+                metrics,
+                global_batch=args.batch_size * world * args.grad_accum,
+                n_chips=world, log_every=args.log_every,
+                window=max(100, args.log_every), model=args.model,
+                device_kind=device_kind(device),
+                compute_dtype=compute_dtype, prefetch_stats=prefetch)
     trainer = Trainer(
         model, train_loader, device=device,
         lr_schedule=build_schedule(args, train_loader),
@@ -266,10 +362,36 @@ def _train_and_evaluate(args: argparse.Namespace,
         shard_update=args.shard_update, compute_dtype=compute_dtype,
         resident=args.resident, device_augment=device_augment,
         prefetch_depth=args.prefetch_depth,
-        prefetch_workers=args.prefetch_workers, prefetch_stats=prefetch)
+        prefetch_workers=args.prefetch_workers, prefetch_stats=prefetch,
+        metrics=metrics, live=live)
+
+    eval_loader = EvalLoader(test_ds, args.batch_size, world,
+                             local_replicas=[rank])
+    resident_test: List[ResidentData] = []  # uploaded at most once
+
+    def _eval() -> float:
+        if not args.resident:
+            return evaluate(model, eval_loader, compute_dtype)
+        if not resident_test:
+            resident_test.append(ResidentData(test_ds, device))
+        return evaluate_resident(model, resident_test[0], eval_loader,
+                                 compute_dtype)
+
+    eval_history: List[List] = []  # [epoch, accuracy] of --eval_every
+
+    def _epoch_callback(epoch: int) -> None:
+        # A collective: every rank evaluates; rank 0 prints and logs.
+        if (epoch + 1) % args.eval_every == 0:
+            acc = _eval()
+            eval_history.append([epoch, acc])
+            if rank == 0:
+                print(f"Epoch {epoch} | eval accuracy={acc:.2f}%")
+                metrics.log_eval(epoch=epoch, accuracy=acc)
 
     start = time.time()
-    trainer.train(args.total_epochs)
+    trainer.train(args.total_epochs,
+                  epoch_callback=_epoch_callback if args.eval_every
+                  else None)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     training_seconds = time.time() - start
@@ -281,13 +403,12 @@ def _train_and_evaluate(args: argparse.Namespace,
             export_torch(model, args.export_torch)
 
     start = time.time()
-    eval_loader = EvalLoader(test_ds, args.batch_size, world,
-                             local_replicas=[rank])
-    if args.resident:
-        accuracy = evaluate_resident(model, ResidentData(test_ds, device),
-                                     eval_loader, compute_dtype)
+    # The weights after the last epoch were evaluated already when
+    # --eval_every's last eval came after it (ddp_tpu/cli.py:1233-1238).
+    if eval_history and eval_history[-1][0] == args.total_epochs - 1:
+        accuracy = eval_history[-1][1]
     else:
-        accuracy = evaluate(model, eval_loader, compute_dtype)
+        accuracy = _eval()
     eval_seconds = time.time() - start
     out = {"accuracy": accuracy, "training_seconds": training_seconds,
            "eval_seconds": eval_seconds,
@@ -302,9 +423,16 @@ def _train_and_evaluate(args: argparse.Namespace,
            "device_augment": device_augment, "host_augment": host_augment,
            "prefetch": None if args.resident else prefetch.per_step_ms(),
            "prefetch_depth": args.prefetch_depth,
-           "prefetch_workers": args.prefetch_workers}
+           "prefetch_workers": args.prefetch_workers,
+           "num_devices": args.num_devices,
+           "schedule_epochs": args.schedule_epochs,
+           "schedule_steps_per_epoch": args.schedule_steps_per_epoch,
+           "eval_every": args.eval_every, "eval_history": eval_history,
+           "metrics_path": args.metrics_path, "log_every": args.log_every}
     if rank == 0:
         print(f"fp32 model has accuracy={accuracy:.2f}%")
+        metrics.log_eval(epoch=args.total_epochs - 1, accuracy=accuracy,
+                         final=True)
         if args.result_json:
             launches = {"gather_batch": gather_batch.launches,
                         "gather_batch_bf16": gather_batch.launches_bf16,
@@ -324,6 +452,9 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.spawn:
         raise SystemExit("singlegpu runs one process; --spawn belongs to "
                          "multigpu")
+    if args.num_devices not in (None, 1):
+        raise SystemExit(f"singlegpu runs on one device; --num_devices "
+                         f"{args.num_devices} belongs to multigpu")
     return run(args)
 
 
@@ -337,8 +468,17 @@ def main_multi(argv: Optional[List[str]] = None) -> Dict:
     if not dist.in_rendezvous():
         _check_args(args)
         device = resolve_device(args.device)
-        n = args.spawn or (torch.cuda.device_count()
-                           if device.type == "cuda" else 0)
+        if args.spawn and args.num_devices and \
+                args.spawn != args.num_devices:
+            raise SystemExit(f"--num_devices {args.num_devices} contradicts "
+                             f"--spawn {args.spawn}; both give the world "
+                             f"size, drop one")
+        n = args.num_devices or args.spawn or (
+            torch.cuda.device_count() if device.type == "cuda" else 0)
+        if device.type == "cuda" and n > torch.cuda.device_count():
+            raise SystemExit(f"--num_devices {n} asks for more ranks than "
+                             f"the {torch.cuda.device_count()} visible "
+                             f"card(s)")
         if n:
             raise SystemExit(dist.spawn_local(n, "ddp_tpu_torch.multigpu",
                                               argv))

@@ -45,6 +45,14 @@ def set_tf32(enabled: bool = False) -> None:
 
 
 def dtype_name(compute_dtype) -> str:
-    """``"float32"`` for None, else the dtype's name (``"bfloat16"``): the
-    compute dtype as the result JSON and the serving stats print it."""
+    """``"float32"`` for None, else the dtype's name (``"bfloat16"``; a
+    name is returned as it is): the compute dtype as the result JSON, the
+    serving stats and the MFU peak table key it."""
     return str(compute_dtype or torch.float32).replace("torch.", "")
+
+
+def device_kind(device: DeviceLike) -> str:
+    """The device's kind for MFU's peak table: the card's
+    ``torch.cuda.get_device_name``, or ``"cpu"``."""
+    dev = torch.device(device)
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

@@ -6,8 +6,10 @@ A :class:`SpanTracer` records one *span* per phase occurrence,
     with tracer.span("h2d", step=seq):
         ...
 
-with ``time.monotonic()`` timestamps, as append-only JSON lines in a spill
-file.  A record is the JAX package's, key for key (``phase``, ``step``,
+with ``time.monotonic()`` timestamps, into a bounded in-memory ring
+(:meth:`SpanTracer.spans_since` reads a window of it back, as the bench's
+``phase_ms`` does) and as append-only JSON lines in a spill file.  A
+record is the JAX package's, key for key (``phase``, ``step``,
 ``start_s``, ``dur_s``, ``overlap``, ``host`` and, on request-scoped spans,
 ``req``), so ``python -m ddp_tpu.obs`` and its Perfetto export read a spill
 of the port as they read their own.  ``overlap=True`` marks spans that run
@@ -25,12 +27,13 @@ telemetry never stops the run it observes.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import sys
 import threading
 import time
-from typing import IO, Optional
+from typing import IO, List, Optional
 
 
 def default_spill_path(snapshot_path: str, filename: str) -> str:
@@ -101,20 +104,23 @@ class _Span:
 
 
 class SpanTracer:
-    """Per-process span recorder with an optional JSONL spill.
+    """Per-process span recorder: a ring of the newest ``ring`` spans and an
+    optional JSONL spill.
 
     ``host`` tags every record with the process's rank; ``start_s`` is
     relative to the tracer's construction.  The spill is truncated per run,
     as the JAX package's is: two runs' relative timelines must not stack in
-    one file.  Without ``spill_path`` spans are timed and dropped."""
+    one file."""
 
     enabled = True
 
-    def __init__(self, spill_path: Optional[str] = None, *, host: int = 0):
+    def __init__(self, spill_path: Optional[str] = None, *,
+                 ring: int = 4096, host: int = 0):
         self.host = int(host)
         self.spill_path = spill_path
         self._t0 = time.monotonic()
         self._lock = threading.Lock()
+        self._ring: collections.deque = collections.deque(maxlen=ring)
         self._f: Optional[IO[str]] = (open(spill_path, "w")
                                       if spill_path else None)
 
@@ -132,19 +138,21 @@ class SpanTracer:
     def _record(self, phase: str, step: Optional[int], start: float,
                 dur: float, overlap: bool,
                 req: Optional[str] = None) -> None:
-        if self._f is None:
-            return
-        body = {
-            "phase": phase, "step": step,
-            "start_s": round(start - self._t0, 6), "dur_s": round(dur, 6),
-            "overlap": overlap, "host": self.host,
-        }
-        if req is not None:  # request-scoped spans only
-            body["req"] = req
-        # Serialised outside the lock: it is pure CPU work on local data.
-        line = json.dumps(body) + "\n"
+        rec = (phase, step, start - self._t0, dur, overlap, req)
+        line = None
+        if self._f is not None:
+            body = {
+                "phase": phase, "step": step,
+                "start_s": round(rec[2], 6), "dur_s": round(dur, 6),
+                "overlap": overlap, "host": self.host,
+            }
+            if req is not None:  # request-scoped spans only
+                body["req"] = req
+            # Serialised outside the lock: pure CPU work on local data.
+            line = json.dumps(body) + "\n"
         with self._lock:
-            if self._f is None:
+            self._ring.append(rec)
+            if line is None or self._f is None:
                 return
             try:
                 self._f.write(line)
@@ -156,6 +164,18 @@ class SpanTracer:
                 except OSError:
                     pass
                 self._f = None
+
+    def now(self) -> float:
+        """The tracer's own clock (the basis of a span's ``start_s``): the
+        window mark :meth:`spans_since` takes."""
+        return time.monotonic() - self._t0
+
+    def spans_since(self, t: float) -> List[dict]:
+        """The ring's spans that started at or after tracer time ``t``."""
+        with self._lock:
+            return [{"phase": p, "step": s, "start_s": start, "dur_s": d,
+                     "overlap": o, "req": r}
+                    for p, s, start, d, o, r in self._ring if start >= t]
 
     def flush(self, fsync: bool = False) -> None:
         """Flush the spill; ``fsync=True`` also forces it to disk."""

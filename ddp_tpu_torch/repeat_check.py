@@ -43,11 +43,13 @@ def _child(entry: str, deterministic: bool, argv: List[str]) -> None:
 
 
 def run_entries(entries: Sequence[str], train_args: Sequence[str], *,
-                deterministic: bool = False,
-                timeout: float = 600.0) -> List[Dict]:
+                deterministic: bool = False, timeout: float = 600.0,
+                snapshot_path: Optional[str] = None) -> List[Dict]:
     """Run each entry once, one process each, and return their
-    ``--result_json`` summaries in order.  Raises RuntimeError if one
-    fails."""
+    ``--result_json`` summaries in order.  Each run checkpoints to a file
+    of its own, or to ``snapshot_path`` when given (a run with
+    ``--resume`` then continues the one before it).  Raises RuntimeError
+    if one fails."""
     results = []
     with tempfile.TemporaryDirectory() as tmp:
         for k, entry in enumerate(entries):
@@ -65,7 +67,8 @@ def run_entries(entries: Sequence[str], train_args: Sequence[str], *,
                    "--child", entry] + \
                 (["--deterministic"] if deterministic else []) + \
                 ["--", *train_args, "--snapshot_path",
-                 os.path.join(tmp, f"run{k}.pt"), "--result_json", path]
+                 snapshot_path or os.path.join(tmp, f"run{k}.pt"),
+                 "--result_json", path]
             r = subprocess.run(cmd, env=env, timeout=timeout)
             if r.returncode != 0:
                 raise RuntimeError(f"repeat_check: run {k} ({entry}) exited "

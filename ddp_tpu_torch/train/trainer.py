@@ -2,8 +2,10 @@
 resident or the streaming data path: one optimizer step per batch, or per
 group of ``grad_accum`` micro-batches, enqueued without waiting for the
 device; each epoch's losses summed over the ranks and read to the host once
-at its end and printed; a checkpoint every ``save_every`` epochs (written
-by rank 0); and ``resume`` from one at an epoch boundary.
+at its end and printed (and, on rank 0, written to the metrics stream one
+record a step); a checkpoint every ``save_every`` epochs (written by rank
+0); ``resume`` from one at an epoch boundary; and a caller's
+``epoch_callback`` after each epoch's checkpoint gate.
 
 Resident, the dataset is uploaded once and each epoch runs its index
 matrix.  Streaming (``_epoch_losses_streaming``,
@@ -20,7 +22,9 @@ from __future__ import annotations
 import os
 import sys
 import time
-from typing import Callable, Dict, Iterable, Iterator, List, Optional
+from collections import deque
+from typing import (Callable, Deque, Dict, Iterable, Iterator, List,
+                    Optional, Tuple)
 
 import numpy as np
 import torch
@@ -144,7 +148,21 @@ class Trainer:
     first enqueue to its losses on the host) and, on a CUDA device,
     ``step_ms`` every optimizer step's device time on this rank (between
     CUDA events after consecutive steps).  The process tracer's
-    ``dispatch`` spans cover each step's enqueue.
+    ``dispatch`` spans cover each streamed step's enqueue, or each resident
+    call's (one an optimizer-step shape an epoch), and ``loss_flush`` each
+    epoch's read of its losses.
+
+    On rank 0, ``metrics`` (a :class:`~ddp_tpu_torch.utils.metrics
+    .MetricsLogger`) gets one ``log_step`` an optimizer step, with
+    ``lr_schedule(step)``, once the epoch's losses are on the host
+    (``ddp_tpu/train/trainer.py:660-665``); and ``live`` (a
+    :class:`~ddp_tpu_torch.obs.live.LiveStats`) each streamed step's
+    duration (the resident epoch's steps are enqueued without a consumer
+    loop to time, as the JAX package's scan is).  On a card that is the
+    step's device time, between the CUDA events after the step before it
+    and after it, fed once the later event has completed (the host runs
+    ahead of the card, so its own loop would time enqueues until the
+    launch queue fills); on the CPU, the consumer loop's time.
 
     Every epoch with ``epoch % save_every == 0`` (epoch 0 included, as in
     the reference) ends with a checkpoint at ``snapshot_path``, written by
@@ -168,7 +186,8 @@ class Trainer:
                  compute_dtype: Optional[torch.dtype] = None,
                  resident: bool = True, device_augment: bool = False,
                  prefetch_depth: int = 2, prefetch_workers: int = 4,
-                 prefetch_stats: Optional[PrefetchStats] = None):
+                 prefetch_stats: Optional[PrefetchStats] = None,
+                 metrics=None, live=None):
         if train_loader.num_replicas != dist.world_size():
             raise ValueError(f"the train loader has "
                              f"{train_loader.num_replicas} replicas; the "
@@ -176,6 +195,13 @@ class Trainer:
         self.train_loader = train_loader
         self.device = device
         self.rank = dist.rank()
+        self.lr_schedule = lr_schedule
+        self.metrics = metrics if self.rank == 0 else None
+        self._live = live if self.rank == 0 else None
+        # Streamed steps not yet fed to live on a card: (step, the CUDA
+        # events after the step before it and after it).
+        self._live_pending: Deque[Tuple[int, torch.cuda.Event,
+                                        torch.cuda.Event]] = deque()
         self.seed = seed
         self.save_every = save_every
         self.snapshot_path = snapshot_path
@@ -268,11 +294,15 @@ class Trainer:
         """The epoch's index matrix in optimizer-step groups, each group
         one call of the resident epoch."""
         full, tail = self.train_loader.rank_index_matrix(self.rank)
-        return [self.train_epoch(
-            self.state, self.resident.images, self.resident.labels,
-            torch.from_numpy(idx).to(self.device), self.draws, events,
-            self.dropout)
-            for idx in optimizer_groups(full, tail, self.grad_accum)]
+        tracer = get_tracer()
+        parts = []
+        for idx in optimizer_groups(full, tail, self.grad_accum):
+            with tracer.span("dispatch", step=self.state.step):
+                parts.append(self.train_epoch(
+                    self.state, self.resident.images, self.resident.labels,
+                    torch.from_numpy(idx).to(self.device), self.draws,
+                    events, self.dropout))
+        return parts
 
     def _epoch_losses_streaming(self, events, start: int = 0
                                 ) -> List[torch.Tensor]:
@@ -288,8 +318,10 @@ class Trainer:
             step0=self.state.step, start=start)
         tracer = get_tracer()
         losses = []
+        t_prev = time.monotonic()
         for batch in batches:
-            with tracer.span("dispatch", step=self.state.step):
+            step = self.state.step
+            with tracer.span("dispatch", step=step):
                 losses.append(self.train_step(
                     self.state, micro_batches(batch.wait(), self.grad_accum),
                     self.draws, self.dropout))
@@ -297,7 +329,24 @@ class Trainer:
                 ev = torch.cuda.Event(enable_timing=True)
                 ev.record()
                 events.append(ev)
+            if self._live is None:
+                continue
+            # The step's id is its dispatch span's: the streams join on it.
+            if events is None:
+                now = time.monotonic()
+                self._live.step(now - t_prev, step=step)
+                t_prev = now
+            else:
+                self._live_pending.append((step, events[-2], events[-1]))
+                self._feed_live()
         return losses
+
+    def _feed_live(self) -> None:
+        """Feed ``live``, in order, each pending streamed step whose end
+        event has completed; never waits for the card."""
+        while self._live_pending and self._live_pending[0][2].query():
+            step, before, after = self._live_pending.popleft()
+            self._live.step(before.elapsed_time(after) / 1e3, step=step)
 
     def _run_epoch(self, epoch: int) -> None:
         loader = self.train_loader
@@ -306,6 +355,7 @@ class Trainer:
         t0 = time.perf_counter()
         self._epoch = epoch
         loader.set_epoch(epoch)
+        start_step = self.state.step
         events: Optional[List[torch.cuda.Event]] = None
         if self.device.type == "cuda":
             events = [torch.cuda.Event(enable_timing=True)]
@@ -315,19 +365,31 @@ class Trainer:
         else:
             step_losses = self._epoch_losses_streaming(events)
             parts = [torch.stack(step_losses)] if step_losses else []
-        losses = dist.all_reduce_sum_(torch.cat(parts)).tolist() \
-            if parts else []
+        with get_tracer().span("loss_flush", step=start_step):
+            losses = dist.all_reduce_sum_(torch.cat(parts)).tolist() \
+                if parts else []
         self.epoch_seconds.append(time.perf_counter() - t0)
+        if self._live_pending:
+            self._feed_live()  # the flush has waited for every step
         if events is not None:
             self.step_ms.extend(a.elapsed_time(b)
                                 for a, b in zip(events, events[1:]))
         self.loss_history.extend(losses)
+        if self.metrics is not None:
+            for i, loss in enumerate(losses):
+                self.metrics.log_step(
+                    step=start_step + i, epoch=epoch, loss=loss,
+                    lr=float(self.lr_schedule(start_step + i)))
         if losses:
             print(f"[GPU{self.rank}] Epoch {epoch} | mean loss "
                   f"{sum(losses) / len(losses):.4f} | last loss "
                   f"{losses[-1]:.4f}")
 
-    def train(self, max_epochs: int) -> None:
+    def train(self, max_epochs: int, epoch_callback=None) -> None:
+        """Epochs ``start_epoch`` to ``max_epochs - 1``, each followed by
+        the rank-0 ``save_every`` checkpoint gate and then
+        ``epoch_callback(epoch)`` (``--eval_every``'s, on every rank;
+        ``ddp_tpu/train/trainer.py:1105-1110``)."""
         for epoch in range(self.start_epoch, max_epochs):
             self._run_epoch(epoch)
             if self.snapshot_path and epoch % self.save_every == 0:
@@ -338,3 +400,5 @@ class Trainer:
                     if self.shard_update else self.state.momentum)
                 if self.rank == 0:
                     self._save(epoch, momentum)
+            if epoch_callback is not None:
+                epoch_callback(epoch)

@@ -906,3 +906,60 @@ def test_model_serve_graphs_equal_eager_forward(cuda, name):
                 dtype=dtype or torch.float32)
             np.testing.assert_array_equal(engine.forward(x),
                                           apply_fn(images).cpu().numpy())
+
+
+def test_bench_line_on_the_card(cuda, capsys, tmp_path):
+    """``python -m ddp_tpu_torch.bench`` on the card: one stdout line with
+    every field, the card's name and power limit, an MFU in (0, 1.05]
+    against the data sheet's peak for the dtype, and one ``gather_batch``
+    launch a train step."""
+    import json
+
+    from ddp_tpu_torch import bench
+    from ddp_tpu_torch.obs.live import PEAK_TFLOPS
+    set_tf32(False)
+    path = tmp_path / "bench.json"
+    summary = bench.main(["--model", "deepnn", "--steps", "5", "--warmup",
+                          "2", "--repeats", "2", "--primary_only",
+                          "--result_json", str(path)])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    f32, bf16 = (json.loads(lines[0]), summary["records"][1])
+    for rec, dtype in ((f32, "float32"), (bf16, "bfloat16")):
+        assert tuple(rec) == bench.RECORD_FIELDS
+        assert rec["device"] == {"name": torch.cuda.get_device_name(0),
+                                 "count": 1}
+        assert rec["power_limit_w"] > 0
+        assert 0 < rec["mfu"] <= 1.05 and rec["value"] > 0
+        assert rec["mfu_peak_source"] == (
+            "datasheet" if rec["device"]["name"] in PEAK_TFLOPS
+            else "probed")
+    assert summary["steps"] == {"float32": 12, "bfloat16": 12}
+    assert summary["launches"] == {"gather_batch": 24,
+                                   "gather_batch_bf16": 12}
+
+
+def test_live_records_time_the_card_steps(cuda, tmp_path):
+    """On the card a streamed run's ``live`` records time each step by
+    CUDA events: each record's median step is the median of its window of
+    the run's own event times (``step_ms``), not the host loop's enqueue
+    time."""
+    import json
+    import statistics
+
+    from ddp_tpu_torch import cli
+    set_tf32(False)
+    metrics = tmp_path / "m.jsonl"
+    out = cli.main(["2", "1", "--batch_size", "64", "--synthetic",
+                    "--synthetic_size", "640", "--metrics_path",
+                    str(metrics), "--log_every", "3", "--snapshot_path",
+                    str(tmp_path / "c.pt")])
+    lives = [r for r in map(json.loads, metrics.read_text().splitlines())
+             if r.get("event") == "live"]
+    assert [r["step"] for r in lives] == list(range(2, 20, 3))
+    assert len(out["step_ms"]) == 20
+    for r in lives:
+        own = statistics.median(out["step_ms"][max(r["step"] - 99, 0):
+                                               r["step"] + 1])
+        assert r["step_ms_median"] == pytest.approx(own, abs=1e-3)
+        assert r["mfu"] > 0

@@ -32,7 +32,9 @@ new = {"ddp_tpu_torch.multigpu", "ddp_tpu_torch.parallel",
        "ddp_tpu_torch.repeat_check", "ddp_tpu_torch.data.native",
        "ddp_tpu_torch.data.augment", "ddp_tpu_torch.data.prefetch",
        "ddp_tpu_torch.models.deepnn", "ddp_tpu_torch.models.resnet",
-       "ddp_tpu_torch.models.modules"}
+       "ddp_tpu_torch.models.modules", "ddp_tpu_torch.bench",
+       "ddp_tpu_torch.obs.live", "ddp_tpu_torch.obs.aggregate",
+       "ddp_tpu_torch.utils", "ddp_tpu_torch.utils.metrics"}
 assert new <= set(names), sorted(new - set(names))
 """
 
