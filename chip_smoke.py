@@ -124,6 +124,21 @@
    strategy phase's deterministic resident run of the same arguments; a
    narrow world-2 streamed epoch over gloo on the card against the CPU
    within ``PARITY_TOL`` (lr 0.05, drill seed ``STREAM_DRILL_SEED``).
+   Resilience phase (``resilience_phase``, a run that survives): the
+   streamed VGG-11 at full width on 10,240 images, 2 epochs, first in this
+   process unarmed and then armed (``--on_nan restore --watchdog_secs 600
+   --drift_audit_every 5``), the armed event median within 1% of the
+   unarmed one and each audit's excess printed (its cost a step at K =
+   50); then five chains at once, in processes of their own: in
+   deterministic mode the uninterrupted run, ``sigterm@step=13`` (exit 75,
+   data_state epoch 0 offset 14) and ``--resume`` bit for bit on it (31
+   ``gather_batch`` launches: 26 steps and 5 eval batches), and
+   ``poison@step=25 --on_nan restore --keep_checkpoints 3`` (restores 1,
+   its losses the uninterrupted ones), its head torn, the serve engine on
+   the directory (the epoch-0 snapshot) and ``--resume`` from it bit for
+   bit; and at world 2 over gloo on the card, ``flip_param_bit`` caught by
+   ``--drift_audit_every 5`` (exit 1, the event naming the first leaf and
+   replica 1) and a stalled rank ended by ``--watchdog_secs 20`` (124).
    Models phase (``--model deepnn`` and ``resnet18``, each at its full and
    only width, ``MODEL_ARGS``): ``multigpu`` in this process as rank 0 of a
    world-1 NCCL group, its counts zeroed before each run and read after,
@@ -207,8 +222,11 @@
     profiled HTTP load, on the DDP path: the world-1 run's and the card
     ranks' of the world-2 run, on the strategy path: the composed
     world-1 run's and the card ranks' of its world-2 run, on the
-    streaming path: every card run of the streaming phase, and on the
-    models path: the models phase's runs, serving and drills, on the bench
+    streaming path: every card run of the streaming phase, on the
+    resilience path: the runs that report their counters (the unarmed and
+    armed runs, the uninterrupted one, the resumed ones, the poisoned one),
+    and on the models path: the models phase's runs, serving and drills,
+    on the bench
     path: the train steps the bench's processes ran in that form, and on
     the run-shape path: the split, uninterrupted and streamed runs; both
     entries
@@ -265,6 +283,7 @@ from ddp_tpu_torch.parallel.dist import free_port
 from ddp_tpu_torch.profile_resident import (_group, device_events,
                                             kernel_launches)
 from ddp_tpu_torch.repeat_check import compare, run_entries
+from ddp_tpu_torch.resilience.faults import FAULT_ENV
 from ddp_tpu_torch.serve import (DynamicBatcher, ServeEngine,
                                  ServeHTTPServer, percentiles)
 from ddp_tpu_torch.train.checkpoint import (load_checkpoint, restore,
@@ -1863,8 +1882,9 @@ def stream_phase(out: dict, out_bf16: dict, resident_det: dict, card: str,
     other and against the strategy phase's resident run ``resident_det``
     of the same arguments; a narrow world-2 streamed epoch over gloo on the
     card against the CPU.  First, :func:`stream_batch_cases`.  Returns the
-    path's gather_batch launches in float32 and in bfloat16, and the
-    streamed-batch case counts by dtype."""
+    path's gather_batch launches in float32 and in bfloat16, the
+    streamed-batch case counts by dtype, and the float32 streaming run's
+    summary (the resilience phase's unarmed step)."""
     cases = stream_batch_cases(torch.Generator(device="cuda").manual_seed(9))
     n = MAIN_TRAIN_STEPS + MAIN_EVAL_STEPS
     f32_path = os.path.join(tmp, "stream.pt")
@@ -2020,7 +2040,310 @@ def stream_phase(out: dict, out_bf16: dict, resident_det: dict, card: str,
           f"{worst:.3e} (losses, weights, BN buffers, momentum; tolerance "
           f"{PARITY_TOL:g}); gather_batch launches on the card ranks "
           f"{card_launches}", flush=True)
-    return stream_launches, bf16_launches, cases
+    return stream_launches, bf16_launches, cases, res
+
+
+# The resilience phase's run: the streamed VGG-11 at full width, batch 512,
+# 10,240 images (20 steps an epoch), 2 epochs; the world-2 drills split the
+# images over two ranks (10 steps an epoch).
+SURVIVE_ARGS = ["2", "1", "--batch_size", "512", "--synthetic",
+                "--synthetic_size", "10240"]
+SURVIVE_STEPS, SURVIVE_EVALS = 20, 5
+SIGTERM_STEP, POISON_STEP = 13, 25
+# The armed step's event median against the unarmed one; the audit cadence
+# of the armed run (audits after steps 5, 10, 15, 25, 30 and 35 land in a
+# step's span; those after 20 and 40 at an epoch's end) and the cadence
+# whose cost a step is reported.
+ARMED_TOL, AUDIT_PROBE, AUDIT_EVERY = 0.01, 5, 50
+# One rank of a multigpu run over gloo (NCCL refuses two ranks on one card).
+GLOO_RANK = ("import sys; from ddp_tpu_torch import cli; "
+             "cli.main_multi(sys.argv[1:], backend='gloo')")
+
+
+def survive_child(args: list, snapshot: str, name: str,
+                  fault: str = "") -> tuple:
+    """``singlegpu args`` in a process of its own in deterministic mode
+    (``repeat_check``'s child), with ``DDP_TPU_FAULT=fault``: its exit
+    code, its ``--result_json`` summary (None when it wrote none) and its
+    stdout and stderr."""
+    res = snapshot + f".{name}.json"
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    env.pop(FAULT_ENV, None)
+    if fault:
+        env[FAULT_ENV] = fault
+    r = subprocess.run(
+        [sys.executable, "-m", "ddp_tpu_torch.repeat_check", "--child",
+         "singlegpu", "--deterministic", "--", *args, "--snapshot_path",
+         snapshot, "--result_json", res], env=env, capture_output=True,
+        text=True, timeout=600)
+    out = None
+    if os.path.exists(res):
+        with open(res) as f:
+            out = json.load(f)
+    return r.returncode, out, r.stdout, r.stderr
+
+
+def _expect(got: tuple, code: int, what: str) -> dict:
+    rc, out, _, err = got
+    check(rc == code and (out is not None or code != 0),
+          f"{what}: exit {rc}, expected {code}: {err[-3000:]}")
+    return out
+
+
+def _same_state(a, b) -> bool:
+    """Two checkpoints' step, weights, BatchNorm buffers and momentum bit
+    for bit."""
+    def flat(tree, prefix=""):
+        for k in sorted(tree):
+            v = tree[k]
+            yield from (flat(v, f"{prefix}{k}/") if isinstance(v, dict)
+                        else [(prefix + k, v)])
+    return a.step == b.step and all(
+        ka == kb and np.array_equal(x, y)
+        for sect in ("params", "batch_stats", "momentum")
+        for (ka, x), (kb, y) in zip(flat(getattr(a, sect)),
+                                    flat(getattr(b, sect))))
+
+
+def gloo_world2(args: list, fault: str, timeout: float) -> tuple:
+    """``multigpu args`` as two ranks on this card over gloo with
+    ``DDP_TPU_FAULT=fault``: the largest exit code and the seconds."""
+    env = dict(os.environ, **{FAULT_ENV: fault})
+    t0 = time.time()
+    code = dist.launch_local([sys.executable, "-c", GLOO_RANK, *args], 2,
+                             env=env, same_device=True, timeout=timeout)
+    return code, time.time() - t0
+
+
+def gpu_state() -> str:
+    """The card's SM clock, temperature and power draw now."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,"
+                        "power.draw", "--format=csv,noheader"],
+                       capture_output=True, text=True, timeout=30)
+    return r.stdout.strip() or "nvidia-smi: no answer"
+
+
+def armed_step(stream: dict, card: str, tmp: str) -> int:
+    """The streamed 10,240-image run in this process, unarmed, then armed
+    (the preemption guard the CLI always installs, ``--on_nan restore``,
+    ``--watchdog_secs 600`` and ``--drift_audit_every 5``), back to back:
+    the armed event median over the steps whose span holds no audit within
+    ``ARMED_TOL`` of the unarmed median (the streaming phase's 50,000-image
+    median printed beside); each audit's excess over the median on the
+    step that carries it, the first apart (it loads the audit's kernels)
+    and the median of the rest priced a step at K = ``AUDIT_EVERY``; each
+    run's counts set to 0 before it and read after.  Returns their
+    gather_batch launches."""
+    n = 2 * SURVIVE_STEPS
+    before = gpu_state()
+    plain = stream_run(SURVIVE_ARGS, os.path.join(tmp, "unarmed.pt"))
+    armed = stream_run(SURVIVE_ARGS + ["--on_nan", "restore",
+                                       "--watchdog_secs", "600",
+                                       "--drift_audit_every",
+                                       str(AUDIT_PROBE)],
+                       os.path.join(tmp, "armed.pt"))
+    after = gpu_state()
+    audits = n // AUDIT_PROBE
+    for res, extra in ((plain, {}), (armed, {"drift_audit": 2 * audits})):
+        check(res["launches"] == _launches(n + SURVIVE_EVALS) and
+              res["collectives"] == {"all_reduce": 2 * n + 2 + 1,
+                                     "broadcast": 1, **extra} and
+              len(res["step_ms"]) == n,
+              f"the {'armed' if extra else 'unarmed'} run: launches "
+              f"{res['launches']}, collectives {res['collectives']}")
+    # step_ms holds each epoch's spans; an audit after global step s lands
+    # in span s, unless s ends an epoch.
+    spans = [s for s in range(AUDIT_PROBE, n, AUDIT_PROBE)
+             if s % SURVIVE_STEPS]
+    base = statistics.median(plain["step_ms"])
+    ms = statistics.median(t for i, t in enumerate(armed["step_ms"])
+                           if i not in spans)
+    excess = [armed["step_ms"][i] - ms for i in spans]
+    steady = statistics.median(excess[1:])
+    check(abs(ms - base) <= ARMED_TOL * base,
+          f"the armed streamed step {ms:.3f} ms against the unarmed "
+          f"{base:.3f} ms")
+    print(f"resilience, armed streamed step ({card}; clocks, temperature, "
+          f"power before/after: {before} / {after}): event median "
+          f"{ms:.3f} ms/step with the preemption guard, --on_nan restore and "
+          f"--watchdog_secs 600, beside the unarmed run's {base:.3f} ms "
+          f"({(ms / base - 1) * 100:+.2f}%) and the streaming phase's "
+          f"{statistics.median(stream['step_ms']):.3f} ms (50,000 images); "
+          f"--drift_audit_every {AUDIT_PROBE}: the audited steps' excess "
+          f"{[round(x, 3) for x in excess]} ms, the first "
+          f"{excess[0]:.3f} ms, the rest's median {steady:.3f} ms, so "
+          f"{steady / AUDIT_EVERY:.4f} ms a step at K = {AUDIT_EVERY} "
+          f"({steady / AUDIT_EVERY / ms * 100:.3f}%), world 1", flush=True)
+    return plain["launches"]["gather_batch"] + \
+        armed["launches"]["gather_batch"]
+
+
+def resilience_phase(unarmed: dict, card: str, tmp: str) -> int:
+    """A run that survives, on the card.  Five chains at once, each in
+    processes of its own (the deterministic children bit for bit whatever
+    runs beside them): the uninterrupted streamed run; ``sigterm@step=13``
+    (exit 75, a mid-epoch data_state) then ``--resume``, bit for bit on it
+    with one ``gather_batch`` launch a streamed step; ``poison@step=25
+    --on_nan restore --keep_checkpoints 3`` (completes with ``rng_folds``
+    1, its losses the uninterrupted ones: host batches draw nothing the
+    restore re-keys), its head torn, the serve engine on the
+    directory (the epoch-0 snapshot) and ``--resume`` from the snapshot,
+    bit for bit on it; and at world 2 over gloo on this card,
+    ``flip_param_bit`` caught by ``--drift_audit_every 5`` (exit 1, the
+    event naming the first leaf and replica 1) and ``stall`` ending in the
+    watchdog's 124 under ``--watchdog_secs 20``.  First, alone in this
+    process, :func:`armed_step` (``unarmed`` is the streaming phase's
+    run).  Returns the launches of gather_batch the path reported."""
+    from ddp_tpu_torch.resilience.drift import leaf_paths
+    from ddp_tpu_torch.resilience.faults import tear_file
+    from ddp_tpu_torch.resilience.lineage import lineage_name
+    t0 = time.time()
+    launches = armed_step(unarmed, card, tmp)
+    t1 = time.time()
+    total = 2 * SURVIVE_STEPS
+    results, errors = {}, []
+
+    def chain(name, fn):
+        def run():
+            try:
+                results[name] = fn()
+            except Exception as e:  # re-raised below, after the joins
+                errors.append(e)
+        return threading.Thread(target=run, name=name)
+
+    def full():
+        return _expect(survive_child(SURVIVE_ARGS,
+                                     os.path.join(tmp, "full.pt"), "full"),
+                       0, "the uninterrupted run")
+
+    def sigterm():
+        path = os.path.join(tmp, "half.pt")
+        got = survive_child(SURVIVE_ARGS, path, "half",
+                            f"sigterm@step={SIGTERM_STEP}")
+        check(got[0] == 75 and "relaunch with --resume" in got[3],
+              f"sigterm@step={SIGTERM_STEP}: exit {got[0]}: "
+              f"{got[3][-3000:]}")
+        ds = load_checkpoint(path).data_state
+        resumed = survive_child(SURVIVE_ARGS + ["--resume"], path, "resume")
+        check("fast-forwarding epoch" in resumed[2],
+              "the resumed run did not fast-forward")
+        return ds, _expect(resumed, 0, "--resume after the SIGTERM")
+
+    def poison():
+        path = os.path.join(tmp, "lineage", "checkpoint.pt")
+        os.makedirs(os.path.dirname(path))
+        out = _expect(survive_child(
+            SURVIVE_ARGS + ["--on_nan", "restore", "--keep_checkpoints",
+                            "3"], path, "poison",
+            f"poison@step={POISON_STEP}"),
+            0, f"poison@step={POISON_STEP} --on_nan restore")
+        tear_file(path)
+        engine = ServeEngine.from_checkpoint(os.path.dirname(path), "vgg")
+        snapshot = lineage_name(path, 0)
+        served = (engine.checkpoint_file, engine.checkpoint_epoch,
+                  engine.checkpoint_step)
+        del engine
+        resumed = _expect(survive_child(
+            SURVIVE_ARGS + ["--resume", "--keep_checkpoints", "3"], path,
+            "torn"), 0, "--resume past a torn head")
+        return out, served, snapshot, resumed, path
+
+    def drift_drill():
+        metrics = os.path.join(tmp, "drift.jsonl")
+        code, secs = gloo_world2(
+            SURVIVE_ARGS + ["--drift_audit_every", "5", "--metrics_path",
+                            metrics, "--snapshot_path",
+                            os.path.join(tmp, "drift.pt")],
+            "flip_param_bit@step=6,replica=1", timeout=400)
+        with open(metrics) as f:
+            events = [json.loads(line) for line in f]
+        return code, secs, [e for e in events
+                            if e.get("event") == "drift_detected"]
+
+    def stall_drill():
+        return gloo_world2(SURVIVE_ARGS + ["--watchdog_secs", "20",
+                                           "--snapshot_path",
+                                           os.path.join(tmp, "stall.pt")],
+                           "stall@epoch=0,rank=1,secs=600", timeout=400)
+
+    threads = [chain(n, f) for n, f in (
+        ("full", full), ("sigterm", sigterm), ("poison", poison),
+        ("drift", drift_drill), ("stall", stall_drill))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    t_drills = time.time() - t1
+    full_out = results["full"]
+    full_ck = load_checkpoint(os.path.join(tmp, "full.pt"))
+
+    ds, resumed = results["sigterm"]
+    stop = SIGTERM_STEP + 1
+    n_resumed = total - stop
+    check((ds["epoch"], ds["offset"], ds["rng_folds"]) ==
+          divmod(stop, SURVIVE_STEPS) + (0,),
+          f"the SIGTERM's data_state {ds}")
+    check(resumed["kernel_launches"]["gather_batch"] ==
+          n_resumed + SURVIVE_EVALS and
+          len(resumed["loss_history"]) == n_resumed,
+          f"--resume: {len(resumed['loss_history'])} steps, launches "
+          f"{resumed['kernel_launches']}")
+    check(resumed["loss_history"] == full_out["loss_history"][stop:] and
+          _same_state(load_checkpoint(os.path.join(tmp, "half.pt")),
+                      full_ck),
+          "the resumed run differs from the uninterrupted one")
+    launches += resumed["kernel_launches"]["gather_batch"] + \
+        full_out["kernel_launches"]["gather_batch"]
+    print(f"resilience ({card}): sigterm@step={SIGTERM_STEP} exit 75, "
+          f"data_state epoch {ds['epoch']} offset {ds['offset']}; --resume "
+          f"trained {n_resumed} steps ({n_resumed + SURVIVE_EVALS} "
+          f"gather_batch launches), its losses and checkpoint (weights, "
+          f"BN buffers, momentum, step {full_ck.step}) bit for bit the "
+          f"uninterrupted run's, deterministic mode", flush=True)
+
+    out, served, snapshot, torn, path = results["poison"]
+    check(out["restores"] == 1 and out["data_state"]["rng_folds"] == 1 and
+          out["loss_history"] == full_out["loss_history"],
+          f"poison@step={POISON_STEP} --on_nan restore: restores "
+          f"{out['restores']}, data_state {out['data_state']}, losses equal "
+          f"{out['loss_history'] == full_out['loss_history']}")
+    check(served == (snapshot, 0, SURVIVE_STEPS),
+          f"the serve engine on the torn lineage served {served}")
+    check(len(torn["loss_history"]) == SURVIVE_STEPS and
+          torn["loss_history"] == full_out["loss_history"][SURVIVE_STEPS:]
+          and _same_state(load_checkpoint(path), full_ck),
+          "--resume past the torn head differs from the uninterrupted run")
+    launches += out["kernel_launches"]["gather_batch"] + \
+        torn["kernel_launches"]["gather_batch"]
+    print(f"resilience ({card}): poison@step={POISON_STEP} --on_nan restore "
+          f"completed, restores 1, rng_folds 1, {total} losses bit for bit "
+          f"the uninterrupted run's ({out['kernel_launches']['gather_batch']}"
+          f" gather_batch launches with the discarded epoch); head torn: the "
+          f"serve engine on the directory served {os.path.basename(snapshot)}"
+          f" (epoch 0), --resume from it trained epoch 1 bit for bit",
+          flush=True)
+
+    code, secs, events = results["drift"]
+    first = leaf_paths(get_model("vgg", device="meta"))[0]
+    check(code == 1 and len(events) == 1 and events[0]["step"] <= 6 + 5 and
+          events[0]["leaves"] == [first] and events[0]["replicas"] == [1],
+          f"the world-2 drift drill: exit {code}, events {events}")
+    code_stall, secs_stall = results["stall"]
+    check(code_stall == 124 and secs_stall < 300,
+          f"the world-2 stall drill: exit {code_stall} after "
+          f"{secs_stall:.1f} s")
+    print(f"resilience world 2 on one card over gloo ({card}): "
+          f"flip_param_bit@step=6,replica=1 caught at step "
+          f"{events[0]['step']} by --drift_audit_every 5 (leaf {first}, "
+          f"replica 1), exit 1 after {secs:.1f} s; stall@epoch=0,rank=1 "
+          f"ended by --watchdog_secs 20 with 124 after {secs_stall:.1f} s",
+          flush=True)
+    print(f"resilience drills: {t_drills:.1f} s", flush=True)
+
+    print(f"resilience phase: {time.time() - t0:.1f} s", flush=True)
+    return launches
 
 
 def bf16_serve_phase(snapshot: str, f32: dict) -> dict:
@@ -2905,9 +3228,11 @@ def main() -> int:
         ddp, card)
     strategy_bf16_launches = bf16_strategy_phase(composed, margin, card)
     t0 = time.time()
-    stream_launches, stream_bf16_launches, stream_cases = stream_phase(
-        out, out_bf16, resident_det, card, snapshot_dir.name)
+    stream_launches, stream_bf16_launches, stream_cases, unarmed = \
+        stream_phase(out, out_bf16, resident_det, card, snapshot_dir.name)
     print(f"streaming phase: {time.time() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        survive_launches = resilience_phase(unarmed, card, tmp)
     models = models_phases(out, out_bf16, card)
     serve = serve_phase(snapshot)
     print(f"serve: {json.dumps(serve)}", flush=True)
@@ -2935,6 +3260,7 @@ def main() -> int:
                  launches_models_path=models["launches_f32"],
                  launches_bench_path=bench["float32"],
                  launches_runshape_path=runshape_launches,
+                 launches_resilience_path=survive_launches,
                  stream_batch_cases=stream_cases[torch.float32],
                  launches_serve_path=serve["warm_launches"]
                  + serve["http_profiled"]["gather_batch_kernel_launches"],

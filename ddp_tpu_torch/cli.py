@@ -12,7 +12,12 @@
         [--snapshot_path checkpoint.pt] [--resume] [--device cuda|cpu] \\
         [--schedule_epochs E] [--schedule_steps_per_epoch S] \\
         [--eval_every E] [--metrics_path PATH [--log_every 50]] \\
-        [--tensorboard_dir DIR] [--num_devices N] [--result_json PATH]
+        [--tensorboard_dir DIR] [--num_devices N] [--result_json PATH] \\
+        [--keep_checkpoints N] [--on_nan abort|skip|restore] \\
+        [--guard_window W] [--guard_spike_factor F] \\
+        [--guard_action abort|skip|lr_backoff|rollback] \\
+        [--drift_audit_every K] [--drift_action abort|restore] \\
+        [--watchdog_secs S]
     python -m ddp_tpu_torch.multigpu <same arguments> [--spawn N]
 
 ``--model`` trains VGG-11 (the default, the reference's model), DeepNN (the
@@ -71,21 +76,44 @@ says so on stderr instead, as the JAX CLI does.  ``--tensorboard_dir``
 mirrors the curves where a TensorBoard writer is installed, and is refused
 otherwise.
 
+A run that survives (``ddp_tpu/cli.py:251-327``'s flags, the same
+defaults and meanings; ``resilience/``): ``--keep_checkpoints N`` keeps the
+head and N-1 rotated snapshots with a sha256 manifest, and ``--resume``
+falls back to the newest verifiable one when the head is torn;
+``--on_nan`` and the ``--guard_*`` flags set the step health guard on each
+epoch's losses (``restore``/``rollback`` reload the newest verifiable
+checkpoint and go on, re-keying the step's random draws);
+``--drift_audit_every K`` compares the ranks' parameters bit for bit every
+K streamed steps (``--drift_action``); ``--watchdog_secs S`` hard-exits a
+run that makes no progress for S seconds.  SIGTERM or SIGINT takes an
+emergency checkpoint at the next step boundary of the streaming loop (the
+epoch boundary with ``--resident``), whose ``data_state`` lets
+``--resume`` continue from that exact batch.  Exit codes, as the JAX
+CLI's: 75 after the emergency checkpoint, 124 on a watchdog stall, 1 on a
+guard or drift abort or any other failure; a failing rank of a world > 1
+hard-exits so that its peers do not wait on it.  ``DDP_TPU_FAULT``
+injects the drills' faults (``resilience/faults.py``).  ``--mirror`` and
+``--ckpt_format sharded`` (the storage half, ROADMAP A7b) are refused by
+name.
+
 Prints what the JAX CLI prints: each epoch's header and loss on every rank
 (``[GPU{rank}]``), the checkpoint line of every ``save_every``-th epoch,
 and on rank 0 ``Total training time``, ``fp32 model has size=... MiB`` and
 ``fp32 model has accuracy=...%``.  The checkpoint is the JAX package's v1
 file, written by rank 0: either package's ``load_checkpoint`` reads the
 other's.  It runs on ``cuda`` unless ``--device cpu`` is given, and refuses
-to run without a card otherwise.  A failing rank exits 1.
+to run without a card otherwise.
 """
 from __future__ import annotations
 
 import argparse
 import functools
 import json
+import os
 import sys
+import threading
 import time
+import traceback
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -100,6 +128,10 @@ from .ops.conv_candidates import conv3x3_fused
 from .ops.gather import gather_batch, gather_rows
 from .optim import SGDConfig, triangular_lr
 from .parallel import dist
+from .resilience.faults import install_env_faults
+from .resilience.preemption import (EMERGENCY_CHECKPOINT_EXIT_STATUS,
+                                    PreemptionGuard, PreemptionInterrupt)
+from .resilience.watchdog import Watchdog
 from .train.evaluate import evaluate, evaluate_resident
 from .train.trainer import Trainer
 from .utils.metrics import MetricsLogger, require_tensorboard
@@ -223,8 +255,79 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                         "world, backend, the data path and its prefetch "
                         "times, the strategy and run-shape flags, the "
                         "compute dtype, losses, step times, the periodic "
-                        "and final accuracies, and the port's kernel "
-                        "launches and the collectives in this process")
+                        "and final accuracies, the restores and the final "
+                        "data_state, and the port's kernel launches and "
+                        "the collectives in this process")
+    p.add_argument("--ckpt_format", default="gathered",
+                   choices=["gathered", "sharded"],
+                   help="Checkpoint file format: 'gathered' = the "
+                        "canonical single-file v1 npz (the default and the "
+                        "only one ported); 'sharded' is refused (ROADMAP "
+                        "A7b)")
+    p.add_argument("--keep_checkpoints", default=1, type=int, metavar="N",
+                   help="Retain the newest N checkpoints: the head plus "
+                        "N-1 rotated snapshots with a sha-256 manifest "
+                        "(resilience/lineage.py); --resume falls back to "
+                        "the newest verifiable one when the head is torn. "
+                        "Default 1 = head only, the reference's "
+                        "overwrite-in-place (multigpu.py:111)")
+    p.add_argument("--mirror", default=None, metavar="URI",
+                   help="Second checkpoint durability tier (an object-store "
+                        "mirror): not ported yet, refused (ROADMAP A7b)")
+    p.add_argument("--on_nan", default="abort",
+                   choices=["abort", "skip", "restore"],
+                   help="Non-finite loss policy, checked where each "
+                        "epoch's losses are read (no extra device read): "
+                        "abort = fail fast (default); skip = log and "
+                        "continue; restore = reload the last good "
+                        "checkpoint and re-key the step's random draws.  "
+                        "The step health guard (resilience/guard.py) also "
+                        "hosts the spike detector below")
+    p.add_argument("--guard_window", default=64, type=int, metavar="W",
+                   help="Rolling window (steps) for the guard's "
+                        "median/MAD loss-spike detector (default 64; "
+                        "only read when --guard_spike_factor > 0)")
+    p.add_argument("--guard_spike_factor", default=0.0, type=float,
+                   metavar="F",
+                   help="Flag a step whose loss exceeds median * F + "
+                        "3*MAD over the last --guard_window finite "
+                        "losses (checked on the same loss read as "
+                        "--on_nan).  0 = spike detection off (default)")
+    p.add_argument("--guard_action", default="rollback",
+                   choices=["abort", "skip", "lr_backoff", "rollback"],
+                   help="What a loss spike triggers: abort = fail fast; "
+                        "skip = log and continue; lr_backoff = halve the "
+                        "LR schedule going forward; rollback (default) = "
+                        "restore the last verified checkpoint, re-key, "
+                        "and skip the poisoned batch window on replay "
+                        "(shares the --on_nan restore budget)")
+    p.add_argument("--drift_audit_every", default=0, type=int, metavar="K",
+                   help="Cross-replica SDC audit (resilience/drift.py): "
+                        "every K optimizer steps, fingerprint each rank's "
+                        "parameters bit-level (a uint32 checksum per "
+                        "leaf, NOT a float sum) and compare across the "
+                        "ranks with two small all-reduces.  Replicated "
+                        "parameters must agree bit-for-bit, so any "
+                        "mismatch is silent data corruption: a "
+                        "drift_detected event names the offending leaves "
+                        "and replicas.  Streaming only (refused with "
+                        "--resident).  0 = off (default)")
+    p.add_argument("--drift_action", default="abort",
+                   choices=["abort", "restore"],
+                   help="What a drift detection triggers: abort = fail "
+                        "fast with the event on disk (default); restore "
+                        "= reload the newest verifiable checkpoint "
+                        "(shares the guard's restore budget, so "
+                        "persistent corruption cannot restore-loop)")
+    p.add_argument("--watchdog_secs", default=0.0, type=float, metavar="S",
+                   help="Abort the run (non-blocking dist.abort + exit "
+                        "status 124) when no step/epoch progress happens "
+                        "for S seconds: a stalled peer then fails the job "
+                        "fast instead of riding the process group's "
+                        "timeout.  Must exceed the worst epoch wall time "
+                        "INCLUDING the first step's CUDA kernel build "
+                        "(nvcc at the first launch on a cold build "
+                        "directory).  0 = off (default)")
     return p
 
 
@@ -270,47 +373,96 @@ def _check_args(args: argparse.Namespace) -> None:
     if args.num_devices is not None and args.num_devices < 1:
         raise SystemExit(f"--num_devices must be at least 1, not "
                          f"{args.num_devices}")
+    if args.mirror is not None or args.ckpt_format == "sharded":
+        flag = ("--mirror" if args.mirror is not None
+                else "--ckpt_format sharded")
+        raise SystemExit(
+            f"{flag} belongs to the storage half of the resilience layer "
+            f"(the checkpoint mirror and the sharded format, ROADMAP A7b), "
+            f"which is not ported yet")
+    if args.keep_checkpoints < 1:
+        raise SystemExit(f"--keep_checkpoints must be at least 1, not "
+                         f"{args.keep_checkpoints}")
     if args.tensorboard_dir:
         # Every rank refuses, before any of them joins a collective.
         require_tensorboard()
 
 
-def run(args: argparse.Namespace, *, data_parallel: bool = False) -> Dict:
+def run(args: argparse.Namespace, *, data_parallel: bool = False,
+        backend: Optional[str] = None) -> Dict:
     """Train and evaluate; returns ``{"accuracy", "training_seconds",
     "eval_seconds", "loss_history", "step_ms", "state", "rank", "world",
     "backend"}``, where ``state`` is the trained
     :class:`~ddp_tpu_torch.train.step.TrainState`.
 
     With ``data_parallel`` this process first joins the process group its
-    environment describes (:func:`~ddp_tpu_torch.parallel.dist.initialize`;
-    world 1 without one) and leaves it at the end, failed or not."""
+    environment describes (:func:`~ddp_tpu_torch.parallel.dist.initialize`,
+    on ``backend`` when given; world 1 without one) and leaves it at the
+    end.  A preemption's emergency checkpoint raises
+    ``SystemExit(EMERGENCY_CHECKPOINT_EXIT_STATUS)``.  Any other failure of
+    a rank of a world > 1 prints its traceback, gives the process group up
+    (:func:`~ddp_tpu_torch.parallel.dist.abort`) and hard-exits 1: a
+    graceful teardown would wait on peers that wait on this rank
+    (``ddp_tpu/cli.py:543-600``)."""
     _check_args(args)
     device = resolve_device(args.device)
     if data_parallel:
-        device = dist.initialize(device)
+        device = dist.initialize(device, backend)
     try:
         if args.num_devices and args.num_devices != dist.world_size():
             raise SystemExit(
                 f"--num_devices {args.num_devices} contradicts this run's "
                 f"world of {dist.world_size()}")
         return _train_and_evaluate(args, device)
+    except PreemptionInterrupt as e:
+        # Every rank stopped at the same boundary with the checkpoint on
+        # disk, so the graceful teardown below completes.
+        print(f"{e}; exiting with status "
+              f"{EMERGENCY_CHECKPOINT_EXIT_STATUS} — relaunch with --resume "
+              f"to continue", file=sys.stderr)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        raise SystemExit(EMERGENCY_CHECKPOINT_EXIT_STATUS) from None
+    except BaseException as err:
+        if dist.world_size() > 1:
+            print(f"FATAL: rank {dist.rank()} failed with {err!r}; giving "
+                  f"the process group up and hard-exiting so that peer "
+                  f"ranks do not hang in their next collective",
+                  file=sys.stderr)
+            traceback.print_exc()
+            dist.abort()
+            _hard_exit(1)
+        raise
     finally:
         if data_parallel:
             dist.shutdown()
+
+
+def _hard_exit(code: int) -> None:  # replaced by in-process tests
+    os._exit(code)
 
 
 def _train_and_evaluate(args: argparse.Namespace,
                         device: torch.device) -> Dict:
     metrics = MetricsLogger(args.metrics_path, enabled=dist.rank() == 0,
                             tensorboard_dir=args.tensorboard_dir)
+    # SIGTERM/SIGINT take an emergency checkpoint while this process owns
+    # the main thread (signal handlers can only be set there; a caller on
+    # another thread keeps its own handling).
+    preemption = (PreemptionGuard().install()
+                  if threading.current_thread() is threading.main_thread()
+                  else None)
     try:
-        return _train(args, device, metrics)
+        return _train(args, device, metrics, preemption)
     finally:
+        if preemption is not None:
+            preemption.uninstall()
         metrics.close()
 
 
 def _train(args: argparse.Namespace, device: torch.device,
-           metrics: MetricsLogger) -> Dict:
+           metrics: MetricsLogger,
+           preemption: Optional[PreemptionGuard]) -> Dict:
     rank, world = dist.rank(), dist.world_size()
     set_tf32(False)
     compute_dtype = torch.bfloat16 if args.bf16 else None
@@ -352,6 +504,11 @@ def _train(args: argparse.Namespace, device: torch.device,
                 window=max(100, args.log_every), model=args.model,
                 device_kind=device_kind(device),
                 compute_dtype=compute_dtype, prefetch_stats=prefetch)
+    watchdog = None
+    if args.watchdog_secs > 0:
+        watchdog = Watchdog(args.watchdog_secs, context=lambda: (
+            f"last completed step {trainer.state.step}, guard "
+            f"{trainer._health.last_decision}"))
     trainer = Trainer(
         model, train_loader, device=device,
         lr_schedule=build_schedule(args, train_loader),
@@ -363,7 +520,13 @@ def _train(args: argparse.Namespace, device: torch.device,
         resident=args.resident, device_augment=device_augment,
         prefetch_depth=args.prefetch_depth,
         prefetch_workers=args.prefetch_workers, prefetch_stats=prefetch,
-        metrics=metrics, live=live)
+        metrics=metrics, live=live, keep_checkpoints=args.keep_checkpoints,
+        on_nan=args.on_nan, watchdog=watchdog, preemption=preemption,
+        drift_audit_every=args.drift_audit_every,
+        drift_action=args.drift_action, guard_window=args.guard_window,
+        guard_spike_factor=args.guard_spike_factor,
+        guard_action=args.guard_action)
+    install_env_faults(trainer)  # the drills' faults; nothing unless set
 
     eval_loader = EvalLoader(test_ds, args.batch_size, world,
                              local_replicas=[rank])
@@ -389,9 +552,15 @@ def _train(args: argparse.Namespace, device: torch.device,
                 metrics.log_eval(epoch=epoch, accuracy=acc)
 
     start = time.time()
-    trainer.train(args.total_epochs,
-                  epoch_callback=_epoch_callback if args.eval_every
-                  else None)
+    if watchdog is not None:
+        watchdog.start()  # armed for training only, as the JAX CLI's
+    try:
+        trainer.train(args.total_epochs,
+                      epoch_callback=_epoch_callback if args.eval_every
+                      else None)
+    finally:
+        if watchdog is not None:
+            watchdog.stop()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     training_seconds = time.time() - start
@@ -428,7 +597,8 @@ def _train(args: argparse.Namespace, device: torch.device,
            "schedule_epochs": args.schedule_epochs,
            "schedule_steps_per_epoch": args.schedule_steps_per_epoch,
            "eval_every": args.eval_every, "eval_history": eval_history,
-           "metrics_path": args.metrics_path, "log_every": args.log_every}
+           "metrics_path": args.metrics_path, "log_every": args.log_every,
+           "restores": trainer.restores, "data_state": trainer.data_state()}
     if rank == 0:
         print(f"fp32 model has accuracy={accuracy:.2f}%")
         metrics.log_eval(epoch=args.total_epochs - 1, accuracy=accuracy,
@@ -458,10 +628,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     return run(args)
 
 
-def main_multi(argv: Optional[List[str]] = None) -> Dict:
+def main_multi(argv: Optional[List[str]] = None, *,
+               backend: Optional[str] = None) -> Dict:
     """``multigpu``: this process's rank of the run, or the spawner of its
     ranks (see the module's docstring), which exits with their largest
-    exit code.  A rank never spawns."""
+    exit code.  A rank never spawns.  ``backend`` overrides the process
+    group's (gloo is the only one that runs two ranks on one card)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser("Data-parallel training (PyTorch port)"
                         ).parse_args(argv)
@@ -482,4 +654,4 @@ def main_multi(argv: Optional[List[str]] = None) -> Dict:
         if n:
             raise SystemExit(dist.spawn_local(n, "ddp_tpu_torch.multigpu",
                                               argv))
-    return run(args, data_parallel=True)
+    return run(args, data_parallel=True, backend=backend)

@@ -217,6 +217,23 @@ def state_dict_from_jax(name: str, params: Dict[str, Any],
     return ordered
 
 
+def param_tree_paths(model: nn.Module) -> List[str]:
+    """Each parameter's ``params`` tree path in ``ddp_tpu``'s tree (``/``
+    between levels, e.g. ``backbone/conv0/kernel``), in
+    ``model.parameters()`` order."""
+    rules = _rules(model.name)
+    out = []
+    for key, _ in model.named_parameters():
+        for port, _, rule in rules:
+            m = port.match(key)
+            if m:
+                out.append(rule.path.format(**m.groupdict()))
+                break
+        else:
+            raise ValueError(f"{key!r} is not a {model.name} parameter")
+    return out
+
+
 def momentum_tree_from_list(model: nn.Module,
                             momentum: List[torch.Tensor]) -> Dict[str, Any]:
     """The port's momentum list (parallel to ``model.parameters()``) ->

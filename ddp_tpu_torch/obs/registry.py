@@ -19,7 +19,7 @@ from __future__ import annotations
 import math
 import re
 import threading
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
@@ -66,6 +66,7 @@ class _Counter:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._value = 0.0
+        self._fn: Optional[Callable[[], float]] = None
 
     def inc(self, amount: float = 1.0) -> None:
         if amount < 0:
@@ -73,8 +74,18 @@ class _Counter:
         with self._lock:
             self._value += amount
 
+    def set_function(self, fn: Callable[[], float]) -> None:
+        """Report ``fn()`` at collection time instead of a stored value,
+        for a component that stays its own source of truth."""
+        with self._lock:
+            self._fn = fn
+
     @property
     def value(self) -> float:
+        with self._lock:
+            fn = self._fn
+        if fn is not None:
+            return float(fn())
         with self._lock:
             return self._value
 
@@ -160,6 +171,11 @@ class _Family:
                          else _KINDS[self.kind]())
                 self._children[key] = child
             return child
+
+    def set_function(self, fn: Callable[[], float]) -> None:
+        """:meth:`_Counter.set_function` of an unlabelled family's one
+        child."""
+        self.labels().set_function(fn)
 
     def children(self) -> List[Tuple[Tuple[str, ...], object]]:
         with self._lock:

@@ -20,6 +20,13 @@ world 1 too (the only world of a one-card machine), and are the identity
 without one.  ``collective_calls`` counts the collectives issued, by kind
 (``all_reduce``, ``broadcast``, ``reduce_scatter``, ``all_gather``), in
 this process (as each kernel wrapper counts its launches).
+
+Two more for the resilience layer.  :func:`any_rank` is the preemption
+stop vote, an OR of one flag over the ranks: a CPU tensor over a gloo
+side group made once at :func:`initialize` (world > 1 only), so a per-step
+vote never waits for the card's queue; it counts as ``stop_vote``.  The
+drift audit's two sums count as ``drift_audit``.  :func:`abort` is the
+teardown of the failure paths: it never blocks.
 """
 from __future__ import annotations
 
@@ -46,6 +53,10 @@ TIMEOUT = datetime.timedelta(minutes=3)
 # bare (the count follows) or with =N.
 _SPAWN_FLAG = re.compile(r"--sp(a(wn?)?)?(=.*)?")
 collective_calls: collections.Counter = collections.Counter()
+# The stop vote's gloo group (world > 1), and whether abort() gave the
+# process group up.
+_vote_group = None
+_aborted = False
 
 
 def in_rendezvous() -> bool:
@@ -77,6 +88,11 @@ def initialize(device: torch.device,
     tdist.init_process_group(
         backend or ("nccl" if device.type == "cuda" else "gloo"),
         init_method="env://", rank=rank, world_size=world, timeout=TIMEOUT)
+    global _vote_group, _aborted
+    _aborted = False
+    if world > 1:
+        # Every rank makes it, in the same order: new_group is collective.
+        _vote_group = tdist.new_group(backend="gloo", timeout=TIMEOUT)
     return device
 
 
@@ -96,14 +112,48 @@ def backend() -> Optional[str]:
 
 
 def shutdown() -> None:
-    """``destroy_process_group()`` (multigpu.py:250) if a group exists."""
-    if tdist.is_initialized():
+    """``destroy_process_group()`` (multigpu.py:250) if a group exists and
+    :func:`abort` has not given it up."""
+    global _vote_group
+    _vote_group = None
+    if tdist.is_initialized() and not _aborted:
         tdist.destroy_process_group()
 
 
-def _all_reduce_sum(t: torch.Tensor) -> None:
+def abort() -> None:
+    """Give the process group up without tearing it down, for the paths
+    that hard-exit next (the watchdog's expiry, a failing rank of a world
+    > 1).  Never blocks: ``destroy_process_group`` can wait on the very
+    peer that is stuck (NCCL does), so this only flushes the standard
+    streams and makes :func:`shutdown` a no-op; the ``os._exit`` that
+    follows closes the sockets, which fails the peers' pending
+    collectives (``ddp_tpu/cli.py:555-563``'s discipline)."""
+    global _aborted
+    _aborted = True
+    for stream in (sys.stdout, sys.stderr):
+        try:
+            stream.flush()
+        except (OSError, ValueError):  # a closed or broken stream
+            pass
+
+
+def any_rank(flag: bool) -> bool:
+    """True on every rank when ``flag`` is true on any: one MAX
+    all-reduce of a CPU int over the gloo side group, so the card's stream
+    is never touched (the preemption guard's per-step stop vote).  Every
+    rank must call it at the same point; without a group, or at world 1,
+    it is ``flag``."""
+    if _vote_group is None:
+        return bool(flag)
+    t = torch.tensor([1 if flag else 0], dtype=torch.int32)
+    tdist.all_reduce(t, op=tdist.ReduceOp.MAX, group=_vote_group)
+    collective_calls["stop_vote"] += 1
+    return bool(t.item())
+
+
+def _all_reduce_sum(t: torch.Tensor, kind: str = "all_reduce") -> None:
     tdist.all_reduce(t, op=tdist.ReduceOp.SUM)
-    collective_calls["all_reduce"] += 1
+    collective_calls[kind] += 1
 
 
 def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -164,12 +214,14 @@ def broadcast_state(model: nn.Module,
     torch._foreach_copy_(tensors, _views(flat, tensors))
 
 
-def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the ranks in place (one ``all_reduce``); ``t``
-    itself without a group.  The epoch's loss and eval sums and sync-BN's
-    statistics (``ops/layers.py``) go through it."""
+def all_reduce_sum_(t: torch.Tensor, kind: str = "all_reduce"
+                    ) -> torch.Tensor:
+    """``t`` summed over the ranks in place (one ``all_reduce``, counted
+    under ``kind``); ``t`` itself without a group.  The epoch's loss and
+    eval sums, sync-BN's statistics (``ops/layers.py``) and the drift
+    audit's fingerprints (``kind="drift_audit"``) go through it."""
     if tdist.is_initialized():
-        _all_reduce_sum(t)
+        _all_reduce_sum(t, kind)
     return t
 
 

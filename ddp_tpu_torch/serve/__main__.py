@@ -1,7 +1,9 @@
 """``python -m ddp_tpu_torch.serve`` — stand up a model server on a
 checkpoint (counterpart of ``python -m ddp_tpu.serve``, single engine).
 
-Loads a v1 checkpoint head file, makes one eval program per padded batch
+Loads the newest verifiable checkpoint under ``--snapshot_path`` (a head
+file or a directory, through the checkpoint lineage: a torn head falls
+back to a retained snapshot), makes one eval program per padded batch
 bucket (on the card: one CUDA graph each, captured at startup), and serves
 ``/predict`` / ``/healthz`` / ``/stats`` / ``/metrics`` through a stdlib
 threaded HTTP server in front of the dynamic batcher.  SIGTERM/SIGINT drain
@@ -34,8 +36,10 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m ddp_tpu_torch.serve",
         description=__doc__.splitlines()[0])
     p.add_argument("--snapshot_path", default="checkpoint.pt",
-                   help="Checkpoint head file (the trainer's "
-                        "--snapshot_path; default: checkpoint.pt)")
+                   help="Checkpoint head file or the directory holding "
+                        "it (the trainer's --snapshot_path; default: "
+                        "checkpoint.pt); the newest verifiable snapshot "
+                        "of its lineage is served")
     p.add_argument("--model", default="vgg",
                    choices=["vgg", "deepnn", "resnet18"],
                    help="Model architecture the checkpoint was trained "

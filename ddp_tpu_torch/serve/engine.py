@@ -28,7 +28,6 @@ there.
 from __future__ import annotations
 
 import contextlib
-import os
 import threading
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -140,42 +139,35 @@ class ServeEngine:
                         compute_dtype: Optional[torch.dtype] = None,
                         tracer=None, registry=None) -> "ServeEngine":
         """An engine for model ``model_name`` (``vgg``, ``deepnn`` or
-        ``resnet18``) on the v1 checkpoint file ``snapshot_path``, read by
-        :func:`~ddp_tpu_torch.train.checkpoint.load_checkpoint` and loaded by
-        :func:`~ddp_tpu_torch.train.checkpoint.restore`: a file of another
-        model raises :class:`~ddp_tpu_torch.train.checkpoint.CheckpointError`.
-
-        The JAX engine walks the checkpoint lineage (a directory, or a torn
-        head falling back to a retained snapshot); that walk is not ported
-        yet, so a directory or a sharded (v2) index raises
-        :class:`~ddp_tpu_torch.train.checkpoint.CheckpointError` saying so."""
+        ``resnet18``) on the newest verifiable checkpoint under
+        ``snapshot_path``, a head path or a directory, through the lineage
+        walk the trainer's ``--resume`` uses
+        (:func:`~ddp_tpu_torch.resilience.lineage.latest_verifiable`): a
+        torn head falls back to the newest retained snapshot.  The file is
+        loaded by :func:`~ddp_tpu_torch.train.checkpoint.restore`: one of
+        another model raises
+        :class:`~ddp_tpu_torch.train.checkpoint.CheckpointError`, and so do
+        nothing to load and a sharded (v2) index (not ported yet, ROADMAP
+        A7b).  ``checkpoint_file`` names the file used."""
         from ..models import get_model
-        from ..train.checkpoint import (CheckpointError, load_checkpoint,
-                                        restore)
-        if os.path.isdir(snapshot_path):
-            raise CheckpointError(
-                f"{snapshot_path!r} is a directory; the port's serve engine "
-                f"reads one v1 checkpoint head file.  Resolving a directory "
-                f"through the checkpoint lineage (ddp_tpu/resilience/"
-                f"lineage.py::latest_verifiable) is not ported yet; pass the "
-                f"head file (the trainer's --snapshot_path)")
-        try:
-            ckpt = load_checkpoint(snapshot_path)
-        except FileNotFoundError:
+        from ..resilience.lineage import latest_verifiable
+        from ..train.checkpoint import CheckpointError, restore
+        loaded = latest_verifiable(snapshot_path)
+        if loaded is None:
             raise CheckpointError(
                 f"no checkpoint found under {snapshot_path!r}; the serve "
                 f"engine needs a trained snapshot (run training with "
-                f"--snapshot_path first)") from None
+                f"--snapshot_path first)")
+        ckpt, used = loaded
         model = get_model(model_name)
         try:
             restore(ckpt, model)
         except CheckpointError as e:
-            raise CheckpointError(f"checkpoint {snapshot_path!r}: {e}"
-                                  ) from None
+            raise CheckpointError(f"checkpoint {used!r}: {e}") from None
         engine = cls(model, device=device, buckets=buckets,
                      compute_dtype=compute_dtype, tracer=tracer,
                      registry=registry)
-        engine.checkpoint_file = snapshot_path
+        engine.checkpoint_file = used
         engine.checkpoint_epoch = int(ckpt.epoch)
         engine.checkpoint_step = int(ckpt.step)
         return engine

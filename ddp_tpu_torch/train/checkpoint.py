@@ -23,7 +23,10 @@ The layouts go through :mod:`ddp_tpu_torch.interop`.  The write is atomic
 are eager: every array is read at load time (the JAX package reads lazily,
 one leaf at a time, which matters only for models far larger than VGG).
 The sharded v2 format (``ddp_tpu/train/ckpt_shard.py``) is not ported yet
-and is refused by name.
+and is refused by name (:class:`UnportedFormatError`; it belongs to the
+storage half of the resilience port, ROADMAP A7b).  Retention, the sha256
+manifest and the restore walk over retained files are
+``resilience/lineage.py``'s.
 """
 from __future__ import annotations
 
@@ -47,6 +50,12 @@ GATHERED_FORMAT_VERSION = 1
 class CheckpointError(ValueError):
     """A checkpoint file that cannot be restored (torn write, foreign file,
     or a format the port does not read), named with its path."""
+
+
+class UnportedFormatError(CheckpointError):
+    """A checkpoint in a format the port does not read yet (the sharded v2
+    index).  The lineage walk raises it instead of falling back past the
+    file to an older one."""
 
 
 class Checkpoint(NamedTuple):
@@ -110,7 +119,20 @@ class _Sha256Writer:
         return self._h.hexdigest()
 
 
-def _write_npz_hashed(path: str, flat: Dict[str, np.ndarray]) -> str:
+def sha256_of_file(path: str, chunk: int = 1 << 20) -> str:
+    """Streaming sha256 of a file: what the lineage manifest records of
+    each checkpoint, and checks it against."""
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while True:
+            block = f.read(chunk)
+            if not block:
+                break
+            h.update(block)
+    return h.hexdigest()
+
+
+def write_npz_hashed(path: str, flat: Dict[str, np.ndarray]) -> str:
     """Atomic temporary write + rename of one npz (written through a file
     handle: ``np.savez`` appends ``.npz`` to a bare path); returns the
     file's sha256."""
@@ -149,7 +171,7 @@ def save_checkpoint(path: str, model: nn.Module,
     if data_state is not None:
         flat["meta/data_state_json"] = np.frombuffer(
             json.dumps(data_state).encode("utf-8"), np.uint8)
-    return _write_npz_hashed(path, flat)
+    return write_npz_hashed(path, flat)
 
 
 def _decode_data_state(blob) -> Optional[Dict[str, Any]]:
@@ -198,11 +220,11 @@ def load_checkpoint(path: str) -> Checkpoint:
     version = (scalar("meta/format_version")
                if "meta/format_version" in files else 1)
     if version == 2:
-        raise CheckpointError(
+        raise UnportedFormatError(
             f"checkpoint {path!r} is a sharded (format_version 2) index; "
             f"the port reads the gathered format_version 1 only (the "
             f"sharded format, ddp_tpu/train/ckpt_shard.py, is not ported "
-            f"yet)")
+            f"yet: ROADMAP A7b)")
     if version != GATHERED_FORMAT_VERSION:
         raise CheckpointError(
             f"checkpoint {path!r} has format_version {version}; the port "

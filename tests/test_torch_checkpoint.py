@@ -285,8 +285,8 @@ def test_sharded_v2_index_is_refused_by_name(narrow, tmp_path):
 
 
 def test_mid_epoch_file_is_refused_on_resume(narrow, tmp_path):
-    """A JAX mid-epoch emergency save (offset > 0) resumes only in the
-    resilience slice."""
+    """A JAX mid-epoch emergency save (offset > 0) resumes on the streaming
+    path only: the resident path dispatches whole epochs."""
     params, stats, momentum = _jax_state(5)
     path = str(tmp_path / "midepoch.pt")
     jckpt.save_checkpoint(path, params, stats, SGDState(momentum), step=5,

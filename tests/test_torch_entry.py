@@ -34,7 +34,10 @@ new = {"ddp_tpu_torch.multigpu", "ddp_tpu_torch.parallel",
        "ddp_tpu_torch.models.deepnn", "ddp_tpu_torch.models.resnet",
        "ddp_tpu_torch.models.modules", "ddp_tpu_torch.bench",
        "ddp_tpu_torch.obs.live", "ddp_tpu_torch.obs.aggregate",
-       "ddp_tpu_torch.utils", "ddp_tpu_torch.utils.metrics"}
+       "ddp_tpu_torch.utils", "ddp_tpu_torch.utils.metrics",
+       "ddp_tpu_torch.resilience.lineage", "ddp_tpu_torch.resilience.guard",
+       "ddp_tpu_torch.resilience.watchdog", "ddp_tpu_torch.resilience.drift",
+       "ddp_tpu_torch.resilience.faults"}
 assert new <= set(names), sorted(new - set(names))
 """
 

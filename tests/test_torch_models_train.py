@@ -331,8 +331,9 @@ def test_multigpu_spawn2_models(name, flags, per_micro, tmp_path):
     steps, micro = 4 // accum, 4
     zero = "--shard_update" in flags
     buffers = name == "resnet18"
+    # One preemption stop vote at the (resident) epoch boundary.
     want = {"all_reduce": per_micro * micro + steps * ((not zero) + buffers)
-            + 2, "broadcast": 1}
+            + 2, "broadcast": 1, "stop_vote": 1}
     if zero:
         want.update(reduce_scatter=steps, all_gather=steps + 1)
     assert (got["model"], got["world"], got["backend"]) == (name, 2, "gloo")

@@ -145,7 +145,8 @@ def test_num_devices(monkeypatch):
     assert e.value.code == 0 and spawned == [2]
     # A rank whose world differs from --num_devices refuses to train.
     monkeypatch.setattr(cli.dist, "in_rendezvous", lambda: True)
-    monkeypatch.setattr(cli.dist, "initialize", lambda device: device)
+    monkeypatch.setattr(cli.dist, "initialize",
+                        lambda device, backend=None: device)
     with pytest.raises(SystemExit, match="contradicts this run's world "
                                          "of 1"):
         cli.main_multi(["1", "1", *_ARGS, "--num_devices", "2"])

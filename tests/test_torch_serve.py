@@ -199,7 +199,9 @@ def test_forward_before_warm_raises(narrow_ckpt):
 
 
 def test_from_checkpoint_refuses_directory_v2_and_missing(tmp_path):
-    with pytest.raises(CheckpointError, match="directory.*lineage"):
+    # A directory resolves through the lineage (its manifest's head, or
+    # checkpoint.pt); this one holds neither.
+    with pytest.raises(CheckpointError, match="no checkpoint found"):
         ServeEngine.from_checkpoint(str(tmp_path), "vgg", device="cpu")
     v2 = str(tmp_path / "index.pt")
     with open(v2, "wb") as f:

@@ -573,10 +573,11 @@ def test_multigpu_cli_flags_resume_and_checkpoints_cross(tmp_path):
     assert len(full["loss_history"]) == steps
     assert all(np.isfinite(full["loss_history"]))
     # VGG-11 has 8 BN layers; the eval adds one all-reduce, the epoch-0
-    # checkpoint one all-gather of the momentum.
+    # checkpoint one all-gather of the momentum; each (resident) epoch
+    # boundary one preemption stop vote.
     assert full["collectives"] == {
         "all_reduce": 3 * 8 * micro + steps + 2 + 1, "broadcast": 1,
-        "reduce_scatter": steps, "all_gather": steps + 1}
+        "reduce_scatter": steps, "all_gather": steps + 1, "stop_vote": 2}
 
     ck = jckpt.load_checkpoint(str(snapshot))
     assert (ck.step, ck.epoch, ck.data_state["epoch"]) == (3, 0, 1)
