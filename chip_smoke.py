@@ -47,9 +47,10 @@
    a float32 checkpoint; its ms/step and samples/s beside the float32 run's.
    Bench phase (``python -m ddp_tpu_torch.bench``, one process each, so
    this process's cuDNN and allocator state stay out of its windows):
-   VGG-11 at the default contract (its stdout record, the resident-epoch
-   and the bf16 records from stderr), DeepNN and ResNet-18 at ``--steps 20
-   --repeats 3``, and VGG-11 ``--e2e --resident --e2e_steps 16``; each
+   VGG-11, DeepNN and ResNet-18 at ``--steps 20 --repeats 3`` (each its
+   stdout record, the resident-epoch and the bf16 records from stderr;
+   VGG-11 ran the default 5 windows of 50 steps until the storage phase
+   took the time), and VGG-11 ``--e2e --resident --e2e_steps 16``; each
    record printed on its own line, with every field, a finite positive
    value, an MFU in (0, 1.05] against the data sheet's peak for its
    dtype, the card's name and power limit, and the child's ``gather_batch``
@@ -139,6 +140,24 @@
    bit; and at world 2 over gloo on the card, ``flip_param_bit`` caught by
    ``--drift_audit_every 5`` (exit 1, the event naming the first leaf and
    replica 1) and a stalled rank ended by ``--watchdog_secs 20`` (124).
+   Storage phase (``storage_phase``, A7b): the streamed VGG-11 at full
+   width on 10,240 images, 3 epochs (``STORE_ARGS``), in deterministic
+   children.  S1 alone: the asynchronous writer's main-thread ms, writer
+   s and bytes per save beside the checkpoint phase's synchronous save,
+   and the step median of the steps dispatched while a write ran; S3's
+   ``slow_put@ms=500`` mirror run alone, its step median within 1% of
+   S1's and its lag gauge above 0, then 0.  Then six chains at once:
+   ``--ckpt_format sharded`` bit for bit S1's state, one shard and the
+   index, served logits bit for bit the v1 lineage's; ``fail_put@n=2``
+   retried; ``torn_remote_object@`` caught by the store's verification
+   and skipped by the mirror walk; under ``python -m
+   ddp_tpu_torch.supervise`` ``sigterm@step=25`` (75, then 0, bit for bit)
+   and the local wipe resumed from the mirror alone (bit for bit);
+   ``fail_ckpt_write@epoch=1`` (exit 1).  Then four: a poisoned DeepNN
+   batch under ``--keep_fault_env`` (87, ``diagnosis.json``,
+   ``postmortem.json``), a repeated stall under ``--max_restarts 1`` (86),
+   the failed write at world 2 over gloo (both ranks end), and the chaos
+   campaign's CI subset (its scorecard).
    Models phase (``--model deepnn`` and ``resnet18``, each at its full and
    only width, ``MODEL_ARGS``): ``multigpu`` in this process as rank 0 of a
    world-1 NCCL group, its counts zeroed before each run and read after,
@@ -225,6 +244,8 @@
     streaming path: every card run of the streaming phase, on the
     resilience path: the runs that report their counters (the unarmed and
     armed runs, the uninterrupted one, the resumed ones, the poisoned one),
+    on the storage path: its VGG-11 children that complete (one launch a
+    train step and an eval batch each),
     and on the models path: the models phase's runs, serving and drills,
     on the bench
     path: the train steps the bench's processes ran in that form, and on
@@ -247,6 +268,7 @@ import importlib.util
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -618,9 +640,10 @@ def parity_phase() -> None:
           "card and CPU disagree beyond the tolerance")
 
 
-def checkpoint_phase(out: dict, path: str) -> None:
+def checkpoint_phase(out: dict, path: str) -> float:
     """The main path's epoch-0 file, bit for bit against the trained state;
-    then a resumed run of the CLI that must train no step."""
+    then a resumed run of the CLI that must train no step.  Returns the
+    seconds of one synchronous ``save_checkpoint`` of the trained state."""
     ckpt = load_checkpoint(path)
     state = out["state"]
     saved = interop.state_dict_from_jax("vgg", ckpt.params, ckpt.batch_stats)
@@ -652,6 +675,7 @@ def checkpoint_phase(out: dict, path: str) -> None:
           f"resumed accuracy {again['accuracy']} != {accuracy}")
     print(f"resume: 0 steps trained, accuracy {again['accuracy']:.2f}% "
           f"(the trained run's {accuracy:.2f}%)", flush=True)
+    return write_s
 
 
 DDP_ARCH = [8, "M", 16, "M", 512, "M"]
@@ -2346,6 +2370,440 @@ def resilience_phase(unarmed: dict, card: str, tmp: str) -> int:
     return launches
 
 
+# The storage phase's run: the streamed VGG-11 at full width, batch 512, on
+# 10,240 images (20 steps an epoch), 3 epochs with a checkpoint after each;
+# 5 eval batches.  Mirrored runs keep 2 checkpoints.  The SIGTERM lands in
+# epoch 1; the poisoned step leaves the guard its 8-step history after a
+# resume from epoch 0's file (steps 20-29).
+STORE_ARGS = ["3", "1", "--batch_size", "512", "--synthetic",
+              "--synthetic_size", "10240"]
+STORE_STEPS = 3 * SURVIVE_STEPS
+STORE_SIGTERM_STEP, STORE_POISON_STEP = 25, 30
+# The mirrored run's step median against the unmirrored one's.
+MIRROR_TOL = 0.01
+SUPERVISE = [sys.executable, "-m", "ddp_tpu_torch.supervise",
+             "--backoff_base", "0.2", "--backoff_max", "5", "--seed", "0"]
+DETERMINISTIC_CHILD = ["-m", "ddp_tpu_torch.repeat_check", "--child",
+                       "singlegpu", "--deterministic", "--"]
+
+
+def _load_json(path: str):
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def supervised(train_args: list, fault: str = "", sup: tuple = (),
+               timeout: float = 900) -> tuple:
+    """``python -m ddp_tpu_torch.supervise [sup] -- <deterministic
+    singlegpu train_args>`` with ``DDP_TPU_FAULT=fault``: its exit code,
+    stderr and seconds."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    env.pop(FAULT_ENV, None)
+    if fault:
+        env[FAULT_ENV] = fault
+    t0 = time.time()
+    r = subprocess.run(SUPERVISE + list(sup) + ["--"] + DETERMINISTIC_CHILD
+                       + list(train_args), env=env, capture_output=True,
+                       text=True, timeout=timeout)
+    return r.returncode, r.stderr, time.time() - t0
+
+
+def _store_launches(res: dict, what: str) -> int:
+    """One ``gather_batch`` launch a train step and an eval batch of the
+    child that wrote ``res``."""
+    n = res["kernel_launches"]["gather_batch"]
+    check(n == len(res["loss_history"]) + SURVIVE_EVALS,
+          f"{what}: gather_batch launched {n} times for "
+          f"{len(res['loss_history'])} steps and {SURVIVE_EVALS} eval "
+          f"batches")
+    return n
+
+
+def gloo_ranks_apart(args: list, fault: str, timeout: float) -> list:
+    """``multigpu args`` as two ranks on this card over gloo, each waited
+    for on its own (``dist.launch_local`` would end the peer of a failed
+    rank itself): each rank's exit code and its seconds."""
+    port = free_port()
+    procs = []
+    t0 = time.time()
+    for r in range(2):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), RANK=str(r), WORLD_SIZE="2",
+                   LOCAL_WORLD_SIZE="2", LOCAL_RANK="0",
+                   **{FAULT_ENV: fault})
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", GLOO_RANK, *args], env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+    out = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=max(1.0, timeout - (time.time()
+                                                               - t0)))
+            out.append((p.returncode, time.time() - t0, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def storage_phase(card: str, tmp: str, sync_write_s: float) -> int:
+    """Storage and supervision on the card (A7b), the streamed VGG-11 of
+    ``STORE_ARGS`` in deterministic children.  Alone, one after the other:
+    S1, the asynchronous writer (per save the main thread's ms, the
+    writer's s beside ``sync_write_s``, the synchronous save of the
+    checkpoint phase, and the bytes; the step median of each epoch, and of
+    the steps dispatched while a write ran against the rest); S3's
+    ``slow_put@ms=500`` mirror run, its step median within ``MIRROR_TOL``
+    of S1's and its lag gauge above 0, then 0 after the drain.  Then six
+    chains at once: S2 ``--ckpt_format sharded`` (bit for bit S1's state,
+    one shard and the index, and served logits bit for bit the v1
+    lineage's on 128 rows); S3 ``fail_put@n=2`` (retried, every epoch
+    uploaded) and ``torn_remote_object@`` (2 epochs: the torn object fails
+    the store's verification, and the mirror walk skips it); S4 under
+    ``python -m ddp_tpu_torch.supervise``: ``sigterm@step=25`` (75, then
+    0, bit for bit S1's state, the recovery seconds) and the local wipe
+    (``wipe_local_ckpt@epoch=0`` and the SIGTERM with ``--mirror``, the
+    checkpoint directory then removed: the supervised resume restores from
+    the mirror alone, bit for bit); S5 ``fail_ckpt_write@epoch=1`` (exit 1,
+    the error named).  Then four at once: S4 ``poison_batch@step=30`` with
+    ``--guard_action abort --keep_fault_env`` on DeepNN (VGG-11's
+    BatchNorm normalises a scaled input away; ``--on_nan skip`` leaves the
+    verdict to the spike itself): 87, ``diagnosis.json`` naming step 30, a
+    valid ``postmortem.json`` and a repeated stall with
+    ``--max_restarts 1`` (86); S5 at world 2 over gloo on this card (rank
+    0 exits 1, rank 1 ends too, each waited for); S6 the chaos campaign's
+    CI subset (``sigterm_step,watchdog_stall``), its scorecard printed.
+    Every child that completes launches ``gather_batch`` once a train step
+    and an eval batch.  Returns those launches."""
+    from ddp_tpu_torch import chaos_campaign
+    from ddp_tpu_torch.obs.blackbox import validate_postmortem
+    from ddp_tpu_torch.resilience.lineage import latest_verifiable
+    from ddp_tpu_torch.resilience.store import DirStore, StoreError
+    from ddp_tpu_torch.train.checkpoint import CheckpointError
+    t0 = time.time()
+    launches = 0
+
+    def workdir(name: str) -> str:
+        d = os.path.join(tmp, name)
+        os.makedirs(d, exist_ok=True)
+        return d
+
+    def child(name: str, extra=(), fault: str = "", epochs: str = "3"):
+        d = workdir(name)
+        path = os.path.join(d, "checkpoint.pt")
+        got = survive_child([epochs] + STORE_ARGS[1:] + list(extra) + [
+            "--metrics_path", os.path.join(d, "metrics.jsonl")], path, name,
+            fault)
+        return got, path
+
+    def mirror(name: str) -> list:
+        return ["--mirror", os.path.join(tmp, name, "mirror"),
+                "--keep_checkpoints", "2"]
+
+    # S1: the writer, alone.
+    got, s1_path = child("s1")
+    s1 = _expect(got, 0, "S1, the asynchronous writer")
+    launches += _store_launches(s1, "S1")
+    s1_ck = load_checkpoint(s1_path)
+    steps = s1["step_ms"]
+    saves = s1["checkpoint_saves"]
+    check(len(steps) == STORE_STEPS and [s["epoch"] for s in saves] ==
+          [0, 1, 2] and all("writer_s" in s for s in saves),
+          f"S1: {len(steps)} step times, saves {saves}")
+    beside = sorted({i for s in saves
+                     for i in range(s["step"], s["step"] + s["steps_during"])
+                     if i < len(steps)})
+    rest = [t for i, t in enumerate(steps) if i not in beside]
+    epochs_ms = [statistics.median(steps[e * SURVIVE_STEPS:
+                                         (e + 1) * SURVIVE_STEPS])
+                 for e in range(3)]
+    for s in saves:
+        print(f"storage S1 ({card}): save of epoch {s['epoch']}: main "
+              f"thread {s['main_ms']:.3f} ms (snapshot and hand-off; "
+              f"joining the previous write {s['join_ms']:.3f} ms), writer "
+              f"{s['writer_s']:.3f} s (file, sha256, commit; the "
+              f"synchronous save of the checkpoint phase, what the loop "
+              f"waited for before, {sync_write_s:.3f} s), {s['bytes']} "
+              f"bytes, {s['steps_during']} steps dispatched while it wrote",
+              flush=True)
+    print(f"storage S1 ({card}): step event median by epoch "
+          f"{[round(m, 3) for m in epochs_ms]} ms (epoch 0 ran beside no "
+          f"write, epochs 1 and 2 each began beside the previous epoch's); "
+          + (f"the {len(beside)} steps dispatched while a write ran "
+             f"{statistics.median(steps[i] for i in beside):.3f} ms against "
+             f"the other {len(rest)} steps' {statistics.median(rest):.3f} "
+             f"ms" if beside else "no step was dispatched while a write "
+             "ran"), flush=True)
+
+    # S3, slow_put: the mirror's cost to the steps, alone.
+    got, _ = child("slow_put", mirror("slow_put"), "slow_put@ms=500")
+    slow = _expect(got, 0, "S3 slow_put@ms=500")
+    launches += _store_launches(slow, "S3 slow_put")
+    base, ms = statistics.median(steps), statistics.median(slow["step_ms"])
+    lag = slow["mirror"]["lag_epochs"]
+    check(abs(ms - base) <= MIRROR_TOL * base,
+          f"S3 slow_put: step median {ms:.3f} ms against S1's {base:.3f}")
+    check(lag[0] > 0 and lag[-1] == 0 and slow["mirror"]["failures"] == 0,
+          f"S3 slow_put: mirror {slow['mirror']}")
+    print(f"storage S3 ({card}): slow_put@ms=500 with --mirror "
+          f"--keep_checkpoints 2: step event median {ms:.3f} ms against "
+          f"S1's {base:.3f} ms ({(ms / base - 1) * 100:+.2f}%); "
+          f"ddp_mirror_lag_epochs {lag[0]} when training ended, {lag[-1]} "
+          f"after the drain; {slow['mirror']['uploads']:.0f} uploads",
+          flush=True)
+    t_alone = time.time() - t0
+
+    results, errors = {}, []
+
+    def chain(name, fn):
+        def run():
+            try:
+                results[name] = fn()
+            except Exception as e:  # re-raised below, after the joins
+                errors.append(e)
+        return threading.Thread(target=run, name=name)
+
+    def run_chains(fns: dict) -> None:
+        threads = [chain(n, f) for n, f in fns.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+
+    def sharded():
+        got, path = child("sharded", ["--ckpt_format", "sharded"])
+        return _expect(got, 0, "S2 --ckpt_format sharded"), path
+
+    def fail_put():
+        got, _ = child("fail_put", mirror("fail_put"), "fail_put@n=2")
+        return _expect(got, 0, "S3 fail_put@n=2")
+
+    def torn():
+        got, path = child("torn", mirror("torn"), "torn_remote_object@",
+                          epochs="2")
+        return _expect(got, 0, "S3 torn_remote_object@"), path
+
+    def sup_run(name: str, fault: str, extra=(), sup=(), resume=False,
+                snapshot=None):
+        d = workdir(name)
+        path = snapshot or os.path.join(d, "checkpoint.pt")
+        res = os.path.join(d, "result.json")
+        args = STORE_ARGS + list(extra) + [
+            "--snapshot_path", path, "--metrics_path",
+            os.path.join(d, "metrics.jsonl"), "--result_json", res] + (
+            ["--resume"] if resume else [])
+        rc, err, secs = supervised(args, fault, sup)
+        return rc, err, secs, _load_json(res), path, d
+
+    def sigterm():
+        return sup_run("sup_sigterm", f"sigterm@step={STORE_SIGTERM_STEP}")
+
+    def wipe():
+        d = workdir("sup_wipe")
+        ckdir = os.path.join(d, "ckpt")
+        os.makedirs(ckdir)
+        path = os.path.join(ckdir, "checkpoint.pt")
+        got = survive_child(STORE_ARGS + mirror("sup_wipe"), path,
+                            "stage1", f"wipe_local_ckpt@epoch=0;sigterm@"
+                                      f"step={STORE_SIGTERM_STEP}")
+        check(got[0] == 75 and "[fault] wiped" in got[3],
+              f"S4 local wipe, stage 1: exit {got[0]}: {got[3][-3000:]}")
+        shutil.rmtree(ckdir)  # the local tier is gone
+        return sup_run("sup_wipe", "", mirror("sup_wipe"), resume=True,
+                       snapshot=path)
+
+    def fail_write():
+        got, _ = child("fail_write", (), "fail_ckpt_write@epoch=1")
+        check(got[0] == 1 and "injected checkpoint write failure at epoch 1"
+              in got[3], f"S5 fail_ckpt_write@epoch=1: exit {got[0]}: "
+                         f"{got[3][-3000:]}")
+        return got[0]
+
+    t1 = time.time()
+    run_chains({"sharded": sharded, "fail_put": fail_put, "torn": torn,
+                "sigterm": sigterm, "wipe": wipe, "fail_write": fail_write})
+    t_wave1 = time.time() - t1
+
+    def poison():
+        # DeepNN: VGG-11's BatchNorm normalises a scaled input away.  With
+        # --on_nan skip the NaNs after the poisoned step are logged, and
+        # the guard's verdict is the spike at the poisoned step itself.
+        return sup_run("sup_poison",
+                       f"poison_batch@step={STORE_POISON_STEP},scale=1e4",
+                       ["--model", "deepnn", "--lr", "0.05",
+                        "--guard_spike_factor", "4", "--guard_action",
+                        "abort", "--on_nan", "skip"], ["--keep_fault_env"])
+
+    def stall():
+        return sup_run("sup_stall", "stall@epoch=1,secs=600",
+                       ["--watchdog_secs", "20"],
+                       ["--keep_fault_env", "--max_restarts", "1"])
+
+    def world2():
+        d = workdir("world2")
+        return gloo_ranks_apart(STORE_ARGS + [
+            "--snapshot_path", os.path.join(d, "checkpoint.pt")],
+            "fail_ckpt_write@epoch=1", timeout=400)
+
+    def campaign():
+        out = os.path.join(workdir("campaign"), "chaos.json")
+        r = subprocess.run(
+            [sys.executable, "-m", "ddp_tpu_torch.chaos_campaign",
+             "--drills", chaos_campaign.CI_DRILLS, "--out", out,
+             "--workdir", workdir("campaign_runs")], capture_output=True,
+            text=True, timeout=900)
+        check(r.returncode == 0, f"S6 the chaos campaign: exit "
+                                 f"{r.returncode}: {r.stdout[-3000:]}"
+                                 f"{r.stderr[-3000:]}")
+        return _load_json(out)
+
+    t2 = time.time()
+    run_chains({"poison": poison, "stall": stall, "world2": world2,
+                "campaign": campaign})
+    t_wave2 = time.time() - t2
+
+    # S2: formats.
+    sh, sh_path = results["sharded"]
+    launches += _store_launches(sh, "S2")
+    files = sorted(f for f in os.listdir(os.path.dirname(sh_path))
+                   if f.startswith("checkpoint.pt") and not
+                   f.endswith((".json", ".jsonl")))
+    check(_same_state(load_checkpoint(sh_path), s1_ck) and files == [
+        "checkpoint.pt", "checkpoint.pt.ep00000002.shard00000-of-00001.npz"],
+        f"S2: the sharded run's state differs from S1's, or its files "
+        f"{files}")
+    rows = np.random.default_rng(13).integers(0, 256, (128, 32, 32, 3),
+                                              dtype=np.uint8)
+    logits = []
+    for path in (s1_path, sh_path):
+        engine = ServeEngine.from_checkpoint(path, "vgg", buckets=(128,))
+        engine.warm()
+        logits.append(engine.forward(rows))
+        del engine
+    check(np.array_equal(logits[0], logits[1]),
+          "S2: the v2 lineage's served logits differ from the v1 one's")
+    print(f"storage S2 ({card}): --ckpt_format sharded: the index and one "
+          f"shard ({files[1]}), its final state (weights, BN buffers, "
+          f"momentum, step {s1_ck.step}) bit for bit S1's; "
+          f"ServeEngine.from_checkpoint on each lineage: 128 rows of "
+          f"logits bit for bit", flush=True)
+
+    # S3: fail_put and the torn object.
+    fp = results["fail_put"]
+    launches += _store_launches(fp, "S3 fail_put")
+    m = fp["mirror"]
+    check(m["retries"] >= 2 and m["failures"] == 0 and m["uploads"] == 3
+          and m["lag_epochs"][-1] == 0 and m["mirrored_epochs"] == [2, 1],
+          f"S3 fail_put@n=2: mirror {m}")
+    tr, tr_path = results["torn"]
+    launches += _store_launches(tr, "S3 torn")
+    remote = DirStore(os.path.join(tmp, "torn", "mirror"))
+    try:
+        remote.get("checkpoint.pt.ep00000000",
+                   os.path.join(tmp, "torn", "fetched"))
+        verified = False
+    except StoreError as e:
+        verified = "sha-256 verification" in str(e)
+    # The head lost too: the walk has the torn object left, and skips it.
+    for f in os.listdir(os.path.dirname(tr_path)):
+        if f.startswith("checkpoint.pt"):
+            os.unlink(os.path.join(os.path.dirname(tr_path), f))
+    remote.delete("checkpoint.pt.ep00000001")
+    try:
+        latest_verifiable(tr_path, store=remote)
+        skipped = False
+    except CheckpointError as e:
+        skipped = ("<mirror>/checkpoint.pt.ep00000000" in str(e) and
+                   "sha-256 verification" in str(e))
+    check(verified and skipped,
+          f"S3 torn_remote_object@: verified {verified}, skipped {skipped}")
+    print(f"storage S3 ({card}): fail_put@n=2: {m['retries']:.0f} retries, "
+          f"{m['failures']:.0f} abandoned, {m['uploads']:.0f} uploads, the "
+          f"mirror holds epochs {m['mirrored_epochs']}; "
+          f"torn_remote_object@: the torn epoch-0 object fails the store's "
+          f"sha-256 verification, and with the newer object gone the "
+          f"mirror walk skips it", flush=True)
+
+    # S4: supervised.
+    for name in ("sigterm", "wipe"):
+        rc, err, secs, res, path, d = results[name]
+        check(rc == 0 and res is not None, f"S4 {name}: supervisor exit "
+                                           f"{rc}: {err[-3000:]}")
+        n = STORE_STEPS - STORE_SIGTERM_STEP - 1
+        launches += _store_launches(res, f"S4 {name}")
+        check(len(res["loss_history"]) == n and _same_state(
+            load_checkpoint(path), s1_ck),
+            f"S4 {name}: {len(res['loss_history'])} resumed steps, or its "
+            f"final state differs from S1's")
+        stats = chaos_campaign.supervisor_stats(d)
+        if name == "sigterm":
+            check(stats["restart_reasons"] == {"preempted": 1} and
+                  "the supervisor relaunches with --resume automatically"
+                  in err, f"S4 sigterm: {stats}")
+            print(f"storage S4 ({card}): sigterm@step={STORE_SIGTERM_STEP} "
+                  f"under the supervisor: 75, relaunched with --resume, 0 "
+                  f"after {secs:.1f} s; {n} resumed steps, the final state "
+                  f"bit for bit S1's; recovery "
+                  f"{stats['recovery_seconds_sum']} s (death to relaunch)",
+                  flush=True)
+        else:
+            check("restored checkpoint from MIRROR object" in err,
+                  "S4 local wipe: the resume did not restore from the "
+                  "mirror")
+            print(f"storage S4 ({card}): wipe_local_ckpt@epoch=0 and "
+                  f"sigterm@step={STORE_SIGTERM_STEP} with --mirror, the "
+                  f"checkpoint directory then removed: the supervised "
+                  f"--resume restored from the mirror alone, 0 after "
+                  f"{secs:.1f} s, bit for bit S1's state", flush=True)
+    rc, err, secs, _, _, d = results["poison"]
+    diag = _load_json(os.path.join(d, "diagnosis.json")) or {}
+    pm = _load_json(os.path.join(d, "postmortem.json"))
+    check(rc == 87 and diag.get("signature") == {
+        "what": "spike_abort", "step": STORE_POISON_STEP,
+        "occurrences": 2} and pm is not None and
+        validate_postmortem(pm)["reason"] == "guard_abort",
+        f"S4 poison: exit {rc}, diagnosis {diag.get('signature')}: "
+        f"{err[-3000:]}")
+    rc_stall, err_stall, secs_stall, _, _, d_stall = results["stall"]
+    pm = _load_json(os.path.join(d_stall, "postmortem.json"))
+    check(rc_stall == 86 and pm is not None and
+          validate_postmortem(pm)["reason"] == "watchdog_stall",
+          f"S4 stall: exit {rc_stall}: {err_stall[-3000:]}")
+    print(f"storage S4 ({card}): poison_batch@step={STORE_POISON_STEP} "
+          f"--guard_action abort --keep_fault_env: 87 after {secs:.1f} s, "
+          f"diagnosis.json names spike_abort at step {STORE_POISON_STEP} "
+          f"twice, postmortem.json guard_abort; stall@epoch=1 "
+          f"--watchdog_secs 20 --keep_fault_env --max_restarts 1: 86 after "
+          f"{secs_stall:.1f} s, postmortem.json watchdog_stall", flush=True)
+
+    # S5: a failed write, at world 1 and 2.
+    (rc0, s0, err0), (rc1, s1_secs, _) = results["world2"]
+    check(rc0 == 1 and "async checkpoint write failed" in err0 and
+          rc1 not in (0, None) and s1_secs < 300,
+          f"S5 world 2: rank 0 exit {rc0} after {s0:.1f} s, rank 1 exit "
+          f"{rc1} after {s1_secs:.1f} s: {err0[-3000:]}")
+    print(f"storage S5 ({card}): fail_ckpt_write@epoch=1: exit 1 with the "
+          f"error named; at world 2 over gloo on this card rank 0 exit 1 "
+          f"after {s0:.1f} s, rank 1 ended by itself with {rc1} after "
+          f"{s1_secs:.1f} s", flush=True)
+
+    # S6: the campaign's CI subset.
+    card6 = results["campaign"]
+    check(card6["verdict"] == "PASS", f"S6: {card6}")
+    print(f"storage S6 ({card}): chaos campaign "
+          f"{chaos_campaign.CI_DRILLS}: {json.dumps(card6)}", flush=True)
+    print(f"storage phase: {time.time() - t0:.1f} s (alone {t_alone:.1f} s,"
+          f" six chains {t_wave1:.1f} s, four chains {t_wave2:.1f} s); "
+          f"gather_batch launches {launches}", flush=True)
+    return launches
+
+
 def bf16_serve_phase(snapshot: str, f32: dict) -> dict:
     """The serving engine in bf16 on the bf16 main path's epoch-0 file:
     four graphs, each bucket bit for bit against the eager bf16 forward
@@ -2959,7 +3417,7 @@ def models_phases(main: dict, main_bf16: dict, card: str) -> dict:
     return out
 
 
-BENCH_RUNS = (("vgg", []),
+BENCH_RUNS = (("vgg", ["--steps", "20", "--repeats", "3"]),
               ("deepnn", ["--steps", "20", "--repeats", "3"]),
               ("resnet18", ["--steps", "20", "--repeats", "3"]),
               ("vgg", ["--e2e", "--resident", "--e2e_steps", "16"]))
@@ -3014,9 +3472,9 @@ def check_bench_record(rec: dict, fields: tuple) -> None:
 
 
 def bench_phase(main_ms: float, card: str) -> dict:
-    """``python -m ddp_tpu_torch.bench`` for VGG-11 at its default contract
-    (fixed batch, resident epoch, bf16), DeepNN and ResNet-18 at 20 steps
-    by 3 windows, and VGG-11's ``--e2e --resident``, one process each:
+    """``python -m ddp_tpu_torch.bench`` for VGG-11, DeepNN and ResNet-18
+    at 20 steps by 3 windows (fixed batch, resident epoch, bf16), and
+    VGG-11's ``--e2e --resident``, one process each:
     every record's fields, value, MFU, card and power limit; one
     ``gather_batch`` launch a train step, by form; VGG's float32 median
     within ``MAIN_MEDIAN_TOL`` of the main path's.  Returns the launches of
@@ -3218,7 +3676,7 @@ def main() -> int:
           f"{losses[0]:.4f}/{losses[-1]:.4f}, accuracy "
           f"{out['accuracy']:.2f}%, conv3x3 launches {conv_main_launches}",
           flush=True)
-    checkpoint_phase(out, snapshot)
+    sync_write_s = checkpoint_phase(out, snapshot)
     snapshot_bf16 = os.path.join(snapshot_dir.name, "checkpoint_bf16.pt")
     out_bf16 = bf16_main_phase(out, card, snapshot_bf16)
     bench = bench_phase(step_ms, card)
@@ -3233,6 +3691,8 @@ def main() -> int:
     print(f"streaming phase: {time.time() - t0:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         survive_launches = resilience_phase(unarmed, card, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        storage_launches = storage_phase(card, tmp, sync_write_s)
     models = models_phases(out, out_bf16, card)
     serve = serve_phase(snapshot)
     print(f"serve: {json.dumps(serve)}", flush=True)
@@ -3261,6 +3721,7 @@ def main() -> int:
                  launches_bench_path=bench["float32"],
                  launches_runshape_path=runshape_launches,
                  launches_resilience_path=survive_launches,
+                 launches_storage_path=storage_launches,
                  stream_batch_cases=stream_cases[torch.float32],
                  launches_serve_path=serve["warm_launches"]
                  + serve["http_profiled"]["gather_batch_kernel_launches"],

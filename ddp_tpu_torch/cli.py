@@ -17,7 +17,8 @@
         [--guard_window W] [--guard_spike_factor F] \\
         [--guard_action abort|skip|lr_backoff|rollback] \\
         [--drift_audit_every K] [--drift_action abort|restore] \\
-        [--watchdog_secs S]
+        [--watchdog_secs S] [--ckpt_format gathered|sharded] \\
+        [--mirror URI]
     python -m ddp_tpu_torch.multigpu <same arguments> [--spawn N]
 
 ``--model`` trains VGG-11 (the default, the reference's model), DeepNN (the
@@ -92,16 +93,28 @@ epoch boundary with ``--resident``), whose ``data_state`` lets
 CLI's: 75 after the emergency checkpoint, 124 on a watchdog stall, 1 on a
 guard or drift abort or any other failure; a failing rank of a world > 1
 hard-exits so that its peers do not wait on it.  ``DDP_TPU_FAULT``
-injects the drills' faults (``resilience/faults.py``).  ``--mirror`` and
-``--ckpt_format sharded`` (the storage half, ROADMAP A7b) are refused by
-name.
+injects the drills' faults (``resilience/faults.py``).  ``python -m
+ddp_tpu_torch.supervise -- <this command>`` relaunches it with
+``--resume`` on those exits (``resilience/supervisor.py``); the
+preemption line then says so (``DDP_TPU_SUPERVISED``).
+
+Storage (``ddp_tpu/cli.py``'s flags): each checkpoint is written on rank
+0's writer thread while training goes on (``train/trainer.py``);
+``--ckpt_format sharded`` writes the v2 index and its shard file
+(``train/ckpt_shard.py``), which ``--resume`` and ``serve`` read as they
+read v1; ``--mirror URI`` uploads every committed checkpoint to a second
+store (``resilience/store.py``) and falls back to it when no local file
+restores.  With ``--metrics_path``, rank 0 keeps a flight recorder
+(``obs/blackbox.py``): every abnormal exit (a preemption, the watchdog, a
+guard or drift abort, any other exception) leaves a ``postmortem.json``
+next to the metrics stream.
 
 Prints what the JAX CLI prints: each epoch's header and loss on every rank
 (``[GPU{rank}]``), the checkpoint line of every ``save_every``-th epoch,
 and on rank 0 ``Total training time``, ``fp32 model has size=... MiB`` and
 ``fp32 model has accuracy=...%``.  The checkpoint is the JAX package's v1
-file, written by rank 0: either package's ``load_checkpoint`` reads the
-other's.  It runs on ``cuda`` unless ``--device cpu`` is given, and refuses
+file (or v2 set), written by rank 0: either package's ``load_checkpoint``
+reads the other's.  It runs on ``cuda`` unless ``--device cpu`` is given, and refuses
 to run without a card otherwise.
 """
 from __future__ import annotations
@@ -123,15 +136,21 @@ from .data import EvalLoader, ResidentData, TrainLoader, cifar10, native
 from .data.prefetch import PrefetchStats
 from .device import device_kind, dtype_name, resolve_device, set_tf32
 from .models import NAMES as MODEL_NAMES, get_model
+from .obs.blackbox import POSTMORTEM_BASENAME, FlightRecorder
 from .obs.live import LiveStats
+from .obs.registry import MetricsRegistry, parse_exposition
 from .ops.conv_candidates import conv3x3_fused
 from .ops.gather import gather_batch, gather_rows
 from .optim import SGDConfig, triangular_lr
 from .parallel import dist
+from .obs.tracer import get_tracer
+from .resilience.drift import DriftDetectedError
 from .resilience.faults import install_env_faults
+from .resilience.guard import LossSpikeError, NonFiniteLossError
 from .resilience.preemption import (EMERGENCY_CHECKPOINT_EXIT_STATUS,
                                     PreemptionGuard, PreemptionInterrupt)
-from .resilience.watchdog import Watchdog
+from .resilience.supervisor import SUPERVISED_ENV
+from .resilience.watchdog import WATCHDOG_EXIT_STATUS, Watchdog
 from .train.evaluate import evaluate, evaluate_resident
 from .train.trainer import Trainer
 from .utils.metrics import MetricsLogger, require_tensorboard
@@ -260,10 +279,18 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                         "the collectives in this process")
     p.add_argument("--ckpt_format", default="gathered",
                    choices=["gathered", "sharded"],
-                   help="Checkpoint file format: 'gathered' = the "
-                        "canonical single-file v1 npz (the default and the "
-                        "only one ported); 'sharded' is refused (ROADMAP "
-                        "A7b)")
+                   help="Checkpoint layout (train/ckpt_shard.py): "
+                        "'gathered' = the canonical single-file v1 npz "
+                        "(model-sharded leaves are all-gathered at save "
+                        "time — O(model) host memory and write stream); "
+                        "'sharded' = one shard file per model-axis slot "
+                        "plus a small index, written by per-host parallel "
+                        "writers with no gather — O(model/m) save path.  "
+                        "RESTORE accepts either format on any mesh shape "
+                        "regardless of this flag: --resume redistributes "
+                        "a sharded set onto the live (d', m') mesh "
+                        "shard-by-shard (elastic resume after a "
+                        "pod-shrinking preemption)")
     p.add_argument("--keep_checkpoints", default=1, type=int, metavar="N",
                    help="Retain the newest N checkpoints: the head plus "
                         "N-1 rotated snapshots with a sha-256 manifest "
@@ -272,8 +299,21 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                         "Default 1 = head only, the reference's "
                         "overwrite-in-place (multigpu.py:111)")
     p.add_argument("--mirror", default=None, metavar="URI",
-                   help="Second checkpoint durability tier (an object-store "
-                        "mirror): not ported yet, refused (ROADMAP A7b)")
+                   help="Second checkpoint durability tier "
+                        "(resilience/store.py): asynchronously mirror "
+                        "every committed checkpoint to this object-store "
+                        "URI — a directory path (or dir://PATH) runs the "
+                        "bundled DirStore backend; gs://-style schemes "
+                        "name the CheckpointStore paste point (RUNBOOK "
+                        "§18).  Uploads run on a background thread AFTER "
+                        "each lineage commit with per-op timeouts and "
+                        "bounded jittered retries: a flaky or dead remote "
+                        "degrades to a visible ddp_mirror_lag_epochs "
+                        "gauge, never a blocked or failed step.  --resume "
+                        "falls back to verifiable mirror objects when "
+                        "every local candidate is gone — training "
+                        "survives total local-disk loss (the supervisor "
+                        "preserves this flag across relaunches)")
     p.add_argument("--on_nan", default="abort",
                    choices=["abort", "skip", "restore"],
                    help="Non-finite loss policy, checked where each "
@@ -373,13 +413,6 @@ def _check_args(args: argparse.Namespace) -> None:
     if args.num_devices is not None and args.num_devices < 1:
         raise SystemExit(f"--num_devices must be at least 1, not "
                          f"{args.num_devices}")
-    if args.mirror is not None or args.ckpt_format == "sharded":
-        flag = ("--mirror" if args.mirror is not None
-                else "--ckpt_format sharded")
-        raise SystemExit(
-            f"{flag} belongs to the storage half of the resilience layer "
-            f"(the checkpoint mirror and the sharded format, ROADMAP A7b), "
-            f"which is not ported yet")
     if args.keep_checkpoints < 1:
         raise SystemExit(f"--keep_checkpoints must be at least 1, not "
                          f"{args.keep_checkpoints}")
@@ -417,9 +450,11 @@ def run(args: argparse.Namespace, *, data_parallel: bool = False,
     except PreemptionInterrupt as e:
         # Every rank stopped at the same boundary with the checkpoint on
         # disk, so the graceful teardown below completes.
+        cue = ("the supervisor relaunches with --resume automatically"
+               if os.environ.get(SUPERVISED_ENV)
+               else "relaunch with --resume to continue")
         print(f"{e}; exiting with status "
-              f"{EMERGENCY_CHECKPOINT_EXIT_STATUS} — relaunch with --resume "
-              f"to continue", file=sys.stderr)
+              f"{EMERGENCY_CHECKPOINT_EXIT_STATUS} — {cue}", file=sys.stderr)
         sys.stdout.flush()
         sys.stderr.flush()
         raise SystemExit(EMERGENCY_CHECKPOINT_EXIT_STATUS) from None
@@ -504,11 +539,40 @@ def _train(args: argparse.Namespace, device: torch.device,
                 window=max(100, args.log_every), model=args.model,
                 device_kind=device_kind(device),
                 compute_dtype=compute_dtype, prefetch_stats=prefetch)
+    def _mirror_lag():
+        return (trainer._mirror.lag_epochs()
+                if trainer._mirror is not None else None)
+
+    def _health() -> dict:
+        # Host-side reads only: nothing here touches the card or blocks.
+        return {"step": trainer.state.step, "epoch": trainer._epoch,
+                "guard_last_decision": trainer._health.last_decision,
+                "guard_restores": trainer._health.restores,
+                "mirror_lag_epochs": _mirror_lag()}
+
+    # The flight recorder (obs/blackbox.py): rank 0, next to the metrics
+    # stream.
+    recorder = None
+    if args.metrics_path and rank == 0:
+        recorder = FlightRecorder(
+            os.path.join(os.path.dirname(os.path.abspath(args.metrics_path)),
+                         POSTMORTEM_BASENAME),
+            config=vars(args), tracer=get_tracer(), context=_health)
+        metrics.attach_recorder(recorder)
     watchdog = None
     if args.watchdog_secs > 0:
+        def _on_expire() -> None:
+            recorder.dump("watchdog_stall", exit_status=WATCHDOG_EXIT_STATUS,
+                          error="watchdog: no progress heartbeat within "
+                                f"{args.watchdog_secs}s", bounded=True)
+
         watchdog = Watchdog(args.watchdog_secs, context=lambda: (
             f"last completed step {trainer.state.step}, guard "
-            f"{trainer._health.last_decision}"))
+            f"{trainer._health.last_decision}; mirror: "
+            + (f"lag {_mirror_lag()} epoch(s)" if trainer._mirror is not None
+               else "off")),
+            on_expire=_on_expire if recorder is not None else None)
+    registry = MetricsRegistry()
     trainer = Trainer(
         model, train_loader, device=device,
         lr_schedule=build_schedule(args, train_loader),
@@ -525,7 +589,8 @@ def _train(args: argparse.Namespace, device: torch.device,
         drift_audit_every=args.drift_audit_every,
         drift_action=args.drift_action, guard_window=args.guard_window,
         guard_spike_factor=args.guard_spike_factor,
-        guard_action=args.guard_action)
+        guard_action=args.guard_action, ckpt_format=args.ckpt_format,
+        mirror=args.mirror, registry=registry)
     install_env_faults(trainer)  # the drills' faults; nothing unless set
 
     eval_loader = EvalLoader(test_ds, args.batch_size, world,
@@ -558,6 +623,13 @@ def _train(args: argparse.Namespace, device: torch.device,
         trainer.train(args.total_epochs,
                       epoch_callback=_epoch_callback if args.eval_every
                       else None)
+    except BaseException as err:
+        # The black box lands before the error reaches run()'s teardown
+        # (which may hard-exit at world > 1).
+        if recorder is not None and recorder.dumped is None:
+            reason, status = _postmortem_reason(err)
+            recorder.dump(reason, exit_status=status, error=repr(err))
+        raise
     finally:
         if watchdog is not None:
             watchdog.stop()
@@ -598,7 +670,10 @@ def _train(args: argparse.Namespace, device: torch.device,
            "schedule_steps_per_epoch": args.schedule_steps_per_epoch,
            "eval_every": args.eval_every, "eval_history": eval_history,
            "metrics_path": args.metrics_path, "log_every": args.log_every,
-           "restores": trainer.restores, "data_state": trainer.data_state()}
+           "restores": trainer.restores, "data_state": trainer.data_state(),
+           "ckpt_format": args.ckpt_format,
+           "checkpoint_saves": list(trainer.saves),
+           "mirror": _mirror_summary(trainer, registry)}
     if rank == 0:
         print(f"fp32 model has accuracy={accuracy:.2f}%")
         metrics.log_eval(epoch=args.total_epochs - 1, accuracy=accuracy,
@@ -613,6 +688,43 @@ def _train(args: argparse.Namespace, device: torch.device,
                                kernel_launches=launches,
                                collectives=dict(dist.collective_calls)), f)
     return dict(out, state=trainer.state)
+
+
+def _postmortem_reason(err: BaseException) -> tuple:
+    """The flight recorder's reason and the exit status the process will
+    report, for the error that ends training."""
+    if isinstance(err, PreemptionInterrupt):
+        return "preemption", EMERGENCY_CHECKPOINT_EXIT_STATUS
+    if isinstance(err, DriftDetectedError):
+        return "drift_abort", 1
+    if isinstance(err, (NonFiniteLossError, LossSpikeError)):
+        return "guard_abort", 1
+    return "crash", 1
+
+
+def _mirror_summary(trainer: Trainer, registry: MetricsRegistry
+                    ) -> Optional[Dict]:
+    """Rank 0's mirror at the end of training, read from the uploader's
+    own series: the lag before and after the final drain, the retries,
+    the abandoned uploads, the uploads that landed and the epochs the
+    mirror holds."""
+    if trainer._mirror is None:
+        return None
+    fams = parse_exposition(registry.exposition())
+
+    def value(family: str, sample: str) -> float:
+        return sum(v for (name, _), v in fams[family]["samples"].items()
+                   if name == sample)
+
+    return {"lag_epochs": list(trainer.mirror_lag),
+            "retries": value("ddp_ckpt_upload_retries_total",
+                             "ddp_ckpt_upload_retries_total"),
+            "failures": value("ddp_ckpt_upload_failures_total",
+                              "ddp_ckpt_upload_failures_total"),
+            "uploads": value("ddp_ckpt_upload_seconds",
+                             "ddp_ckpt_upload_seconds_count"),
+            "mirrored_epochs": [e["epoch"] for e in
+                                trainer._mirror.mirrored_entries()]}
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:

@@ -30,6 +30,10 @@ _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
 # histograms serving keeps.
 DEFAULT_BUCKETS = (1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
                    500.0, 1000.0, 2500.0, 5000.0)
+# Seconds-flavoured buckets: checkpoint uploads and the supervisor's
+# death-to-relaunch recovery time.
+SECONDS_BUCKETS = (0.5, 1.0, 2.0, 5.0, 10.0, 30.0, 60.0, 120.0,
+                   300.0, 600.0)
 
 
 def _escape_label_value(v: str) -> str:
@@ -177,6 +181,14 @@ class _Family:
         child."""
         self.labels().set_function(fn)
 
+    # An unlabelled family is its one child (the mirror uploader's and the
+    # supervisor's series are).
+    def inc(self, amount: float = 1.0) -> None:
+        self.labels().inc(amount)
+
+    def observe(self, v: float) -> None:
+        self.labels().observe(v)
+
     def children(self) -> List[Tuple[Tuple[str, ...], object]]:
         with self._lock:
             return sorted(self._children.items())
@@ -254,3 +266,188 @@ class MetricsRegistry:
                     out.append(
                         f"{fam.name}{ls} {_fmt_value(child.value)}")
         return "\n".join(out) + ("\n" if out else "")
+
+
+# ---------------------------------------------------------------------------
+# The strict parser (JAX's `parse_exposition`): the supervisor's `.prom`
+# file and the chaos campaign's scorecard are read back through it.
+# ---------------------------------------------------------------------------
+
+_SAMPLE_RE = re.compile(
+    r"^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)"
+    r"(?:\{(?P<labels>.*)\})?"
+    r"\s+(?P<value>[^\s]+)\s*$")
+
+
+def _parse_labels(raw: str, lineno: int) -> Tuple[Tuple[str, str], ...]:
+    """Parse the inside of a ``{...}`` labelset, honouring escapes."""
+    pairs: List[Tuple[str, str]] = []
+    i, n = 0, len(raw)
+    while i < n:
+        m = re.match(r'\s*([a-zA-Z_][a-zA-Z0-9_]*)\s*=\s*"', raw[i:])
+        if not m:
+            raise ValueError(
+                f"line {lineno}: malformed label segment {raw[i:]!r}")
+        name = m.group(1)
+        i += m.end()
+        val: List[str] = []
+        while True:
+            if i >= n:
+                raise ValueError(
+                    f"line {lineno}: unterminated label value for {name}")
+            ch = raw[i]
+            if ch == "\\":
+                if i + 1 >= n:
+                    raise ValueError(
+                        f"line {lineno}: dangling escape in {name}")
+                nxt = raw[i + 1]
+                if nxt == "n":
+                    val.append("\n")
+                elif nxt in ('"', "\\"):
+                    val.append(nxt)
+                else:
+                    raise ValueError(
+                        f"line {lineno}: bad escape \\{nxt} in {name}")
+                i += 2
+            elif ch == '"':
+                i += 1
+                break
+            elif ch == "\n":
+                raise ValueError(
+                    f"line {lineno}: raw newline in label value {name}")
+            else:
+                val.append(ch)
+                i += 1
+        pairs.append((name, "".join(val)))
+        rest = raw[i:].lstrip()
+        if rest.startswith(","):
+            i = n - len(rest) + 1
+        elif rest == "":
+            break
+        else:
+            raise ValueError(
+                f"line {lineno}: junk after label value: {rest!r}")
+    return tuple(pairs)
+
+
+def _parse_value(s: str, lineno: int) -> float:
+    if s == "+Inf":
+        return math.inf
+    if s == "-Inf":
+        return -math.inf
+    if s == "NaN":
+        return math.nan
+    try:
+        return float(s)
+    except ValueError:
+        raise ValueError(f"line {lineno}: bad sample value {s!r}")
+
+
+def parse_exposition(text: str) -> Dict[str, dict]:
+    """Strictly parse Prometheus text exposition.
+
+    Returns ``{family_name: {"type": kind, "help": str, "samples":
+    {(sample_name, ((label, value), ...)): float}}}``.
+
+    Raises :class:`ValueError` (with a line number) on: samples with no
+    preceding ``# TYPE``, unknown types, malformed names or label
+    escaping, duplicate sample series, histogram families whose
+    cumulative ``le`` buckets are non-monotone, missing ``+Inf``,
+    or whose ``_count`` disagrees with the ``+Inf`` bucket.
+    """
+    families: Dict[str, dict] = {}
+    types: Dict[str, str] = {}
+    for lineno, line in enumerate(text.splitlines(), 1):
+        if not line.strip():
+            continue
+        if line.startswith("#"):
+            parts = line.split(None, 3)
+            if len(parts) < 3 or parts[1] not in ("HELP", "TYPE"):
+                continue  # free-form comment — permitted by the format
+            _, kw, name = parts[:3]
+            rest = parts[3] if len(parts) > 3 else ""
+            if not _NAME_RE.match(name):
+                raise ValueError(f"line {lineno}: bad metric name {name!r}")
+            fam = families.setdefault(
+                name, {"type": None, "help": "", "samples": {}})
+            if kw == "TYPE":
+                if rest not in ("counter", "gauge", "histogram",
+                                "summary", "untyped"):
+                    raise ValueError(
+                        f"line {lineno}: unknown TYPE {rest!r}")
+                if fam["samples"]:
+                    raise ValueError(
+                        f"line {lineno}: TYPE {name} after its samples")
+                if fam["type"] is not None:
+                    raise ValueError(f"line {lineno}: duplicate TYPE {name}")
+                fam["type"] = rest
+                types[name] = rest
+            else:
+                fam["help"] = rest
+            continue
+        m = _SAMPLE_RE.match(line)
+        if not m:
+            raise ValueError(f"line {lineno}: malformed sample {line!r}")
+        sname = m.group("name")
+        labels = (_parse_labels(m.group("labels"), lineno)
+                  if m.group("labels") else ())
+        value = _parse_value(m.group("value"), lineno)
+        base = sname
+        for suffix in ("_bucket", "_sum", "_count"):
+            stem = sname[:-len(suffix)] if sname.endswith(suffix) else None
+            if stem and types.get(stem) == "histogram":
+                base = stem
+                break
+        if base not in families or families[base]["type"] is None:
+            raise ValueError(
+                f"line {lineno}: sample {sname} has no preceding # TYPE")
+        key = (sname, labels)
+        samples = families[base]["samples"]
+        if key in samples:
+            raise ValueError(
+                f"line {lineno}: duplicate series {sname}{dict(labels)}")
+        samples[key] = value
+    _check_histograms(families)
+    return families
+
+
+def _check_histograms(families: Dict[str, dict]) -> None:
+    for name, fam in families.items():
+        if fam["type"] != "histogram":
+            continue
+        series: Dict[Tuple[Tuple[str, str], ...],
+                     List[Tuple[float, float]]] = {}
+        sums: Dict[Tuple[Tuple[str, str], ...], float] = {}
+        counts: Dict[Tuple[Tuple[str, str], ...], float] = {}
+        for (sname, labels), value in fam["samples"].items():
+            if sname == name + "_bucket":
+                le = [v for k, v in labels if k == "le"]
+                if len(le) != 1:
+                    raise ValueError(
+                        f"{name}_bucket series missing a single le label")
+                rest = tuple((k, v) for k, v in labels if k != "le")
+                series.setdefault(rest, []).append(
+                    (_parse_value(le[0], 0), value))
+            elif sname == name + "_sum":
+                sums[labels] = value
+            elif sname == name + "_count":
+                counts[labels] = value
+        for key, buckets in series.items():
+            buckets.sort(key=lambda bv: bv[0])
+            if not buckets or buckets[-1][0] != math.inf:
+                raise ValueError(
+                    f"{name}{dict(key)}: histogram missing +Inf bucket")
+            last = -math.inf
+            for le, v in buckets:
+                if v < last:
+                    raise ValueError(
+                        f"{name}{dict(key)}: bucket counts not "
+                        f"monotone at le={_fmt_value(le)}")
+                last = v
+            if key not in counts or key not in sums:
+                raise ValueError(
+                    f"{name}{dict(key)}: missing _sum or _count")
+            if counts[key] != buckets[-1][1]:
+                raise ValueError(
+                    f"{name}{dict(key)}: _count {counts[key]} != +Inf "
+                    f"bucket {buckets[-1][1]}")

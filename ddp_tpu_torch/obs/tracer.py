@@ -170,12 +170,21 @@ class SpanTracer:
         window mark :meth:`spans_since` takes."""
         return time.monotonic() - self._t0
 
-    def spans_since(self, t: float) -> List[dict]:
-        """The ring's spans that started at or after tracer time ``t``."""
-        with self._lock:
+    def spans_since(self, t: float, lock_timeout: Optional[float] = None
+                    ) -> List[dict]:
+        """The ring's spans that started at or after tracer time ``t``.
+        ``lock_timeout`` bounds the wait for the lock (the watchdog's
+        expiry path reads the ring while another thread may be wedged in a
+        spill write): on a timeout the answer is empty, not late."""
+        if not self._lock.acquire(
+                timeout=-1 if lock_timeout is None else lock_timeout):
+            return []
+        try:
             return [{"phase": p, "step": s, "start_s": start, "dur_s": d,
                      "overlap": o, "req": r}
                     for p, s, start, d, o, r in self._ring if start >= t]
+        finally:
+            self._lock.release()
 
     def flush(self, fsync: bool = False) -> None:
         """Flush the spill; ``fsync=True`` also forces it to disk."""

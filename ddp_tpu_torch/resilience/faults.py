@@ -25,17 +25,31 @@ Faults:
                         must fall back to the epoch boundary, warned once
   ``stall_at_epoch``    one rank sleeps after epoch k: the hung peer the
                         watchdog bounds
+  ``fail_ckpt_write``   the write of epoch k's checkpoint dies on the
+                        writer thread: the error must surface at the next
+                        join, and the lineage stays as it was
+  ``fail_put``          the next n mirror uploads fail: the uploader's
+                        retries absorb them
+  ``slow_put``          every mirror upload stalls ms milliseconds: the
+                        mirror lags, the steps do not
+  ``torn_remote_object`` the next mirror upload lands truncated under the
+                        full-length sha: the mirror walk skips it
+  ``wipe_local_ckpt``   every local lineage file goes after epoch k's
+                        checkpoint is committed and mirrored: the mirror
+                        is the only copy
 
 ``DDP_TPU_FAULT`` holds semicolon-separated specs ``kind@key=val,...``:
 ``sigterm@epoch=1``, ``sigterm@step=12``, ``poison@step=5``,
 ``flip_param_bit@step=6,replica=1``, ``poison_batch@step=9,scale=1e4``,
-``stall@epoch=0,rank=1,secs=600``.  The JAX package's other kinds wait for
-what they break: ``fail_ckpt_write`` and the mirror faults for the
-asynchronous writer and the store (ROADMAP A7b), the serve faults for the
-fleet (A9); a spec naming one raises, naming its item.
+``stall@epoch=0,rank=1,secs=600``, ``fail_ckpt_write@epoch=1``,
+``fail_put@n=2``, ``slow_put@ms=500``, ``torn_remote_object@``,
+``wipe_local_ckpt@epoch=0`` (the meanings and key checks of
+``ddp_tpu/resilience/faults.py``).  The serve faults wait for the fleet
+(ROADMAP A9); a spec naming one raises, naming the item.
 """
 from __future__ import annotations
 
+import collections
 import os
 import signal
 import sys
@@ -50,9 +64,7 @@ from ..train import checkpoint as ckpt_lib
 FAULT_ENV = "DDP_TPU_FAULT"
 # Kinds of the JAX package's vocabulary the port does not run yet, with the
 # ROADMAP item that brings what each fault breaks.
-NOT_YET = {"fail_ckpt_write": "A7b", "fail_put": "A7b", "slow_put": "A7b",
-           "torn_remote_object": "A7b", "wipe_local_ckpt": "A7b",
-           "crash_replica": "A9", "slow_forward": "A9",
+NOT_YET = {"crash_replica": "A9", "slow_forward": "A9",
            "torn_publish": "A9"}
 
 
@@ -227,6 +239,127 @@ def stall_at_epoch(trainer, epoch: int, seconds: float,
     _after_epoch(trainer, fire)
 
 
+def fail_ckpt_write(trainer, epoch: int) -> None:
+    """The write of epoch ``epoch``'s checkpoint dies on the writer thread,
+    once (a full disk, a lost mount).  It fails in
+    ``lineage.preserve_head()``, the writer's first call, so the head is
+    never opened and the lineage stays byte for byte as it was; the error
+    must surface at the next ``_join_pending_save``.  The epoch rides a
+    queue from the main thread's save call to the writer: the joins
+    serialise the writers, so the order matches.  Rank 0 only (the writer
+    is rank 0's)."""
+    if trainer.lineage is None:
+        raise ValueError("fail_ckpt_write needs a trainer with a snapshot "
+                         "path (no lineage, no writer thread)")
+    orig_save = trainer._checkpoint
+    orig_preserve = trainer.lineage.preserve_head
+    pending = collections.deque()
+    fired = [False]
+
+    def save(ep, data_state=None):
+        pending.append(int(ep))
+        return orig_save(ep, data_state)
+
+    def preserve():
+        ep = pending.popleft() if pending else None
+        if not fired[0] and ep == int(epoch):
+            fired[0] = True
+            _say(f"failing the checkpoint write of epoch {ep} on the "
+                 f"writer thread")
+            raise OSError(28, f"injected checkpoint write failure at "
+                              f"epoch {ep}")
+        return orig_preserve()
+
+    trainer._checkpoint = save
+    trainer.lineage.preserve_head = preserve
+
+
+def _known_kwargs(kind: str, part: str, kv: dict, allowed) -> None:
+    """A typo'd key fails the drill at install time instead of arming
+    nothing."""
+    unknown = sorted(set(kv) - set(allowed))
+    if unknown:
+        raise ValueError(
+            f"unknown kwarg(s) {unknown} for {FAULT_ENV} fault {kind!r} "
+            f"in {part!r} (allowed: {sorted(allowed)})")
+
+
+def _mirror_store_of(trainer):
+    """The trainer's ``DirStore`` mirror, to inject into: the mirror faults
+    are a drill wiring error without ``--mirror``."""
+    store = getattr(trainer, "_mirror_store", None)
+    if store is None or not hasattr(store, "inject_fail_puts"):
+        raise ValueError(
+            f"{FAULT_ENV} mirror fault needs a trainer running with "
+            "--mirror over a DirStore backend (no store to inject into)")
+    return store
+
+
+def fail_put(trainer, n) -> None:
+    """The next ``n`` mirror uploads fail at the store (a flaky remote)."""
+    n = int(n)
+    if n < 1:
+        raise ValueError(f"fail_put: n must be >= 1, got {n}")
+    _mirror_store_of(trainer).inject_fail_puts(n)
+    _say(f"next {n} mirror put(s) will fail")
+
+
+def slow_put(trainer, ms) -> None:
+    """Every mirror upload stalls ``ms`` milliseconds at the store (a hung
+    remote): the per-op deadline bounds it, the steps go on."""
+    ms = float(ms)
+    if ms < 0:
+        raise ValueError(f"slow_put: ms must be >= 0, got {ms:g}")
+    _mirror_store_of(trainer).inject_slow_put(ms / 1e3)
+    _say(f"mirror puts slowed by {ms:g} ms")
+
+
+def torn_remote_object(trainer) -> None:
+    """The next mirror upload lands truncated while the store records the
+    full-length sha: the mirror walk must detect it at get time and fall
+    back to the next mirrored object."""
+    _mirror_store_of(trainer).inject_torn_next_put()
+    _say("next mirror put will land torn")
+
+
+def wipe_local_ckpt(trainer, epoch) -> None:
+    """Delete every local lineage file (head, manifest, rotated snapshots,
+    shard files) once epoch ``epoch``'s checkpoint has committed and been
+    mirrored: total local-disk loss.  Fires at the start of the next epoch,
+    after the write's join and a bounded mirror drain; later saves make a
+    new head, and a relaunch restores from the mirror."""
+    epoch = int(epoch)
+    if epoch < 0:
+        raise ValueError(f"wipe_local_ckpt: epoch must be >= 0, got {epoch}")
+    path = getattr(trainer, "snapshot_path", None)
+    if not path:
+        raise ValueError("wipe_local_ckpt needs a trainer with a snapshot "
+                         "path (nothing local to wipe)")
+    orig = trainer._run_epoch
+    fired = [False]
+
+    def wrapped(ep, *a, **kw):
+        if not fired[0] and ep > epoch:
+            fired[0] = True
+            trainer._join_pending_save()
+            trainer._mirror_drain(60.0)
+            d = os.path.dirname(os.path.abspath(path))
+            base = os.path.basename(path)
+            victims = [f for f in os.listdir(d)
+                       if f == base or f.startswith(base + ".")]
+            for v in victims:
+                try:
+                    os.unlink(os.path.join(d, v))
+                except OSError:
+                    pass
+            _say(f"wiped {len(victims)} local checkpoint file(s) under "
+                 f"{d!r} after epoch {epoch}; the mirror is the only copy "
+                 f"now")
+        return orig(ep, *a, **kw)
+
+    trainer._run_epoch = wrapped
+
+
 def install_env_faults(trainer) -> None:
     """Apply the :data:`FAULT_ENV` specs to ``trainer`` (nothing when the
     variable is unset)."""
@@ -258,6 +391,20 @@ def install_env_faults(trainer) -> None:
             stall_at_epoch(trainer, int(kv["epoch"]),
                            float(kv.get("secs", "3600")),
                            rank=int(kv["rank"]) if "rank" in kv else None)
+        elif kind == "fail_ckpt_write":
+            fail_ckpt_write(trainer, int(kv["epoch"]))
+        elif kind == "fail_put":
+            _known_kwargs(kind, part, kv, ("n",))
+            fail_put(trainer, kv.get("n", "1"))
+        elif kind == "slow_put":
+            _known_kwargs(kind, part, kv, ("ms",))
+            slow_put(trainer, kv["ms"])
+        elif kind == "torn_remote_object":
+            _known_kwargs(kind, part, kv, ())
+            torn_remote_object(trainer)
+        elif kind == "wipe_local_ckpt":
+            _known_kwargs(kind, part, kv, ("epoch",))
+            wipe_local_ckpt(trainer, kv["epoch"])
         elif kind in NOT_YET:
             raise ValueError(
                 f"{FAULT_ENV} fault kind {kind!r} in {part!r} is not ported "

@@ -18,15 +18,18 @@ package's, so a lineage written by either package is walked by the other:
                            sha256, size and the head's ``data_state``,
                            written atomically after each head write
 
+Shard entries: a head written with ``--ckpt_format sharded`` is a v2 index
+whose manifest entry lists its shard files (``"shards"``); each commit
+unlinks exactly the shard files no surviving entry references any more.
+The mirror tier: with ``mirror_state`` set (``resilience/store.py``'s
+uploader), each entry is stamped ``"mirror": "pending"`` or
+``"mirrored"``, and :func:`latest_verifiable`'s ``store=`` falls back to
+the mirror's objects when no local candidate restores.
+
 One writer: rank 0 runs preserve, write and commit in turn on the
-trainer's thread (the port's checkpoint write is synchronous), so rotation
+trainer's checkpoint writer thread (one in flight at a time), so rotation
 never touches a file being written (an in-flight write is a ``*.tmp``
 name this module never touches).
-
-Not here yet (ROADMAP A7b, the storage half): the mirror tier (the JAX
-walk's ``store=`` fallback and the manifest's ``mirror`` stamps) and the
-sharded v2 format's shard entries.  The walk refuses both by name rather
-than fall back past them.
 """
 from __future__ import annotations
 
@@ -41,12 +44,19 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..train.checkpoint import (Checkpoint, CheckpointError,
-                                UnportedFormatError, load_checkpoint,
+from ..train.checkpoint import (Checkpoint, CheckpointError, load_checkpoint,
                                 sha256_of_file)
 
 MANIFEST_SUFFIX = ".manifest.json"
 MANIFEST_FORMAT = 1
+
+
+def _entry_shards(entry) -> List[str]:
+    """A manifest entry's shard file names (none for a v1 head or a
+    malformed entry)."""
+    if not isinstance(entry, dict):
+        return []
+    return [str(s) for s in entry.get("shards", []) if s]
 
 
 def lineage_name(path: str, epoch: int) -> str:
@@ -91,14 +101,6 @@ def read_manifest(path: str) -> Optional[Dict[str, Any]]:
     return m if isinstance(m, dict) else None
 
 
-def _refuse_sharded(entry: Any, path: str) -> None:
-    if isinstance(entry, dict) and entry.get("shards"):
-        raise UnportedFormatError(
-            f"checkpoint lineage {path!r} lists a sharded (format_version "
-            f"2) snapshot {entry.get('file')!r}; the sharded format is not "
-            f"ported yet (ROADMAP A7b)")
-
-
 class CheckpointLineage:
     """Rank-0 retention bookkeeping around one head checkpoint path."""
 
@@ -108,6 +110,10 @@ class CheckpointLineage:
         self.path = path
         self.keep = int(keep)
         self.manifest_path = path + MANIFEST_SUFFIX
+        # The mirror tier's hook: epoch -> "pending" / "mirrored", stamped
+        # on each entry at commit.  Set once before the writer starts and
+        # called only from it; None without a mirror (no stamps).
+        self.mirror_state = None
 
     def preserve_head(self) -> None:
         """Hard-link the current head to its epoch-numbered lineage name
@@ -148,9 +154,12 @@ class CheckpointLineage:
             return None
 
     def commit(self, *, epoch: int, step: int, sha256: str,
+               shards: Optional[List[str]] = None,
                data_state: Optional[Dict[str, Any]] = None) -> None:
         """Record the just-written head and trim retention to ``keep``
-        states (the head plus ``keep - 1`` rotated snapshots)."""
+        states (the head plus ``keep - 1`` rotated snapshots).  ``shards``
+        names a v2 head's shard files; the files of a dropped entry that
+        no surviving entry (nor the new head) references are unlinked."""
         m = read_manifest(self.path) or {}
         retained: List[Dict[str, Any]] = [
             e for e in m.get("retained", []) if isinstance(e, dict)]
@@ -166,6 +175,11 @@ class CheckpointLineage:
         retained = [e for e in retained
                     if e.get("file") not in seen
                     and not seen.add(e.get("file"))]
+        # Shard files referenced before this commit, dropped entries'
+        # included...
+        old_shards = set(_entry_shards(prev_head))
+        for e in retained:
+            old_shards |= set(_entry_shards(e))
         for dropped in retained[max(self.keep - 1, 0):]:
             self._unlink_rotated(dropped.get("file"))
         retained = retained[:max(self.keep - 1, 0)]
@@ -173,10 +187,23 @@ class CheckpointLineage:
                                 "epoch": int(epoch), "step": int(step),
                                 "sha256": sha256,
                                 "size": os.path.getsize(self.path)}
+        if shards:
+            head["shards"] = [os.path.basename(s) for s in shards]
         if data_state is not None:
             # The checkpoint's own resume position, readable from the 1 KB
             # manifest; the checkpoint file stays authoritative.
             head["data_state"] = data_state
+        # ...less those still referenced after it: the ones to trim.
+        new_shards = set(_entry_shards(head))
+        for e in retained:
+            new_shards |= set(_entry_shards(e))
+        for fname in sorted(old_shards - new_shards):
+            self._unlink_shard(fname)
+        if self.mirror_state is not None:
+            head["mirror"] = self.mirror_state(int(epoch))
+            for e in retained:
+                if e.get("mirror") != "mirrored" and "epoch" in e:
+                    e["mirror"] = self.mirror_state(int(e["epoch"]))
         manifest = {"format": MANIFEST_FORMAT, "head": head,
                     "retained": retained}
         d = os.path.dirname(os.path.abspath(self.manifest_path))
@@ -211,6 +238,20 @@ class CheckpointLineage:
         except OSError:
             pass  # already gone: retention is best-effort
 
+    def _unlink_shard(self, fname) -> None:
+        """Delete one dropped shard file (and a multi-host ``.sha256``
+        sidecar beside it): only the epoch-qualified ``P.ep*.shard*`` names
+        the sharded save makes."""
+        name = str(fname or "")
+        if not (name.startswith(os.path.basename(self.path) + ".ep")
+                and ".shard" in name):
+            return
+        for victim in (name, name + ".sha256"):
+            try:
+                os.unlink(self._resolve(victim))
+            except OSError:
+                pass  # already gone: retention is best-effort
+
 
 def _candidates(path: str) -> List[Tuple[str, Optional[str]]]:
     """(file, expected sha256) restore candidates, newest first: the head,
@@ -220,7 +261,6 @@ def _candidates(path: str) -> List[Tuple[str, Optional[str]]]:
     out: List[Tuple[str, Optional[str]]] = []
     head_sha = None
     if m is not None and isinstance(m.get("head"), dict):
-        _refuse_sharded(m["head"], path)
         head_sha = m["head"].get("sha256")
     if os.path.exists(path):
         out.append((path, head_sha))
@@ -228,7 +268,6 @@ def _candidates(path: str) -> List[Tuple[str, Optional[str]]]:
         for e in m.get("retained", []):
             if not isinstance(e, dict) or not e.get("file"):
                 continue
-            _refuse_sharded(e, path)
             fp = os.path.join(os.path.dirname(os.path.abspath(path)),
                               str(e["file"]))
             if os.path.exists(fp):
@@ -266,27 +305,89 @@ def _resolve_head(path: str) -> str:
     return os.path.join(path, "checkpoint.pt")
 
 
+def _restore_from_mirror(path: str, store, tried: List[Tuple[str, str]]
+                         ) -> Optional[Tuple[Checkpoint, str]]:
+    """The mirror tier of :func:`latest_verifiable`: download the mirror
+    manifest's objects (head first, then retained, newest first) back
+    into the head's directory, recreating it when the whole local
+    directory is gone, and load each as the local walk would.  A v1 head
+    is one object; a v2 entry is its index plus every shard file it lists.
+    Failures are added to ``tried``."""
+    base = os.path.basename(path)
+    d = os.path.dirname(os.path.abspath(path))
+    mname = base + MANIFEST_SUFFIX
+    try:
+        if store.stat(mname) is None:
+            return None  # nothing ever mirrored: not an error
+        rm = json.loads(store.get_bytes(mname).decode())
+    except Exception as e:  # any store or parse damage
+        tried.append((f"<mirror>/{mname}",
+                      f"mirror manifest unreadable ({e})"))
+        _log(f"WARNING: mirror manifest {mname!r} in {store.describe()} "
+             f"is unreadable ({e}); no mirror fallback")
+        return None
+    if not isinstance(rm, dict):
+        tried.append((f"<mirror>/{mname}", "mirror manifest malformed"))
+        return None
+    for e in [rm.get("head")] + list(rm.get("retained") or []):
+        if not isinstance(e, dict) or not e.get("file"):
+            continue
+        fname = str(e["file"])
+        local = os.path.join(d, fname)
+        try:
+            os.makedirs(d, exist_ok=True)
+            store.get(fname, local)
+            for s in _entry_shards(e):
+                store.get(s, os.path.join(d, s))
+        except Exception as ex:  # skip to the older object
+            tried.append((f"<mirror>/{fname}", str(ex)))
+            _log(f"WARNING: mirror object {fname!r} is not restorable "
+                 f"({ex}); falling back to the next mirrored snapshot")
+            continue
+        expected = e.get("sha256")
+        if expected:
+            try:
+                actual = sha256_of_file(local)
+            except OSError as ex:
+                tried.append((f"<mirror>/{fname}", f"unreadable ({ex})"))
+                continue
+            if actual != expected:
+                _log(f"WARNING: downloaded mirror object {fname!r} "
+                     "sha256 mismatch vs mirror manifest; attempting "
+                     "restore anyway")
+        try:
+            ck = load_checkpoint(local)
+        except (FileNotFoundError, CheckpointError) as ex:
+            tried.append((f"<mirror>/{fname}", str(ex)))
+            _log(f"WARNING: mirror object {fname!r} downloaded but does "
+                 f"not restore ({ex}); falling back")
+            continue
+        _log(f"WARNING: restored checkpoint from MIRROR object {fname!r} "
+             f"(epoch {ck.epoch}) via {store.describe()} — no local "
+             f"candidate under {path!r} was verifiable")
+        return ck, local
+    return None
+
+
 def latest_verifiable(path: Optional[str], store=None
                       ) -> Optional[Tuple[Checkpoint, str]]:
     """The newest verifiable checkpoint under ``path`` (a head path, or a
-    directory resolved by :func:`_resolve_head`): the one walk both the
+    directory resolved by :func:`_resolve_head`): the one walk the
     trainer's resume and restore and the serve engine's load go through.
 
     Tries the head, then each retained snapshot newest first.  A candidate
     whose manifest sha256 mismatches is logged and still tried (a stale
     manifest must not discard a good head); one that ``load_checkpoint``
-    rejects (torn or foreign) is logged and skipped.  A sharded (v2)
-    candidate raises
-    :class:`~ddp_tpu_torch.train.checkpoint.UnportedFormatError`, as does
-    ``store`` (the mirror tier): both belong to ROADMAP A7b.
+    rejects (torn or foreign, a torn or missing shard of a v2 set, a
+    format newer than this build's) is logged and skipped.  ``store`` (a
+    ``resilience.store.CheckpointStore``, the mirror tier) is tried when
+    no local candidate restores, the local directory gone included
+    (:func:`_restore_from_mirror`); local candidates win when verifiable,
+    since the mirror only uploads committed states.
 
     Returns ``(checkpoint, file used)``; None when no candidate exists
     (fresh training); raises ``CheckpointError`` naming every candidate
-    tried when candidates exist but none restores."""
-    if store is not None:
-        raise UnportedFormatError(
-            "the mirror tier (latest_verifiable's store=, --mirror) is not "
-            "ported yet (ROADMAP A7b)")
+    tried, both tiers, when candidates exist but none restores."""
     if not path:
         return None
     path = _resolve_head(path)
@@ -308,8 +409,6 @@ def latest_verifiable(path: Optional[str], store=None
         except FileNotFoundError:
             tried.append((fp, "vanished before it could be read"))
             continue
-        except UnportedFormatError:
-            raise
         except CheckpointError as e:
             tried.append((fp, str(e)))
             _log(f"WARNING: checkpoint {fp!r} is not restorable ({e}); "
@@ -320,6 +419,10 @@ def latest_verifiable(path: Optional[str], store=None
                  f"(epoch {ck.epoch}) — the head {path!r} was torn or "
                  "missing")
         return ck, fp
+    if store is not None:
+        got = _restore_from_mirror(path, store, tried)
+        if got is not None:
+            return got
     if not cands and not tried:
         return None
     raise CheckpointError(

@@ -33,13 +33,17 @@ WATCHDOG_EXIT_STATUS = 124
 class Watchdog:
     def __init__(self, timeout_s: float, *, tag: str = "train",
                  context: Optional[Callable[[], str]] = None,
+                 on_expire: Optional[Callable[[], None]] = None,
                  registry=None):
         if timeout_s <= 0:
             raise ValueError(f"watchdog timeout must be > 0, got {timeout_s}")
         self.timeout_s = float(timeout_s)
         self.tag = tag
-        # context() -> str is printed with the stall diagnostic.
+        # context() -> str is printed with the stall diagnostic;
+        # on_expire() runs before the exit (cli.py's flight-recorder dump,
+        # bounded on its own side thread).
         self.context = context
+        self.on_expire = on_expire
         # One writer each: beat() on the trainer's thread, the expiry on
         # the watchdog's; a float store is atomic, and a stale read only
         # delays the expiry by one poll.
@@ -103,6 +107,12 @@ class Watchdog:
             if detail:
                 print(f"WATCHDOG [{self.tag}]: {detail}", file=sys.stderr)
         sys.stderr.flush()
+        try:
+            if self.on_expire is not None:
+                self.on_expire()
+        except Exception as e:  # the exit must happen regardless
+            print(f"WATCHDOG [{self.tag}]: on_expire hook failed: {e!r}",
+                  file=sys.stderr)
         try:
             from ..parallel import dist
             dist.abort()  # never blocks

@@ -146,9 +146,10 @@ class ServeEngine:
         torn head falls back to the newest retained snapshot.  The file is
         loaded by :func:`~ddp_tpu_torch.train.checkpoint.restore`: one of
         another model raises
-        :class:`~ddp_tpu_torch.train.checkpoint.CheckpointError`, and so do
-        nothing to load and a sharded (v2) index (not ported yet, ROADMAP
-        A7b).  ``checkpoint_file`` names the file used."""
+        :class:`~ddp_tpu_torch.train.checkpoint.CheckpointError`, and so
+        does nothing to load.  A v1 file and a v2 sharded set
+        (``train/ckpt_shard.py``) serve alike.  ``checkpoint_file`` names
+        the file used."""
         from ..models import get_model
         from ..resilience.lineage import latest_verifiable
         from ..train.checkpoint import CheckpointError, restore

@@ -1,10 +1,9 @@
-"""Checkpoint save and restore (counterpart of the gathered, version-1 half of
-``ddp_tpu/train/checkpoint.py``).
+"""Checkpoint save and restore (counterpart of ``ddp_tpu/train/checkpoint.py``).
 
-The file is the JAX package's v1 file, key for key and layout for layout,
-so either package restores what the other wrote, for each of the three
-models: one ``.npz`` of flat ``section/key/subkey`` arrays (``/`` joins the
-nesting; ResNet's keys hold dots, ``layer1.block0``),
+The gathered file is the JAX package's v1 file, key for key and layout for
+layout, so either package restores what the other wrote, for each of the
+three models: one ``.npz`` of flat ``section/key/subkey`` arrays (``/``
+joins the nesting; ResNet's keys hold dots, ``layer1.block0``),
 
 - ``params/...``, the model's JAX tree (for VGG
   ``params/backbone/conv{i}/kernel`` (HWIO), ``params/backbone/bn{i}/scale``
@@ -22,11 +21,15 @@ The layouts go through :mod:`ddp_tpu_torch.interop`.  The write is atomic
 (a temporary file, then a rename) and hashed while it is written.  Reads
 are eager: every array is read at load time (the JAX package reads lazily,
 one leaf at a time, which matters only for models far larger than VGG).
-The sharded v2 format (``ddp_tpu/train/ckpt_shard.py``) is not ported yet
-and is refused by name (:class:`UnportedFormatError`; it belongs to the
-storage half of the resilience port, ROADMAP A7b).  Retention, the sha256
-manifest and the restore walk over retained files are
-``resilience/lineage.py``'s.
+:func:`load_checkpoint` hands a sharded (format_version 2) index to
+``train/ckpt_shard.py``, which verifies and assembles its shard set, and
+refuses a format newer than 2 (:class:`UnportedFormatError`), as the JAX
+package refuses one.  Retention, the sha256 manifest and the restore walk
+over retained files are ``resilience/lineage.py``'s.
+
+:class:`HostSnapshot` is the trainer's asynchronous save's copy of the
+state: the live tensors are updated in place by the next step, so the
+writer thread reads a host pool that the copies filled, never them.
 """
 from __future__ import annotations
 
@@ -45,6 +48,8 @@ from .. import interop
 _SECTIONS = ("params", "batch_stats", "momentum")
 _SEP = "/"
 GATHERED_FORMAT_VERSION = 1
+# The newest format this build reads: the sharded index (ckpt_shard.py).
+FORMAT_VERSION = 2
 
 
 class CheckpointError(ValueError):
@@ -53,9 +58,9 @@ class CheckpointError(ValueError):
 
 
 class UnportedFormatError(CheckpointError):
-    """A checkpoint in a format the port does not read yet (the sharded v2
-    index).  The lineage walk raises it instead of falling back past the
-    file to an older one."""
+    """A checkpoint whose ``format_version`` is newer than this build's
+    :data:`FORMAT_VERSION`.  The lineage walk falls back past it, as past
+    any file it cannot restore."""
 
 
 class Checkpoint(NamedTuple):
@@ -150,33 +155,121 @@ def write_npz_hashed(path: str, flat: Dict[str, np.ndarray]) -> str:
         raise
 
 
+def state_arrays(name: str, state_dict: Dict[str, torch.Tensor],
+                 momentum: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Model ``name``'s ``state_dict`` and its momentum (keyed by parameter
+    name) as the checkpoint's flat ``params/``, ``batch_stats/`` and
+    ``momentum/`` arrays, in the file's order (sections in turn, keys
+    sorted within each)."""
+    params, stats = interop.jax_from_state_dict(name, state_dict)
+    trees = (params, stats, interop.jax_from_state_dict(name, momentum)[0])
+    flat: Dict[str, np.ndarray] = {}
+    for section, tree in zip(_SECTIONS, trees):
+        sect: Dict[str, np.ndarray] = {}
+        _flatten(tree, "", sect)
+        flat.update({f"{section}/{k}": v for k, v in sect.items()})
+    return flat
+
+
+def encode_data_state(data_state: Optional[Dict[str, Any]]):
+    """A ``data_state`` dict as an npz member (a uint8 JSON blob), or None
+    when there is nothing to record; shared by the v1 file and the v2
+    index."""
+    if data_state is None:
+        return None
+    return np.frombuffer(json.dumps(data_state).encode("utf-8"), np.uint8)
+
+
+def write_gathered(path: str, arrays: Dict[str, np.ndarray], step: int,
+                   epoch: int, data_state: Optional[Dict[str, Any]] = None
+                   ) -> str:
+    """Write :func:`state_arrays`' ``arrays`` with ``step``, ``epoch`` and
+    ``data_state`` to ``path`` as a v1 file, atomically; returns its
+    sha256."""
+    flat = dict(arrays)
+    flat["meta/step"] = np.asarray(int(step), np.int64)
+    flat["meta/epoch"] = np.asarray(int(epoch), np.int64)
+    flat["meta/format_version"] = np.asarray(GATHERED_FORMAT_VERSION,
+                                             np.int64)
+    blob = encode_data_state(data_state)
+    if blob is not None:
+        flat["meta/data_state_json"] = blob
+    return write_npz_hashed(path, flat)
+
+
+def _named_momentum(model: nn.Module, momentum: List[torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    return dict(zip((n for n, _ in model.named_parameters()), momentum))
+
+
 def save_checkpoint(path: str, model: nn.Module,
                     momentum: List[torch.Tensor], step: int, epoch: int,
                     data_state: Optional[Dict[str, Any]] = None) -> str:
     """Write ``model``'s weights and BatchNorm buffers, the SGD
     ``momentum`` (parallel to ``model.parameters()``), ``step`` and
     ``epoch`` to ``path`` as a v1 file, atomically; returns its sha256."""
-    params, stats = interop.jax_from_state_dict(model.name,
-                                                model.state_dict())
-    trees = (params, stats, interop.momentum_tree_from_list(model, momentum))
-    flat: Dict[str, np.ndarray] = {}
-    for section, tree in zip(_SECTIONS, trees):
-        sect: Dict[str, np.ndarray] = {}
-        _flatten(tree, "", sect)
-        flat.update({f"{section}/{k}": v for k, v in sect.items()})
-    flat["meta/step"] = np.asarray(int(step), np.int64)
-    flat["meta/epoch"] = np.asarray(int(epoch), np.int64)
-    flat["meta/format_version"] = np.asarray(GATHERED_FORMAT_VERSION,
-                                             np.int64)
-    if data_state is not None:
-        flat["meta/data_state_json"] = np.frombuffer(
-            json.dumps(data_state).encode("utf-8"), np.uint8)
-    return write_npz_hashed(path, flat)
+    return write_gathered(path, state_arrays(
+        model.name, model.state_dict(), _named_momentum(model, momentum)),
+        step, epoch, data_state)
 
 
-def _decode_data_state(blob) -> Optional[Dict[str, Any]]:
-    """A missing or unparseable record reads as None (epoch-boundary
-    resume), as in the JAX package."""
+class HostSnapshot:
+    """A host copy of a model's ``state_dict`` and momentum, taken on the
+    caller's thread and read on another (the trainer's asynchronous
+    checkpoint writer).
+
+    The pool is allocated at the first :meth:`capture` and reused: pinned
+    memory on a card, where each tensor is copied with ``non_blocking`` on
+    the current stream and an event is recorded after the copies.  The
+    stream's order puts the next step's in-place updates after the copies,
+    so the pool holds the state as of the capture; :meth:`arrays` waits on
+    the event before it reads.  On the CPU the copies are synchronous.  A
+    capture overwrites the pool: the caller joins the previous reader
+    first."""
+
+    def __init__(self):
+        self._sd: Optional[Dict[str, torch.Tensor]] = None
+        self._momentum: Optional[Dict[str, torch.Tensor]] = None
+        self._event: Optional[torch.cuda.Event] = None
+        self.name: Optional[str] = None
+
+    @staticmethod
+    def _pool(tensors: Dict[str, torch.Tensor], pin: bool
+              ) -> Dict[str, torch.Tensor]:
+        return {k: torch.empty(v.shape, dtype=v.dtype, device="cpu",
+                               pin_memory=pin) for k, v in tensors.items()}
+
+    @torch.no_grad()
+    def capture(self, model: nn.Module, momentum: List[torch.Tensor]
+                ) -> None:
+        """Copy ``model``'s state and ``momentum`` into the pool."""
+        sd = model.state_dict()
+        mom = _named_momentum(model, momentum)
+        cuda = next(iter(sd.values())).device.type == "cuda"
+        if self._sd is None or self.name != model.name:
+            self._sd, self._momentum = self._pool(sd, cuda), \
+                self._pool(mom, cuda)
+        self.name = model.name
+        for pool, src in ((self._sd, sd), (self._momentum, mom)):
+            for k, v in src.items():
+                pool[k].copy_(v, non_blocking=cuda)
+        self._event = None
+        if cuda:
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def arrays(self) -> Dict[str, np.ndarray]:
+        """The captured state as :func:`state_arrays`, once the copies have
+        landed."""
+        if self._event is not None:
+            self._event.synchronize()
+        return state_arrays(self.name, self._sd, self._momentum)
+
+
+def decode_data_state(blob) -> Optional[Dict[str, Any]]:
+    """Inverse of :func:`encode_data_state`.  A missing or unparseable
+    record reads as None (epoch-boundary resume), as in the JAX
+    package."""
     if blob is None:
         return None
     try:
@@ -186,13 +279,11 @@ def _decode_data_state(blob) -> Optional[Dict[str, Any]]:
     return ds if isinstance(ds, dict) else None
 
 
-def load_checkpoint(path: str) -> Checkpoint:
-    """Read a v1 file written by either package.  Raises
-    :class:`CheckpointError` on a torn or foreign file, a member that fails
-    its CRC, or a v2 sharded index; a missing path keeps
-    ``FileNotFoundError``."""
+def open_npz(path: str):
+    """``np.load`` with a torn or foreign file as :class:`CheckpointError`
+    (a missing path keeps ``FileNotFoundError``)."""
     try:
-        z = np.load(path)
+        return np.load(path)
     except FileNotFoundError:
         raise
     except Exception as e:  # BadZipFile, OSError, pickle guard, EOF
@@ -200,7 +291,15 @@ def load_checkpoint(path: str) -> Checkpoint:
             f"checkpoint {path!r} is not a readable npz archive "
             f"({type(e).__name__}: {e}); the file is torn or is not a "
             f"ddp_tpu checkpoint") from e
-    with z:
+
+
+def load_checkpoint(path: str) -> Checkpoint:
+    """Read a v1 file or a v2 sharded index written by either package.
+    Raises :class:`CheckpointError` on a torn or foreign file, a member
+    that fails its CRC, a torn or missing shard, or a format newer than
+    :data:`FORMAT_VERSION` (:class:`UnportedFormatError`); a missing path
+    keeps ``FileNotFoundError``."""
+    with open_npz(path) as z:
         files = set(z.files)
         try:
             flat = {k: z[k] for k in files}
@@ -219,16 +318,18 @@ def load_checkpoint(path: str) -> Checkpoint:
 
     version = (scalar("meta/format_version")
                if "meta/format_version" in files else 1)
-    if version == 2:
+    if version > FORMAT_VERSION:
         raise UnportedFormatError(
-            f"checkpoint {path!r} is a sharded (format_version 2) index; "
-            f"the port reads the gathered format_version 1 only (the "
-            f"sharded format, ddp_tpu/train/ckpt_shard.py, is not ported "
-            f"yet: ROADMAP A7b)")
+            f"checkpoint {path!r} has format_version {version}, newer than "
+            f"this build's {FORMAT_VERSION}; upgrade ddp_tpu_torch to "
+            f"restore it")
+    if version == 2:
+        from .ckpt_shard import assemble_checkpoint
+        return assemble_checkpoint(path)
     if version != GATHERED_FORMAT_VERSION:
         raise CheckpointError(
             f"checkpoint {path!r} has format_version {version}; the port "
-            f"reads format_version 1")
+            f"reads format_versions 1 and 2")
     sections: Dict[str, Dict[str, np.ndarray]] = {s: {} for s in _SECTIONS}
     for key, val in flat.items():
         section, _, rest = key.partition(_SEP)
@@ -248,7 +349,7 @@ def load_checkpoint(path: str) -> Checkpoint:
         batch_stats=_unflatten(sections["batch_stats"]),
         momentum=_unflatten(sections["momentum"]),
         step=scalar("meta/step"), epoch=scalar("meta/epoch"),
-        data_state=_decode_data_state(flat.get("meta/data_state_json")))
+        data_state=decode_data_state(flat.get("meta/data_state_json")))
 
 
 def _mismatch(ckpt: Checkpoint, model: nn.Module, why: str

@@ -24,10 +24,24 @@ path's only stop point).  :meth:`Trainer.train` is restartable: a
 ``--drift_action restore``) reloads the newest verifiable checkpoint and
 goes on from its position, and a preemption ends in an emergency
 checkpoint and ``PreemptionInterrupt``.
+
+Storage (``ddp_tpu/train/trainer.py:682-877``): a checkpoint is written on
+one writer thread.  The main thread copies the state into a reused host
+pool (:class:`~ddp_tpu_torch.train.checkpoint.HostSnapshot`) and hands the
+file write (gathered v1 or ``ckpt_format="sharded"`` v2), the lineage's
+preserve and commit, the mirror's enqueue and the "checkpoint saved" line
+to the writer; :meth:`Trainer._join_pending_save` waits for it, before the
+next save, a restore, an emergency exit and the end of :meth:`Trainer.train`,
+and re-raises its error there.  With ``mirror`` (a store URI,
+``resilience/store.py``) each committed checkpoint is also uploaded by the
+mirror's own thread, and resume and restore fall back to it when no local
+file restores.
 """
 from __future__ import annotations
 
+import os
 import sys
+import threading
 import time
 from collections import deque
 from typing import (Callable, Deque, Dict, Iterable, Iterator, List,
@@ -49,7 +63,9 @@ from ..resilience.guard import (NonFiniteLossError, RestoreFromLastGood,
                                 StepHealthGuard)
 from ..resilience.lineage import CheckpointLineage, latest_verifiable
 from ..resilience.preemption import PreemptionInterrupt
+from ..resilience.store import MirrorUploader, open_store
 from . import checkpoint as ckpt_lib
+from .ckpt_shard import save_checkpoint_sharded
 from .epoch import make_train_epoch, make_train_step
 from .step import init_train_state
 from .zero import list_to_opt_shard, opt_shard_to_list
@@ -215,7 +231,20 @@ class Trainer:
     parameters every K steps with ``drift_action`` on a divergence
     (``resilience/drift.py``); ``watchdog`` gets a beat at each epoch, step
     and loss read.  ``_step_probe``, when set, is called with the global
-    step after each streamed step."""
+    step after each streamed step.
+
+    Storage: ``ckpt_format`` is ``"gathered"`` (the v1 file) or
+    ``"sharded"`` (the v2 index and its one shard, ``train/ckpt_shard.py``);
+    rank 0 writes either on its writer thread (see the module docstring).
+    ``saves`` records each save: its epoch and step, the main thread's ms
+    for the join of the previous write (``join_ms``) and for the snapshot
+    and the hand-off (``main_ms``), the writer's seconds (``writer_s``:
+    file, sha256, commit), the bytes written and the optimizer steps the
+    main thread dispatched while it wrote.  ``mirror`` (a URI or a
+    :class:`~ddp_tpu_torch.resilience.store.CheckpointStore`) adds the
+    second durability tier; its uploader registers its counters and the
+    ``ddp_mirror_lag_epochs`` gauge on ``registry``, and ``mirror_lag``
+    holds the lag before and after the end of training's drain."""
 
     def __init__(self, model: nn.Module, train_loader: TrainLoader, *,
                  device: torch.device,
@@ -233,7 +262,9 @@ class Trainer:
                  on_nan: str = "abort", watchdog=None, preemption=None,
                  drift_audit_every: int = 0, drift_action: str = "abort",
                  guard_window: int = 64, guard_spike_factor: float = 0.0,
-                 guard_action: str = "rollback"):
+                 guard_action: str = "rollback",
+                 ckpt_format: str = "gathered", mirror=None,
+                 registry=None):
         if train_loader.num_replicas != dist.world_size():
             raise ValueError(f"the train loader has "
                              f"{train_loader.num_replicas} replicas; the "
@@ -259,6 +290,23 @@ class Trainer:
         self.prefetch_stats = prefetch_stats
         self.lineage = (CheckpointLineage(snapshot_path, keep_checkpoints)
                         if snapshot_path else None)
+        if ckpt_format not in ("gathered", "sharded"):
+            raise ValueError(f"ckpt_format must be 'gathered' or 'sharded', "
+                             f"got {ckpt_format!r}")
+        self.ckpt_format = ckpt_format
+        # One writer in flight; its error is written only by the writer and
+        # read only after its join.
+        self._save_thread: Optional[threading.Thread] = None
+        self._save_error: Optional[BaseException] = None
+        self._snapshot = ckpt_lib.HostSnapshot()
+        self.saves: List[dict] = []
+        # The mirror tier: the store on every rank (resume and restore may
+        # need it), the uploader on rank 0 (made after the resume below).
+        self._mirror_store = (open_store(mirror)
+                              if mirror is not None and snapshot_path
+                              else None)
+        self._mirror: Optional[MirrorUploader] = None
+        self.mirror_lag: List[int] = []
         self._health = StepHealthGuard(on_nan, window=guard_window,
                                        spike_factor=guard_spike_factor,
                                        spike_action=guard_action,
@@ -316,6 +364,12 @@ class Trainer:
         self.epoch_seconds: List[float] = []
         if resume and snapshot_path:
             self._resume(snapshot_path)
+        if self._mirror_store is not None and self.rank == 0:
+            self._mirror = MirrorUploader(self._mirror_store, snapshot_path,
+                                          keep=keep_checkpoints,
+                                          registry=registry,
+                                          tracer=get_tracer())
+            self.lineage.mirror_state = self._mirror.state_of_epoch
         # loss_history[i] is global step _history_base + i: where a restore
         # cuts the discarded trajectory.  _position: (epoch, batch offset)
         # after the last epoch trained, for data_state().
@@ -355,7 +409,7 @@ class Trainer:
         self.state.step = ckpt.step
 
     def _resume(self, path: str) -> None:
-        loaded = latest_verifiable(path)
+        loaded = latest_verifiable(path, store=self._mirror_store)
         if loaded is None:
             return  # nothing saved yet: a fresh start
         ckpt, used = loaded
@@ -395,24 +449,102 @@ class Trainer:
     def _checkpoint(self, epoch: int, data_state: Optional[dict] = None
                     ) -> None:
         """Save the state as of ``epoch`` on every rank's call (gathering
-        the sharded momentum is a collective); rank 0 writes it, between
-        the lineage's preserve and commit.  ``data_state`` defaults to the
+        the sharded momentum is a collective).  Rank 0 joins the previous
+        write, copies the state into the host pool and hands the write to
+        its writer thread (:meth:`_write`).  ``data_state`` defaults to the
         next epoch's first batch."""
-        momentum = (opt_shard_to_list(list(self.state.model.parameters()),
-                                      self.state.momentum)
-                    if self.shard_update else self.state.momentum)
-        if self.rank != 0:
+        t0 = time.perf_counter()
+        tracer = get_tracer()
+        with tracer.span("ckpt_write", step=self.state.step):
+            momentum = (opt_shard_to_list(list(self.state.model.parameters()),
+                                          self.state.momentum)
+                        if self.shard_update else self.state.momentum)
+            if self.rank != 0:
+                return
+            if data_state is None:
+                data_state = self._data_state(epoch + 1, 0)
+            # At most one writer, and the pool is overwritten only after
+            # the previous write has read it.
+            self._join_pending_save()
+            t1 = time.perf_counter()
+            self._snapshot.capture(self.state.model, momentum)
+            record = {"epoch": int(epoch), "step": int(self.state.step),
+                      "join_ms": (t1 - t0) * 1e3}
+            self.saves.append(record)
+            self._save_thread = threading.Thread(
+                target=self._write, args=(epoch, data_state, record),
+                name="ckpt-writer", daemon=True)
+            self._save_thread.start()
+            record["main_ms"] = (time.perf_counter() - t1) * 1e3
+
+    def _write(self, epoch: int, data_state: dict, record: dict) -> None:
+        """The writer thread: the lineage's preserve, the file (hashed as it
+        is written), the commit, the mirror's enqueue (only committed,
+        sha-recorded states are mirrored) and the reference's print.  An
+        error is kept for the next join."""
+        step = record["step"]
+        t0 = time.perf_counter()
+        try:
+            with get_tracer().span("ckpt_write", step=step, overlap=True):
+                self.lineage.preserve_head()
+                arrays = self._snapshot.arrays()
+                shards = None
+                if self.ckpt_format == "sharded":
+                    sha, shards = save_checkpoint_sharded(
+                        self.snapshot_path, arrays, step, epoch,
+                        world=dist.world_size(), data_state=data_state)
+                else:
+                    sha = ckpt_lib.write_gathered(self.snapshot_path, arrays,
+                                                  step, epoch, data_state)
+                self.lineage.commit(epoch=epoch, step=step, sha256=sha,
+                                    shards=shards, data_state=data_state)
+            if self._mirror is not None:
+                self._mirror.enqueue(epoch=epoch, step=step, sha256=sha,
+                                     shards=shards or (),
+                                     data_state=data_state)
+            d = os.path.dirname(os.path.abspath(self.snapshot_path))
+            record.update(
+                writer_s=time.perf_counter() - t0,
+                bytes=os.path.getsize(self.snapshot_path) + sum(
+                    os.path.getsize(os.path.join(d, f))
+                    for f in shards or ()),
+                steps_during=self.state.step - step)
+            # Reference print, singlegpu.py:122.
+            print(f"Epoch {epoch} | Training checkpoint saved at "
+                  f"{self.snapshot_path}")
+        except BaseException as e:  # surfaced at the next join
+            self._save_error = e
+
+    def _join_pending_save(self) -> None:
+        """Wait for the write in flight and re-raise its error: a lost
+        checkpoint must not look saved.  At world > 1 only rank 0 writes,
+        so only rank 0 raises; it gives the process group up first, so
+        that peers waiting in a collective end instead of hanging."""
+        if self._save_thread is None:
             return
-        if data_state is None:
-            data_state = self._data_state(epoch + 1, 0)
-        self.lineage.preserve_head()
-        sha = ckpt_lib.save_checkpoint(self.snapshot_path, self.state.model,
-                                       momentum, self.state.step, epoch,
-                                       data_state=data_state)
-        self.lineage.commit(epoch=epoch, step=self.state.step, sha256=sha,
-                            data_state=data_state)
-        print(f"Epoch {epoch} | Training checkpoint saved at "
-              f"{self.snapshot_path}")
+        self._save_thread.join()
+        self._save_thread = None
+        if self._save_error is not None:
+            err, self._save_error = self._save_error, None
+            if dist.world_size() > 1:
+                print(f"[GPU{self.rank}] FATAL: async checkpoint write "
+                      f"failed: {err!r}; aborting the process group so "
+                      f"peer ranks end instead of hanging in the next "
+                      f"collective", file=sys.stderr)
+                dist.abort()
+            raise err
+
+    def _mirror_drain(self, timeout: float = 30.0) -> None:
+        """A bounded wait for the queued uploads (an emergency exit gives
+        the remote copy a head start).  Never raises and never waits longer
+        than ``timeout``: the local checkpoint is durable already."""
+        if self._mirror is None:
+            return
+        if not self._mirror.drain(timeout):
+            print(f"[GPU{self.rank}] mirror: still "
+                  f"{self._mirror.lag_epochs()} epoch(s) behind after "
+                  f"{timeout:.0f}s drain window; newest state is "
+                  "local-only", file=sys.stderr)
 
     def draws(self, step: int, n: int, micro: int = 0) -> Draws:
         """This rank's crop/flip draws of micro-batch ``micro`` of optimizer
@@ -583,8 +715,10 @@ class Trainer:
         every rank, drop the discarded steps from ``loss_history``, and
         return the ``(epoch, batch offset)`` to go on from.  The restore
         count the guard raised re-keys the draws from here on."""
+        self._join_pending_save()  # let an in-flight (good) write land
         self._preempt_pending = None
-        loaded = (latest_verifiable(self.snapshot_path)
+        loaded = (latest_verifiable(self.snapshot_path,
+                                    store=self._mirror_store)
                   if self.snapshot_path else None)
         if loaded is None:
             raise NonFiniteLossError(
@@ -623,9 +757,12 @@ class Trainer:
               f"replay", file=sys.stderr)
 
     def _emergency_exit(self, epoch: int, what: str, **event) -> None:
-        """Report the emergency checkpoint, force the metrics tail and the
+        """Land the emergency checkpoint (the write joined, the mirror given
+        a bounded head start), report it, force the metrics tail and the
         span spill to disk (a SIGKILL follows SIGTERM), and raise
         :class:`PreemptionInterrupt`."""
+        self._join_pending_save()
+        self._mirror_drain()
         print(f"[GPU{self.rank}] preemption: {what}"
               + (f" is on disk at {self.snapshot_path}" if self.snapshot_path
                  else " — DISABLED (snapshot_path=None), state lost"),
@@ -693,13 +830,31 @@ class Trainer:
         Restartable: a ``RestoreFromLastGood`` verdict rewinds to the
         reloaded checkpoint's position instead of ending the run."""
         epoch, offset = self.start_epoch, self._resume_offset
-        while epoch < max_epochs:
-            try:
-                self._train_one(epoch, epoch_callback, offset)
-            except RestoreFromLastGood as e:
-                if e.skip_steps:
-                    self._mark_poisoned(e.skip_epoch, e.skip_steps)
-                epoch, offset = self._restore_last_good()
-                continue
-            epoch, offset = epoch + 1, 0
-            self._position = (epoch, offset)
+        try:
+            while epoch < max_epochs:
+                try:
+                    self._train_one(epoch, epoch_callback, offset)
+                except RestoreFromLastGood as e:
+                    if e.skip_steps:
+                        self._mark_poisoned(e.skip_epoch, e.skip_steps)
+                    epoch, offset = self._restore_last_good()
+                    continue
+                epoch, offset = epoch + 1, 0
+                self._position = (epoch, offset)
+        finally:
+            # The last write lands before train() returns, also when the
+            # loop unwinds (the daemon writer dies with the interpreter);
+            # then its error must not replace the one in flight.
+            if sys.exc_info()[1] is None:
+                self._join_pending_save()
+                if self._mirror is not None:
+                    self.mirror_lag.append(self._mirror.lag_epochs())
+                    self._mirror_drain()
+                    self.mirror_lag.append(self._mirror.lag_epochs())
+            else:
+                try:
+                    self._join_pending_save()
+                except BaseException as e:
+                    print(f"checkpoint write failed during shutdown: {e!r}",
+                          file=sys.stderr)
+                self._mirror_drain(timeout=5.0)

@@ -16,9 +16,9 @@ forces its tail to disk.
 
 The TensorBoard mirror needs a writer already installed on the box
 (``torch.utils.tensorboard``, which needs the ``tensorboard`` package);
-without one, ``tensorboard_dir`` is refused by name.  The JAX logger's
-flight-recorder tap (``attach_recorder``) belongs to the black box of the
-observability slice (ROADMAP A8) and is not here.
+without one, ``tensorboard_dir`` is refused by name.
+:meth:`MetricsLogger.attach_recorder` tees every record into the flight
+recorder's ring (``obs/blackbox.py``), as the JAX logger's does.
 """
 from __future__ import annotations
 
@@ -47,6 +47,7 @@ class MetricsLogger:
         self.path = path
         self._f: Optional[IO[str]] = None
         self._tb = None
+        self._recorder = None
         self._t0 = time.monotonic()
         if not enabled:
             return
@@ -61,13 +62,21 @@ class MetricsLogger:
         building telemetry that no sink would receive."""
         return self._f is not None or self._tb is not None
 
+    def attach_recorder(self, recorder) -> None:
+        """Tee every emitted record into a flight recorder's ring
+        (``recorder.record(rec)``); ``cli.py`` attaches it right after
+        making the :class:`~ddp_tpu_torch.obs.blackbox.FlightRecorder`."""
+        self._recorder = recorder
+
     def _emit(self, rec: dict, scalars: Optional[dict] = None,
               step: Optional[int] = None) -> None:
-        """The one sink: the JSONL line, stamped ``wall_s``, and the
-        TensorBoard scalars."""
+        """The one sink: the JSONL line, stamped ``wall_s``, the flight
+        recorder's ring and the TensorBoard scalars."""
         stamped = {**rec, "wall_s": round(time.monotonic() - self._t0, 3)}
         if self._f is not None:
             self._f.write(json.dumps(stamped) + "\n")
+        if self._recorder is not None:
+            self._recorder.record(stamped)
         if self._tb is not None and scalars:
             for tag, val in scalars.items():
                 self._tb.add_scalar(tag, val, global_step=step)

@@ -274,13 +274,28 @@ def test_foreign_npz_is_a_named_error(tmp_path):
         tckpt.load_checkpoint(path)
 
 
-def test_sharded_v2_index_is_refused_by_name(narrow, tmp_path):
+def test_sharded_v2_set_loads_as_jax_reads_it(narrow, tmp_path):
+    """A JAX v2 set (index and one shard) loads in the port, equal leaf
+    for leaf to JAX's own load, with its step, epoch and data_state."""
     params, stats, momentum = _jax_state(4)
     path = str(tmp_path / "sharded.pt")
     save_checkpoint_sharded(path, params, stats, SGDState(momentum), 3, 1,
-                            mesh=make_mesh(1))
-    with pytest.raises(tckpt.CheckpointError,
-                       match="sharded.*not ported yet"):
+                            mesh=make_mesh(1), data_state=DATA_STATE)
+    got, want = tckpt.load_checkpoint(path), jckpt.load_checkpoint(path)
+    for section in ("params", "batch_stats"):
+        _assert_trees_equal(getattr(got, section), getattr(want, section))
+    _assert_trees_equal(got.momentum, want.opt_state.momentum_buf)
+    assert (got.step, got.epoch, got.data_state) == (3, 1, DATA_STATE)
+
+
+def test_format_above_2_is_refused_by_name(tmp_path):
+    path = str(tmp_path / "future.pt")
+    with open(path, "wb") as f:
+        np.savez(f, **{"meta/format_version": np.asarray(3, np.int64),
+                       "meta/step": np.asarray(0, np.int64),
+                       "meta/epoch": np.asarray(0, np.int64)})
+    with pytest.raises(tckpt.UnportedFormatError,
+                       match="format_version 3, newer than this build's 2"):
         tckpt.load_checkpoint(path)
 
 

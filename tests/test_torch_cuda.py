@@ -963,3 +963,72 @@ def test_live_records_time_the_card_steps(cuda, tmp_path):
                                                r["step"] + 1])
         assert r["step_ms_median"] == pytest.approx(own, abs=1e-3)
         assert r["mfu"] > 0
+
+
+def _frozen_zip_clock(monkeypatch):
+    """Every zip entry stamped with one time, so two saves of one state
+    give one byte stream."""
+    import types
+    import zipfile
+    t = time.time()
+    monkeypatch.setattr(zipfile, "time", types.SimpleNamespace(
+        time=lambda: t, localtime=time.localtime))
+
+
+def _card_trainer(cuda, path=None, fmt="gathered"):
+    from ddp_tpu_torch.models import get_model
+    set_tf32(False)
+    train, _ = synthetic(n_train=128, n_test=8, seed=1)
+    return Trainer(get_model("deepnn", device=cuda,
+                             generator=torch.Generator().manual_seed(0)),
+                   TrainLoader(train, 32, seed=0), device=cuda,
+                   lr_schedule=lambda s: 0.05, seed=3, snapshot_path=path,
+                   resident=False, ckpt_format=fmt)
+
+
+def test_pinned_snapshot_holds_the_state_of_its_capture(cuda):
+    """The asynchronous save's host pool: captured with non-blocking copies
+    and an event, then the next steps update the live tensors in place;
+    the pool still equals the state at the capture bit for bit (stream
+    order put the steps after the copies), and it is pinned."""
+    from ddp_tpu_torch.train import checkpoint as tckpt
+    tr = _card_trainer(cuda)
+    tr.train(1)
+    model, mom = tr.state.model, tr.state.momentum
+    want = tckpt.state_arrays(model.name, {
+        k: v.clone() for k, v in model.state_dict().items()},
+        tckpt._named_momentum(model, [m.clone() for m in mom]))
+    snap = tckpt.HostSnapshot()
+    snap.capture(model, mom)
+    tr.train(3)  # two more epochs of in-place updates, queued at once
+    assert all(t.is_pinned() for t in snap._sd.values())
+    got = snap.arrays()
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert any(not np.array_equal(got[k], v) for k, v in
+               tckpt.state_arrays(model.name, model.state_dict(),
+                                  tckpt._named_momentum(model, mom)).items())
+
+
+@pytest.mark.parametrize("fmt", ["gathered", "sharded"])
+def test_async_save_on_the_card_writes_the_synchronous_bytes(
+        cuda, fmt, tmp_path, monkeypatch):
+    from ddp_tpu_torch.train import checkpoint as tckpt, ckpt_shard
+    _frozen_zip_clock(monkeypatch)
+    tr = _card_trainer(cuda, str(tmp_path / "ck.pt"), fmt)
+    tr.train(1)
+    (tmp_path / "sync").mkdir()
+    sync = str(tmp_path / "sync" / "ck.pt")
+    model, mom = tr.state.model, tr.state.momentum
+    if fmt == "gathered":
+        tckpt.save_checkpoint(sync, model, mom, tr.state.step, 0,
+                              data_state=tr._data_state(1, 0))
+    else:
+        ckpt_shard.save_checkpoint_sharded(
+            sync, tckpt.state_arrays(model.name, model.state_dict(),
+                                     tckpt._named_momentum(model, mom)),
+            tr.state.step, 0, data_state=tr._data_state(1, 0))
+    for f in os.listdir(tmp_path / "sync"):
+        assert tckpt.sha256_of_file(str(tmp_path / f)) == \
+            tckpt.sha256_of_file(str(tmp_path / "sync" / f)), f

@@ -37,7 +37,11 @@ new = {"ddp_tpu_torch.multigpu", "ddp_tpu_torch.parallel",
        "ddp_tpu_torch.utils", "ddp_tpu_torch.utils.metrics",
        "ddp_tpu_torch.resilience.lineage", "ddp_tpu_torch.resilience.guard",
        "ddp_tpu_torch.resilience.watchdog", "ddp_tpu_torch.resilience.drift",
-       "ddp_tpu_torch.resilience.faults"}
+       "ddp_tpu_torch.resilience.faults", "ddp_tpu_torch.obs.blackbox",
+       "ddp_tpu_torch.obs.registry", "ddp_tpu_torch.train.ckpt_shard",
+       "ddp_tpu_torch.resilience.store",
+       "ddp_tpu_torch.resilience.supervisor", "ddp_tpu_torch.supervise",
+       "ddp_tpu_torch.chaos_campaign"}
 assert new <= set(names), sorted(new - set(names))
 """
 

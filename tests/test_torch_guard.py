@@ -16,6 +16,7 @@ import signal
 import subprocess
 import sys
 import time
+import types
 
 import jax
 import jax.numpy as jnp
@@ -270,12 +271,22 @@ def test_env_fault_vocabulary(monkeypatch):
     monkeypatch.setenv(faults.FAULT_ENV, "explode@step=1")
     with pytest.raises(ValueError, match="unknown"):
         faults.install_env_faults(object())
-    for spec, item in (("fail_ckpt_write@epoch=1", "A7b"),
-                       ("fail_put@n=2", "A7b"), ("torn_publish@", "A9"),
-                       ("crash_replica@requests=3,replica=0", "A9")):
+    for spec in ("torn_publish@", "crash_replica@requests=3,replica=0",
+                 "slow_forward@ms=5"):
         monkeypatch.setenv(faults.FAULT_ENV, spec)
-        with pytest.raises(ValueError, match=f"not ported.*{item}"):
+        with pytest.raises(ValueError, match="not ported.*A9"):
             faults.install_env_faults(object())
+    # The storage faults install; each names what it needs.
+    for spec, why in (("fail_ckpt_write@epoch=1", "snapshot path"),
+                      ("fail_put@n=2", "--mirror"),
+                      ("slow_put@ms=5", "--mirror"),
+                      ("torn_remote_object@", "--mirror"),
+                      ("wipe_local_ckpt@epoch=0", "snapshot path"),
+                      ("slow_put@ms=5,n=1", "unknown kwarg")):
+        monkeypatch.setenv(faults.FAULT_ENV, spec)
+        with pytest.raises(ValueError, match=why):
+            faults.install_env_faults(
+                types.SimpleNamespace(lineage=None, snapshot_path=None))
 
 
 # ----------------------------------------------------- world-2 CLI drills

@@ -30,10 +30,10 @@ import ddp_tpu_torch.models.vgg as tvgg
 from ddp_tpu_torch import cli
 from ddp_tpu_torch.models.vgg import VGG
 from ddp_tpu_torch.resilience import faults, lineage
+from ddp_tpu_torch.resilience.store import DirStore
 from ddp_tpu_torch.serve import ServeEngine
-from ddp_tpu_torch.train import checkpoint as tckpt
-from ddp_tpu_torch.train.checkpoint import (CheckpointError,
-                                            UnportedFormatError)
+from ddp_tpu_torch.train import checkpoint as tckpt, ckpt_shard
+from ddp_tpu_torch.train.checkpoint import CheckpointError
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
@@ -163,17 +163,38 @@ def test_manifests_are_byte_equal(tmp_path):
         jlineage.head_fingerprint(str(jax_dir))
 
 
-def test_sharded_entries_and_the_mirror_are_refused(tmp_path):
+def _build_sharded(path, epochs=EPOCHS, keep=KEEP):
+    """``epochs`` v2 sets of a narrow VGG's state under one lineage."""
+    lin = lineage.CheckpointLineage(path, keep=keep)
+    for e in range(epochs):
+        model = VGG(NARROW, generator=torch.Generator().manual_seed(e))
+        arrays = tckpt.state_arrays("vgg", model.state_dict(), {
+            n: torch.full_like(p, e) for n, p in model.named_parameters()})
+        lin.preserve_head()
+        sha, shards = ckpt_shard.save_checkpoint_sharded(
+            path, arrays, 10 * e, e, data_state=_ds(e))
+        lin.commit(epoch=e, step=10 * e, sha256=sha, shards=shards,
+                   data_state=_ds(e))
+
+
+def test_sharded_entries_and_the_mirror_are_walked(tmp_path):
+    """A lineage of v2 sets keeps exactly its retained epochs' shards and
+    is walked by both packages to the same candidate, past a torn head
+    shard too; ``store=`` (the mirror tier) adds nothing when the mirror
+    is empty and a local file restores."""
     path = str(tmp_path / "ck.pt")
-    _build("port", path)
-    m = json.load(open(path + ".manifest.json"))
-    m["retained"][0]["shards"] = ["ck.pt.ep00000002.shard0"]
-    json.dump(m, open(path + ".manifest.json", "w"))
-    with pytest.raises(UnportedFormatError, match="sharded.*A7b"):
-        lineage.latest_verifiable(path)
-    with pytest.raises(UnportedFormatError, match="mirror.*A7b"):
-        lineage.latest_verifiable(path, store=object())
-    assert lineage.latest_verifiable(str(tmp_path / "none.pt")) is None
+    _build_sharded(path)
+    assert sorted(f for f in os.listdir(tmp_path) if ".shard" in f) == [
+        f"ck.pt.ep{e:08d}.shard00000-of-00001.npz" for e in (1, 2, 3)]
+    empty = DirStore(str(tmp_path / "mirror"))
+    assert _walk(lineage, path) == _walk(jlineage, path) == ("ck.pt", 3, 30)
+    assert lineage.latest_verifiable(path, store=empty)[1] == path
+    faults.tear_file(str(tmp_path / ckpt_shard.shard_file_name(path, 3, 0,
+                                                               1)))
+    assert _walk(lineage, path) == _walk(jlineage, path) == (
+        "ck.pt.ep00000002", 2, 20)
+    assert lineage.latest_verifiable(str(tmp_path / "none.pt"),
+                                     store=empty) is None
 
 
 @pytest.fixture
@@ -211,14 +232,28 @@ def test_serve_engine_walks_a_directory_and_a_torn_head(tmp_path,
     assert eng.checkpoint_step == 5
 
 
-def test_cli_refuses_the_storage_half(tmp_path):
-    args = ["1", "1", "--synthetic", "--synthetic_size", "16", "--device",
-            "cpu", "--snapshot_path", str(tmp_path / "c.pt")]
-    for extra in (["--mirror", str(tmp_path / "m")],
-                  ["--ckpt_format", "sharded"]):
-        with pytest.raises(SystemExit, match="A7b"):
-            cli.main(args + extra)
-    assert not os.listdir(tmp_path)
+def test_cli_takes_the_storage_half(tmp_path):
+    """``--ckpt_format sharded --mirror``: the v2 index and its shard on
+    disk, each committed epoch mirrored and drained by the end, and the
+    set resumes."""
+    path, mirror = str(tmp_path / "c.pt"), str(tmp_path / "m")
+    args = ["2", "1", "--synthetic", "--synthetic_size", "16", "--device",
+            "cpu", "--model", "deepnn", "--batch_size", "8", "--lr", "0.05",
+            "--snapshot_path", path, "--ckpt_format", "sharded",
+            "--mirror", mirror, "--keep_checkpoints", "2"]
+    out = cli.main(args)
+    assert out["mirror"]["lag_epochs"][-1] == 0
+    assert out["mirror"]["mirrored_epochs"] == [1, 0]
+    assert [s["epoch"] for s in out["checkpoint_saves"]] == [0, 1]
+    assert ckpt_shard.read_shard_index(path)["mesh_shape"] == [1, 1]
+    assert sorted(os.listdir(mirror)) == sorted(
+        f"{n}{suffix}" for n in ("c.pt.ep00000000", "c.pt.ep00000001",
+                                 "c.pt.ep00000000.shard00000-of-00001.npz",
+                                 "c.pt.ep00000001.shard00000-of-00001.npz",
+                                 "c.pt.manifest.json")
+        for suffix in ("", ".meta.json"))
+    resumed = cli.main(["3"] + args[1:] + ["--resume"])
+    assert len(resumed["loss_history"]) == 2
 
 
 CLI_RUN = ["3", "1", "--batch_size", "8", "--synthetic", "--synthetic_size",
