@@ -75,8 +75,8 @@
    printed), and write a checkpoint ``load_checkpoint`` reads; its median
    ms/step and samples/s are printed beside ``singlegpu``'s.  Under
    deterministic mode (``ddp_tpu_torch.repeat_check``, in processes of
-   their own) the world-1 run's whole history must equal ``singlegpu``'s
-   bit for bit.  Then a narrow VGG's world-2 epoch of 3 steps with crop and
+   their own, both at once, on 10,240 images) the world-1 run's whole
+   history must equal ``singlegpu``'s bit for bit.  Then a narrow VGG's world-2 epoch of 3 steps with crop and
    flip (``ddp_tpu_torch.parallel.drill``) on the one card over gloo,
    against the same 2 ranks on the CPU, from the same weights and draws:
    losses, weights, BN buffers and momentum within ``PARITY_TOL``, and one
@@ -157,7 +157,28 @@
    batch under ``--keep_fault_env`` (87, ``diagnosis.json``,
    ``postmortem.json``), a repeated stall under ``--max_restarts 1`` (86),
    the failed write at world 2 over gloo (both ranks end), and the chaos
-   campaign's CI subset (its scorecard).
+   campaign's CI subset (one campaign a drill, their scorecards).
+   The storage phase's repeated stall also checks the watchdog's stall
+   line: it names the tracer's last ``dispatch`` and ``loss_flush`` spans.
+   Obs phase (``obs_phase``, A8): the streamed VGG-11 at full width on
+   10,240 images, 2 epochs with an eval each (``OBS_ARGS``), in
+   deterministic children.  O1 runs with ``--trace_spill``,
+   ``--metrics_path``, ``--log_every 10`` and ``--inspect_port 0``: read
+   from the child's stderr, its port answers ``/metrics`` (through
+   ``parse_exposition``, batches counted), ``/healthz`` (the step
+   advancing) and ``/spans`` mid-run, and ``/debug/profile?steps=4`` arms
+   a capture whose spans cover 4 steps and whose ``torch.profiler`` trace
+   holds exactly 4 ``gather_batch_kernel`` launches; after it ``python -m
+   ddp_tpu_torch.obs --perfetto`` exits 0 with a valid trace, the second
+   epoch's serial spans sum to within 10% of its wall (the largest gaps
+   printed), and the metrics stream holds one ``phase_stragglers`` record
+   an epoch.  O2, the same with ``--obs_off --profile_dir``, leaves no
+   spill (a planted one removed) and a trace of 50 ``gather_batch_kernel``
+   launches (40 steps, 10 eval batches); beside it O3, world 2 over gloo on
+   this card, writes ``.host1``, names rank 0 or 1 in each serial phase's
+   record and counts one ``straggler_gather``.  O4: ``python -m
+   ddp_tpu_torch.bench --inspect_overhead`` under 1%.  Each phase's end is
+   printed on the smoke's clock (``smoke clock:``).
    Models phase (``--model deepnn`` and ``resnet18``, each at its full and
    only width, ``MODEL_ARGS``): ``multigpu`` in this process as rank 0 of a
    world-1 NCCL group, its counts zeroed before each run and read after,
@@ -229,7 +250,7 @@
    instructions; then the times of both dtypes at the two probe shapes and
    their dgrads beside the plain version's, cuDNN's (``conv2d_nhwc``, TF32
    off: the yardstick only) and the bound.
-11. Probe path: the conv-candidate CLI in-process (``--repeats 2``, all five
+11. Probe path: the conv-candidate CLI in-process (``--repeats 1``, all five
    candidates at both target shapes, batch 512), once in float32 and once
    with ``--bf16``, each with the kernel's launch count and its route read
    around it, then the pool probe once.
@@ -249,7 +270,8 @@
     and on the models path: the models phase's runs, serving and drills,
     on the bench
     path: the train steps the bench's processes ran in that form, and on
-    the run-shape path: the split, uninterrupted and streamed runs; both
+    the run-shape path: the split, uninterrupted and streamed runs, and on
+    the obs path: O1's and O2's runs; both
     entries
     give ``stream_batch_cases``, the streamed-batch comparisons in their
     dtype, whose launches are not counted), the card line, and last
@@ -299,6 +321,7 @@ from ddp_tpu_torch.ops.conv_probe import (N_LONG, N_SHORT, VGG_CONV_SHAPES,
                                           conv2d_nhwc, conv_flops)
 from ddp_tpu_torch.ops.gather import (gather_batch, gather_batch_plain,
                                       gather_rows, gather_rows_plain)
+from ddp_tpu_torch.obs.registry import parse_exposition
 from ddp_tpu_torch.optim import SGDConfig, triangular_lr
 from ddp_tpu_torch.parallel import dist, drill
 from ddp_tpu_torch.parallel.dist import free_port
@@ -346,7 +369,9 @@ CONV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 # 16x16 128->256, and channel counts that are multiples of 8 but not of 64.
 CONV_EDGE_CASES = [(3, 8, 256, 512), (8, 4, 512, 512), (4, 16, 128, 64),
                    (8, 16, 128, 256), (2, 8, 40, 24), (5, 32, 64, 72)]
-PROBE_REPEATS = 2
+# The probe's timed repeats a chain: one keeps the smoke inside its limit,
+# and the short and long chains still give each candidate's marginal cost.
+PROBE_REPEATS = 1
 # The resident-batch kernel's draw cases: random, both ends of the crop
 # window with every image flipped or none, and the eval form (no draws).
 BATCH_DRAWS = ("random", "0_flip", "0_noflip", "8_flip", "8_noflip", "eval")
@@ -681,6 +706,29 @@ def checkpoint_phase(out: dict, path: str) -> float:
 DDP_ARCH = [8, "M", 16, "M", 512, "M"]
 
 
+def concurrently(fns: dict) -> dict:
+    """Each callable of ``fns`` on a thread of its own, all at once: their
+    results by name, in ``fns``'s order; the first error is raised after
+    every join."""
+    results, errors = {}, []
+
+    def body(name, fn):
+        try:
+            results[name] = fn()
+        except BaseException as e:  # re-raised below, after the joins
+            errors.append(e)
+
+    threads = [threading.Thread(target=body, args=item)
+               for item in fns.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return {name: results[name] for name in fns}
+
+
 def run_multigpu(args: list) -> tuple:
     """``python -m ddp_tpu_torch.multigpu args`` as a subprocess (one rank
     per card): its ``--result_json`` summary, process wall seconds and
@@ -742,9 +790,14 @@ def ddp_phase(out: dict, card: str) -> tuple:
           f"{res['accuracy']:.2f}% (singlegpu {out['accuracy']:.2f}%); "
           f"checkpoint step {ckpt.step}", flush=True)
 
+    # Both entries at once, on the strategy phase's 10,240 images:
+    # deterministic mode holds each run's arithmetic whatever else the card
+    # runs.
     t0 = time.time()
-    pair, = compare(run_entries(["singlegpu", "multigpu"], MAIN_ARGS,
-                                deterministic=True))
+    runs = concurrently({e: functools.partial(
+        run_entries, [e], FLAG_ARGS, deterministic=True)
+        for e in ("singlegpu", "multigpu")})
+    pair, = compare([runs["singlegpu"][0], runs["multigpu"][0]])
     print(f"ddp world 1 against singlegpu, deterministic mode ({card}): "
           f"{pair} ({time.time() - t0:.1f} s)", flush=True)
     check(pair["bit_equal"], "under deterministic mode the world-1 history "
@@ -913,11 +966,15 @@ def strategy_phase(ddp: dict, card: str) -> tuple:
               f"{formula}", flush=True)
 
     # Deterministic mode: the sharded update and A = 1 are the unflagged
-    # arithmetic, bit for bit.
+    # arithmetic, bit for bit.  The three runs at once: deterministic mode
+    # holds each run's arithmetic whatever else the card runs.
     t0 = time.time()
-    plain, zero_run, accum1 = (
-        run_entries(["multigpu"], FLAG_ARGS + extra, deterministic=True)[0]
-        for extra in ([], ["--shard_update"], ["--grad_accum", "1"]))
+    det = concurrently({name: functools.partial(
+        run_entries, ["multigpu"], FLAG_ARGS + extra, deterministic=True)
+        for name, extra in (("plain", []), ("zero", ["--shard_update"]),
+                            ("accum1", ["--grad_accum", "1"]))})
+    plain, zero_run, accum1 = (det[k][0] for k in ("plain", "zero",
+                                                    "accum1"))
     for name, other in (("--shard_update", zero_run),
                         ("--grad_accum 1", accum1)):
         pair, = compare([plain, other])
@@ -2010,11 +2067,13 @@ def stream_phase(out: dict, out_bf16: dict, resident_det: dict, card: str,
     # through the same step, so depth 0, depth 2 and the resident run agree
     # bit for bit.  (tests/test_torch_cuda.py holds host-augmented depths 0
     # and 2 to each other too.)
+    # Both at once, as the strategy phase's deterministic runs.
     t0 = time.time()
-    det = {f"--device_augment --prefetch_depth {d}": run_entries(
-        ["multigpu"], STREAM_FLAG_ARGS + ["--device_augment",
-                                          "--prefetch_depth", d],
-        deterministic=True)[0] for d in ("0", "2")}
+    det = {k: v[0] for k, v in concurrently({
+        f"--device_augment --prefetch_depth {d}": functools.partial(
+            run_entries, ["multigpu"], STREAM_FLAG_ARGS + [
+                "--device_augment", "--prefetch_depth", d],
+            deterministic=True) for d in ("0", "2")}).items()}
     det["--resident"] = resident_det
     names = list(det)
     for a, b in ((names[0], names[1]), (names[1], names[2])):
@@ -2379,6 +2438,9 @@ STORE_ARGS = ["3", "1", "--batch_size", "512", "--synthetic",
               "--synthetic_size", "10240"]
 STORE_STEPS = 3 * SURVIVE_STEPS
 STORE_SIGTERM_STEP, STORE_POISON_STEP = 25, 30
+# The supervised stall's watchdog: the beats of these runs come at most ~2 s
+# apart, the first step's set-up included.
+STORE_WATCHDOG_S = 10
 # The mirrored run's step median against the unmirrored one's.
 MIRROR_TOL = 0.01
 SUPERVISE = [sys.executable, "-m", "ddp_tpu_torch.supervise",
@@ -2476,7 +2538,8 @@ def storage_phase(card: str, tmp: str, sync_write_s: float) -> int:
     valid ``postmortem.json`` and a repeated stall with
     ``--max_restarts 1`` (86); S5 at world 2 over gloo on this card (rank
     0 exits 1, rank 1 ends too, each waited for); S6 the chaos campaign's
-    CI subset (``sigterm_step,watchdog_stall``), its scorecard printed.
+    CI subset (``sigterm_step,watchdog_stall``), one campaign a drill, both
+    at once, each scorecard printed.
     Every child that completes launches ``gather_batch`` once a train step
     and an eval batch.  Returns those launches."""
     from ddp_tpu_torch import chaos_campaign
@@ -2642,7 +2705,7 @@ def storage_phase(card: str, tmp: str, sync_write_s: float) -> int:
 
     def stall():
         return sup_run("sup_stall", "stall@epoch=1,secs=600",
-                       ["--watchdog_secs", "20"],
+                       ["--watchdog_secs", str(STORE_WATCHDOG_S)],
                        ["--keep_fault_env", "--max_restarts", "1"])
 
     def world2():
@@ -2651,21 +2714,22 @@ def storage_phase(card: str, tmp: str, sync_write_s: float) -> int:
             "--snapshot_path", os.path.join(d, "checkpoint.pt")],
             "fail_ckpt_write@epoch=1", timeout=400)
 
-    def campaign():
-        out = os.path.join(workdir("campaign"), "chaos.json")
+    def campaign(drill: str):
+        out = os.path.join(workdir(f"campaign_{drill}"), "chaos.json")
         r = subprocess.run(
             [sys.executable, "-m", "ddp_tpu_torch.chaos_campaign",
-             "--drills", chaos_campaign.CI_DRILLS, "--out", out,
-             "--workdir", workdir("campaign_runs")], capture_output=True,
-            text=True, timeout=900)
-        check(r.returncode == 0, f"S6 the chaos campaign: exit "
+             "--drills", drill, "--out", out,
+             "--workdir", workdir(f"campaign_runs_{drill}")],
+            capture_output=True, text=True, timeout=900)
+        check(r.returncode == 0, f"S6 the chaos campaign's {drill}: exit "
                                  f"{r.returncode}: {r.stdout[-3000:]}"
                                  f"{r.stderr[-3000:]}")
         return _load_json(out)
 
     t2 = time.time()
     run_chains({"poison": poison, "stall": stall, "world2": world2,
-                "campaign": campaign})
+                **{f"campaign_{d}": functools.partial(campaign, d)
+                   for d in chaos_campaign.CI_DRILLS.split(",")}})
     t_wave2 = time.time() - t2
 
     # S2: formats.
@@ -2775,12 +2839,19 @@ def storage_phase(card: str, tmp: str, sync_write_s: float) -> int:
     check(rc_stall == 86 and pm is not None and
           validate_postmortem(pm)["reason"] == "watchdog_stall",
           f"S4 stall: exit {rc_stall}: {err_stall[-3000:]}")
+    # The stall line names the tracer's last span of each phase (A8).
+    stall_lines = [x for x in err_stall.splitlines()
+                   if "last completed spans on this host: " in x]
+    check(stall_lines and all(
+        "dispatch[step " in x and "loss_flush[step " in x
+        for x in stall_lines), f"S4 stall: the stall lines {stall_lines}")
     print(f"storage S4 ({card}): poison_batch@step={STORE_POISON_STEP} "
           f"--guard_action abort --keep_fault_env: 87 after {secs:.1f} s, "
           f"diagnosis.json names spike_abort at step {STORE_POISON_STEP} "
           f"twice, postmortem.json guard_abort; stall@epoch=1 "
-          f"--watchdog_secs 20 --keep_fault_env --max_restarts 1: 86 after "
-          f"{secs_stall:.1f} s, postmortem.json watchdog_stall", flush=True)
+          f"--watchdog_secs {STORE_WATCHDOG_S} --keep_fault_env --max_restarts 1: 86 after "
+          f"{secs_stall:.1f} s, postmortem.json watchdog_stall; the stall "
+          f"line: {stall_lines[-1]}", flush=True)
 
     # S5: a failed write, at world 1 and 2.
     (rc0, s0, err0), (rc1, s1_secs, _) = results["world2"]
@@ -2793,15 +2864,306 @@ def storage_phase(card: str, tmp: str, sync_write_s: float) -> int:
           f"after {s0:.1f} s, rank 1 ended by itself with {rc1} after "
           f"{s1_secs:.1f} s", flush=True)
 
-    # S6: the campaign's CI subset.
-    card6 = results["campaign"]
-    check(card6["verdict"] == "PASS", f"S6: {card6}")
-    print(f"storage S6 ({card}): chaos campaign "
-          f"{chaos_campaign.CI_DRILLS}: {json.dumps(card6)}", flush=True)
+    # S6: the campaign's CI subset, one campaign a drill, run at once.
+    for d in chaos_campaign.CI_DRILLS.split(","):
+        card6 = results[f"campaign_{d}"]
+        check(card6["verdict"] == "PASS", f"S6 {d}: {card6}")
+        print(f"storage S6 ({card}): chaos campaign {d}: "
+              f"{json.dumps(card6)}", flush=True)
     print(f"storage phase: {time.time() - t0:.1f} s (alone {t_alone:.1f} s,"
           f" six chains {t_wave1:.1f} s, four chains {t_wave2:.1f} s); "
           f"gather_batch launches {launches}", flush=True)
     return launches
+
+
+# ------------------------------------------------------------ observability
+# The obs phase (A8): the streamed VGG-11 at full width, batch 512, on 10,240
+# images (20 steps an epoch, 5 eval batches), 2 epochs, each evaluated (so
+# --profile_dir's bracket, which covers training, holds every gather_batch
+# launch of the run), in deterministic children.  O3 is world 2 over gloo on
+# this card at a small size: 1 epoch of 1,280 images, 64 a rank.
+OBS_ARGS = ["2", "1", "--batch_size", "512", "--synthetic",
+            "--synthetic_size", "10240", "--eval_every", "1"]
+OBS_STEPS, OBS_EVALS, OBS_PROFILE_STEPS = 20, 5, 4
+# The serial phases' sum against the spill's wall (JAX's acceptance
+# identity), and the idle inspect plane's cost a step.
+OBS_COVERAGE_TOL, INSPECT_OVERHEAD_MAX = 0.10, 1.0
+OBS_W2_ARGS = ["1", "1", "--batch_size", "64", "--synthetic",
+               "--synthetic_size", "1280"]
+INSPECT_BENCH = ["--inspect_overhead", "--steps", "20", "--repeats", "5",
+                 "--warmup", "5"]
+
+
+def _http_json(port: int, path: str):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=10) as r:
+        return r.read().decode()
+
+
+def obs_child(args: list, out_dir: str, scrape=None) -> tuple:
+    """``singlegpu args`` in a deterministic child writing into
+    ``out_dir``; with ``scrape``, ``scrape(port)`` runs on this thread once
+    the child names its inspect port on stderr.  Returns the exit code,
+    the ``--result_json`` summary and the child's stderr."""
+    res = os.path.join(out_dir, "result.json")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    env.pop(FAULT_ENV, None)
+    lines, port = [], []
+    ready = threading.Event()
+    with open(os.path.join(out_dir, "stdout.txt"), "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, *DETERMINISTIC_CHILD, *args, "--snapshot_path",
+             os.path.join(out_dir, "checkpoint.pt"), "--result_json", res],
+            env=env, stdout=out, stderr=subprocess.PIPE, text=True)
+
+        def read():
+            for line in proc.stderr:
+                lines.append(line)
+                if not port and "inspect: serving" in line:
+                    port.append(int(line.rsplit(":", 1)[1]))
+                    ready.set()
+            ready.set()
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        try:
+            if scrape is not None:
+                ready.wait(timeout=300)
+                check(bool(port), f"obs: the child named no inspect port: "
+                                  f"{''.join(lines)[-3000:]}")
+                scrape(port[0])
+            proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            reader.join(timeout=10)
+    return proc.returncode, _load_json(res), "".join(lines)
+
+
+def serial_gaps(spans: list, n: int = 5) -> list:
+    """The ``n`` largest stretches of a spill's timeline that no serial
+    span covers: ``(ms, the span before, the span after)``."""
+    serial = sorted((s for s in spans if not s["overlap"]),
+                    key=lambda s: s["start_s"])
+    gaps, end, prev = [], serial[0]["start_s"], None
+    for s in serial:
+        if s["start_s"] > end:
+            gaps.append((round((s["start_s"] - end) * 1e3, 3),
+                         f"{prev['phase']}[{prev['step']}]",
+                         f"{s['phase']}[{s['step']}]"))
+        if s["start_s"] + s["dur_s"] >= end:
+            end, prev = s["start_s"] + s["dur_s"], s
+    return sorted(gaps, reverse=True)[:n]
+
+
+def _o1_scrape(port: int) -> dict:
+    """Mid-run, against the child's inspect plane: /metrics through
+    ``parse_exposition`` with batches counted, /healthz's step advancing,
+    /spans holding spans, then ``/debug/profile?steps=4``."""
+    got: dict = {}
+    steps = []
+    deadline = time.time() + 300
+    while time.time() < deadline:
+        step = json.loads(_http_json(port, "/healthz")).get("step", 0)
+        if step >= 1 and (not steps or step > steps[-1]):
+            steps.append(step)
+        if len(steps) >= 2:
+            break
+        time.sleep(0.005)
+    got["steps"] = steps
+    got["metrics"] = parse_exposition(_http_json(port, "/metrics"))
+    got["spans"] = json.loads(_http_json(port, "/spans"))["spans"]
+    got["armed"] = json.loads(_http_json(
+        port, f"/debug/profile?steps={OBS_PROFILE_STEPS}"))
+    return got
+
+
+def obs_phase(card: str, tmp: str) -> int:
+    """Observability on the card (A8).  O1: the traced run with
+    ``--trace_spill``, ``--metrics_path``, ``--log_every 10`` and
+    ``--inspect_port 0``, scraped while it runs (``_o1_scrape``); after
+    it, the armed capture's spans over 4 steps and its trace's 4
+    ``gather_batch_kernel`` launches, ``python -m ddp_tpu_torch.obs
+    --perfetto`` exiting 0 with a valid trace, the serial phases within
+    ``OBS_COVERAGE_TOL`` of wall, one ``phase_stragglers`` record an epoch
+    and the ``.prom`` file.  Then at once O2, the same run with
+    ``--obs_off --profile_dir``: no spill left (a planted stale one
+    removed), the trace's ``gather_batch_kernel`` launches the run's train
+    and eval batches; and O3, world 2 over gloo on this card: rank 1's
+    ``.host1`` spill, the record naming rank 0 or 1 for each phase, one
+    ``straggler_gather``.  O4: ``python -m ddp_tpu_torch.bench
+    --inspect_overhead`` under ``INSPECT_OVERHEAD_MAX`` %.  Returns the
+    ``gather_batch`` launches of O1 and O2."""
+    from ddp_tpu_torch.obs.aggregate import STRAGGLER_EXCLUDED_PHASES
+    from ddp_tpu_torch.obs.export import (phase_summary, read_spill,
+                                          validate_trace_events)
+    from ddp_tpu_torch.obs.inspect import TRACE_FILE, trace_kernel_launches
+    t0 = time.time()
+    runs = {name: os.path.join(tmp, name) for name in ("o1", "o2", "o3")}
+    for d in runs.values():
+        os.makedirs(d)
+    n_launch = 2 * (OBS_STEPS + OBS_EVALS)
+
+    # O1.
+    spill = os.path.join(runs["o1"], "spill.jsonl")
+    metrics = os.path.join(runs["o1"], "metrics.jsonl")
+    scraped: dict = {}
+    rc, o1, err = obs_child(
+        OBS_ARGS + ["--trace_spill", spill, "--metrics_path", metrics,
+                    "--log_every", "10", "--inspect_port", "0"], runs["o1"],
+        scrape=lambda port: scraped.update(_o1_scrape(port)))
+    check(rc == 0 and o1 is not None, f"O1: exit {rc}: {err[-3000:]}")
+    fams = scraped["metrics"]
+    batches = fams["ddp_prefetch_batches_total"]["samples"][
+        ("ddp_prefetch_batches_total", ())]
+    check(batches > 0 and len(scraped["steps"]) == 2 and scraped["spans"]
+          and scraped["armed"]["armed"],
+          f"O1 mid-run: batches {batches}, /healthz steps "
+          f"{scraped['steps']}, {len(scraped['spans'])} spans, "
+          f"/debug/profile {scraped['armed']}")
+    check(o1["kernel_launches"]["gather_batch"] == n_launch,
+          f"O1: gather_batch launched {o1['kernel_launches']}")
+    caps = sorted(f for f in os.listdir(runs["o1"])
+                  if f.startswith("profile_capture_step"))
+    check(len(caps) == 1, f"O1: captures {caps}")
+    cap = _load_json(os.path.join(runs["o1"], caps[0]))
+    cap_steps = sorted({s["step"] for s in cap["spans"]
+                        if s["phase"] == "dispatch"})
+    check(cap["trace_dir"] is not None, f"O1: the capture has no trace: "
+          f"{err[-3000:]}")
+    check(cap["end_step"] <= OBS_STEPS, f"O1: the capture ran past the "
+          f"first epoch's steps, into its eval: {cap['start_step']}.."
+          f"{cap['end_step']}")
+    cap_launches = trace_kernel_launches(
+        os.path.join(cap["trace_dir"], TRACE_FILE), "gather_batch_kernel")
+    check(len(cap_steps) == OBS_PROFILE_STEPS and
+          cap_launches == OBS_PROFILE_STEPS,
+          f"O1: the capture from step {cap['start_step']} holds dispatch "
+          f"spans of steps {cap_steps} and {cap_launches} "
+          f"gather_batch_kernel launches, expected {OBS_PROFILE_STEPS}")
+    perfetto = os.path.join(runs["o1"], "perfetto.json")
+    r = subprocess.run([sys.executable, "-m", "ddp_tpu_torch.obs", spill,
+                        "--perfetto", perfetto], capture_output=True,
+                       text=True, timeout=120)
+    check(r.returncode == 0, f"O1: python -m ddp_tpu_torch.obs exited "
+                             f"{r.returncode}: {r.stderr[-2000:]}")
+    n_events = validate_trace_events(_load_json(perfetto))
+    spans = read_spill([spill])
+    _, wall_s, serial_s = phase_summary(spans)
+    # The identity over the second epoch, which no capture touches: the
+    # trigger's profiler session starts and ends (and exports) inside the
+    # step probe, which no phase covers.
+    t_ep1 = min(s["start_s"] for s in spans if s["phase"] == "data_wait"
+                and s["step"] >= OBS_STEPS)
+    _, wall1_s, serial1_s = phase_summary(
+        [s for s in spans if s["start_s"] >= t_ep1])
+    coverage = serial1_s / wall1_s
+    print(f"obs O1 ({card}): serial phases {serial_s:.3f} s of the whole "
+          f"run's {wall_s:.3f} s wall ({serial_s / wall_s:.2%}), "
+          f"{serial1_s:.3f} s of epoch 1's {wall1_s:.3f} s; the largest "
+          f"gaps between serial spans: {serial_gaps(spans)}", flush=True)
+    check(abs(coverage - 1.0) <= OBS_COVERAGE_TOL,
+          f"O1: epoch 1's serial phases sum to {serial1_s:.3f} s of a "
+          f"{wall1_s:.3f} s wall ({coverage:.1%})")
+    with open(metrics) as f:
+        recs = [json.loads(line) for line in f]
+    strag = [x for x in recs if x.get("event") == "phase_stragglers"]
+    check([x["epoch"] for x in strag] == [0, 1],
+          f"O1: phase_stragglers records {strag}")
+    prom = parse_exposition(open(metrics + ".prom").read())
+    check(prom["ddp_prefetch_batches_total"]["samples"][
+        ("ddp_prefetch_batches_total", ())] == 2 * OBS_STEPS,
+          "O1: the end-of-run .prom's batch count")
+    o1_ms = statistics.median(o1["step_ms"])
+    print(f"obs O1 ({card}): inspect port scraped mid-run (/healthz steps "
+          f"{scraped['steps']}, {batches:.0f} batches on /metrics, "
+          f"{len(scraped['spans'])} spans); capture of steps {cap_steps} "
+          f"with {cap_launches} gather_batch_kernel launches in its "
+          f"trace; spill {len(spans)} spans, Perfetto {n_events} events; "
+          f"epoch 1's serial coverage {coverage:.2%}; phase_stragglers "
+          f"{strag[-1]['phases']}; {o1['kernel_launches']['gather_batch']} "
+          f"gather_batch launches", flush=True)
+    print(r.stdout[:4000], flush=True)
+
+    # O2 and O3 at once (O2's profiler skews its clock anyway).
+    def o2():
+        stale = os.path.join(runs["o2"], "spill.jsonl")
+        with open(stale, "w") as f:
+            f.write('{"phase": "dispatch", "stale": true}\n')
+        prof_dir = os.path.join(runs["o2"], "profile")
+        got = obs_child(OBS_ARGS + ["--trace_spill", stale, "--obs_off",
+                                    "--profile_dir", prof_dir], runs["o2"])
+        return got, os.path.exists(stale), prof_dir
+
+    def o3():
+        d = runs["o3"]
+        env = dict(os.environ)
+        env.pop(FAULT_ENV, None)
+        t = time.time()
+        code = dist.launch_local(
+            [sys.executable, "-c", GLOO_RANK, *OBS_W2_ARGS,
+             "--metrics_path", os.path.join(d, "m.jsonl"),
+             "--trace_spill", os.path.join(d, "spill.jsonl"),
+             "--snapshot_path", os.path.join(d, "checkpoint.pt"),
+             "--result_json", os.path.join(d, "result.json")], 2, env=env,
+            same_device=True, timeout=400)
+        return code, time.time() - t
+
+    t1 = time.time()
+    results = concurrently({"o2": o2, "o3": o3})
+    t_pair = time.time() - t1
+    (rc, o2_out, err), stale_left, prof_dir = results["o2"]
+    check(rc == 0 and o2_out is not None, f"O2: exit {rc}: {err[-3000:]}")
+    trace = os.path.join(prof_dir, "trace_rank0.json")
+    o2_launches = trace_kernel_launches(trace, "gather_batch_kernel")
+    check(not stale_left and o2_launches == n_launch ==
+          o2_out["kernel_launches"]["gather_batch"],
+          f"O2: stale spill left {stale_left}; the --profile_dir trace holds "
+          f"{o2_launches} gather_batch_kernel launches, the run "
+          f"{o2_out['kernel_launches']}, expected {n_launch}")
+    o2_ms = statistics.median(o2_out["step_ms"])
+    print(f"obs O2 ({card}): --obs_off removed the planted spill; "
+          f"--profile_dir trace {os.path.getsize(trace)} bytes with "
+          f"{o2_launches} gather_batch_kernel launches ({2 * OBS_STEPS} "
+          f"train + {2 * OBS_EVALS} eval batches); step medians (separate "
+          f"processes, for information): traced O1 {o1_ms:.3f} ms, "
+          f"--obs_off --profile_dir O2 {o2_ms:.3f} ms", flush=True)
+
+    code, secs = results["o3"]
+    d = runs["o3"]
+    check(code == 0, f"O3: world 2 over gloo exited {code}")
+    host1 = read_spill([os.path.join(d, "spill.jsonl.host1")])
+    with open(os.path.join(d, "m.jsonl")) as f:
+        strag = [x for x in map(json.loads, f)
+                 if x.get("event") == "phase_stragglers"]
+    o3 = _load_json(os.path.join(d, "result.json"))
+    serial = {s["phase"] for s in host1 if not s["overlap"]} - \
+        STRAGGLER_EXCLUDED_PHASES - {"eval"}
+    check(host1 and {s["host"] for s in host1} == {1} and len(strag) == 1
+          and set(strag[0]["phases"]) == serial
+          and all(v["slowest_host"] in (0, 1)
+                  for v in strag[0]["phases"].values())
+          and o3["collectives"].get("straggler_gather") == 1,
+          f"O3: rank 1's spill {len(host1)} spans, records {strag}, "
+          f"collectives {o3['collectives']}")
+    print(f"obs O3 world 2 over gloo on this card ({card}): rank 1 spilled "
+          f"{len(host1)} spans to .host1; phase_stragglers "
+          f"{json.dumps(strag[0]['phases'])}; collectives "
+          f"{o3['collectives']} ({secs:.1f} s); O2 and O3 together "
+          f"{t_pair:.1f} s", flush=True)
+
+    # O4.
+    summary = run_bench(INSPECT_BENCH)
+    rec = summary["records"][0]
+    check(rec["value"] < INSPECT_OVERHEAD_MAX and rec["power_limit_w"],
+          f"O4: {json.dumps(rec)}")
+    print(f"obs O4 ({card}): idle inspect plane {rec['value']}% a step "
+          f"(median windows {json.dumps(rec['inspect_overhead'])})",
+          flush=True)
+    print(f"obs phase: {time.time() - t0:.1f} s", flush=True)
+    return o1["kernel_launches"]["gather_batch"] + \
+        o2_out["kernel_launches"]["gather_batch"]
 
 
 def bf16_serve_phase(snapshot: str, f32: dict) -> dict:
@@ -3627,6 +3989,14 @@ def main() -> int:
     os.environ["PYTHONPYCACHEPREFIX"] = pycache.name
     os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
 
+    t_start = time.time()
+
+    def stamp(what: str) -> None:
+        # Each phase's end on the smoke's clock: what a later slice reads
+        # to choose the depth it cuts.
+        print(f"smoke clock: {what} done at {time.time() - t_start:.1f} s",
+              flush=True)
+
     t0 = time.time()
     _build.build_all()
     print(f"build: {len(_build.sources())} kernel source(s) in "
@@ -3637,6 +4007,7 @@ def main() -> int:
     batch, row_gather["profiler_ms"] = batch_phase(gen)
     batch_bf16 = batch_bf16_phase(gen)
     parity_phase()
+    stamp("kernel, batch and parity phases")
 
     snapshot_dir = tempfile.TemporaryDirectory()
     snapshot = os.path.join(snapshot_dir.name, "checkpoint.pt")
@@ -3676,34 +4047,51 @@ def main() -> int:
           f"{losses[0]:.4f}/{losses[-1]:.4f}, accuracy "
           f"{out['accuracy']:.2f}%, conv3x3 launches {conv_main_launches}",
           flush=True)
+    stamp("main path")
     sync_write_s = checkpoint_phase(out, snapshot)
     snapshot_bf16 = os.path.join(snapshot_dir.name, "checkpoint_bf16.pt")
     out_bf16 = bf16_main_phase(out, card, snapshot_bf16)
+    stamp("checkpoint and bf16 main path")
     bench = bench_phase(step_ms, card)
+    stamp("bench phase")
     runshape_launches = runshape_phase(step_ms, card)
+    stamp("run-shape phase")
     ddp_launches, ddp = ddp_phase(out, card)
+    stamp("DDP phase")
     strategy_launches, composed, margin, resident_det = strategy_phase(
         ddp, card)
     strategy_bf16_launches = bf16_strategy_phase(composed, margin, card)
+    stamp("strategy phases")
     t0 = time.time()
     stream_launches, stream_bf16_launches, stream_cases, unarmed = \
         stream_phase(out, out_bf16, resident_det, card, snapshot_dir.name)
     print(f"streaming phase: {time.time() - t0:.1f} s", flush=True)
+    stamp("streaming phase")
     with tempfile.TemporaryDirectory() as tmp:
         survive_launches = resilience_phase(unarmed, card, tmp)
+    stamp("resilience phase")
     with tempfile.TemporaryDirectory() as tmp:
         storage_launches = storage_phase(card, tmp, sync_write_s)
+    stamp("storage phase")
+    with tempfile.TemporaryDirectory() as tmp:
+        obs_launches = obs_phase(card, tmp)
+    stamp("obs phase")
     models = models_phases(out, out_bf16, card)
+    stamp("models phases")
     serve = serve_phase(snapshot)
     print(f"serve: {json.dumps(serve)}", flush=True)
     serve_bf16 = bf16_serve_phase(snapshot_bf16, serve)
     print(f"serve bf16: {json.dumps(serve_bf16)}", flush=True)
+    stamp("serving phases")
     snapshot_dir.cleanup()
     anchors = [anchor_phase(path, dtype, card) for path, dtype in ANCHORS]
     print(f"anchors: {json.dumps(anchors)}", flush=True)
+    stamp("accuracy anchors")
 
     conv3x3 = conv_kernel_phase(gen)
+    stamp("conv kernel phase")
     probe_routes = probe_phase()
+    stamp("probe phase")
 
     # row_gather stays the direct counterpart of _pallas_row_gather for
     # later slices; the main path now runs gather_batch.
@@ -3722,6 +4110,7 @@ def main() -> int:
                  launches_runshape_path=runshape_launches,
                  launches_resilience_path=survive_launches,
                  launches_storage_path=storage_launches,
+                 launches_obs_path=obs_launches,
                  stream_batch_cases=stream_cases[torch.float32],
                  launches_serve_path=serve["warm_launches"]
                  + serve["http_profiled"]["gather_batch_kernel_launches"],

@@ -7,6 +7,7 @@ and ``--e2e`` modes):
         [--device cuda|cpu] [--result_json PATH]
     python -m ddp_tpu_torch.bench --e2e [--resident] [--e2e_steps 16] \\
         [--prefetch_depth 2] [--prefetch_workers 4] [...]
+    python -m ddp_tpu_torch.bench --inspect_overhead [--steps 50] [...]
 
 Prints one JSON line on stdout, with ``bench.py``'s record fields and
 metric strings: ``metric``, ``value`` (samples/s a chip of the median
@@ -43,6 +44,18 @@ synthetic images, streamed (host crop and flip, prefetched) or with
 ``phase_ms`` the median ms of each traced phase in them
 (``obs/aggregate.py::phase_medians``).
 
+``--inspect_overhead`` prices an enabled but idle introspection plane
+(``bench.py:2169-2260``): ``--repeats`` round-robin pairs of windows of the
+fixed-batch float32 step, bare and with a bound idle ``InspectServer``,
+the ``.prom`` rewrite every 50 steps and the unarmed profile trigger
+probed each step (``obs/inspect.py``); its one record's value is the
+median window's overhead in % (the JAX acceptance is under 1%).
+``--profile_dir`` adds one traced, untimed window of the primary record
+(``trace_step.json``; the resident-epoch record is then dropped, as
+``bench.py`` drops its second flavour) or, with ``--e2e``, one traced
+epoch after the timed ones (``trace_e2e.json``), each a ``torch.profiler``
+Chrome trace.
+
 ``--result_json`` writes the records, the train steps that ran in each
 dtype and the kernels' launch counts of the process.  The bench runs on
 ``cuda`` unless ``--device cpu`` is given; the flags of ``bench.py``'s
@@ -56,10 +69,12 @@ import contextlib
 import functools
 import io
 import json
+import os
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Dict, List, Optional
 
@@ -71,7 +86,10 @@ from .data.device_augment import make_draws
 from .device import device_kind, resolve_device, set_tf32
 from .models import NAMES as MODEL_NAMES, get_model
 from .obs.aggregate import phase_medians
+from .obs.inspect import (InspectServer, ProfileTrigger, PromFileWriter,
+                          start_profiler, stop_profiler)
 from .obs.live import mfu_peak, model_mfu
+from .obs.registry import MetricsRegistry
 from .obs.tracer import SpanTracer, set_tracer
 from .ops.gather import gather_batch
 from .optim import SGDConfig, triangular_lr
@@ -89,8 +107,7 @@ REFUSED = {
     "--mesh_shape": "A10/A11", "--auto_plan": "A10/A11",
     "--autoplan_bench": "A10/A11", "--generate": "A12",
     "--ckpt_bench": "A7", "--chaos": "A7", "--guard_overhead": "A7",
-    "--mem_ledger": "A8", "--inspect_overhead": "A8",
-    "--profile_dir": "A8",
+    "--mem_ledger": "A13b",
     "--dump_hlo": "none: an eager program has no compiled program to dump",
 }
 
@@ -143,6 +160,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--result_json", default=None, metavar="PATH",
                    help="Write the records, the train steps run in each "
                         "dtype and the kernels' launches here")
+    p.add_argument("--inspect_overhead", action="store_true",
+                   help="Price an enabled but idle introspection plane: "
+                        "round-robin windows of the fixed-batch step loop "
+                        "bare and with a bound idle inspect server, the "
+                        ".prom rewrite and the unarmed profile trigger "
+                        "(acceptance < 1%%)")
+    p.add_argument("--profile_dir", default=None,
+                   help="Also run one traced, untimed window (the primary "
+                        "record's; with --e2e one epoch after the timed "
+                        "ones) under torch.profiler and export its Chrome "
+                        "trace into this directory")
     for flag in REFUSED:
         p.add_argument(flag, nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
@@ -256,9 +284,27 @@ class _Bench:
 
         return draws, dropout
 
-    def step_records(self, bf16: bool, extras: bool) -> List[Dict]:
+    def profiled(self, window, name: str) -> None:
+        """One call of ``window`` under ``torch.profiler``, untimed (the
+        profiler skews the clock), its Chrome trace written to
+        ``--profile_dir``/``name``."""
+        cuda = self.device.type == "cuda"
+        prof = start_profiler(cuda)
+        try:
+            out = window()
+            if out is not None:
+                float(out)
+        finally:
+            path = stop_profiler(
+                prof, os.path.join(self.args.profile_dir, name), cuda)
+        print(f"profile: wrote {path}", file=sys.stderr, flush=True)
+
+    def step_records(self, bf16: bool, extras: bool,
+                     profile: bool = False) -> List[Dict]:
         """The primary record and, with ``extras``, the resident-epoch
-        one."""
+        one; with ``profile`` and ``--profile_dir``, one traced window
+        before the timed ones (and no resident-epoch record, as
+        ``bench.py``'s ``--profile_dir`` drops its second flavour)."""
         a, device = self.args, self.device
         dtype = torch.bfloat16 if bf16 else None
         key = "bfloat16" if bf16 else "float32"
@@ -285,9 +331,11 @@ class _Bench:
 
         self.sync()
         float(step_window(max(a.warmup, 1)))
+        if profile:
+            self.profiled(step_window, "trace_step.json")
         recs = [self.record(f"{a.steps}-step window, per-step dispatch",
                             self.time_windows(step_window), bf16)]
-        if not extras:
+        if not extras or a.profile_dir:
             return recs
 
         table, _ = synthetic(n_train=a.batch_size * a.steps, n_test=1)
@@ -339,12 +387,18 @@ class _Bench:
                 trainer.train(3)  # train() starts at epoch 0 again
                 self.sync()
                 dt = time.perf_counter() - t0
+                phase_spans = tracer.spans_since(t_window)
+                if a.profile_dir:
+                    # One traced epoch after the timed ones, as
+                    # bench.py's --e2e --profile_dir.
+                    self.profiled(lambda: trainer.train(1),
+                                  "trace_e2e.json")
         finally:
             set_tracer(None)
         self.steps_run["bfloat16" if a.bf16 else "float32"] += \
-            5 * len(loader)
+            (5 + bool(a.profile_dir)) * len(loader)
         phase_ms = {k: round(v, 3) for k, v in sorted(
-            phase_medians(tracer.spans_since(t_window)).items())}
+            phase_medians(phase_spans).items())}
         sps_chip = n_train * 3 / dt
         feed = ("HBM-resident data" if a.resident
                 else f"host-fed, prefetch depth {a.prefetch_depth}")
@@ -363,6 +417,86 @@ class _Bench:
         rec.update(device=self.card, power_limit_w=self.power_limit_w)
         return rec
 
+    def inspect_overhead_record(self) -> Dict:
+        """An enabled but idle introspection plane priced on the step loop
+        (``bench.py --inspect_overhead``): round-robin windows of the
+        fixed-batch float32 step bare, and with what ``--inspect_port``
+        adds when nobody scrapes (a bound loopback server on its thread,
+        the ``.prom`` rewrite every 50 steps and the unarmed profile
+        trigger, probed each step).  The headline is the median window's
+        overhead in % (negative medians clamp to 0)."""
+        a, device = self.args, self.device
+        model = get_model(a.model, device=device,
+                          generator=torch.Generator().manual_seed(0))
+        state = init_train_state(model)
+        step_fn = make_train_step(model, SGDConfig(), SCHEDULE, False)
+        ds, _ = synthetic(n_train=a.batch_size, n_test=1)
+        stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        micros = [to_device({"image": ds.images,
+                             "label": ds.labels.astype(np.int64)},
+                            device, stream=stream).wait()]
+        _, dropout = self._generators()
+        counter = [0]
+        registry = MetricsRegistry()
+        registry.counter("ddp_bench_steps_total", "Bench loop steps"
+                         ).set_function(lambda: float(counter[0]))
+        tracer = SpanTracer(spill_path=None, ring=1024)
+
+        def window(probe: bool, n: int = a.steps) -> torch.Tensor:
+            for _ in range(n):
+                loss = step_fn(state, micros, None, dropout)
+                if probe:
+                    counter[0] += 1
+                    writer.step(counter[0])
+                    trigger.step(counter[0])
+            self.steps_run["float32"] += n
+            return loss
+
+        dts: Dict[str, List[float]] = {"inspect_off": [], "inspect_on": []}
+        with tempfile.TemporaryDirectory() as tmp:
+            writer = PromFileWriter(registry, os.path.join(tmp, "m.prom"),
+                                    every=50)
+            trigger = ProfileTrigger(tracer, tmp, profiler_available=False)
+            server = InspectServer(0, registry=registry, tracer=tracer,
+                                   health=lambda: {"step": counter[0]},
+                                   profile=trigger)
+            try:
+                float(window(False, max(a.warmup, 1)))
+                float(window(True))  # the probe path's first .prom write
+                for _ in range(max(a.repeats, 1)):
+                    for name in dts:
+                        t0 = time.perf_counter()
+                        loss = window(probe=name == "inspect_on")
+                        self.sync()
+                        float(loss)
+                        dts[name].append(time.perf_counter() - t0)
+            finally:
+                server.close()
+                tracer.close()
+        per = {name: {
+            "median_ms_per_step": round(
+                statistics.median(d) / a.steps * 1e3, 4),
+            "best_window_ms_per_step": round(min(d) / a.steps * 1e3, 4),
+            "window_ms_per_step": [round(x / a.steps * 1e3, 4) for x in d],
+        } for name, d in dts.items()}
+        base = per["inspect_off"]["median_ms_per_step"]
+        overhead = round((per["inspect_on"]["median_ms_per_step"] - base)
+                         / base * 100.0, 2)
+        per["inspect_on"]["overhead_pct_vs_off"] = overhead
+        return {
+            "metric": f"{a.model} idle introspection-plane overhead "
+                      f"(batch {a.batch_size}/chip, fp32, 1 chip(s), "
+                      f"{a.steps}-step round-robin windows: bare loop vs "
+                      f"bound idle server + per-step probe)",
+            "value": max(overhead, 0.0),
+            "unit": "% ms/step of --inspect_port enabled-but-idle vs off "
+                    "(median windows; acceptance: < 1%; negative medians "
+                    "clamp to 0 — the delta is inside timing noise)",
+            "vs_baseline": 1.0,
+            "inspect_overhead": per,
+            "device": self.card, "power_limit_w": self.power_limit_w,
+        }
+
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     """Run the bench; returns ``{"records", "steps", "launches"}`` (the
@@ -373,10 +507,13 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     set_tf32(False)
     bench = _Bench(args, device)
     launches0 = (gather_batch.launches, gather_batch.launches_bf16)
-    if args.e2e:
+    if args.inspect_overhead:
+        records = [bench.inspect_overhead_record()]
+    elif args.e2e:
         records = [bench.e2e_record()]
     else:
-        records = bench.step_records(args.bf16, not args.primary_only)
+        records = bench.step_records(args.bf16, not args.primary_only,
+                                     profile=bool(args.profile_dir))
         if not args.bf16 and not args.no_bf16 and device.type == "cuda":
             records += bench.step_records(True, False)
     print(json.dumps(records[0]), flush=True)

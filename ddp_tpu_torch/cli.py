@@ -18,7 +18,8 @@
         [--guard_action abort|skip|lr_backoff|rollback] \\
         [--drift_audit_every K] [--drift_action abort|restore] \\
         [--watchdog_secs S] [--ckpt_format gathered|sharded] \\
-        [--mirror URI]
+        [--mirror URI] [--trace_spill PATH | --obs_off] \\
+        [--inspect_port PORT] [--profile_dir DIR]
     python -m ddp_tpu_torch.multigpu <same arguments> [--spawn N]
 
 ``--model`` trains VGG-11 (the default, the reference's model), DeepNN (the
@@ -109,6 +110,21 @@ restores.  With ``--metrics_path``, rank 0 keeps a flight recorder
 guard or drift abort, any other exception) leaves a ``postmortem.json``
 next to the metrics stream.
 
+Observability (``ddp_tpu/cli.py:137-175``'s flags, their meanings and
+defaults; ``obs/``): the span tracer is on for the run (rank N > 0 spills
+to ``.hostN``), its spill next to ``--snapshot_path`` unless
+``--trace_spill`` says where (``''``: the ring only), and ``python -m
+ddp_tpu_torch.obs`` reports on it and exports it to Perfetto; each epoch
+boundary writes a ``phase_stragglers`` record (a gather over the ranks);
+the watchdog's stall line names the last span of each phase.
+``--obs_off`` turns all of it off, the flight recorder and the profile
+trigger too.  With ``--metrics_path`` rank 0 rewrites
+``<metrics_path>.prom`` every ``--log_every`` steps and at the end.
+``--inspect_port`` serves ``/metrics``, ``/healthz``, ``/spans`` and
+``/debug/profile?steps=N`` on loopback (rank 0; SIGUSR1 arms the same
+capture), and ``--profile_dir`` brackets training with ``torch.profiler``
+(CPU and, on a card, CUDA activity) and exports a Chrome trace there.
+
 Prints what the JAX CLI prints: each epoch's header and loss on every rank
 (``[GPU{rank}]``), the checkpoint line of every ``save_every``-th epoch,
 and on rank 0 ``Total training time``, ``fp32 model has size=... MiB`` and
@@ -120,6 +136,7 @@ to run without a card otherwise.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -137,13 +154,16 @@ from .data.prefetch import PrefetchStats
 from .device import device_kind, dtype_name, resolve_device, set_tf32
 from .models import NAMES as MODEL_NAMES, get_model
 from .obs.blackbox import POSTMORTEM_BASENAME, FlightRecorder
-from .obs.live import LiveStats
+from .obs.inspect import (InspectServer, ProfileTrigger, PromFileWriter,
+                          install_sigusr1, start_profiler, stop_profiler)
+from .obs.live import LiveStats, model_mfu
 from .obs.registry import MetricsRegistry, parse_exposition
+from .obs.tracer import (NullTracer, SpanTracer, default_spill_path,
+                         set_tracer)
 from .ops.conv_candidates import conv3x3_fused
 from .ops.gather import gather_batch, gather_rows
 from .optim import SGDConfig, triangular_lr
 from .parallel import dist
-from .obs.tracer import get_tracer
 from .resilience.drift import DriftDetectedError
 from .resilience.faults import install_env_faults
 from .resilience.guard import LossSpikeError, NonFiniteLossError
@@ -259,6 +279,38 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    help="Append per-step {step, epoch, loss, lr, wall_s} "
                         "JSON lines here (rank 0), with the eval "
                         "accuracies and the live records")
+    p.add_argument("--profile_dir", default=None,
+                   help="Capture a torch.profiler trace of the training "
+                        "loop (CPU activity, and the card's on cuda) and "
+                        "export it as a Chrome trace into this directory "
+                        "(trace_rank<R>.json; open in ui.perfetto.dev)")
+    p.add_argument("--trace_spill", default=None, metavar="PATH",
+                   help="Span-tracer spill file (obs/tracer.py): one JSON "
+                        "line per completed phase span (data_wait/"
+                        "host_augment/h2d/dispatch/loss_flush/ckpt_write/"
+                        "eval); analyze or export to Perfetto with "
+                        "python -m ddp_tpu_torch.obs.  Ranks >0 append a "
+                        ".hostN suffix.  Default: trace_spill.jsonl NEXT "
+                        "TO --snapshot_path (the run's output dir, the "
+                        "same overwrite discipline as checkpoint.pt); '' "
+                        "keeps the in-memory tracer (watchdog/straggler "
+                        "telemetry) without a spill file")
+    p.add_argument("--obs_off", action="store_true",
+                   help="Telemetry kill-switch: no span tracer, no spill "
+                        "file, no live stats, no per-epoch straggler "
+                        "record, no flight recorder or profile trigger — "
+                        "hot paths see the shared no-op tracer")
+    p.add_argument("--inspect_port", default=None, type=int, metavar="PORT",
+                   help="Serve live run introspection over HTTP on "
+                        "127.0.0.1:PORT (rank 0; obs/inspect.py): GET "
+                        "/metrics (live registry exposition), /healthz "
+                        "(step/epoch, guard/drift/mirror/watchdog state), "
+                        "/spans (recent tracer ring), /debug/profile?"
+                        "steps=N (capture the next N steps' spans + a "
+                        "torch.profiler trace on a card; SIGUSR1 arms the "
+                        "same capture on headless boxes).  0 = an "
+                        "ephemeral port (printed at startup).  Off by "
+                        "default: no socket is bound")
     p.add_argument("--log_every", default=50, type=int, metavar="N",
                    help="Write a live record (rolling median/p90 step "
                         "time, samples/s, MFU, prefetch occupancy) into "
@@ -517,62 +569,191 @@ def _train(args: argparse.Namespace, device: torch.device,
     train_loader = TrainLoader(train_ds, args.batch_size, world,
                                seed=args.seed, augment=not device_augment,
                                local_replicas=[rank])
+    # The span tracer, process-wide for the run (evaluate() and the
+    # checkpoint writer read the process tracer), and the null one again
+    # after it: a caller that runs again in this process must not inherit
+    # a closed spill.
+    tracer = open_tracer(args, rank, ring=max(4096, len(train_loader) * 8))
+    set_tracer(tracer)
+    try:
+        return _train_traced(args, device, metrics, preemption, tracer,
+                             model, train_loader, test_ds, compute_dtype,
+                             device_augment)
+    finally:
+        set_tracer(None)
+        tracer.close()
+
+
+def open_tracer(args: argparse.Namespace, rank: int, ring: int):
+    """The run's tracer (``ddp_tpu/cli.py:782-830``): a
+    :class:`~ddp_tpu_torch.obs.tracer.SpanTracer` of ``ring`` spans (an
+    epoch's, so the straggler record's window is whole), spilling to
+    ``--trace_spill`` (default: next to ``--snapshot_path``; ``''`` keeps
+    the ring only; ``.hostN`` for rank N > 0); an unwritable spill warns
+    and keeps the ring.  ``--obs_off`` gives the null tracer and removes a
+    spill an earlier run left at the path, which would otherwise pass for
+    this run's."""
+    spill = args.trace_spill
+    if spill is None:
+        spill = default_spill_path(args.snapshot_path, "trace_spill.jsonl")
+    if spill and rank > 0:
+        spill = f"{spill}.host{rank}"
+    if args.obs_off:
+        if spill:
+            with contextlib.suppress(OSError):
+                os.unlink(spill)
+        return NullTracer()
+    try:
+        return SpanTracer(spill_path=spill or None, ring=ring, host=rank)
+    except OSError as e:
+        print(f"WARNING: cannot open --trace_spill {spill!r} ({e}); "
+              "tracing continues in-memory only (no spill file)",
+              file=sys.stderr)
+        return SpanTracer(spill_path=None, ring=ring, host=rank)
+
+
+def _train_traced(args: argparse.Namespace, device: torch.device,
+                  metrics: MetricsLogger,
+                  preemption: Optional[PreemptionGuard], tracer,
+                  model: torch.nn.Module, train_loader: TrainLoader,
+                  test_ds, compute_dtype: Optional[torch.dtype],
+                  device_augment: bool) -> Dict:
+    rank, world = dist.rank(), dist.world_size()
     # What crops and flips on the host: the C++ library (built here, before
     # the clock starts) or numpy; None where the card does it.
     host_augment = native.path() if train_loader.augment else None
-    prefetch = PrefetchStats()
+    # One registry a run: the prefetch engine, guard, watchdog and mirror
+    # put their counters here; /metrics and <metrics_path>.prom expose it.
+    registry = MetricsRegistry()
     live = None
-    if args.log_every > 0 and metrics.active:
-        if args.resident:
-            print("note: live telemetry (--log_every) covers the streaming "
-                  "path only; --resident epochs have no consumer loop to "
-                  "time (python -m ddp_tpu_torch.profile_resident splits "
-                  "the step)", file=sys.stderr)
-        else:
-            # One live step is one optimizer step of grad_accum
-            # micro-batches on every rank; the window spans at least the
-            # cadence.
-            live = LiveStats(
-                metrics,
-                global_batch=args.batch_size * world * args.grad_accum,
-                n_chips=world, log_every=args.log_every,
-                window=max(100, args.log_every), model=args.model,
-                device_kind=device_kind(device),
-                compute_dtype=compute_dtype, prefetch_stats=prefetch)
+    live_wanted = (not args.obs_off and args.log_every > 0
+                   and metrics.active)
+    if live_wanted and args.resident:
+        print("note: live telemetry (--log_every) covers the streaming "
+              "path only; --resident epochs have no consumer loop to "
+              "time (python -m ddp_tpu_torch.profile_resident splits "
+              "the step)", file=sys.stderr)
+    # The occupancy counters join the registry where the live records
+    # read them (ddp_tpu/cli.py:1005).
+    prefetch = PrefetchStats(registry=registry if live_wanted
+                             and not args.resident else None)
+    if live_wanted and not args.resident:
+        # One live step is one optimizer step of grad_accum micro-batches
+        # on every rank; the window spans at least the cadence.
+        live = LiveStats(
+            metrics,
+            global_batch=args.batch_size * world * args.grad_accum,
+            n_chips=world, log_every=args.log_every,
+            window=max(100, args.log_every), model=args.model,
+            device_kind=device_kind(device),
+            compute_dtype=compute_dtype, prefetch_stats=prefetch)
+        # The FLOP count and the peak before the clock starts: the first
+        # live record would otherwise pay them inside the traced run.
+        model_mfu(1.0, args.model, device_kind(device), compute_dtype)
+    trainer_ref: List[Trainer] = []  # the trainer is built below
+
     def _mirror_lag():
-        return (trainer._mirror.lag_epochs()
-                if trainer._mirror is not None else None)
+        t = trainer_ref[0]
+        return t._mirror.lag_epochs() if t._mirror is not None else None
 
     def _health() -> dict:
-        # Host-side reads only: nothing here touches the card or blocks.
-        return {"step": trainer.state.step, "epoch": trainer._epoch,
-                "guard_last_decision": trainer._health.last_decision,
-                "guard_restores": trainer._health.restores,
-                "mirror_lag_epochs": _mirror_lag()}
+        # The run's state for /healthz and the flight recorder: host-side
+        # reads only, nothing here touches the card or blocks.
+        snap: dict = {}
+        if trainer_ref:
+            t = trainer_ref[0]
+            snap.update(step=t.state.step, epoch=t._epoch,
+                        guard_last_decision=t._health.last_decision,
+                        guard_restores=t._health.restores,
+                        drift_last_audit_step=(
+                            t._drift.last_audit_step
+                            if t._drift is not None else None),
+                        mirror_lag_epochs=_mirror_lag())
+        if watchdog is not None:
+            snap["watchdog_last_beat_age_s"] = round(
+                watchdog.last_beat_age(), 3)
+            snap["watchdog_timeout_s"] = watchdog.timeout_s
+        if not args.resident:
+            snap["prefetch"] = prefetch.per_step_ms()
+        return snap
 
     # The flight recorder (obs/blackbox.py): rank 0, next to the metrics
-    # stream.
+    # stream, off under --obs_off.
     recorder = None
-    if args.metrics_path and rank == 0:
+    if not args.obs_off and args.metrics_path and rank == 0:
         recorder = FlightRecorder(
             os.path.join(os.path.dirname(os.path.abspath(args.metrics_path)),
                          POSTMORTEM_BASENAME),
-            config=vars(args), tracer=get_tracer(), context=_health)
+            config=vars(args), tracer=tracer, context=_health)
         metrics.attach_recorder(recorder)
-    watchdog = None
-    if args.watchdog_secs > 0:
-        def _on_expire() -> None:
+
+    def _stall_context() -> str:
+        # The stall line: the last span of each phase, then the guard, the
+        # drift audit and the mirror.  Every read is bounded: the tracer's
+        # lock may be held by a thread wedged in a spill write.
+        parts = []
+        if tracer.enabled:
+            parts.append(tracer.describe_last(lock_timeout=2.0))
+        if trainer_ref:
+            t = trainer_ref[0]
+            parts.append(
+                f"last completed step {t.state.step}; guard: last "
+                f"decision {t._health.last_decision}; drift audit: "
+                + (f"last at step {t._drift.last_audit_step}"
+                   if t._drift is not None else "off"))
+            parts.append("mirror: " + (
+                f"lag {_mirror_lag()} epoch(s)" if t._mirror is not None
+                else "off"))
+        return "\n".join(p for p in parts if p)
+
+    def _on_expire() -> None:
+        # Land the spill's tail and the postmortem before os._exit(124),
+        # each on a side thread with a bounded join (fsync can hang on a
+        # wedged mount; the exit must come regardless).
+        if tracer.enabled:
+            t = threading.Thread(
+                target=lambda: tracer.flush(fsync=True, lock_timeout=2.0),
+                daemon=True, name="obs-spill-flush")
+            t.start()
+            t.join(timeout=3.0)
+        if recorder is not None:
             recorder.dump("watchdog_stall", exit_status=WATCHDOG_EXIT_STATUS,
                           error="watchdog: no progress heartbeat within "
                                 f"{args.watchdog_secs}s", bounded=True)
 
-        watchdog = Watchdog(args.watchdog_secs, context=lambda: (
-            f"last completed step {trainer.state.step}, guard "
-            f"{trainer._health.last_decision}; mirror: "
-            + (f"lag {_mirror_lag()} epoch(s)" if trainer._mirror is not None
-               else "off")),
-            on_expire=_on_expire if recorder is not None else None)
-    registry = MetricsRegistry()
+    watchdog = None
+    if args.watchdog_secs > 0:
+        watchdog = Watchdog(
+            args.watchdog_secs, context=_stall_context,
+            on_expire=(_on_expire if tracer.enabled or recorder is not None
+                       else None),
+            registry=registry)
+    # The step probe: the periodic .prom rewrite (whenever the end-of-run
+    # file is written) and the profile trigger (it needs live spans).
+    prom_writer = None
+    if args.metrics_path and rank == 0:
+        prom_writer = PromFileWriter(registry, args.metrics_path + ".prom",
+                                     every=max(args.log_every, 1))
+    profile_trigger = None
+    if not args.obs_off and rank == 0:
+        # --profile_dir owns the process's profiler for the whole run; on
+        # the CPU a capture is spans only, as the JAX CLI's is.
+        profile_trigger = ProfileTrigger(
+            tracer, (os.path.dirname(os.path.abspath(args.metrics_path))
+                     if args.metrics_path else os.getcwd()),
+            profiler_available=(not args.profile_dir
+                                and device.type == "cuda"))
+    probes = [p.step for p in (prom_writer, profile_trigger)
+              if p is not None]
+    if args.log_every <= 0 and prom_writer is not None:
+        probes.remove(prom_writer.step)  # the end-of-run write only
+    step_probe = None
+    if len(probes) == 1:
+        step_probe = probes[0]
+    elif probes:
+        def step_probe(step, _probes=tuple(probes)):
+            for p in _probes:
+                p(step)
     trainer = Trainer(
         model, train_loader, device=device,
         lr_schedule=build_schedule(args, train_loader),
@@ -590,9 +771,53 @@ def _train(args: argparse.Namespace, device: torch.device,
         drift_action=args.drift_action, guard_window=args.guard_window,
         guard_spike_factor=args.guard_spike_factor,
         guard_action=args.guard_action, ckpt_format=args.ckpt_format,
-        mirror=args.mirror, registry=registry)
+        mirror=args.mirror, registry=registry, step_probe=step_probe)
+    trainer_ref.append(trainer)
     install_env_faults(trainer)  # the drills' faults; nothing unless set
+    # The inspect server binds only for --inspect_port, after the trainer,
+    # so /healthz describes a live object from its first request.  A taken
+    # port warns and the run goes on without it.
+    inspect_server = None
+    uninstall_sigusr1 = None
+    try:
+        if args.inspect_port is not None and rank == 0:
+            try:
+                inspect_server = InspectServer(
+                    args.inspect_port, registry=registry, tracer=tracer,
+                    health=_health, profile=profile_trigger)
+                print(f"inspect: serving /metrics /healthz /spans "
+                      f"/debug/profile on 127.0.0.1:{inspect_server.port}",
+                      file=sys.stderr, flush=True)
+            except OSError as e:
+                print(f"WARNING: cannot bind --inspect_port "
+                      f"{args.inspect_port}: {e}; continuing without the "
+                      "inspect server", file=sys.stderr)
+        if profile_trigger is not None:
+            uninstall_sigusr1 = install_sigusr1(profile_trigger)
+        return _run_training(args, device, metrics, trainer, recorder,
+                             watchdog, model, train_loader, test_ds,
+                             compute_dtype, device_augment, host_augment,
+                             prefetch, registry)
+    finally:
+        # The final exposition lands next to the metrics stream, also after
+        # a failure.
+        if prom_writer is not None:
+            prom_writer.write()
+        if uninstall_sigusr1 is not None:
+            uninstall_sigusr1()
+        if inspect_server is not None:
+            inspect_server.close()
 
+
+def _run_training(args: argparse.Namespace, device: torch.device,
+                  metrics: MetricsLogger, trainer: Trainer, recorder,
+                  watchdog, model: torch.nn.Module,
+                  train_loader: TrainLoader, test_ds,
+                  compute_dtype: Optional[torch.dtype],
+                  device_augment: bool, host_augment: Optional[str],
+                  prefetch: PrefetchStats,
+                  registry: MetricsRegistry) -> Dict:
+    rank, world = dist.rank(), dist.world_size()
     eval_loader = EvalLoader(test_ds, args.batch_size, world,
                              local_replicas=[rank])
     resident_test: List[ResidentData] = []  # uploaded at most once
@@ -617,6 +842,10 @@ def _train(args: argparse.Namespace, device: torch.device,
                 metrics.log_eval(epoch=epoch, accuracy=acc)
 
     start = time.time()
+    # --profile_dir brackets training, as the JAX CLI's trace does, and
+    # lands its trace even after a failure (an unstopped session is lost).
+    prof = (start_profiler(device.type == "cuda") if args.profile_dir
+            else None)
     if watchdog is not None:
         watchdog.start()  # armed for training only, as the JAX CLI's
     try:
@@ -633,6 +862,15 @@ def _train(args: argparse.Namespace, device: torch.device,
     finally:
         if watchdog is not None:
             watchdog.stop()
+        if prof is not None:
+            try:
+                path = stop_profiler(prof, os.path.join(
+                    args.profile_dir, f"trace_rank{rank}.json"),
+                    device.type == "cuda")
+                print(f"profile: wrote {path}", file=sys.stderr)
+            except Exception as e:  # must not replace the error in flight
+                print(f"WARNING: --profile_dir trace export failed: {e!r}",
+                      file=sys.stderr)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     training_seconds = time.time() - start

@@ -63,14 +63,38 @@ class PrefetchStats:
     :func:`~ddp_tpu_torch.train.step.to_device` (pinning the batch and
     enqueueing its copies; the copy itself runs on the card's copy engine);
     ``wait_s``: consumer time blocked on a batch that was not ready, the
-    pipeline's bubble; ``batches``: batches yielded."""
+    pipeline's bubble; ``batches``: batches yielded.
 
-    def __init__(self) -> None:
+    ``registry`` (an :class:`~ddp_tpu_torch.obs.registry.MetricsRegistry`)
+    mirrors the four as function-backed ``ddp_prefetch_*`` counters, with
+    ``metric_labels`` on each; this object stays the source, read at
+    scrape time."""
+
+    def __init__(self, registry=None, metric_labels=None) -> None:
         self._lock = threading.Lock()
         self.host_s = 0.0
         self.h2d_s = 0.0
         self.wait_s = 0.0
         self.batches = 0
+        if registry is not None:
+            labels = dict(metric_labels or {})
+            names = tuple(sorted(labels))
+            for metric, help_, fn in (
+                    ("ddp_prefetch_host_seconds_total",
+                     "Producer time materialising/augmenting batches",
+                     lambda: self.host_s),
+                    ("ddp_prefetch_h2d_seconds_total",
+                     "Host-to-device enqueue time",
+                     lambda: self.h2d_s),
+                    ("ddp_prefetch_wait_seconds_total",
+                     "Consumer time blocked on an unready batch (the "
+                     "pipeline bubble)",
+                     lambda: self.wait_s),
+                    ("ddp_prefetch_batches_total",
+                     "Batches yielded to the consumer loop",
+                     lambda: float(self.batches))):
+                registry.counter(metric, help_,
+                                 names).labels(**labels).set_function(fn)
 
     def _add(self, field: str, dt: float) -> None:
         with self._lock:

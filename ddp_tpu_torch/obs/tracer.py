@@ -1,5 +1,4 @@
-"""Low-overhead span tracer (counterpart of ``ddp_tpu/obs/tracer.py``: the
-recording half).
+"""Low-overhead span tracer (counterpart of ``ddp_tpu/obs/tracer.py``).
 
 A :class:`SpanTracer` records one *span* per phase occurrence,
 
@@ -8,7 +7,10 @@ A :class:`SpanTracer` records one *span* per phase occurrence,
 
 with ``time.monotonic()`` timestamps, into a bounded in-memory ring
 (:meth:`SpanTracer.spans_since` reads a window of it back, as the bench's
-``phase_ms`` does) and as append-only JSON lines in a spill file.  A
+``phase_ms`` and the per-epoch straggler record do; :meth:`SpanTracer
+.describe_last` names the newest span of each phase, the watchdog's stall
+line) and as append-only JSON lines in a spill file, which ``python -m
+ddp_tpu_torch.obs`` reports on and exports to Perfetto.  A
 record is the JAX package's, key for key (``phase``, ``step``,
 ``start_s``, ``dur_s``, ``overlap``, ``host`` and, on request-scoped spans,
 ``req``), so ``python -m ddp_tpu.obs`` and its Perfetto export read a spill
@@ -33,7 +35,7 @@ import os
 import sys
 import threading
 import time
-from typing import IO, List, Optional
+from typing import IO, Dict, List, Optional
 
 
 def default_spill_path(snapshot_path: str, filename: str) -> str:
@@ -71,7 +73,22 @@ class NullTracer:
                  req: Optional[str] = None) -> None:
         pass
 
-    def flush(self, fsync: bool = False) -> None:
+    def now(self) -> float:
+        return 0.0
+
+    def spans_since(self, t: float, lock_timeout: Optional[float] = None
+                    ) -> List[dict]:
+        return []
+
+    def last_spans(self, lock_timeout: Optional[float] = None
+                   ) -> Dict[str, dict]:
+        return {}
+
+    def describe_last(self, lock_timeout: Optional[float] = None) -> str:
+        return ""
+
+    def flush(self, fsync: bool = False,
+              lock_timeout: Optional[float] = None) -> None:
         pass
 
     def close(self) -> None:
@@ -121,6 +138,7 @@ class SpanTracer:
         self._t0 = time.monotonic()
         self._lock = threading.Lock()
         self._ring: collections.deque = collections.deque(maxlen=ring)
+        self._last: Dict[str, tuple] = {}  # the newest span of each phase
         self._f: Optional[IO[str]] = (open(spill_path, "w")
                                       if spill_path else None)
 
@@ -152,6 +170,7 @@ class SpanTracer:
             line = json.dumps(body) + "\n"
         with self._lock:
             self._ring.append(rec)
+            self._last[phase] = rec
             if line is None or self._f is None:
                 return
             try:
@@ -180,15 +199,53 @@ class SpanTracer:
                 timeout=-1 if lock_timeout is None else lock_timeout):
             return []
         try:
-            return [{"phase": p, "step": s, "start_s": start, "dur_s": d,
-                     "overlap": o, "req": r}
-                    for p, s, start, d, o, r in self._ring if start >= t]
+            return [self._as_dict(r) for r in self._ring if r[2] >= t]
         finally:
             self._lock.release()
 
-    def flush(self, fsync: bool = False) -> None:
-        """Flush the spill; ``fsync=True`` also forces it to disk."""
-        with self._lock:
+    @staticmethod
+    def _as_dict(rec: tuple) -> dict:
+        phase, step, start, dur, overlap, req = rec
+        return {"phase": phase, "step": step, "start_s": start,
+                "dur_s": dur, "overlap": overlap, "req": req}
+
+    def last_spans(self, lock_timeout: Optional[float] = None
+                   ) -> Dict[str, dict]:
+        """The newest completed span of each phase.  ``lock_timeout``
+        bounds the wait for the lock, as in :meth:`spans_since`: on a
+        timeout the answer is empty."""
+        if not self._lock.acquire(
+                timeout=-1 if lock_timeout is None else lock_timeout):
+            return {}
+        try:
+            return {p: self._as_dict(r) for p, r in self._last.items()}
+        finally:
+            self._lock.release()
+
+    def describe_last(self, lock_timeout: Optional[float] = None) -> str:
+        """One line naming the newest completed span of each phase, newest
+        first: what the watchdog prints when a run stalls."""
+        last = sorted(self.last_spans(lock_timeout).values(),
+                      key=lambda r: r["start_s"] + r["dur_s"], reverse=True)
+        if not last:
+            return "no spans completed"
+        return "; ".join(
+            f"{r['phase']}"
+            + (f"[step {r['step']}]" if r["step"] is not None else "")
+            + f" ended @{r['start_s'] + r['dur_s']:.3f}s "
+            + f"({r['dur_s'] * 1e3:.2f} ms)"
+            for r in last)
+
+    def flush(self, fsync: bool = False,
+              lock_timeout: Optional[float] = None) -> None:
+        """Flush the spill; ``fsync=True`` also forces it to disk (the
+        emergency checkpoint's path, before the SIGKILL that follows a
+        SIGTERM).  ``lock_timeout`` gives up instead of waiting behind a
+        writer wedged on a hung mount (the watchdog's expiry path)."""
+        if not self._lock.acquire(
+                timeout=-1 if lock_timeout is None else lock_timeout):
+            return
+        try:
             if self._f is not None:
                 try:
                     self._f.flush()
@@ -196,6 +253,8 @@ class SpanTracer:
                         os.fsync(self._f.fileno())
                 except OSError:
                     pass  # never stop the run: same rule as _record
+        finally:
+            self._lock.release()
 
     def close(self) -> None:
         with self._lock:
@@ -213,8 +272,9 @@ class SpanTracer:
         self.close()
 
 
-# The process's tracer for code that takes no tracer argument; the serve
-# entry point installs the real one and restores the null one after.
+# The process's tracer for code that takes no tracer argument; the training
+# and serve entry points install the real one for the run and restore the
+# null one after.
 _tracer: object = NullTracer()
 
 

@@ -25,6 +25,9 @@ Two more for the resilience layer.  :func:`any_rank` is the preemption
 stop vote, an OR of one flag over the ranks: a CPU tensor over a gloo
 side group made once at :func:`initialize` (world > 1 only), so a per-step
 vote never waits for the card's queue; it counts as ``stop_vote``.  The
+per-epoch straggler record's gather (:func:`all_gather_rows`, one row of
+phase medians a rank) takes the same group and counts as
+``straggler_gather``.  The
 drift audit's two sums count as ``drift_audit``.  :func:`abort` is the
 teardown of the failure paths: it never blocks.
 """
@@ -40,6 +43,7 @@ import sys
 import time
 from typing import List, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as tdist
 from torch import nn
@@ -149,6 +153,20 @@ def any_rank(flag: bool) -> bool:
     tdist.all_reduce(t, op=tdist.ReduceOp.MAX, group=_vote_group)
     collective_calls["stop_vote"] += 1
     return bool(t.item())
+
+
+def all_gather_rows(row: np.ndarray) -> List[np.ndarray]:
+    """Every rank's float32 ``row``, in rank order: one ``all_gather`` of
+    CPU tensors over the gloo side group, so it never waits for the card's
+    queue.  Every rank must call it at the same point with a row of the
+    same length; without a group, or at world 1, it is ``[row]``."""
+    if _vote_group is None:
+        return [np.asarray(row, np.float32)]
+    t = torch.from_numpy(np.ascontiguousarray(row, np.float32))
+    out = [torch.empty_like(t) for _ in range(world_size())]
+    tdist.all_gather(out, t, group=_vote_group)
+    collective_calls["straggler_gather"] += 1
+    return [o.numpy() for o in out]
 
 
 def _all_reduce_sum(t: torch.Tensor, kind: str = "all_reduce") -> None:

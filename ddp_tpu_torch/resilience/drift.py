@@ -135,6 +135,7 @@ class DriftAuditor:
         self.every = int(every)
         self.action = action
         self.paths = leaf_paths(model)
+        self.last_audit_step = -1  # the stall line's and /healthz's
 
     def due(self, step: int) -> bool:
         return self.every > 0 and step > 0 and step % self.every == 0
@@ -145,6 +146,7 @@ class DriftAuditor:
         divergence.  ``guard`` (the trainer's StepHealthGuard) holds the
         restore budget ``action='restore'`` shares."""
         mism = audit_counts(model).tolist()  # [world][L]
+        self.last_audit_step = int(step)
         counts = [sum(col) for col in zip(*mism)]
         if not any(counts):
             return

@@ -39,9 +39,10 @@ class Watchdog:
             raise ValueError(f"watchdog timeout must be > 0, got {timeout_s}")
         self.timeout_s = float(timeout_s)
         self.tag = tag
-        # context() -> str is printed with the stall diagnostic;
-        # on_expire() runs before the exit (cli.py's flight-recorder dump,
-        # bounded on its own side thread).
+        # context() -> str is printed with the stall diagnostic (cli.py's
+        # names the tracer's last span of each phase); on_expire() runs
+        # before the exit (cli.py's spill flush and flight-recorder dump,
+        # each bounded on its own side thread).
         self.context = context
         self.on_expire = on_expire
         # One writer each: beat() on the trainer's thread, the expiry on
@@ -67,6 +68,11 @@ class Watchdog:
         """Record progress; cheap enough for every step."""
         self._last = time.monotonic()
         self.beats += 1
+
+    def last_beat_age(self) -> float:
+        """Seconds since the last beat (``/healthz``'s liveness number: an
+        age near ``timeout_s`` is a stall on its way)."""
+        return time.monotonic() - self._last
 
     def start(self) -> "Watchdog":
         if self._thread is not None:
@@ -105,7 +111,8 @@ class Watchdog:
             except Exception as e:  # the exit must happen regardless
                 detail = f"<context hook failed: {e!r}>"
             if detail:
-                print(f"WATCHDOG [{self.tag}]: {detail}", file=sys.stderr)
+                print(f"WATCHDOG [{self.tag}]: last completed spans on "
+                      f"this host: {detail}", file=sys.stderr)
         sys.stderr.flush()
         try:
             if self.on_expire is not None:

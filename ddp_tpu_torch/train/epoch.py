@@ -98,7 +98,7 @@ def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
                      shard_update: bool = False,
                      compute_dtype: Optional[torch.dtype] = None):
     """``epoch_fn(state, images, labels, idx, draws=None, events=None,
-    dropout=None) -> losses``: one optimizer step per group of the device
+    dropout=None, after_step=None) -> losses``: one optimizer step per group of the device
     index tensor
     ``idx``, over the resident ``images``/``labels``.  ``idx`` is
     ``[G, A, B]``, G groups of A micro-batch rows
@@ -124,8 +124,9 @@ def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
     (:func:`~ddp_tpu_torch.parallel.dist.all_reduce_sum_`), as the JAX
     epoch returns the global means.  When ``events`` is a list, a CUDA
     event recorded after each step is appended to it (step timing without a
-    host sync).  The trainer calls this once per shape of group, as the JAX
-    trainer does."""
+    host sync), and ``after_step(state.step)`` is called after each step's
+    enqueue (the trainer's step probe).  The trainer calls this once per
+    shape of group, as the JAX trainer does."""
     step = _optimizer_step(model, sgd_config, lr_schedule, sync_bn=sync_bn,
                            shard_update=shard_update,
                            compute_dtype=compute_dtype)
@@ -134,7 +135,9 @@ def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
                  labels: torch.Tensor, idx: torch.Tensor,
                  draws: Optional[DrawFn] = None,
                  events: Optional[List[torch.cuda.Event]] = None,
-                 dropout: Optional[DropoutFn] = None) -> torch.Tensor:
+                 dropout: Optional[DropoutFn] = None,
+                 after_step: Optional[Callable[[int], None]] = None
+                 ) -> torch.Tensor:
         get_micro = micro_from_table(images, labels, device_augment,
                                      compute_dtype or torch.float32)
         losses = []
@@ -144,6 +147,8 @@ def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
                 ev = torch.cuda.Event(enable_timing=True)
                 ev.record()
                 events.append(ev)
+            if after_step is not None:
+                after_step(state.step)
         return torch.stack(losses)
 
     return epoch_fn

@@ -3,7 +3,8 @@ forward in the training's compute dtype, argmax accuracy in percent, over
 streamed host batches (:func:`evaluate`) or the device-resident test set
 (:func:`evaluate_resident`).  In a data-parallel run each rank scores its
 share of the test set and the counters are summed over the ranks, so every
-rank returns the same accuracy."""
+rank returns the same accuracy.  Each evaluation is one ``eval`` span of
+the process tracer (``obs/tracer.py``), its host read included."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -13,6 +14,7 @@ from torch import nn
 
 from ..data.loader import EvalLoader
 from ..data.resident import ResidentData
+from ..obs.tracer import get_tracer
 from ..parallel import dist
 from .epoch import make_eval_epoch
 from .step import make_eval_apply, micro_from_batch, to_device
@@ -57,8 +59,9 @@ def evaluate(model: nn.Module, loader: EvalLoader,
     (:func:`eval_counts`); ``loader.num_replicas`` must be the world size
     and its local replica this rank.  Reads the two counters once, at the
     end."""
-    correct, total = eval_counts(model, loader, compute_dtype)
-    return float(correct) / max(float(total), 1.0) * 100.0
+    with get_tracer().span("eval"):
+        correct, total = eval_counts(model, loader, compute_dtype)
+        return float(correct) / max(float(total), 1.0) * 100.0
 
 
 def evaluate_resident(model: nn.Module, resident: ResidentData,
@@ -72,8 +75,10 @@ def evaluate_resident(model: nn.Module, resident: ResidentData,
     if loader.num_replicas != dist.world_size():
         raise ValueError(f"the eval loader has {loader.num_replicas} "
                          f"replicas; the world is {dist.world_size()}")
-    idx, mask = loader.rank_index_matrix(dist.rank())
-    correct, total = make_eval_epoch(model, compute_dtype)(
-        resident.images, resident.labels, torch.from_numpy(idx).to(device),
-        torch.from_numpy(mask).to(device))
-    return float(correct) / max(float(total), 1.0) * 100.0
+    with get_tracer().span("eval"):
+        idx, mask = loader.rank_index_matrix(dist.rank())
+        correct, total = make_eval_epoch(model, compute_dtype)(
+            resident.images, resident.labels,
+            torch.from_numpy(idx).to(device),
+            torch.from_numpy(mask).to(device))
+        return float(correct) / max(float(total), 1.0) * 100.0

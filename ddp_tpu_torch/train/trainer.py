@@ -55,6 +55,7 @@ from ..data.device_augment import Draws, make_draws
 from ..data.loader import TrainLoader, optimizer_groups
 from ..data.prefetch import PrefetchStats, prefetch_to_device
 from ..data.resident import ResidentData
+from ..obs.aggregate import epoch_straggler_record
 from ..obs.tracer import get_tracer
 from ..optim.sgd import SGDConfig
 from ..parallel import dist
@@ -230,8 +231,17 @@ class Trainer:
     ``drift_audit_every`` K > 0 (streaming only) audits the replicas'
     parameters every K steps with ``drift_action`` on a divergence
     (``resilience/drift.py``); ``watchdog`` gets a beat at each epoch, step
-    and loss read.  ``_step_probe``, when set, is called with the global
-    step after each streamed step.
+    and loss read.
+
+    Observability (``obs/``; ``ddp_tpu/train/trainer.py:954-1027``): each
+    epoch boundary, after the epoch callback and before the preemption
+    vote, turns the tracer's spans since the epoch began into the
+    ``phase_stragglers`` record (``obs/aggregate.py``; a gather over the
+    ranks at world > 1, on every rank alike, whenever the process tracer is
+    on).  ``step_probe`` (rank 0 only; the CLI's ``.prom`` rewrite and
+    profile trigger) is called with the global step after each optimizer
+    step, streamed or resident (the resident epoch is a loop of steps here,
+    where the JAX package's is one program).
 
     Storage: ``ckpt_format`` is ``"gathered"`` (the v1 file) or
     ``"sharded"`` (the v2 index and its one shard, ``train/ckpt_shard.py``);
@@ -264,7 +274,8 @@ class Trainer:
                  guard_window: int = 64, guard_spike_factor: float = 0.0,
                  guard_action: str = "rollback",
                  ckpt_format: str = "gathered", mirror=None,
-                 registry=None):
+                 registry=None,
+                 step_probe: Optional[Callable[[int], None]] = None):
         if train_loader.num_replicas != dist.world_size():
             raise ValueError(f"the train loader has "
                              f"{train_loader.num_replicas} replicas; the "
@@ -310,11 +321,12 @@ class Trainer:
         self._health = StepHealthGuard(on_nan, window=guard_window,
                                        spike_factor=guard_spike_factor,
                                        spike_action=guard_action,
-                                       metrics=self.metrics)
+                                       metrics=self.metrics,
+                                       registry=registry)
         self._health.on_lr_backoff = self._apply_lr_backoff
         self._watchdog = watchdog
         self._preemption = preemption
-        self._step_probe: Optional[Callable[[int], None]] = None
+        self._step_probe = step_probe if self.rank == 0 else None
         # The batch offset the first trained epoch starts at (a mid-epoch
         # data_state); (epoch, batch) positions a guard rollback condemned;
         # epoch -> (its first global step, its start offset), to map a
@@ -572,7 +584,7 @@ class Trainer:
                 parts.append(self.train_epoch(
                     self.state, self.resident.images, self.resident.labels,
                     torch.from_numpy(idx).to(self.device), self.draws,
-                    events, self.dropout))
+                    events, self.dropout, self._step_probe))
         return parts
 
     def _epoch_losses_streaming(self, epoch: int, events, start: int = 0
@@ -799,6 +811,7 @@ class Trainer:
                    ) -> None:
         if self._watchdog is not None:
             self._watchdog.beat()
+        t_epoch = get_tracer().now()  # the straggler record's window
         self._run_epoch(epoch, start_offset)
         if self._preempt_pending is not None:
             self._emergency_checkpoint_midepoch()
@@ -806,6 +819,7 @@ class Trainer:
             self._checkpoint(epoch)
         if epoch_callback is not None:
             epoch_callback(epoch)
+        self._log_stragglers(epoch, t_epoch)
         if self._preemption is not None:
             # A collective at world > 1: every rank asks at every boundary.
             # The resident path's stop point is the epoch; the streaming
@@ -815,6 +829,22 @@ class Trainer:
                     self._preemption.should_stop_step(self.state.step))
             if stop:
                 self._emergency_checkpoint(epoch)
+
+    def _log_stragglers(self, epoch: int, since: float) -> None:
+        """The epoch's ``phase_stragglers`` record.  At world > 1 it is a
+        gather over the ranks, so its gate is the tracer's setting, which
+        every rank shares, never rank-local state; it comes before the
+        preemption vote, which keeps the boundary's collectives in one
+        order.  At world 1 it is skipped where no stream would take it."""
+        tracer = get_tracer()
+        if not tracer.enabled:
+            return
+        gather = dist.world_size() > 1
+        if not gather and (self.metrics is None
+                           or not getattr(self.metrics, "active", True)):
+            return
+        epoch_straggler_record(tracer, gather, since, metrics=self.metrics,
+                               epoch=epoch)
 
     def data_state(self) -> dict:
         """Where a run resumed from the current state would start."""
@@ -846,7 +876,13 @@ class Trainer:
             # loop unwinds (the daemon writer dies with the interpreter);
             # then its error must not replace the one in flight.
             if sys.exc_info()[1] is None:
-                self._join_pending_save()
+                if self._save_thread is not None:
+                    # The main thread waits for the last write here: a
+                    # serial ckpt_write span, as a save's covers its join
+                    # of the write before it.
+                    with get_tracer().span("ckpt_write",
+                                           step=self.state.step):
+                        self._join_pending_save()
                 if self._mirror is not None:
                     self.mirror_lag.append(self._mirror.lag_epochs())
                     self._mirror_drain()

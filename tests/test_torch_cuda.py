@@ -1032,3 +1032,52 @@ def test_async_save_on_the_card_writes_the_synchronous_bytes(
     for f in os.listdir(tmp_path / "sync"):
         assert tckpt.sha256_of_file(str(tmp_path / f)) == \
             tckpt.sha256_of_file(str(tmp_path / "sync" / f)), f
+
+
+_CAPTURE = """
+import json, sys, torch
+from ddp_tpu_torch.data import TrainLoader, synthetic
+from ddp_tpu_torch.device import set_tf32
+from ddp_tpu_torch.models import get_model
+from ddp_tpu_torch.obs.inspect import (TRACE_FILE, ProfileTrigger,
+                                       trace_kernel_launches)
+from ddp_tpu_torch.obs.tracer import SpanTracer
+from ddp_tpu_torch.train.trainer import Trainer
+set_tf32(False)
+cuda = torch.device("cuda")
+train, _ = synthetic(n_train=6 * 64, n_test=8, seed=1)
+trigger = ProfileTrigger(SpanTracer(), sys.argv[1])
+tr = Trainer(get_model("vgg", device=cuda,
+                       generator=torch.Generator().manual_seed(0)),
+             TrainLoader(train, 64, seed=0, augment=False), device=cuda,
+             lr_schedule=lambda s: 0.05, snapshot_path=None, resident=True,
+             step_probe=trigger.step)
+tr.train(1)  # the kernel build and cuDNN's plans, outside the capture
+trigger.request(2)
+tr.train(1)
+doc = json.load(open(trigger.captures[0]))
+print(json.dumps({"armed": trigger.armed, "captures": len(trigger.captures),
+                  "window": [doc["start_step"], doc["end_step"]],
+                  "launches": trace_kernel_launches(
+                      doc["trace_dir"] + "/" + TRACE_FILE,
+                      "gather_batch_kernel")}))
+"""
+
+
+def test_profile_trigger_captures_two_resident_steps(cuda, tmp_path):
+    """A ``ProfileTrigger`` capture of 2 resident VGG-11 steps (armed
+    before the epoch, started at the first step's probe): its
+    ``torch.profiler`` trace holds exactly 2 ``gather_batch_kernel``
+    launches, one a step, and its capture file names the window.  In a
+    process of its own: late in a long process the profiler can lose the
+    start of a session (ROADMAP C3), as the smoke's profiled processes
+    avoid too."""
+    import json
+    r = subprocess.run([sys.executable, "-c", _CAPTURE, str(tmp_path)],
+                       capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.dirname(
+                           os.path.abspath(__file__))))
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    assert got == {"armed": False, "captures": 1, "window": [7, 9],
+                   "launches": 2}, (got, r.stderr[-2000:])
