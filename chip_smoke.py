@@ -50,7 +50,9 @@
    VGG-11, DeepNN and ResNet-18 at ``--steps 20 --repeats 3`` (each its
    stdout record, the resident-epoch and the bf16 records from stderr;
    VGG-11 ran the default 5 windows of 50 steps until the storage phase
-   took the time), and VGG-11 ``--e2e --resident --e2e_steps 16``; each
+   took the time), and VGG-11 ``--e2e --resident --e2e_steps 16``; VGG-11's
+   fixed batch first and alone, the other three processes at once (their
+   records share the card since the fleet phase took the time); each
    record printed on its own line, with every field, a finite positive
    value, an MFU in (0, 1.05] against the data sheet's peak for its
    dtype, the card's name and power limit, and the child's ``gather_batch``
@@ -214,11 +216,12 @@
    five forwards at each bucket must run ``gather_batch_kernel`` five times
    and the wrapper not at all, counted forward by forward.  The profiler
    can miss the start of a session, so each serving session runs one
-   forward and idles 50 ms before the forwards it counts; 24 sessions at
-   bucket 1 without that lead-in record how often the miss happens.
+   forward and idles 50 ms before the forwards it counts, and a session
+   whose records it lost all the same is run again, up to 3 sessions
+   (ROADMAP C3).
    Served accuracy over the 12,500 test images at bucket 128 must equal
    ``evaluate_resident``'s with ``EvalLoader(test_ds, 128)``.  Then 8
-   closed-loop HTTP clients send 30 requests of 1-32 rows each through
+   closed-loop HTTP clients send 15 requests of 1-32 rows each through
    ``DynamicBatcher`` and ``ServeHTTPServer`` on port 0 (p50/p99 latency,
    rows/s, rows per batch), and the same requests again under the profiler
    with device activity only (device busy share, and the kernel's
@@ -232,6 +235,30 @@
    forward, one ``gather_batch_kernel`` in each of 5 profiled replays, its
    replay ms beside the float32 bucket's, and served accuracy equal to
    ``evaluate_resident``'s in bfloat16.
+   Fleet phase (``fleet_phase``, A9): F1 in process, a ``ServeFleet`` of 2
+   VGG-11 replicas at buckets 1, 8, 32 and 128 on a lineage that publishes
+   the main path's epoch-0 file: ``gather_batch``'s wrapper run 2 x 4
+   times for each engine built, every replica's logits bit for bit the
+   eager ``gather_batch`` + ``make_eval_apply`` forward at every bucket,
+   each replica's replay ms, a served row's logits independent of its
+   place in the batch, and one profiled window of 5 forwards on r0 with 5
+   ``gather_batch_kernel``; then 8 closed-loop client threads while the
+   fleet hot-swaps 3 times, to the streaming phase's ``--resume`` file and
+   back (each a republish through the lineage, each swap by
+   ``poll_once``): 0 failed, every answer bit for bit a forward of a
+   snapshot live while it was in flight (at a bucket its batch could have
+   had), both snapshots answering, rows/s and p50/p99 with and without a
+   swap in progress, each swap's ``warm_s``, ``memory_allocated`` after
+   swap 3 within 5% of after swap 1.  The same in bfloat16 on the bf16
+   main path's file, without the load.  F2 out of process, the CI drill's
+   form: ``python -m ddp_tpu_torch.serve --fleet 2 --swap_poll_s 0.5`` on
+   port 0 under ``DDP_TPU_FAULT=crash_replica@requests=25,replica=0``
+   with a span spill, 8 HTTP clients keeping an ok/shed/failed ledger that
+   honours ``Retry-After``, a ``singlegpu --resume`` child republishing on
+   10,240 images mid-load: 0 failed, an ejection and a ``swap_commit`` in
+   ``/stats``, ``/metrics``' ejection and retry totals equal to
+   ``/stats``', SIGTERM exit 0, and ``python -m ddp_tpu_torch.obs
+   --perfetto`` on the spill holding ``eject`` and ``swap_commit``.
    Accuracy anchors (ROADMAP C2): the configs of
    ``tests/golden/accuracy_parity_20epoch_noise0.25_bf16.json`` and of its
    float32 twin (batch 64, lr 0.05, 768 images of ``synthetic(seed=21,
@@ -270,8 +297,10 @@
     and on the models path: the models phase's runs, serving and drills,
     on the bench
     path: the train steps the bench's processes ran in that form, and on
-    the run-shape path: the split, uninterrupted and streamed runs, and on
-    the obs path: O1's and O2's runs; both
+    the run-shape path: the split, uninterrupted and streamed runs, on
+    the obs path: O1's and O2's runs, and on the fleet path: the eager runs
+    of every engine F1 builds (its 2 at the start and 2 a swap) and the 5
+    profiled replays, in the bf16 entry the bf16 fleet's; both
     entries
     give ``stream_batch_cases``, the streamed-batch comparisons in their
     dtype, whose launches are not counted), the card line, and last
@@ -286,17 +315,21 @@ import collections
 import contextlib
 import copy
 import functools
+import gc
 import importlib.util
+import io
 import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -321,6 +354,7 @@ from ddp_tpu_torch.ops.conv_probe import (N_LONG, N_SHORT, VGG_CONV_SHAPES,
                                           conv2d_nhwc, conv_flops)
 from ddp_tpu_torch.ops.gather import (gather_batch, gather_batch_plain,
                                       gather_rows, gather_rows_plain)
+from ddp_tpu_torch.obs.__main__ import main as obs_main
 from ddp_tpu_torch.obs.registry import parse_exposition
 from ddp_tpu_torch.optim import SGDConfig, triangular_lr
 from ddp_tpu_torch.parallel import dist, drill
@@ -328,9 +362,10 @@ from ddp_tpu_torch.parallel.dist import free_port
 from ddp_tpu_torch.profile_resident import (_group, device_events,
                                             kernel_launches)
 from ddp_tpu_torch.repeat_check import compare, run_entries
+from ddp_tpu_torch.resilience import lineage
 from ddp_tpu_torch.resilience.faults import FAULT_ENV
-from ddp_tpu_torch.serve import (DynamicBatcher, ServeEngine,
-                                 ServeHTTPServer, percentiles)
+from ddp_tpu_torch.serve import (DynamicBatcher, QueueFull, ServeEngine,
+                                 ServeFleet, ServeHTTPServer, percentiles)
 from ddp_tpu_torch.train.checkpoint import (load_checkpoint, restore,
                                            save_checkpoint)
 from ddp_tpu_torch.train.epoch import make_train_epoch
@@ -378,14 +413,25 @@ BATCH_DRAWS = ("random", "0_flip", "0_noflip", "8_flip", "8_noflip", "eval")
 # Serving: the JAX server's default buckets, and a closed loop of clients
 # each sending requests of 1-32 rows.
 SERVE_BUCKETS = (1, 8, 32, 128)
-SERVE_CLIENTS, SERVE_REQUESTS_PER_CLIENT, SERVE_MAX_ROWS = 8, 30, 32
+SERVE_CLIENTS, SERVE_REQUESTS_PER_CLIENT, SERVE_MAX_ROWS = 8, 15, 32
 # torch.profiler can miss the start of a session's device timeline (the
-# first forward's copy in and first kernel, or more).  A serving session
-# runs one forward first, then idles PROFILE_SETTLE_S, and counts only the
-# forwards after that: the last ones of its timeline, cut after each copy
-# out.  LOSS_PROBES sessions at bucket 1 without that lead-in record how
-# often the miss happens.
-PROFILE_SETTLE_S, LOSS_PROBES = 0.05, 24
+# first forward's copy in and first kernel, or more: ROADMAP C3).  A
+# serving session runs one forward first, then idles PROFILE_SETTLE_S, and
+# counts only the forwards after that: the last ones of its timeline, cut
+# after each copy out.
+PROFILE_SETTLE_S = 0.05
+# The serving fleet: replicas on the one card; hot swaps under the load of
+# SERVE_CLIENTS closed-loop threads, each cycling through FLEET_POOL
+# requests of 1-SERVE_MAX_ROWS rows, FLEET_STEADY_S before the first swap
+# and FLEET_AFTER_SWAP_S after each.  F2's server runs under FLEET_FAULT
+# (the CI drill's kill) and is republished by a singlegpu --resume child;
+# its clients send 1-FLEET_F2_ROWS rows, as tools/ci_fleet_load.py does.
+FLEET_REPLICAS, FLEET_SWAPS, FLEET_POOL = 2, 3, 16
+FLEET_STEADY_S, FLEET_AFTER_SWAP_S = 1.5, 0.5
+FLEET_FAULT = "crash_replica@requests=25,replica=0"
+FLEET_F2_ROWS = 4
+FLEET_REPUBLISH_ARGS = ["2", "1", "--batch_size", "512", "--resident",
+                        "--synthetic", "--synthetic_size", "10240"]
 
 
 def check(ok: bool, what: str) -> None:
@@ -1054,11 +1100,12 @@ def profiled_forwards(engine: ServeEngine, x: np.ndarray, what: str,
                       attempts: int = 3) -> tuple:
     """Five forwards of ``x`` under ``torch.profiler`` (CPU and CUDA) after
     a lead-in (:func:`serving_profile`): ``(_seen(...), forwards run, wall
-    ms)``.  A session in which the profiler recorded no device record at
-    all (no kernel and no copy, as once at one bucket of a long smoke
-    process: ROADMAP C3) says nothing about the forwards, so it is run
-    again, up to ``attempts`` sessions, each said on stdout; any session
-    that recorded something is the one returned and checked."""
+    ms)``.  The profiler can lose a session's records (none at all, or the
+    first forward's copy in and kernel, late in a long process: ROADMAP
+    C3); such a session says nothing about the forwards, so it is run
+    again, up to ``attempts`` sessions, each said on stdout.  The session
+    returned, and checked, is the first whose every forward holds its copy
+    in, its copy out and its gather_batch_kernel, or else the last."""
     for attempt in range(1, attempts + 1):
         with serving_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA],
                              engine, x) as prof:
@@ -1069,11 +1116,13 @@ def profiled_forwards(engine: ServeEngine, x: np.ndarray, what: str,
             wall_ms = (time.perf_counter() - t0) * 1e3
             replayed = engine.stats()["forward_batches"] - forwards0
         seen = _seen(prof, replayed)
-        if seen["kernels"] or seen["h2d"] or seen["d2h"] or \
-                attempt == attempts:
+        if (seen["forwards"] == replayed and not seen["short_forwards"]) \
+                or attempt == attempts:
             return seen, replayed, wall_ms
-        print(f"serve {what}: the profiler recorded no device activity in "
-              f"session {attempt} of {attempts}; running the session again",
+        print(f"serve {what}: the profiler lost records in session "
+              f"{attempt} of {attempts} ({seen['forwards']} forwards, "
+              f"{seen['gather_batch_kernel']} gather_batch_kernel, "
+              f"{seen['h2d']} copies in); running the session again",
               flush=True)
 
 
@@ -1377,34 +1426,10 @@ def serve_phase(snapshot: str) -> dict:
               + f"; every answer equal to engine.predict (max |logit diff| "
               f"{run['max_abs_logit_diff_vs_engine']:.3e})", flush=True)
 
-    # Sessions of 5 forwards at bucket 1 without the lead-in: how often the
-    # profiler misses records, and which.  Recorded, not checked.
-    x = rng.integers(0, 256, (1, 32, 32, 3), dtype=np.uint8)
-    probes = []
-    for _ in range(LOSS_PROBES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                engine.forward(x)
-        seen = _seen(prof, 5)
-        probes.append({k: seen[k] for k in ("forwards", "gather_batch_kernel",
-                                            "kernels", "h2d", "d2h",
-                                            "short_forwards")})
-    lossy = [p for p in probes if p["short_forwards"] or p["forwards"] < 5]
-    seen_as = sorted(collections.Counter(
-        json.dumps(p, sort_keys=True) for p in probes).items(),
-        key=lambda kv: -kv[1])
-    print(f"serve profiler loss probe: {len(lossy)} of {LOSS_PROBES} "
-          f"sessions of 5 forwards at bucket 1 missed records; seen: "
-          + "; ".join(f"{n} x {rec}" for rec, n in seen_as)
-          + f"; a whole session holds "
-          f"{per_bucket[1]['kernels_per_replay'] * 5:g} kernels and 5 copies "
-          f"each way", flush=True)
     return {"load_s": load_s, "warm_s": warm_s, "graphs": captured,
             "wrapper_launches": wrapper_launches,
             "warm_launches": warm_launches,
             "forwards": engine.stats()["forward_batches"],
-            "profiler_loss_probes": probes,
             "max_abs_err": max_err, "buckets": per_bucket,
             "accuracy": served_acc, "http": load, "http_profiled": profiled,
             "row_gather_launches": gather_rows.launches,
@@ -2890,7 +2915,7 @@ OBS_STEPS, OBS_EVALS, OBS_PROFILE_STEPS = 20, 5, 4
 OBS_COVERAGE_TOL, INSPECT_OVERHEAD_MAX = 0.10, 1.0
 OBS_W2_ARGS = ["1", "1", "--batch_size", "64", "--synthetic",
                "--synthetic_size", "1280"]
-INSPECT_BENCH = ["--inspect_overhead", "--steps", "20", "--repeats", "5",
+INSPECT_BENCH = ["--inspect_overhead", "--steps", "20", "--repeats", "3",
                  "--warmup", "5"]
 
 
@@ -3250,6 +3275,519 @@ def bf16_serve_phase(snapshot: str, f32: dict) -> dict:
     return {"warm_s": warm_s, "graphs": captured, "buckets": per_bucket,
             "accuracy": served_acc, "warm_launches": warm_launches,
             "profiled_replay_launches": replays_seen}
+
+
+def _republish(path: str, src: str, step: int) -> None:
+    """Publish the weights of ``src`` at ``path`` through the lineage, as
+    the trainer publishes a checkpoint: the head preserved, the new file
+    written at ``step`` (epoch ``step - 1``), the manifest committed."""
+    model = get_model("vgg")
+    restore(load_checkpoint(src), model)
+    lin = lineage.CheckpointLineage(path, keep=2)
+    lin.preserve_head()
+    sha = save_checkpoint(path, model, [torch.zeros_like(p)
+                                        for p in model.parameters()],
+                          step, step - 1)
+    lin.commit(epoch=step - 1, step=step, sha256=sha)
+
+
+def _bucket_logits(engine: ServeEngine, x: np.ndarray, b: int) -> np.ndarray:
+    """``x`` in rows 0..n-1 of bucket ``b``'s program of ``engine`` (zero
+    rows after it), its graph replayed: what a served batch at bucket ``b``
+    answers for these rows."""
+    prog = engine._programs[b]
+    host = torch.zeros((b, 32, 32, 3), dtype=torch.uint8)
+    host[:len(x)] = torch.from_numpy(x)
+    prog.input.copy_(host.to(prog.input.device))
+    return prog.run()[:len(x)].cpu().numpy()
+
+
+def _eager_logits(model: torch.nn.Module, x: np.ndarray, dtype=None):
+    """The eager forward of ``x``: gather_batch's eval form, then
+    make_eval_apply, in ``dtype`` (float32 when None)."""
+    n, dev = len(x), next(model.parameters()).device
+    images, _ = gather_batch(torch.from_numpy(x).to(dev),
+                             torch.zeros(n, dtype=torch.int64, device=dev),
+                             torch.arange(n, dtype=torch.int32, device=dev),
+                             dtype=dtype or torch.float32)
+    return make_eval_apply(model, dtype)(images).cpu().numpy()
+
+
+def _live(windows: list, t0: float, t1: float) -> set:
+    """The snapshots live at some time in [t0, t1]: ``windows`` holds each
+    swap's (start, end, snapshot after it); before the first, "A"."""
+    order = ["A"] + [w[2] for w in windows]
+    lo = sum(1 for ts, te, _ in windows if te < t0)
+    hi = sum(1 for ts, te, _ in windows if ts <= t1)
+    return set(order[lo:hi + 1])
+
+
+def _fleet_built(fleet: ServeFleet, launches: int, what: str) -> None:
+    check(launches == 2 * len(SERVE_BUCKETS) * FLEET_REPLICAS and all(
+        r.engine.trace_count == len(SERVE_BUCKETS) for r in fleet.replicas),
+        f"{what}: gather_batch's wrapper ran {launches} times building "
+        f"{FLEET_REPLICAS} engines (expected 2 x {len(SERVE_BUCKETS)} "
+        f"each), graphs {[r.engine.trace_count for r in fleet.replicas]}")
+
+
+def _fleet_profiled(fleet: ServeFleet, x: np.ndarray, what: str) -> dict:
+    """One profiled window of 5 forwards on the first replica's engine,
+    after the serving phase's lead-in: 5 gather_batch_kernel, the wrapper
+    not called."""
+    launches = gather_batch.launches
+    seen, replayed, _ = profiled_forwards(fleet.replicas[0].engine, x, what)
+    check(replayed == seen["forwards"] == seen["h2d"] == seen["d2h"]
+          == seen["gather_batch_kernel"] == 5 and not seen["short_forwards"]
+          and gather_batch.launches == launches,
+          f"{what}: {seen['gather_batch_kernel']} gather_batch_kernel "
+          f"launches in {replayed} replays under the profiler (profile "
+          f"{seen})")
+    return seen
+
+
+def _fleet_load(fleet: ServeFleet, pools: list, body) -> tuple:
+    """SERVE_CLIENTS closed-loop client threads, client c cycling through
+    ``pools[c]`` with ``fleet.submit``, while ``body()`` runs on this thread:
+    ``(answers, shed, errors, t0, t1)``, an answer ``(k, t0, t1, logits)``
+    for request k of its client's pool, times by ``time.monotonic``."""
+    answers = [[] for _ in pools]
+    errors, shed, lock = [], [0], threading.Lock()
+    stop = threading.Event()
+
+    def client(c: int) -> None:
+        k = 0
+        while not stop.is_set():
+            x = pools[c][k % len(pools[c])]
+            t0 = time.monotonic()
+            try:
+                out = fleet.submit(x, timeout=60)
+            except QueueFull:  # a router shed: backpressure, not a failure
+                with lock:
+                    shed[0] += 1
+                time.sleep(0.01)
+                continue
+            except Exception as e:  # reported by the caller
+                errors.append(f"client {c}: {type(e).__name__}: {e}")
+                continue
+            answers[c].append((k % len(pools[c]), t0, time.monotonic(), out))
+            k += 1
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(len(pools))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    try:
+        body()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+    check(not any(t.is_alive() for t in threads), "a fleet client hung")
+    return answers, shed[0], errors, t0, time.monotonic()
+
+
+def fleet_f1(snapshot: str, resume_file: str, tmp: str, card: str) -> dict:
+    """F1, in process: a ServeFleet of FLEET_REPLICAS VGG-11 replicas on a
+    lineage publishing the main path's epoch-0 file ("A"); every replica's
+    logits bit for bit the eager forward at every bucket; then under
+    SERVE_CLIENTS closed-loop threads, FLEET_SWAPS hot swaps to the
+    streaming phase's --resume file ("B") and back, each a republish; every
+    answer bit for bit a forward of a snapshot live while it was in flight
+    (at one of the buckets its batch could have had); memory flat."""
+    path = os.path.join(tmp, "f1", "checkpoint.pt")
+    os.makedirs(os.path.dirname(path))
+    _republish(path, snapshot, 1)
+    srcs = {"A": snapshot, "B": resume_file}
+    refs = {k: ServeEngine.from_checkpoint(src, "vgg", buckets=SERVE_BUCKETS)
+            for k, src in srcs.items()}
+    for eng in refs.values():
+        eng.warm()
+    torch.cuda.synchronize()
+    gather_batch.launches = gather_rows.launches = 0
+    conv3x3_fused.launches = 0
+    t0 = time.perf_counter()
+    fleet = ServeFleet(path, "vgg", n_replicas=FLEET_REPLICAS,
+                       buckets=SERVE_BUCKETS)
+    build_s = time.perf_counter() - t0
+    _fleet_built(fleet, gather_batch.launches, "fleet f32")
+    eager_warm = gather_batch.launches - FLEET_REPLICAS * len(SERVE_BUCKETS)
+    rng = np.random.default_rng(15)
+    replay_ms = {r.replica_id: {} for r in fleet.replicas}
+    for b in SERVE_BUCKETS:
+        x = rng.integers(0, 256, (b, 32, 32, 3), dtype=np.uint8)
+        want = _eager_logits(refs["A"].model, x)
+        for rep in fleet.replicas:
+            got = rep.submit(x, timeout=60)
+            check(np.array_equal(got, want),
+                  f"fleet replica {rep.replica_id} bucket {b}: logits differ "
+                  f"from the eager forward, max|diff| "
+                  f"{float(np.abs(got - want).max()):.3e}")
+            prog = rep.engine._programs[b]
+            replay_ms[rep.replica_id][b] = median_ms(
+                lambda _: prog.graph.replay(), [None], 30)
+    # Rows of a served batch answer as they would alone in the same bucket
+    # (the batch is parallel work): the premise of the load check below.
+    x = rng.integers(0, 256, (SERVE_BUCKETS[-1], 32, 32, 3), dtype=np.uint8)
+    check(np.array_equal(np.roll(_bucket_logits(refs["A"], x, x.shape[0]),
+                                 37, axis=0),
+                         _bucket_logits(refs["A"], np.roll(x, 37, axis=0),
+                                        x.shape[0])),
+          "a served row's logits depend on its position in the batch")
+    seen = _fleet_profiled(fleet, x[:8], "fleet r0 bucket 8")
+
+    pools = [[rng.integers(0, 256, (int(rng.integers(1, SERVE_MAX_ROWS + 1)),
+                                    32, 32, 3), dtype=np.uint8)
+              for _ in range(FLEET_POOL)] for _ in range(SERVE_CLIENTS)]
+    windows, memory = [], []
+
+    def swaps() -> None:
+        time.sleep(FLEET_STEADY_S)
+        for k in range(1, FLEET_SWAPS + 1):
+            key = "B" if k % 2 else "A"
+            ts = time.monotonic()
+            _republish(path, srcs[key], k + 1)
+            event = fleet.poll_once()
+            te = time.monotonic()
+            check(event == "swap_commit", f"swap {k}: poll_once said {event}")
+            windows.append((ts, te, key))
+            gc.collect()
+            torch.cuda.synchronize()
+            memory.append((torch.cuda.memory_allocated(),
+                           torch.cuda.memory_reserved()))
+            time.sleep(FLEET_AFTER_SWAP_S)
+
+    launches0 = gather_batch.launches
+    answers, shed, errors, load_t0, load_t1 = _fleet_load(fleet, pools,
+                                                          swaps)
+    check(not errors, f"fleet load: {len(errors)} failed requests: "
+          f"{errors[:3]}")
+    swap_launches = gather_batch.launches - launches0
+    check(swap_launches == FLEET_SWAPS * 2 * len(SERVE_BUCKETS)
+          * FLEET_REPLICAS, f"the swaps ran gather_batch's wrapper "
+          f"{swap_launches} times")
+    history = fleet.stats()["swaps"]
+    check([e["event"] for e in history] == ["swap_commit"] * FLEET_SWAPS
+          and all(e["old_drained_clean"] for e in history)
+          and [e["step"] for e in history] == list(range(2, FLEET_SWAPS + 2)),
+          f"swap history {history}")
+    allocated = [m[0] for m in memory]
+    check(abs(allocated[-1] - allocated[0]) <= 0.05 * allocated[0],
+          f"memory_allocated after swap 1 {allocated[0]} B, after swap "
+          f"{FLEET_SWAPS} {allocated[-1]} B")
+
+    cache = {}
+
+    def ref(key, c, k, b):
+        if (key, c, k, b) not in cache:
+            cache[key, c, k, b] = _bucket_logits(refs[key], pools[c][k], b)
+        return cache[key, c, k, b]
+
+    by_snapshot = collections.Counter()
+    steady, swapping, rows_steady, rows_swapping = [], [], 0, 0
+    for c, outs in enumerate(answers):
+        for k, t0, t1, out in outs:
+            x = pools[c][k]
+            live = _live(windows, t0, t1)
+            got = [key for key in sorted(live) if any(
+                np.array_equal(out, ref(key, c, k, b))
+                for b in SERVE_BUCKETS if b >= len(x))]
+            check(len(got) >= 1, f"client {c} request {k} ({len(x)} rows, "
+                  f"live {sorted(live)}): the answer is no bucket's forward "
+                  f"of a live snapshot")
+            by_snapshot[got[0] if len(live) == 1 else "either"] += 1
+            lat = (t1 - t0) * 1e3
+            if any(t0 <= te and t1 >= ts for ts, te, _ in windows):
+                swapping.append(lat)
+                rows_swapping += len(x)
+            elif t1 < windows[0][0]:
+                steady.append(lat)
+                rows_steady += len(x)
+    check(by_snapshot["A"] > 0 and by_snapshot["B"] > 0,
+          f"answers by snapshot {dict(by_snapshot)}: a snapshot served none")
+    check(not any(np.array_equal(ref("A", c, 0, SERVE_BUCKETS[-1]),
+                                 ref("B", c, 0, SERVE_BUCKETS[-1]))
+                  for c in range(SERVE_CLIENTS)),
+          "the two snapshots answer alike: the check would see nothing")
+    clean = fleet.close()
+    check(clean, "the fleet's batchers did not drain")
+    # The same load on one replica of the same file, for as long as the
+    # first stretch above: do two replicas on one card serve more rows/s?
+    launches1 = gather_batch.launches
+    one = ServeFleet(path, "vgg", n_replicas=1, buckets=SERVE_BUCKETS)
+    one_launches = gather_batch.launches - launches1
+    check(one_launches == 2 * len(SERVE_BUCKETS), f"one replica's engine "
+          f"ran gather_batch's wrapper {one_launches} times")
+    one_answers, one_shed, one_errors, one_t0, one_t1 = _fleet_load(
+        one, pools, lambda: time.sleep(FLEET_STEADY_S))
+    check(not one_errors and one.close(),
+          f"one replica's load: {one_errors[:3]}")
+    one_lat = [(t1 - t0) * 1e3 for outs in one_answers
+               for _, t0, t1, _ in outs]
+    one_rows = sum(len(pools[c][k]) for c, outs in enumerate(one_answers)
+                   for k, *_ in outs)
+    check(gather_rows.launches == 0 and conv3x3_fused.launches == 0,
+          "row_gather or conv3x3 launched on the fleet path")
+    swap_s = sum(te - ts for ts, te, _ in windows)
+    n_answers = sum(len(a) for a in answers)
+    rows = sum(len(pools[c][k]) for c, outs in enumerate(answers)
+               for k, *_ in outs)
+    out = {
+        "build_s": build_s, "replay_ms": replay_ms,
+        "answers": n_answers, "rows": rows, "shed": shed, "failed": 0,
+        "by_snapshot": dict(by_snapshot),
+        "rows_per_s": rows / (load_t1 - load_t0),
+        "steady_rows_per_s": rows_steady / (windows[0][0] - load_t0),
+        "swapping_rows_per_s": rows_swapping / swap_s,
+        "steady_p50_p99_ms": percentiles(steady, (50, 99)),
+        "one_replica_rows_per_s": one_rows / (one_t1 - one_t0),
+        "one_replica_p50_p99_ms": percentiles(one_lat, (50, 99)),
+        "one_replica_shed": one_shed,
+        "swapping_p50_p99_ms": percentiles(swapping, (50, 99)),
+        "swap_window_s": [te - ts for ts, te, _ in windows],
+        "warm_s": [e["warm_s"] for e in history],
+        "memory_allocated": allocated,
+        "memory_reserved": [m[1] for m in memory],
+        "profiled": {k: seen[k] for k in ("forwards", "gather_batch_kernel",
+                                          "kernels", "busy_ms")},
+        "launches": eager_warm + seen["gather_batch_kernel"]
+        + (swap_launches + one_launches) // 2,
+    }
+    print(f"fleet F1 ({card}): {FLEET_REPLICAS} replicas built in "
+          f"{build_s:.3f} s, every replica bit for bit the eager forward at "
+          f"buckets {list(SERVE_BUCKETS)}; replay ms {json.dumps(replay_ms)}"
+          f"; profiled r0: {seen['gather_batch_kernel']} gather_batch_kernel "
+          f"in 5 forwards; load of {SERVE_CLIENTS} closed-loop clients: "
+          f"{n_answers} answers ({rows} rows, {shed} shed, 0 failed) in "
+          f"{load_t1 - load_t0:.3f} s, {out['rows_per_s']:.1f} rows/s; "
+          f"steady {out['steady_rows_per_s']:.1f} rows/s p50/p99 "
+          f"{out['steady_p50_p99_ms']} ms, during swaps "
+          f"{out['swapping_rows_per_s']:.1f} rows/s p50/p99 "
+          f"{out['swapping_p50_p99_ms']} ms; one replica under the same "
+          f"load {out['one_replica_rows_per_s']:.1f} rows/s p50/p99 "
+          f"{out['one_replica_p50_p99_ms']} ms; {FLEET_SWAPS} swaps, windows "
+          f"{[round(w, 3) for w in out['swap_window_s']]} s (warm "
+          f"{out['warm_s']} s); answers by snapshot {dict(by_snapshot)}, "
+          f"each bit for bit a live snapshot's forward; memory_allocated "
+          f"after each swap {allocated} B (reserved "
+          f"{out['memory_reserved']} B)", flush=True)
+    return out
+
+
+def fleet_bf16(snapshot_bf16: str, tmp: str, card: str) -> dict:
+    """F1 in bf16 on the bf16 main path's file, without the load: every
+    replica bit for bit the eager bf16 forward at every bucket, the
+    wrapper run 2 x 4 times an engine, one profiled window."""
+    path = os.path.join(tmp, "f1_bf16", "checkpoint.pt")
+    os.makedirs(os.path.dirname(path))
+    shutil.copy(snapshot_bf16, path)
+    model = get_model("vgg")
+    restore(load_checkpoint(snapshot_bf16), model)
+    model.cuda()
+    gather_batch.launches = gather_batch.launches_bf16 = 0
+    fleet = ServeFleet(path, "vgg", n_replicas=FLEET_REPLICAS,
+                       buckets=SERVE_BUCKETS, compute_dtype=BF16)
+    _fleet_built(fleet, gather_batch.launches_bf16, "fleet bf16")
+    eager_warm = gather_batch.launches_bf16 - FLEET_REPLICAS * len(
+        SERVE_BUCKETS)
+    rng = np.random.default_rng(16)
+    for b in SERVE_BUCKETS:
+        x = rng.integers(0, 256, (b, 32, 32, 3), dtype=np.uint8)
+        want = _eager_logits(model, x, BF16)
+        for rep in fleet.replicas:
+            got = rep.submit(x, timeout=60)
+            check(np.array_equal(got, want),
+                  f"fleet bf16 replica {rep.replica_id} bucket {b}: logits "
+                  f"differ from the eager bf16 forward, max|diff| "
+                  f"{float(np.abs(got - want).max()):.3e}")
+    launches = gather_batch.launches_bf16
+    seen = _fleet_profiled(fleet, x[:8], "fleet bf16 r0 bucket 8")
+    check(gather_batch.launches_bf16 == launches, "the profiled bf16 window "
+          "called the wrapper")
+    check(fleet.close(), "the bf16 fleet's batchers did not drain")
+    print(f"fleet bf16 ({card}): {FLEET_REPLICAS} replicas, every replica "
+          f"bit for bit the eager bf16 forward at buckets "
+          f"{list(SERVE_BUCKETS)}; profiled r0: {seen['gather_batch_kernel']}"
+          f" gather_batch_kernel in 5 forwards", flush=True)
+    return {"launches": eager_warm + seen["gather_batch_kernel"]}
+
+
+def fleet_f2_start(snapshot: str, tmp: str) -> tuple:
+    """Start F2's server: ``python -m ddp_tpu_torch.serve --fleet 2
+    --swap_poll_s 0.5`` on port 0 over a copy of the main path's file, under
+    FLEET_FAULT, with a span spill."""
+    d = os.path.join(tmp, "f2")
+    os.makedirs(d)
+    ck = os.path.join(d, "checkpoint.pt")
+    shutil.copy(snapshot, ck)
+    spill = os.path.join(d, "fleet_spill.jsonl")
+    err = open(os.path.join(d, "serve.err"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ddp_tpu_torch.serve", "--snapshot_path", ck,
+         "--fleet", str(FLEET_REPLICAS), "--swap_poll_s", "0.5", "--port",
+         "0", "--trace_spill", spill], cwd=ROOT,
+        env=dict(os.environ, **{FAULT_ENV: FLEET_FAULT}),
+        stdout=subprocess.PIPE, stderr=err, text=True)
+    return proc, err, d
+
+
+def _get_json(url: str):
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def fleet_f2(proc, err, d: str, card: str) -> dict:
+    """F2, out of process, the CI drill's form: the smoke's own HTTP clients
+    keep an ok/shed/failed ledger (a 503 honours Retry-After) while the
+    fault kills replica r0 and a ``singlegpu --resume`` child republishes
+    the checkpoint mid-load; 0 failed, an ejection and a swap_commit in
+    /stats, /metrics' router totals equal to /stats, SIGTERM exit 0, and
+    the spill's Perfetto export holding eject and swap_commit."""
+    ck = os.path.join(d, "checkpoint.pt")
+    try:
+        line = proc.stdout.readline()
+        check(f"fleet of {FLEET_REPLICAS} on http://" in line,
+              f"the fleet server did not start: {line!r}")
+        base = line.split(" on ")[1].split(" ")[0].rstrip("/")
+        health = _get_json(base + "/healthz")
+        check(health["status"] == "ok" and
+              health["healthy_replicas"] == FLEET_REPLICAS,
+              f"fleet /healthz {health}")
+        ledger = {"ok": 0, "shed": 0, "failed": 0}
+        latency_ms, lock, stop = [], threading.Lock(), threading.Event()
+
+        def client(seed: int) -> None:
+            rng = np.random.default_rng(seed)
+            while not stop.is_set():
+                n = int(rng.integers(1, FLEET_F2_ROWS + 1))
+                req = urllib.request.Request(
+                    base + "/predict", data=json.dumps({
+                        "instances": rng.integers(0, 256, (n, 32, 32, 3))
+                        .tolist()}).encode(),
+                    headers={"Content-Type": "application/json"})
+                t0 = time.perf_counter()
+                try:
+                    with urllib.request.urlopen(req, timeout=60) as r:
+                        good = len(json.loads(r.read())["predictions"]) == n
+                except urllib.error.HTTPError as e:
+                    if e.code == 503:  # an explicit shed: honour the hint
+                        with lock:
+                            ledger["shed"] += 1
+                        time.sleep(min(float(
+                            e.headers.get("Retry-After", 1) or 1), 0.25))
+                        continue
+                    good = False
+                except Exception:
+                    good = False
+                with lock:
+                    ledger["ok" if good else "failed"] += 1
+                    if good:
+                        latency_ms.append((time.perf_counter() - t0) * 1e3)
+
+        threads = [threading.Thread(target=client, args=(s,))
+                   for s in range(SERVE_CLIENTS)]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        # The child publishes after its start-up and 20 steps: the crash
+        # fault has long fired by then, and the load runs on.
+        t_pub = time.monotonic()
+        child = subprocess.run(
+            [sys.executable, "-m", "ddp_tpu_torch.singlegpu",
+             *FLEET_REPUBLISH_ARGS, "--snapshot_path", ck, "--resume",
+             "--obs_off"], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        check(child.returncode == 0, f"the republishing child exited "
+              f"{child.returncode}: {child.stderr[-2000:]}")
+        publish_s = time.monotonic() - t_pub
+        deadline = time.monotonic() + 60
+        while not any(e["event"] == "swap_commit"
+                      for e in _get_json(base + "/stats")["swaps"]):
+            check(time.monotonic() < deadline, "no swap_commit in /stats")
+            time.sleep(0.25)
+        time.sleep(0.5)  # serve on the new snapshot for a while
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        load_s = time.monotonic() - t0
+        stats = _get_json(base + "/stats")
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            fams = parse_exposition(r.read().decode())
+        router = stats["router"]
+        totals = {m: sum(fams[m]["samples"].values()) for m in (
+            "ddp_router_ejections_total", "ddp_router_retries_total",
+            "ddp_fleet_swap_commits_total")}
+        check(ledger["failed"] == 0 and ledger["ok"] > 0,
+              f"fleet F2 ledger {ledger}")
+        check(router["ejections"] >= 1 and router["retries"] >= 1,
+              f"fleet F2 router {router}")
+        check(totals["ddp_router_ejections_total"] == router["ejections"] and
+              totals["ddp_router_retries_total"] == router["retries"],
+              f"/metrics {totals} against /stats {router}")
+        commits = [e for e in stats["swaps"] if e["event"] == "swap_commit"]
+        check(totals["ddp_fleet_swap_commits_total"] == len(commits) >= 1,
+              f"swap commits {totals} against {stats['swaps']}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
+    with open(os.path.join(d, "serve.err")) as f:
+        err_text = f.read()
+    check(rc == 0 and "drained=clean" in err_text,
+          f"the fleet server exited {rc}: {err_text[-2000:]}")
+    # python -m ddp_tpu_torch.obs's entry point, in this process (its
+    # report to a buffer).
+    trace_path = os.path.join(d, "trace.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = obs_main([os.path.join(d, "fleet_spill.jsonl"), "--perfetto",
+                       trace_path])
+    check(rc == 0, f"python -m ddp_tpu_torch.obs exited {rc} on the spill")
+    with open(trace_path) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    check({"eject", "swap_commit", "route", "retry"} <= names,
+          f"the Perfetto export lacks eject/swap_commit/route/retry")
+    lat = percentiles(latency_ms, (50, 99))
+    res = {"ledger": ledger, "load_s": load_s, "publish_s": publish_s,
+           "ejections": router["ejections"], "retries": router["retries"],
+           "swaps": [{k: e.get(k) for k in ("event", "step", "from_step",
+                                           "warm_s")}
+                     for e in stats["swaps"]],
+           "client_p50_ms": lat["p50"], "client_p99_ms": lat["p99"],
+           "ok_per_s": ledger["ok"] / load_s}
+    print(f"fleet F2 ({card}): python -m ddp_tpu_torch.serve --fleet "
+          f"{FLEET_REPLICAS} --swap_poll_s 0.5 under {FLEET_FAULT}: ledger "
+          f"{ledger} over {load_s:.1f} s of {SERVE_CLIENTS} HTTP clients "
+          f"(1-{FLEET_F2_ROWS} rows; p50 {lat['p50']:.3f} ms, p99 "
+          f"{lat['p99']:.3f} ms), ejections {router['ejections']}, retries "
+          f"{router['retries']} (equal in /metrics), the singlegpu --resume "
+          f"republish {publish_s:.1f} s, swaps {res['swaps']}; SIGTERM exit "
+          f"0 drained clean; the Perfetto export holds eject and "
+          f"swap_commit", flush=True)
+    return res
+
+
+def fleet_phase(snapshot: str, resume_file: str, snapshot_bf16: str,
+                card: str) -> dict:
+    """The serving fleet (A9): F1 in process (float32 under load and hot
+    swaps, then bf16 while F2's server starts), F2 out of process."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        f1 = fleet_f1(snapshot, resume_file, tmp, card)
+        proc, err, d = fleet_f2_start(snapshot, tmp)
+        try:
+            bf16 = fleet_bf16(snapshot_bf16, tmp, card)
+        except BaseException:
+            proc.kill()
+            proc.wait()
+            err.close()
+            raise
+        f2 = fleet_f2(proc, err, d, card)
+    print(f"fleet phase: {time.time() - t0:.1f} s", flush=True)
+    return {"f1": f1, "f2": f2, "launches": f1["launches"],
+            "launches_bf16": bf16["launches"]}
 
 
 def _tests_module(name: str):
@@ -3836,7 +4374,8 @@ def check_bench_record(rec: dict, fields: tuple) -> None:
 def bench_phase(main_ms: float, card: str) -> dict:
     """``python -m ddp_tpu_torch.bench`` for VGG-11, DeepNN and ResNet-18
     at 20 steps by 3 windows (fixed batch, resident epoch, bf16), and
-    VGG-11's ``--e2e --resident``, one process each:
+    VGG-11's ``--e2e --resident``, one process each (VGG-11's first and
+    alone, the other three at once, so their records share the card):
     every record's fields, value, MFU, card and power limit; one
     ``gather_batch`` launch a train step, by form; VGG's float32 median
     within ``MAIN_MEDIAN_TOL`` of the main path's.  Returns the launches of
@@ -3844,9 +4383,15 @@ def bench_phase(main_ms: float, card: str) -> dict:
     from ddp_tpu_torch.bench import E2E_FIELDS, RECORD_FIELDS
     t0 = time.time()
     launches = {"float32": 0, "bfloat16": 0}
-    for model, extra in BENCH_RUNS:
+    # VGG-11's fixed batch alone (its median is held to the main path's);
+    # the other three processes at once, their records contended.
+    first, *rest = BENCH_RUNS
+    summaries = [run_bench(["--model", first[0], *first[1]])]
+    summaries += concurrently({
+        i: functools.partial(run_bench, ["--model", model, *extra])
+        for i, (model, extra) in enumerate(rest)}).values()
+    for (model, extra), summary in zip(BENCH_RUNS, summaries):
         e2e = "--e2e" in extra
-        summary = run_bench(["--model", model, *extra])
         recs = summary["records"]
         check(len(recs) == (1 if e2e else 3), f"bench {model} {extra}: "
               f"{len(recs)} records")
@@ -4083,6 +4628,10 @@ def main() -> int:
     serve_bf16 = bf16_serve_phase(snapshot_bf16, serve)
     print(f"serve bf16: {json.dumps(serve_bf16)}", flush=True)
     stamp("serving phases")
+    fleet = fleet_phase(snapshot, os.path.join(snapshot_dir.name,
+                                               "stream.pt"),
+                        snapshot_bf16, card)
+    stamp("fleet phase")
     snapshot_dir.cleanup()
     anchors = [anchor_phase(path, dtype, card) for path, dtype in ANCHORS]
     print(f"anchors: {json.dumps(anchors)}", flush=True)
@@ -4111,6 +4660,7 @@ def main() -> int:
                  launches_resilience_path=survive_launches,
                  launches_storage_path=storage_launches,
                  launches_obs_path=obs_launches,
+                 launches_fleet_path=fleet["launches"],
                  stream_batch_cases=stream_cases[torch.float32],
                  launches_serve_path=serve["warm_launches"]
                  + serve["http_profiled"]["gather_batch_kernel_launches"],
@@ -4142,7 +4692,8 @@ def main() -> int:
                       launches_bench_path=bench["bfloat16"],
                       stream_batch_cases=stream_cases[BF16],
                       launches_serve_path=serve_bf16["warm_launches"]
-                      + serve_bf16["profiled_replay_launches"])
+                      + serve_bf16["profiled_replay_launches"],
+                      launches_fleet_path=fleet["launches_bf16"])
     pycache.cleanup()
     print(json.dumps({"kernels": [row_gather, batch, batch_bf16, conv3x3]}))
     print(card)

@@ -1,10 +1,10 @@
 """Fault injection for drills: the failures the resilience layer exists
-for, made reproducible (counterpart of the training half of
-``ddp_tpu/resilience/faults.py``).
+for, made reproducible (counterpart of ``ddp_tpu/resilience/faults.py``).
 
 Nothing here runs on a production path: each injector wraps a method of
-one ``Trainer`` instance (no global state), and the one production
-touchpoint, :func:`install_env_faults`, does nothing unless
+one ``Trainer`` instance, serve replica or fleet (no global state), and
+the two production touchpoints, :func:`install_env_faults` (a trainer)
+and :func:`install_serve_faults` (a serve fleet), do nothing unless
 :data:`FAULT_ENV` is set.
 
 Faults:
@@ -38,14 +38,23 @@ Faults:
                         checkpoint is committed and mirrored: the mirror
                         is the only copy
 
+Serve faults (a fleet's replicas and its hot-swap watcher):
+  ``crash_replica_at_request_n``  a replica dies for good at its n-th
+                        submit: the router retries elsewhere and ejects it
+  ``slow_forward_ms``   every submit on a replica takes ms longer: a
+                        straggler the routing steers around
+  ``torn_publish``      the head is torn right before the watcher's next
+                        load: the swap is skipped with a named event
+
 ``DDP_TPU_FAULT`` holds semicolon-separated specs ``kind@key=val,...``:
 ``sigterm@epoch=1``, ``sigterm@step=12``, ``poison@step=5``,
 ``flip_param_bit@step=6,replica=1``, ``poison_batch@step=9,scale=1e4``,
 ``stall@epoch=0,rank=1,secs=600``, ``fail_ckpt_write@epoch=1``,
 ``fail_put@n=2``, ``slow_put@ms=500``, ``torn_remote_object@``,
 ``wipe_local_ckpt@epoch=0`` (the meanings and key checks of
-``ddp_tpu/resilience/faults.py``).  The serve faults wait for the fleet
-(ROADMAP A9); a spec naming one raises, naming the item.
+``ddp_tpu/resilience/faults.py``); a serve process takes
+``crash_replica@requests=25,replica=0``, ``slow_forward@ms=50,replica=1``
+and ``torn_publish@``.  Each vocabulary refuses the other's kinds.
 """
 from __future__ import annotations
 
@@ -53,6 +62,7 @@ import collections
 import os
 import signal
 import sys
+import threading
 import time
 from typing import Optional
 
@@ -62,10 +72,6 @@ import torch
 from ..train import checkpoint as ckpt_lib
 
 FAULT_ENV = "DDP_TPU_FAULT"
-# Kinds of the JAX package's vocabulary the port does not run yet, with the
-# ROADMAP item that brings what each fault breaks.
-NOT_YET = {"crash_replica": "A9", "slow_forward": "A9",
-           "torn_publish": "A9"}
 
 
 def _say(msg: str) -> None:
@@ -274,6 +280,65 @@ def fail_ckpt_write(trainer, epoch: int) -> None:
     trainer.lineage.preserve_head = preserve
 
 
+def crash_replica_at_request_n(replica, n: int) -> None:
+    """Replica ``replica`` dies for good at its ``n``-th submit: the latched
+    ``crashed`` flag makes every later submit AND health probe fail, so the
+    router both retries the victim request elsewhere and (after
+    ``eject_after`` probes) ejects the replica from rotation — the closest
+    in-process model of a killed serve process."""
+    orig = replica.submit
+    lock = threading.Lock()
+    count = [0]
+
+    def wrapped(images, timeout=None, req=None):
+        with lock:
+            count[0] += 1
+            c = count[0]
+        if c >= n:
+            if not replica.crashed:
+                _say(f"replica {replica.replica_id} crashing at request {c}")
+            replica.crashed = True
+        return orig(images, timeout=timeout, req=req)
+
+    replica.submit = wrapped
+
+
+def slow_forward_ms(replica, ms: float) -> None:
+    """Every submit on ``replica`` takes ``ms`` longer: a straggling replica
+    the least-loaded routing should steer around and the per-request
+    deadline budget must bound."""
+    orig = replica.submit
+    delay_s = float(ms) / 1e3
+
+    def wrapped(images, timeout=None, req=None):
+        time.sleep(delay_s)
+        return orig(images, timeout=timeout, req=req)
+
+    replica.submit = wrapped
+
+
+def torn_publish(fleet) -> None:
+    """Truncate the resolved head file right before the fleet's NEXT
+    snapshot load (once): the watcher's full lineage walk must then skip
+    the publish with a named ``swap_skipped`` event and keep serving the
+    current snapshot."""
+    orig = fleet._load_snapshot
+    fired = [False]
+
+    def wrapped():
+        if not fired[0]:
+            fired[0] = True
+            from .lineage import _resolve_head
+            head = _resolve_head(fleet.snapshot_path)
+            if os.path.exists(head):
+                _say(f"tearing published head {head!r} before the watcher "
+                     "loads it")
+                tear_file(head)
+        return orig()
+
+    fleet._load_snapshot = wrapped
+
+
 def _known_kwargs(kind: str, part: str, kv: dict, allowed) -> None:
     """A typo'd key fails the drill at install time instead of arming
     nothing."""
@@ -360,18 +425,42 @@ def wipe_local_ckpt(trainer, epoch) -> None:
     trainer._run_epoch = wrapped
 
 
+def _specs():
+    """``(kind, part, kwargs)`` of each :data:`FAULT_ENV` spec (none when
+    the variable is unset)."""
+    spec = os.environ.get(FAULT_ENV)
+    for part in (spec or "").split(";"):
+        part = part.strip()
+        if part:
+            kind, _, argstr = part.partition("@")
+            yield kind, part, dict(a.split("=", 1)
+                                   for a in argstr.split(",") if a)
+
+
+def install_serve_faults(fleet) -> None:
+    """Apply the :data:`FAULT_ENV` serve-fault specs to ``fleet`` (nothing
+    when the variable is unset).  Specs use the serve vocabulary only: a
+    serve process given a trainer spec is a drill wiring error and fails
+    loudly."""
+    for kind, part, kv in _specs():
+        if kind == "crash_replica":
+            idx = int(kv.get("replica", "0"))
+            crash_replica_at_request_n(fleet.replicas[idx],
+                                       int(kv["requests"]))
+        elif kind == "slow_forward":
+            idx = int(kv.get("replica", "0"))
+            slow_forward_ms(fleet.replicas[idx], float(kv["ms"]))
+        elif kind == "torn_publish":
+            torn_publish(fleet)
+        else:
+            raise ValueError(f"unknown {FAULT_ENV} serve fault kind "
+                             f"{kind!r} in {part!r}")
+
+
 def install_env_faults(trainer) -> None:
     """Apply the :data:`FAULT_ENV` specs to ``trainer`` (nothing when the
     variable is unset)."""
-    spec = os.environ.get(FAULT_ENV)
-    if not spec:
-        return
-    for part in spec.split(";"):
-        part = part.strip()
-        if not part:
-            continue
-        kind, _, argstr = part.partition("@")
-        kv = dict(a.split("=", 1) for a in argstr.split(",") if a)
+    for kind, part, kv in _specs():
         if kind == "sigterm":
             if "step" in kv:
                 sigterm_at_step(trainer, int(kv["step"]))
@@ -405,10 +494,6 @@ def install_env_faults(trainer) -> None:
         elif kind == "wipe_local_ckpt":
             _known_kwargs(kind, part, kv, ("epoch",))
             wipe_local_ckpt(trainer, kv["epoch"])
-        elif kind in NOT_YET:
-            raise ValueError(
-                f"{FAULT_ENV} fault kind {kind!r} in {part!r} is not ported "
-                f"yet: what it breaks comes with ROADMAP {NOT_YET[kind]}")
         else:
             raise ValueError(f"unknown {FAULT_ENV} fault kind {kind!r} "
                              f"in {part!r}")

@@ -1,27 +1,41 @@
-"""Serving of the port (counterpart of ``ddp_tpu/serve/``, its single-engine
-path): a trainer checkpoint turned into answered ``/predict`` requests.
+"""Serving of the port (counterpart of ``ddp_tpu/serve/``): a trainer
+checkpoint turned into answered ``/predict`` requests, by one engine or by
+a fault-tolerant fleet.
 
-- ``engine``   :class:`ServeEngine`: a v1 checkpoint, one eval program per
+- ``engine``   :class:`ServeEngine`: a checkpoint, one eval program per
                padded batch bucket, warmed at startup; on the card each is
                one CUDA graph whose input comes through the ``gather_batch``
                kernel.
 - ``batcher``  :class:`DynamicBatcher`: bounded admission queue, batches
                formed on ``max_batch`` or ``max_wait_ms``, explicit
                backpressure, graceful drain.
+- ``router``   :class:`Router`: health-driven ejection, retries inside a
+               deadline budget, per-replica :class:`CircuitBreaker`, and
+               sheds with a derived ``Retry-After``.
+- ``fleet``    :class:`ServeFleet`: N (engine, batcher) replicas
+               (:class:`LocalReplica`; :class:`HTTPReplica` for a remote
+               server) behind the router, with the checkpoint hot-swap
+               watcher.
 - ``http``     :class:`ServeHTTPServer`: ``/predict``, ``/healthz``,
-               ``/stats``, ``/metrics``.
-- ``__main__`` ``python -m ddp_tpu_torch.serve``; SIGTERM drains.
+               ``/stats``, ``/metrics`` in front of a pair or a fleet.
+- ``__main__`` ``python -m ddp_tpu_torch.serve [--fleet N]``; SIGTERM
+               drains.
 
-The fleet (router, replicas, hot-swap) and generative serving are not
-ported yet (ROADMAP queue A9 and A12).
+Generative serving is not ported yet (ROADMAP queue A12).
 """
 from .batcher import Draining, DynamicBatcher, QueueFull, percentiles
 from .engine import (RequestTooLarge, ServeEngine, ServeError,
                      claim_batch_seq, resolve_buckets)
+from .fleet import HTTPReplica, LocalReplica, ServeFleet
 from .http import NotPorted, ServeHTTPServer
+from .router import (CircuitBreaker, NoHealthyReplicas, ReplicaCrashed,
+                     Router, RouterDraining, RouterOverloaded, RouterShed)
 
 __all__ = [
-    "Draining", "DynamicBatcher", "NotPorted", "QueueFull", "RequestTooLarge",
-    "ServeEngine", "ServeError", "ServeHTTPServer", "claim_batch_seq",
-    "percentiles", "resolve_buckets",
+    "CircuitBreaker", "Draining", "DynamicBatcher", "HTTPReplica",
+    "LocalReplica", "NoHealthyReplicas", "NotPorted", "QueueFull",
+    "ReplicaCrashed", "RequestTooLarge", "Router", "RouterDraining",
+    "RouterOverloaded", "RouterShed", "ServeEngine", "ServeError",
+    "ServeFleet", "ServeHTTPServer", "claim_batch_seq", "percentiles",
+    "resolve_buckets",
 ]

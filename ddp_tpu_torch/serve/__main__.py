@@ -1,5 +1,6 @@
 """``python -m ddp_tpu_torch.serve`` — stand up a model server on a
-checkpoint (counterpart of ``python -m ddp_tpu.serve``, single engine).
+checkpoint (counterpart of ``python -m ddp_tpu.serve``): one engine, or
+with ``--fleet N`` N replicas behind the fault-tolerant router.
 
 Loads the newest verifiable checkpoint under ``--snapshot_path`` (a head
 file or a directory, through the checkpoint lineage: a torn head falls
@@ -12,11 +13,19 @@ draining ``/healthz``), accepted requests finish, the span spill is
 flushed, exit 0.  A second signal kills at once.  It runs on ``cuda``
 unless ``--device cpu`` is given, and refuses to run without a card
 otherwise.  ``--bf16`` serves in bfloat16 compute, as the trainer's
-``--bf16`` trains (``/stats`` reports the dtype).
+``--bf16`` trains (``/stats`` reports the dtype).  ``--fleet N`` serves N
+in-process replicas (each its own engine and graphs on the same card)
+behind :class:`~ddp_tpu_torch.serve.router.Router`; ``--swap_poll_s S``
+polls the lineage every S seconds and hot-swaps a newly published
+verifiable snapshot in with zero downtime.  The serve faults of
+``DDP_TPU_FAULT`` (``crash_replica``, ``slow_forward``, ``torn_publish``)
+install on a fleet.
 
 Usage:
     python -m ddp_tpu_torch.singlegpu 5 1 --resident --snapshot_path ck.pt
     python -m ddp_tpu_torch.serve --snapshot_path ck.pt --port 8100 [--bf16]
+    python -m ddp_tpu_torch.serve --snapshot_path ck.pt --fleet 2 \
+        --swap_poll_s 2
     curl -s localhost:8100/healthz
     curl -s -X POST localhost:8100/predict -d '{"instances": [[[..]]]}'
     python -m ddp_tpu.obs serve_spill.jsonl              # telemetry
@@ -64,6 +73,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--queue_depth", default=256, type=int,
                    help="Admission queue bound; a full queue sheds with "
                         "503 (default 256 requests)")
+    p.add_argument("--fleet", default=0, type=int, metavar="N",
+                   help="Serve N in-process engine replicas behind the "
+                        "fault-tolerant router (health-driven ejection, "
+                        "retry budgets, circuit breakers) instead of one "
+                        "bare engine; 0 = single-engine mode (default)")
+    p.add_argument("--swap_poll_s", default=0.0, type=float,
+                   help="Fleet only: poll the checkpoint lineage every "
+                        "this many seconds and hot-swap newly published "
+                        "verifiable snapshots into rotation with zero "
+                        "downtime (0 disables the watcher; default 0)")
     p.add_argument("--trace_spill", default=None, metavar="PATH",
                    help="Span spill (queue_wait/batch_form/pad/h2d/"
                         "forward/d2h), readable by python -m ddp_tpu.obs; "
@@ -89,9 +108,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..obs.registry import MetricsRegistry
     from ..obs.tracer import (NullTracer, SpanTracer, default_spill_path,
                               set_tracer)
+    from ..resilience.faults import install_serve_faults
     from ..resilience.preemption import PreemptionGuard
     from .batcher import DynamicBatcher
     from .engine import ServeEngine
+    from .fleet import ServeFleet
     from .http import ServeHTTPServer
 
     device = resolve_device(args.device)
@@ -111,23 +132,45 @@ def main(argv: Optional[List[str]] = None) -> int:
         set_tracer(tracer)
         print(f"loading checkpoint {args.snapshot_path!r} ...",
               file=sys.stderr)
-        engine = ServeEngine.from_checkpoint(
-            args.snapshot_path, args.model, device=device, buckets=buckets,
-            compute_dtype=compute_dtype, tracer=tracer, registry=registry)
-        t0 = time.monotonic()
-        # The JAX server's line, word for word: on the card each executable
-        # is one captured CUDA graph.
-        compiled = engine.warm()
-        print(f"compiled {compiled} bucket executable(s) "
-              f"{list(engine.buckets)} in {time.monotonic() - t0:.1f}s "
-              f"(checkpoint {engine.checkpoint_file!r}, epoch "
-              f"{engine.checkpoint_epoch}); no request pays a compile",
-              file=sys.stderr)
-        batcher = DynamicBatcher(engine, max_batch=args.max_batch,
-                                 max_wait_ms=args.max_wait_ms,
-                                 queue_depth=args.queue_depth,
-                                 tracer=tracer, registry=registry).start()
-        httpd = ServeHTTPServer((args.host, args.port), engine, batcher)
+        fleet = engine = batcher = None
+        if args.fleet >= 1:
+            t0 = time.monotonic()
+            fleet = ServeFleet(
+                args.snapshot_path, args.model, device=device,
+                n_replicas=args.fleet, buckets=buckets,
+                compute_dtype=compute_dtype, max_batch=args.max_batch,
+                max_wait_ms=args.max_wait_ms,
+                queue_depth=args.queue_depth, tracer=tracer,
+                registry=registry)
+            install_serve_faults(fleet)
+            fleet.start(poll_s=args.swap_poll_s)
+            watcher = (f"every {args.swap_poll_s:.1f}s"
+                       if args.swap_poll_s > 0 else "off")
+            print(f"warmed {args.fleet} replica(s) in "
+                  f"{time.monotonic() - t0:.1f}s (checkpoint step "
+                  f"{fleet.health()['checkpoint_step']}; hot-swap watcher "
+                  f"{watcher})", file=sys.stderr)
+            httpd = ServeHTTPServer((args.host, args.port), fleet=fleet)
+        else:
+            engine = ServeEngine.from_checkpoint(
+                args.snapshot_path, args.model, device=device,
+                buckets=buckets, compute_dtype=compute_dtype, tracer=tracer,
+                registry=registry)
+            t0 = time.monotonic()
+            # The JAX server's line, word for word: on the card each
+            # executable is one captured CUDA graph.
+            compiled = engine.warm()
+            print(f"compiled {compiled} bucket executable(s) "
+                  f"{list(engine.buckets)} in {time.monotonic() - t0:.1f}s "
+                  f"(checkpoint {engine.checkpoint_file!r}, epoch "
+                  f"{engine.checkpoint_epoch}); no request pays a compile",
+                  file=sys.stderr)
+            batcher = DynamicBatcher(engine, max_batch=args.max_batch,
+                                     max_wait_ms=args.max_wait_ms,
+                                     queue_depth=args.queue_depth,
+                                     tracer=tracer,
+                                     registry=registry).start()
+            httpd = ServeHTTPServer((args.host, args.port), engine, batcher)
         listener = threading.Thread(target=httpd.serve_forever,
                                     daemon=True, name="serve-http")
         listener.start()
@@ -137,7 +180,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                  if threading.current_thread() is threading.main_thread()
                  else None)
         host, port = httpd.server_address[:2]
-        print(f"serving {args.model} on http://{host}:{port} "
+        what = (f"{args.model} fleet of {args.fleet}" if fleet is not None
+                else args.model)
+        print(f"serving {what} on http://{host}:{port} "
               "(/predict /healthz /stats /metrics); SIGTERM drains "
               "gracefully", flush=True)
         try:
@@ -147,12 +192,16 @@ def main(argv: Optional[List[str]] = None) -> int:
             pass  # a second Ctrl-C during shutdown lands here; drain anyway
         print("draining: admission stopped, serving accepted requests ...",
               file=sys.stderr)
-        drained = batcher.drain(timeout=30.0)
+        if fleet is not None:
+            drained = fleet.close(timeout=30.0)
+        else:
+            drained = batcher.drain(timeout=30.0)
         httpd.close()
         if guard is not None:
             guard.uninstall()
-        print(json.dumps({"engine": engine.stats(),
-                          "batcher": batcher.stats()}), file=sys.stderr)
+        stats = (fleet.stats() if fleet is not None else
+                 {"engine": engine.stats(), "batcher": batcher.stats()})
+        print(json.dumps(stats), file=sys.stderr)
         print(f"drained={'clean' if drained else 'FORCED'}; bye",
               file=sys.stderr)
         return 0 if drained else 1

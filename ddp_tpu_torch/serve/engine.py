@@ -14,6 +14,11 @@ captured graphs and must equal the bucket set.  On the CPU the programs run
 eagerly and ``trace_count`` counts warmed buckets.  A request larger than the
 largest bucket is refused with :class:`RequestTooLarge`.
 
+On the card the graphs are captured in ``thread_local`` capture mode
+(:meth:`~ddp_tpu_torch.train.step.EvalProgram.capture`): an engine a fleet's
+hot swap builds captures while the other engines keep serving on their own
+threads.
+
 On the card a forward copies the request into a pinned uint8 staging buffer
 (rows past the request zeroed), copies it without blocking into the graph's
 static input, replays the graph, and brings the ``[B,10]`` logits back
@@ -81,7 +86,11 @@ class ServeEngine:
 
     ``forward()`` is synchronous and single-caller by design (the batcher's
     engine thread); a lock serialises misuse.  Counters have their own lock,
-    so ``/healthz`` and ``/stats`` never wait behind a forward."""
+    so ``/healthz`` and ``/stats`` never wait behind a forward.
+    ``metric_labels`` (a fleet's ``{"replica": "r0"}``) label every series
+    the engine registers; without them the series are unlabelled.
+    ``stream`` is the side stream the engine captures and runs on (card; a
+    new one from PyTorch's pool when None)."""
 
     # CIFAR sample shape, NHWC uint8: the loaders' wire format.
     input_shape = (32, 32, 3)
@@ -89,29 +98,40 @@ class ServeEngine:
     def __init__(self, model: nn.Module, *, device: DeviceLike = "cuda",
                  buckets: Sequence[int] = (1, 8, 32, 128),
                  compute_dtype: Optional[torch.dtype] = None, tracer=None,
-                 registry=None):
+                 registry=None, metric_labels=None,
+                 stream: Optional[torch.cuda.Stream] = None):
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.model = model.to(self.device)
         self.buckets = resolve_buckets(buckets)
         self.max_rows = self.buckets[-1]
         self.trace_count = 0  # captured graphs (card) / warmed buckets (CPU)
+        # A private registry by default; the fleet passes its shared one
+        # with a ``replica`` label, so /metrics shows every engine side by
+        # side.  The children are cumulative per label across hot-swaps (a
+        # swap's new engine adds to its replica's series), while stats()
+        # stays per engine.
         self.registry = (registry if registry is not None
                          else MetricsRegistry())
+        labels = dict(metric_labels or {})
+        labelnames = tuple(sorted(labels))
         self._c_rows = self.registry.counter(
             "ddp_engine_rows_served_total",
-            "Valid rows returned by forward()").labels()
+            "Valid rows returned by forward()", labelnames).labels(**labels)
         forwards = self.registry.counter(
             "ddp_engine_forwards_total",
-            "Compiled forwards executed, by padded bucket", ("bucket",))
-        self._fwd_children = {b: forwards.labels(bucket=str(b))
+            "Compiled forwards executed, by padded bucket",
+            labelnames + ("bucket",))
+        self._fwd_children = {b: forwards.labels(bucket=str(b), **labels)
                               for b in self.buckets}
         self._g_compiled = self.registry.gauge(
             "ddp_engine_compiled_executables",
-            "Executables compiled so far (the compile-bound contract)"
-        ).labels()
+            "Executables compiled so far (the compile-bound contract)",
+            labelnames).labels(**labels)
         self._cuda = self.device.type == "cuda"
-        self._stream = torch.cuda.Stream(self.device) if self._cuda else None
+        if stream is None and self._cuda:
+            stream = torch.cuda.Stream(self.device)
+        self._stream = stream
         self._done = torch.cuda.Event() if self._cuda else None
         self._programs: Dict[int, EvalProgram] = {}
         # Per bucket: the host tensor a request is padded into and the one

@@ -1,24 +1,33 @@
-"""Stdlib-only threaded HTTP front end for one (engine, batcher) pair
-(counterpart of ``ddp_tpu/serve/http.py`` without its fleet and generative
-branches).
+"""Stdlib-only threaded HTTP front end for the serving stack
+(counterpart of ``ddp_tpu/serve/http.py`` without its generative branch).
 
 One ``ThreadingHTTPServer``: a thread per connection, parked in the
-batcher's blocking ``submit()`` while the engine thread does the work.
+backend's blocking ``submit()`` while the engine threads do the work.
+The same listener fronts either backend: one (engine, batcher) pair, or a
+:class:`~ddp_tpu_torch.serve.fleet.ServeFleet` (``fleet=``), through the
+server's ``submit``/``healthz_payload``/``stats_payload`` indirection.
 
 - ``POST /predict``  body ``{"instances": [[...32x32x3 uint8...], ...]}``
   (one image's nested list is accepted bare) -> ``{"predictions": [...],
   "logits": [[...]]}``.  400 malformed, 413 larger than the largest bucket,
-  503 shed or draining with ``Retry-After``, 504 not served in time, 500 an
-  engine failure.  An ``X-Request-Id`` header rides into the spans.
+  503 shed or draining with ``Retry-After`` (a router's shed carries its
+  derived ``retry_after_s``; the batcher's backpressure 1 s), 504 not
+  served in time, 500 an engine failure.  A draining 503's message says
+  "draining", which is how either package's ``HTTPReplica`` tells it from
+  a full queue.  On a single pair an ``X-Request-Id`` header rides into
+  the spans; a fleet's router mints its own id at admission.
 - ``GET /healthz``   liveness, the live checkpoint and the identity fields
   (``replica_id``, ``checkpoint_step``, ``uptime_s``, ``queue_depth``);
-  503 ``"draining"`` during a graceful shutdown.
+  503 ``"draining"`` during a graceful shutdown.  On a fleet the fleet's
+  health: 503 unless ``"ok"`` (``"unavailable"`` or ``"draining"``).
 - ``GET /stats``     engine and batcher counters (``swaps`` is an empty list:
-  a single pair has no hot-swap).
-- ``GET /metrics``   the same counters as Prometheus text exposition.
+  a single pair has no hot-swap); on a fleet the router's, each
+  replica's and the swap history.
+- ``GET /metrics``   the same counters as Prometheus text exposition: the
+  pair's registry, or the fleet's shared one (replica-labelled series).
 
-``POST /generate`` and ``fleet=`` are refused with :class:`NotPorted`,
-which names the queue item that ports them (ROADMAP queue A12 and A9).
+``POST /generate`` answers 501 with :class:`NotPorted`, which names the
+queue item that ports it (ROADMAP queue A12).
 """
 from __future__ import annotations
 
@@ -38,9 +47,6 @@ from .engine import RequestTooLarge, ServeEngine, ServeError
 # of pixels, JSON-inflated ~4x; 64 MiB covers a 1024-row bucket.
 MAX_BODY_BYTES = 64 << 20
 
-# A single pair is one replica; the fleet (ROADMAP queue A9) names them.
-REPLICA_ID = "r0"
-
 # submit() never waits forever: a lost completion would park the handler
 # thread and the client indefinitely.
 REQUEST_TIMEOUT_S = 60.0
@@ -52,19 +58,20 @@ class NotPorted(ServeError):
 
 
 class ServeHTTPServer(ThreadingHTTPServer):
-    """The listener; carries the serving pair for handler access."""
+    """The listener; carries the serving stack for handler access."""
 
     daemon_threads = True
 
-    def __init__(self, addr, engine: ServeEngine, batcher: DynamicBatcher,
-                 *, fleet=None):
-        if fleet is not None:
-            raise NotPorted(
-                "ServeHTTPServer(fleet=...): the serving fleet (router, "
-                "replicas, hot-swap) is not ported yet (ROADMAP queue A9); "
-                "front one (engine, batcher) pair")
+    def __init__(self, addr, engine: Optional[ServeEngine] = None,
+                 batcher: Optional[DynamicBatcher] = None, *, fleet=None,
+                 replica_id: str = "r0"):
+        if fleet is None and (engine is None or batcher is None):
+            raise ValueError(
+                "ServeHTTPServer needs either (engine, batcher) or fleet=")
         self.engine = engine
         self.batcher = batcher
+        self.fleet = fleet
+        self.replica_id = replica_id
         self._t0 = time.monotonic()
         # close() latch: signal handlers and drain paths both call it; a
         # shutdown() of a listener whose serve_forever never ran would
@@ -80,7 +87,7 @@ class ServeHTTPServer(ThreadingHTTPServer):
     def close(self) -> None:
         """Idempotent listener teardown, safe to call twice: the first call
         stops ``serve_forever`` (if it ran) and closes the socket.  Draining
-        the batcher stays the caller's step."""
+        the batcher or the fleet stays the caller's step."""
         if self._closed.is_set():
             return
         self._closed.set()
@@ -94,11 +101,31 @@ class ServeHTTPServer(ThreadingHTTPServer):
         except OSError:
             pass  # socket already closed
 
+    # -- backend indirection (single pair vs fleet) ------------------------
+
+    def submit(self, images: np.ndarray, timeout: float,
+               req_id: Optional[str] = None) -> np.ndarray:
+        if self.fleet is not None:
+            # The router mints the canonical request id at admission.
+            return self.fleet.submit(images, timeout=timeout)
+        return self.batcher.submit(images, timeout=timeout, req_id=req_id)
+
+    def metrics_exposition(self) -> Optional[str]:
+        """Prometheus text for ``/metrics``: the fleet's shared registry
+        when fronting a fleet, else the pair's; None when the backend
+        carries none (a hand-made stand-in)."""
+        backend = self.fleet if self.fleet is not None else self.batcher
+        reg = getattr(backend, "registry", None)
+        return reg.exposition() if reg is not None else None
+
     def healthz_payload(self) -> Tuple[int, dict]:
+        if self.fleet is not None:
+            h = self.fleet.health()
+            return (200 if h["status"] == "ok" else 503), h
         draining = self.batcher.draining
         return 503 if draining else 200, {
             "status": "draining" if draining else "ok",
-            "replica_id": REPLICA_ID,
+            "replica_id": self.replica_id,
             "checkpoint_step": self.engine.checkpoint_step,
             "uptime_s": round(time.monotonic() - self._t0, 3),
             "queue_depth": self.batcher.queue_depth(),
@@ -108,6 +135,8 @@ class ServeHTTPServer(ThreadingHTTPServer):
         }
 
     def stats_payload(self) -> dict:
+        if self.fleet is not None:
+            return self.fleet.stats()
         return {"engine": self.engine.stats(),
                 "batcher": self.batcher.stats(),
                 "swaps": []}
@@ -147,8 +176,12 @@ class _Handler(BaseHTTPRequestHandler):
         elif self.path == "/stats":
             self._reply(200, self.server.stats_payload())
         elif self.path == "/metrics":
-            self._send(200, self.server.batcher.registry.exposition()
-                       .encode("utf-8"), METRICS_CONTENT_TYPE)
+            text = self.server.metrics_exposition()
+            if text is None:
+                self._reply(404, {"error": "no metrics registry on this "
+                                           "server's backend"})
+                return
+            self._send(200, text.encode("utf-8"), METRICS_CONTENT_TYPE)
         else:
             self._reply(404, {"error": f"no route {self.path!r}; try "
                                        "/predict, /healthz, /stats, "
@@ -182,7 +215,11 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(413, {"error": str(e)})
             return
         except (QueueFull, Draining) as e:
-            self._reply(503, {"error": str(e)}, retry_after=1)
+            # A router's shed carries a retry_after_s derived from live
+            # queue depth or the re-admission ETA; the batcher's
+            # backpressure keeps the fixed 1 s hint.
+            self._reply(503, {"error": str(e)}, retry_after=max(
+                1, round(getattr(e, "retry_after_s", 1))))
             return
         except (ValueError, TypeError) as e:
             self._reply(400, {"error": str(e)})
@@ -209,7 +246,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "pixel values must be integers in [0, 255] (uint8 — "
                 "the training loaders' wire format)")
         images = images.astype(np.uint8)
-        logits = self.server.batcher.submit(
+        logits = self.server.submit(
             images, timeout=REQUEST_TIMEOUT_S,
             req_id=self.headers.get("X-Request-Id") or None)
         return {

@@ -324,11 +324,21 @@ class EvalProgram:
     def capture(self, stream: torch.cuda.Stream) -> None:
         """Record :meth:`eager` on ``stream`` as this program's CUDA graph.
         The caller has run it eagerly first (see
-        :func:`make_eval_forward`)."""
+        :func:`make_eval_forward`).
+
+        The capture runs in ``thread_local`` capture mode: only this
+        thread is barred from the calls a capture forbids.  A fleet's hot
+        swap captures new programs on its watcher thread while the
+        replicas still serving replay their graphs, synchronise on events
+        and copy through pinned buffers on their batcher threads; in the
+        default ``global`` mode those calls would fail, or break the
+        capture.  The mode changes what other threads may do meanwhile,
+        not what is recorded: the graph is the same."""
         if self.graph is not None:
             raise RuntimeError(f"the {self.batch}-row program is captured")
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"):
             output = self.eager()
         self.graph, self.output = graph, output
 

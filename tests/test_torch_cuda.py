@@ -13,7 +13,10 @@ in another order), 2^-7 for bfloat16 (the fp32 sum rounded once to
 bfloat16, at most half an ulp, plus room for the sums).  Each conv case
 also checks that the counter of the route it should take moved, and only
 that one.  The serving engine's CUDA graphs compare exactly with the eager
-forward at each bucket: the same kernels on the same shapes, TF32 off.
+forward at each bucket: the same kernels on the same shapes, TF32 off; so
+does each replica of a fleet with one engine on the same file.  A fleet's
+hot swaps under load fail no request and keep memory_allocated within 5%
+from the first swap to the third (the retired graphs are freed).
 The data-parallel drill on the card against the CPU holds losses, weights,
 BN buffers and momentum at 1e-4, as the smoke's parity phase does, and so
 does a narrow streaming epoch.  A streamed batch's ``gather_batch`` equals
@@ -29,10 +32,12 @@ A DeepNN or ResNet-18 training step on the card and on the CPU is each
 held against the float64 step at 1e-4 (the CPU's float32 stem gradient
 is no closer to it than the card's).
 """
+import gc
 import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -52,7 +57,10 @@ from ddp_tpu_torch.ops.gather import (gather_batch, gather_batch_plain,
                                       gather_rows, gather_rows_plain)
 from ddp_tpu_torch.data import EvalLoader, TrainLoader, synthetic
 from ddp_tpu_torch.parallel import dist, drill
-from ddp_tpu_torch.serve import DynamicBatcher, ServeEngine
+from ddp_tpu_torch.resilience import lineage
+from ddp_tpu_torch.serve import (DynamicBatcher, QueueFull, ServeEngine,
+                                 ServeFleet)
+from ddp_tpu_torch.train.checkpoint import save_checkpoint
 from ddp_tpu_torch.optim import SGDConfig, triangular_lr
 from ddp_tpu_torch.data.resident import ResidentData
 from ddp_tpu_torch.train.epoch import make_train_epoch
@@ -389,6 +397,97 @@ def test_serve_graphs_equal_eager_forward_and_count(cuda):
         assert batcher.drain(timeout=30)
     assert engine.stats()["forward_batches"] == 7 + batcher.batches
     assert engine.trace_count == 3 and gather_batch.launches == launches
+
+
+def _publish_vgg(path, seed, step):
+    """A full-width VGG-11 from ``seed`` published at ``path`` through the
+    lineage at ``step``, as the trainer publishes."""
+    model = VGG(generator=torch.Generator().manual_seed(seed))
+    lin = lineage.CheckpointLineage(path, keep=2)
+    lin.preserve_head()
+    sha = save_checkpoint(path, model, init_train_state(model).momentum,
+                          step, step - 1)
+    lin.commit(epoch=step - 1, step=step, sha256=sha)
+
+
+def test_fleet_replicas_equal_the_single_engine_bit_for_bit(cuda, tmp_path):
+    """Two replicas at buckets 8 and 32: each answers bit for bit what one
+    engine on the same file answers, full and ragged batches, and each
+    replica's engine captured one graph a bucket."""
+    set_tf32(False)
+    path = str(tmp_path / "ck.pt")
+    _publish_vgg(path, 0, 1)
+    single = ServeEngine.from_checkpoint(path, "vgg", device=cuda,
+                                         buckets=(8, 32))
+    single.warm()
+    fleet = ServeFleet(path, "vgg", device=cuda, n_replicas=2,
+                       buckets=(8, 32), max_wait_ms=1.0)
+    try:
+        rng = np.random.default_rng(3)
+        for n in (8, 5, 32, 19):
+            x = rng.integers(0, 256, (n, 32, 32, 3), dtype=np.uint8)
+            want = single.forward(x)
+            for rep in fleet.replicas:
+                assert rep.engine.trace_count == 2
+                np.testing.assert_array_equal(rep.submit(x, timeout=60),
+                                              want)
+            np.testing.assert_array_equal(fleet.submit(x, timeout=60), want)
+    finally:
+        assert fleet.close()
+
+
+def test_fleet_swaps_under_load_and_memory_stays_flat(cuda, tmp_path):
+    """Three hot swaps while 4 client threads load the fleet: no request
+    fails, every answer is finite, each swap commits with its old batchers
+    drained, and memory_allocated after swap 3 is within 5% of after swap 1
+    (the retired engines' graphs and weights are freed)."""
+    set_tf32(False)
+    path = str(tmp_path / "ck.pt")
+    _publish_vgg(path, 0, 1)
+    fleet = ServeFleet(path, "vgg", device=cuda, n_replicas=2,
+                       buckets=(8, 32), max_wait_ms=1.0)
+    stop = threading.Event()
+    counts = {"ok": 0, "failed": 0}
+    lock = threading.Lock()
+
+    def client(seed):
+        rng = np.random.default_rng(seed)
+        while not stop.is_set():
+            x = rng.integers(0, 256, (int(rng.integers(1, 33)), 32, 32, 3),
+                             dtype=np.uint8)
+            try:
+                ok = bool(np.isfinite(fleet.submit(x, timeout=60)).all())
+            except QueueFull:
+                continue
+            except Exception:
+                ok = False
+            with lock:
+                counts["ok" if ok else "failed"] += 1
+
+    threads = [threading.Thread(target=client, args=(s,)) for s in range(4)]
+    memory = []
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(0.5)
+        for k in range(3):
+            _publish_vgg(path, k + 1, k + 2)
+            assert fleet.poll_once() == "swap_commit"
+            gc.collect()
+            torch.cuda.synchronize()
+            memory.append(torch.cuda.memory_allocated())
+            time.sleep(0.3)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        assert fleet.close()
+    assert not any(t.is_alive() for t in threads)
+    assert counts["failed"] == 0 and counts["ok"] > 0, counts
+    history = fleet.stats()["swaps"]
+    assert [e["event"] for e in history] == ["swap_commit"] * 3
+    assert all(e["old_drained_clean"] for e in history)
+    assert abs(memory[2] - memory[0]) <= 0.05 * memory[0], memory
 
 
 def _drill_spec(device, backend=None):

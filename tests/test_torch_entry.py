@@ -43,7 +43,8 @@ new = {"ddp_tpu_torch.multigpu", "ddp_tpu_torch.parallel",
        "ddp_tpu_torch.resilience.supervisor", "ddp_tpu_torch.supervise",
        "ddp_tpu_torch.chaos_campaign", "ddp_tpu_torch.obs.export",
        "ddp_tpu_torch.obs.ledger", "ddp_tpu_torch.obs.inspect",
-       "ddp_tpu_torch.obs.__main__"}
+       "ddp_tpu_torch.obs.__main__", "ddp_tpu_torch.serve.router",
+       "ddp_tpu_torch.serve.fleet"}
 assert new <= set(names), sorted(new - set(names))
 """
 

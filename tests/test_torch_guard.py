@@ -15,8 +15,10 @@ import os
 import signal
 import subprocess
 import sys
+import threading
 import time
 import types
+import urllib.request
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +37,9 @@ from ddp_tpu_torch.resilience import drift, faults, guard
 from ddp_tpu_torch.resilience.preemption import PreemptionGuard
 from ddp_tpu_torch.resilience.watchdog import (WATCHDOG_EXIT_STATUS,
                                                Watchdog)
+from ddp_tpu_torch.serve import ServeFleet, ServeHTTPServer
+from ddp_tpu_torch.train.checkpoint import save_checkpoint
+from ddp_tpu_torch.train.step import init_train_state
 from ddp_tpu_torch.train.trainer import (_DROPOUT_STREAM, _seed_of,
                                          draw_seed, dropout_seed)
 
@@ -267,15 +272,45 @@ def test_draw_keys_without_folds_are_unchanged(seed, epoch, step, rank,
 # ----------------------------------------------------------------- faults
 
 
-def test_env_fault_vocabulary(monkeypatch):
+def test_env_fault_vocabulary(monkeypatch, tmp_path):
     monkeypatch.setenv(faults.FAULT_ENV, "explode@step=1")
     with pytest.raises(ValueError, match="unknown"):
         faults.install_env_faults(object())
-    for spec in ("torn_publish@", "crash_replica@requests=3,replica=0",
-                 "slow_forward@ms=5"):
+    # The serve faults belong to a fleet: a trainer refuses them as JAX's
+    # does, and a fleet installs them; its server answers through them.
+    serve_specs = ("torn_publish@", "crash_replica@requests=3,replica=0",
+                   "slow_forward@ms=5")
+    for spec in serve_specs:
         monkeypatch.setenv(faults.FAULT_ENV, spec)
-        with pytest.raises(ValueError, match="not ported.*A9"):
+        with pytest.raises(ValueError, match="unknown.*fault kind"):
             faults.install_env_faults(object())
+    model = get_model("deepnn", generator=torch.Generator().manual_seed(0))
+    ck = str(tmp_path / "ck.pt")
+    save_checkpoint(ck, model, init_train_state(model).momentum, 0, 0)
+    fleet = ServeFleet(ck, "deepnn", device="cpu", n_replicas=2,
+                       buckets=(1,), max_wait_ms=1.0)
+    monkeypatch.setenv(faults.FAULT_ENV, ";".join(serve_specs))
+    faults.install_serve_faults(fleet)
+    httpd = ServeHTTPServer(("127.0.0.1", 0), fleet=fleet)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        for k in range(6):  # across the crash of r0 at its third request
+            req = urllib.request.Request(
+                base + "/predict", data=json.dumps({"instances": np.zeros(
+                    (1, 32, 32, 3), np.uint8).tolist()}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=30) as r:
+                assert len(json.load(r)["predictions"]) == 1
+        assert fleet.replicas[0].crashed and not fleet.replicas[1].crashed
+        with urllib.request.urlopen(base + "/healthz", timeout=10) as r:
+            assert json.load(r)["status"] == "ok"  # r1 still serves
+        save_checkpoint(ck, model, init_train_state(model).momentum, 9, 1)
+        assert fleet.poll_once() == "swap_skipped"  # the publish, torn
+        assert fleet.health()["checkpoint_step"] == 0
+    finally:
+        httpd.close()
+        fleet.close()
     # The storage faults install; each names what it needs.
     for spec, why in (("fail_ckpt_write@epoch=1", "snapshot path"),
                       ("fail_put@n=2", "--mirror"),

@@ -42,8 +42,8 @@ from ddp_tpu_torch.obs.registry import MetricsRegistry
 from ddp_tpu_torch.obs.tracer import NullTracer, SpanTracer
 from ddp_tpu_torch.ops.gather import gather_batch
 from ddp_tpu_torch.resilience.preemption import PreemptionGuard
-from ddp_tpu_torch.serve import (Draining, DynamicBatcher, NotPorted,
-                                 QueueFull, RequestTooLarge, ServeEngine,
+from ddp_tpu_torch.serve import (Draining, DynamicBatcher, QueueFull,
+                                 RequestTooLarge, ServeEngine,
                                  ServeHTTPServer, resolve_buckets)
 from ddp_tpu_torch.serve import __main__ as serve_main
 from ddp_tpu_torch.train.checkpoint import (CheckpointError,
@@ -429,8 +429,63 @@ def test_http_error_mapping(http_server):
 
 
 def test_http_server_refuses_a_fleet():
-    with pytest.raises(NotPorted, match="A9"):
-        ServeHTTPServer(("127.0.0.1", 0), None, None, fleet=object())
+    """What the server refuses of a fleet-backed front end: no backend at
+    all (ValueError) and ``/generate`` (501 naming A12).  A fleet itself is
+    accepted: /predict goes through its submit, /healthz is its health
+    (503 when unavailable), /stats its stats, /metrics its registry, and a
+    router's shed is a 503 with its derived Retry-After."""
+    from ddp_tpu_torch.serve import NoHealthyReplicas
+    with pytest.raises(ValueError, match="needs either"):
+        ServeHTTPServer(("127.0.0.1", 0), None, None)
+
+    class _Fleet:
+        registry = MetricsRegistry()
+        status = "ok"
+        shed = None
+
+        def submit(self, images, timeout=None):
+            if self.shed is not None:
+                raise self.shed
+            return np.full((len(images), 10), 2.0, np.float32)
+
+        def health(self):
+            return {"status": self.status, "healthy_replicas": 2}
+
+        def stats(self):
+            return {"router": {"routed": 1}, "replicas": [], "swaps": []}
+
+    fleet = _Fleet()
+    fleet.registry.counter("ddp_router_routed_total", "picks").inc()
+    httpd = ServeHTTPServer(("127.0.0.1", 0), fleet=fleet)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        status, out = _post(base + "/predict",
+                            {"instances": _images(3).tolist()})
+        assert status == 200 and out["logits"][0] == [2.0] * 10
+        status, body = _get(base + "/healthz")
+        assert status == 200 and json.loads(body)["healthy_replicas"] == 2
+        assert json.loads(_get(base + "/stats")[1])["router"] == \
+            {"routed": 1}
+        fams = parse_exposition(_get(base + "/metrics")[1].decode())
+        assert fams["ddp_router_routed_total"]["samples"][
+            ("ddp_router_routed_total", ())] == 1
+        fleet.shed = NoHealthyReplicas("no healthy replicas", 7.4)
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(base + "/predict", {"instances": _images(1).tolist()})
+        assert e.value.code == 503 and e.value.headers["Retry-After"] == "7"
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(base + "/generate", {"prompt": [1, 2]})
+        assert e.value.code == 501 and "A12" in json.loads(e.value.read())[
+            "error"]
+        fleet.status = "unavailable"
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _get(base + "/healthz")
+        assert e.value.code == 503
+    finally:
+        httpd.close()
+        t.join(timeout=10)
 
 
 # -- telemetry, registry and the preemption guard ---------------------------
