@@ -33,24 +33,27 @@
    (``gather_batch``'s kernel) against the same steps on the CPU (plain
    version), from the same weights and crop/flip draws, TF32 off.
 6. Main path: the port's CLI in-process at full VGG-11 width,
-   ``1 1 --batch_size 512 --resident --synthetic --synthetic_size 50000``
-   (98 train steps, 25 eval steps) with ``--snapshot_path`` in a temporary
-   directory, with the kernels' launch counts read around it: 123 of
+   ``1 1 --batch_size 512 --resident --synthetic --synthetic_size 9040``
+   (18 train steps, 5 eval steps: CIFAR-10's ragged batch and eval tail,
+   336 and 212 rows, in a fifth of its epoch) with ``--snapshot_path`` in
+   a temporary directory, with the kernels' launch counts read around
+   it: 23 of
    ``gather_batch``, none of ``row_gather`` or ``conv3x3``.
 7. Checkpoint phase: the epoch-0 checkpoint the main path wrote, loaded
    with ``load_checkpoint`` and held bit for bit against the trained
    weights, buffers and momentum; then the CLI again with ``--resume``,
-   which must train no step and report the same accuracy.
+   which must train no step, hold the trained weights, buffers and
+   momentum bit for bit and report the same accuracy.
    bf16 main path: the CLI again with ``--bf16``, its counts zeroed just
-   before and read just after: 98 finite losses, 123 launches of
+   before and read just after: 18 finite losses, 23 launches of
    ``gather_batch``'s bfloat16 form, none of ``row_gather`` or ``conv3x3``,
    a float32 checkpoint; its ms/step and samples/s beside the float32 run's.
    Bench phase (``python -m ddp_tpu_torch.bench``, one process each, so
    this process's cuDNN and allocator state stay out of its windows):
-   VGG-11, DeepNN and ResNet-18 at ``--steps 20 --repeats 3`` (each its
-   stdout record, the resident-epoch and the bf16 records from stderr;
+   VGG-11, DeepNN and ResNet-18 at ``--steps 10 --repeats 3 --warmup 5``
+   (each its stdout record, the resident-epoch and the bf16 records from stderr;
    VGG-11 ran the default 5 windows of 50 steps until the storage phase
-   took the time), and VGG-11 ``--e2e --resident --e2e_steps 16``; VGG-11's
+   took the time), and VGG-11 ``--e2e --resident --e2e_steps 8``; VGG-11's
    fixed batch first and alone, the other three processes at once (their
    records share the card since the fleet phase took the time); each
    record printed on its own line, with every field, a finite positive
@@ -58,6 +61,23 @@
    dtype, the card's name and power limit, and the child's ``gather_batch``
    launches equal to the train steps it ran, by form; VGG's float32
    median ms/step within 3% of the main path's event median.
+   Bench-modes phase (``bench_modes_phase``; the bench's modes that need no
+   mesh, one process each, one after the other): VGG-11 ``--guard_overhead
+   --steps 50 --repeats 2`` (``bench.py``'s fields, the derived K=50 audit
+   overhead under 1%; 50-step windows, so each K=50 window holds one
+   audit); ``--serve --fleet 1``, then ``--fleet 2``, at
+   buckets 1, 8, 32 and 128 (4 CUDA graphs an engine, nothing timed out,
+   a router at 2; rows/s, p99 and rows a batch printed beside the fleet
+   phase's in-process figures); ``--batch_sweep 512,1024
+   --batch_sweep_flavors bf16_step --steps 10 --repeats 2`` (a child a
+   cell, its steps and launches in the parent's summary); ``--stream_attr
+   --e2e_steps 8 --repeats 2`` (the attribution's keys, a named
+   bottleneck, 0 < overlap efficiency <= 1, the streamed ``--e2e``
+   record's phases); ``--pipeline`` (value > 0).  Every process's
+   ``gather_batch`` launches equal its train steps plus its eval-form
+   calls (``warm()``'s eager run and capture a bucket), by form.
+   ``--sweep`` needs more than one card (ROADMAP C4) and ``--chaos`` is the
+   storage phase's campaign: both run on the CPU only.
    Run-shape phase on 10,240 images: in deterministic mode
    (``repeat_check``'s), ``singlegpu 1 1 --schedule_epochs 2`` then ``2 1
    --resume --schedule_epochs 2`` against an uninterrupted ``2 1``, the
@@ -69,7 +89,7 @@
    path's event median, and its MFU in (0, 1.05].
 8. DDP phase: ``python -m ddp_tpu_torch.multigpu`` with the main path's
    arguments as a subprocess, which spawns one rank per card: at world 1
-   over NCCL it must launch ``gather_batch`` 123 times and neither
+   over NCCL it must launch ``gather_batch`` 23 times and neither
    ``row_gather`` nor ``conv3x3``, issue one gradient and one buffer
    all-reduce a step (plus the epoch's loss sum, the eval counters and the
    start's broadcast), match the in-process ``singlegpu`` run's first 3
@@ -85,7 +105,7 @@
    ``gather_batch`` launch a step on each card rank.
    Strategy phase (the flags of ``multigpu``): the main path's arguments with
    ``--grad_accum 2 --sync_bn --shard_update`` at world 1 over NCCL as a
-   subprocess: 50 optimizer steps with finite losses, ``gather_batch`` 123
+   subprocess: 10 optimizer steps with finite losses, ``gather_batch`` 23
    times and neither ``row_gather`` nor ``conv3x3``, the collectives equal
    to the count worked out from the code (printed beside its formula: 24
    sync-BN all-reduces a micro-batch, one buffer all-reduce, one
@@ -99,7 +119,7 @@
    and a narrow world-2 epoch with the flags composed on the card over gloo
    against the CPU within ``PARITY_TOL``, one ``gather_batch`` launch a
    micro-batch on each card rank.  Then the same in bfloat16: the composed
-   flags with ``--bf16`` at world 1 over NCCL (50 finite losses, 123
+   flags with ``--bf16`` at world 1 over NCCL (10 finite losses, 23
    bfloat16 launches, the same collectives, a float32 checkpoint, its
    ms/step beside the float32 composed run's) and the narrow world-2 epoch
    with ``compute_dtype="bfloat16"`` on the card against the CPU, within
@@ -112,13 +132,13 @@
    exactly, in float32 and bfloat16, eval and augment form; then
    ``multigpu`` with the main path's other arguments, run in this process
    as rank 0 of a world-1 NCCL group with its counts set to 0 just before
-   and read just after: 123 ``gather_batch`` launches (each streamed batch
+   and read just after: 23 ``gather_batch`` launches (each streamed batch
    and each eval batch once), ``host_augment`` ``native`` (the C++
-   crop/flip), the collectives of the DDP phase, 98 finite losses and a
+   crop/flip), the collectives of the DDP phase, 18 finite losses and a
    float32 checkpoint; its wall and event ms/step, samples/s and the
    prefetch engine's host, H2D-enqueue and consumer-wait ms a step beside
    the resident main path's from this process; ``--resume`` training epoch
-   1 from that file; the same with ``--bf16`` (123 launches of the
+   1 from that file; the same with ``--bf16`` (23 launches of the
    bfloat16 form, beside the resident bf16 run); ``--device_augment`` and
    the composed strategy flags on 10,240 images (launches, and the
    collectives against the formula); in deterministic mode,
@@ -184,9 +204,9 @@
    Models phase (``--model deepnn`` and ``resnet18``, each at its full and
    only width, ``MODEL_ARGS``): ``multigpu`` in this process as rank 0 of a
    world-1 NCCL group, its counts zeroed before each run and read after,
-   on 50,000 images resident in float32 (123 ``gather_batch`` launches, the
+   on 9,040 images resident in float32 (23 ``gather_batch`` launches, the
    collectives counted from the code, a float32 checkpoint that restores
-   bit for bit) and with ``--bf16`` (123 of the bf16 form), each beside
+   bit for bit) and with ``--bf16`` (23 of the bf16 form), each beside
    VGG-11's ms/step from this process, then ``--resume`` training epoch 1
    from the float32 file; streaming and the composed strategy flags on
    10,240 images (25 launches; all-reduces ``model_collectives``: 71 a
@@ -195,9 +215,10 @@
    128 in float32 and bfloat16 (logits bit for bit against the eager
    forward, replay ms, accuracy equal to ``evaluate_resident``'s);
    ``--export_torch`` then ``--init_from_torch`` back bit for bit through
-   a strict load.  Then each model's step under the profiler, two
-   processes at once (``profile_resident --model``: kernels a step, one
-   ``gather_batch_kernel`` a step), and after them, four processes at
+   a strict load.  Then each model's step under the profiler, one process
+   after the other (``profile_resident --model``: kernels a step, one
+   ``gather_batch_kernel`` a step, as many as the wrapper launched, the
+   device clock's lead over the host's), and after them, four processes at
    once, ``singlegpu`` and world-1 ``multigpu`` of each model under
    deterministic mode (``repeat_check``), bit for bit; and each model's
    world-2 drill over gloo on the card and on the CPU (``MODEL_DRILLS``, sync-BN and the
@@ -219,7 +240,9 @@
    forward and idles 50 ms before the forwards it counts, and a session
    whose records it lost all the same is run again, up to 3 sessions
    (ROADMAP C3).
-   Served accuracy over the 12,500 test images at bucket 128 must equal
+   The 2,260 test images are served 128 at a time, each chunk's logits
+   bit for bit against the eager forward of the chunk zero-padded to its
+   bucket (``served_test_set``), and the served accuracy must equal
    ``evaluate_resident``'s with ``EvalLoader(test_ds, 128)``.  Then 8
    closed-loop HTTP clients send 15 requests of 1-32 rows each through
    ``DynamicBatcher`` and ``ServeHTTPServer`` on port 0 (p50/p99 latency,
@@ -233,8 +256,9 @@
    ``compute_dtype=torch.bfloat16`` on the bf16 main path's epoch-0 file,
    4 graphs, each bucket's logits bit for bit against the eager bfloat16
    forward, one ``gather_batch_kernel`` in each of 5 profiled replays, its
-   replay ms beside the float32 bucket's, and served accuracy equal to
-   ``evaluate_resident``'s in bfloat16.
+   replay ms beside the float32 bucket's, the test set's served logits bit
+   for bit against the eager bfloat16 forward, and served accuracy equal
+   to ``evaluate_resident``'s in bfloat16.
    Fleet phase (``fleet_phase``, A9): F1 in process, a ``ServeFleet`` of 2
    VGG-11 replicas at buckets 1, 8, 32 and 128 on a lineage that publishes
    the main path's epoch-0 file: ``gather_batch``'s wrapper run 2 x 4
@@ -383,9 +407,13 @@ BF16 = torch.bfloat16
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 66.9e12
 BF16_FLOP_PER_S = 989e12
+# 9,040 images: 17 full batches and a ragged one of 336 rows, and a test
+# split of 2,260 (4 full batches and a tail of 212), the remainders of
+# CIFAR-10's 50,000 and 12,500, so every batch shape of the full epoch runs
+# in a fifth of its steps.
 MAIN_ARGS = ["1", "1", "--batch_size", "512", "--resident", "--synthetic",
-             "--synthetic_size", "50000"]
-MAIN_TRAIN_STEPS, MAIN_EVAL_STEPS = 98, 25  # 50,000 / 512 and 12,500 / 512
+             "--synthetic_size", "9040"]
+MAIN_TRAIN_STEPS, MAIN_EVAL_STEPS = 18, 5  # 9,040 / 512 and 2,260 / 512
 # Parity of the card against the CPU, float32 with TF32 off: cuDNN and the
 # CPU's convolutions sum in different orders, and three SGD steps carry
 # those last-bit differences into the weights.  1e-4 is two orders above
@@ -742,10 +770,20 @@ def checkpoint_phase(out: dict, path: str) -> float:
     again = cli.main(MAIN_ARGS + ["--snapshot_path", path, "--resume"])
     check(again["loss_history"] == [],
           f"the resumed run trained {len(again['loss_history'])} steps")
+    resumed = again["state"]
+    check(resumed.step == state.step and all(
+        torch.equal(a, b) for a, b in zip(
+            resumed.model.state_dict().values(),
+            state.model.state_dict().values())) and all(
+        torch.equal(a, b) for a, b in zip(resumed.momentum,
+                                          state.momentum)),
+        "the resumed run's weights, buffers or momentum differ from the "
+        "trained run's")
     check(again["accuracy"] == accuracy,
           f"resumed accuracy {again['accuracy']} != {accuracy}")
-    print(f"resume: 0 steps trained, accuracy {again['accuracy']:.2f}% "
-          f"(the trained run's {accuracy:.2f}%)", flush=True)
+    print(f"resume: 0 steps trained, state bit for bit the trained run's, "
+          f"accuracy {again['accuracy']:.2f}% (the trained run's "
+          f"{accuracy:.2f}%)", flush=True)
     return write_s
 
 
@@ -946,7 +984,7 @@ def strategy_phase(ddp: dict, card: str) -> tuple:
     summary, the world-2 epoch's decision margin and the unflagged
     deterministic run's summary."""
     res, wall_s, ckpt = run_multigpu(MAIN_ARGS + STRATEGY_FLAGS)
-    steps = -(-(MAIN_TRAIN_STEPS - 1) // 2) + 1  # 97 full batches, the tail
+    steps = -(-(MAIN_TRAIN_STEPS - 1) // 2) + 1  # the full batches, the tail
     launches = res["kernel_launches"]
     check((res["world"], res["backend"], res["grad_accum"], res["sync_bn"],
            res["shard_update"]) == (1, "nccl", 2, True, True),
@@ -1382,12 +1420,7 @@ def serve_phase(snapshot: str) -> dict:
 
     _, test_ds = synthetic(n_train=int(MAIN_ARGS[-1]),
                            n_test=int(MAIN_ARGS[-1]) // 4)
-    correct = 0
-    for start in range(0, len(test_ds), SERVE_BUCKETS[-1]):
-        stop = start + SERVE_BUCKETS[-1]
-        correct += int((engine.predict(test_ds.images[start:stop])
-                        == test_ds.labels[start:stop]).sum())
-    served_acc = correct / len(test_ds) * 100.0
+    served_acc = served_test_set(engine, test_ds)
     eval_acc = evaluate_resident(engine.model,
                                  ResidentData(test_ds, torch.device("cuda")),
                                  EvalLoader(test_ds, SERVE_BUCKETS[-1]))
@@ -1729,7 +1762,7 @@ def _float32_file(ckpt) -> bool:
 
 def bf16_main_phase(out: dict, card: str, path: str) -> dict:
     """The main path with ``--bf16``, its counts zeroed just before and read
-    just after: 98 finite losses, gather_batch's bf16 form 123 times,
+    just after: 18 finite losses, gather_batch's bf16 form 23 times,
     neither row_gather nor conv3x3, a float32 checkpoint; its ms/step
     beside the float32 run ``out``'s."""
     gather_batch.launches = gather_batch.launches_bf16 = 0
@@ -2236,7 +2269,7 @@ def armed_step(stream: dict, card: str, tmp: str) -> int:
     (the preemption guard the CLI always installs, ``--on_nan restore``,
     ``--watchdog_secs 600`` and ``--drift_audit_every 5``), back to back:
     the armed event median over the steps whose span holds no audit within
-    ``ARMED_TOL`` of the unarmed median (the streaming phase's 50,000-image
+    ``ARMED_TOL`` of the unarmed median (the streaming phase's 9,040-image
     median printed beside); each audit's excess over the median on the
     step that carries it, the first apart (it loads the audit's kernels)
     and the median of the rest priced a step at K = ``AUDIT_EVERY``; each
@@ -2276,7 +2309,8 @@ def armed_step(stream: dict, card: str, tmp: str) -> int:
           f"{ms:.3f} ms/step with the preemption guard, --on_nan restore and "
           f"--watchdog_secs 600, beside the unarmed run's {base:.3f} ms "
           f"({(ms / base - 1) * 100:+.2f}%) and the streaming phase's "
-          f"{statistics.median(stream['step_ms']):.3f} ms (50,000 images); "
+          f"{statistics.median(stream['step_ms']):.3f} ms "
+          f"({STREAM_ARGS[-1]} images); "
           f"--drift_audit_every {AUDIT_PROBE}: the audited steps' excess "
           f"{[round(x, 3) for x in excess]} ms, the first "
           f"{excess[0]:.3f} ms, the rest's median {steady:.3f} ms, so "
@@ -3256,12 +3290,7 @@ def bf16_serve_phase(snapshot: str, f32: dict) -> dict:
                   groups.items(), key=lambda kv: -kv[1])), flush=True)
     _, test_ds = synthetic(n_train=int(MAIN_ARGS[-1]),
                            n_test=int(MAIN_ARGS[-1]) // 4)
-    correct = 0
-    for start in range(0, len(test_ds), SERVE_BUCKETS[-1]):
-        stop = start + SERVE_BUCKETS[-1]
-        correct += int((engine.predict(test_ds.images[start:stop])
-                        == test_ds.labels[start:stop]).sum())
-    served_acc = correct / len(test_ds) * 100.0
+    served_acc = served_test_set(engine, test_ds, BF16)
     eval_acc = evaluate_resident(engine.model,
                                  ResidentData(test_ds, torch.device("cuda")),
                                  EvalLoader(test_ds, SERVE_BUCKETS[-1]), BF16)
@@ -3300,6 +3329,28 @@ def _bucket_logits(engine: ServeEngine, x: np.ndarray, b: int) -> np.ndarray:
     host[:len(x)] = torch.from_numpy(x)
     prog.input.copy_(host.to(prog.input.device))
     return prog.run()[:len(x)].cpu().numpy()
+
+
+def served_test_set(engine: ServeEngine, test_ds, dtype=None) -> float:
+    """Accuracy (%) of ``test_ds`` served by ``engine`` a largest bucket at a
+    time, each chunk's logits bit for bit against the eager forward of the
+    chunk zero-padded to its bucket, as the engine pads it: an accuracy
+    near chance compares little, the logits compare every row."""
+    correct, top = 0, SERVE_BUCKETS[-1]
+    for start in range(0, len(test_ds), top):
+        x = test_ds.images[start:start + top]
+        got = engine.forward(x)
+        padded = np.zeros((engine.bucket_for(len(x)),) + x.shape[1:],
+                          np.uint8)
+        padded[:len(x)] = x
+        want = _eager_logits(engine.model, padded, dtype)[:len(x)]
+        check(np.array_equal(got, want), f"served logits of test images "
+              f"{start}..{start + len(x) - 1} ({dtype}) differ from the "
+              f"eager forward: max|diff| "
+              f"{float(np.abs(got - want).max()):.3e}")
+        correct += int((got.argmax(axis=-1)
+                        == test_ds.labels[start:start + top]).sum())
+    return correct / len(test_ds) * 100.0
 
 
 def _eager_logits(model: torch.nn.Module, x: np.ndarray, dtype=None):
@@ -3980,12 +4031,7 @@ def model_serve(name: str, snapshot: str, dtype, test_ds) -> dict:
               f"{float(np.abs(got - want).max()):.3e}")
         prog = engine._programs[b]
         replay[b] = median_ms(lambda _: prog.graph.replay(), [None], 30)
-    correct = 0
-    for start in range(0, len(test_ds), SERVE_BUCKETS[-1]):
-        stop = start + SERVE_BUCKETS[-1]
-        correct += int((engine.predict(test_ds.images[start:stop])
-                        == test_ds.labels[start:stop]).sum())
-    served = correct / len(test_ds) * 100.0
+    served = served_test_set(engine, test_ds, dtype)
     evaluated = evaluate_resident(engine.model,
                                   ResidentData(test_ds, torch.device("cuda")),
                                   EvalLoader(test_ds, SERVE_BUCKETS[-1]),
@@ -4011,7 +4057,7 @@ def _restored_equal(ckpt, state) -> bool:
 def model_phase(name: str, main: dict, main_bf16: dict, card: str,
                 tmp: str) -> dict:
     """One model through the port's entry points on the card (world-1 NCCL
-    ``multigpu`` in this process): f32 and bf16 on 50,000 images, the
+    ``multigpu`` in this process): f32 and bf16 on 9,040 images, the
     resume of the f32 file, streaming and the composed flags on 10,240,
     serving in both dtypes, the torch export round trip and the step's
     kernels by group.  Returns its launches by path and numbers."""
@@ -4141,27 +4187,42 @@ def model_phase(name: str, main: dict, main_bf16: dict, card: str,
             "bf16_ms": statistics.median(bf16["step_ms"])}
 
 
-def _profile_process(name: str) -> dict:
+def _profile_process(name: str, attempts: int = 3) -> dict:
     """``python -m ddp_tpu_torch.profile_resident --model name`` in a
     process of its own (late in this one the profiler loses the start of
-    a session, ROADMAP C3): its JSON summary."""
-    r = subprocess.run(
-        [sys.executable, "-m", "ddp_tpu_torch.profile_resident", "--model",
-         name, "--steps", "10"], capture_output=True, text=True, timeout=600)
-    check(r.returncode == 0, f"profile_resident --model {name} exited with "
-          f"{r.returncode}: {r.stderr[-2000:]}")
-    return json.loads(r.stdout.strip().splitlines()[-1])
+    a session, ROADMAP C3): its JSON summary.  A session whose profile
+    holds fewer ``gather_batch_kernel`` records than the wrapper launched
+    lost records (C3) and says nothing of the step: it is said on stdout,
+    with its clock leads, and run again, up to ``attempts`` processes.  The
+    summary returned, and checked, is the first whole one, or the last."""
+    for attempt in range(1, attempts + 1):
+        r = subprocess.run(
+            [sys.executable, "-m", "ddp_tpu_torch.profile_resident",
+             "--model", name, "--steps", "10"], capture_output=True,
+            text=True, timeout=600)
+        check(r.returncode == 0, f"profile_resident --model {name} exited "
+              f"with {r.returncode}: {r.stderr[-2000:]}")
+        prof = json.loads(r.stdout.strip().splitlines()[-1])
+        if prof["gather_batch_kernel_launches"] == \
+                prof["gather_batch_launched"] or attempt == attempts:
+            return prof
+        print(f"models, {name} under the profiler: the profiler lost "
+              f"records in session {attempt} of {attempts} "
+              f"({prof['gather_batch_kernel_launches']} gather_batch_kernel "
+              f"records of {prof['gather_batch_launched']} launches; clock "
+              f"{prof['clock']}); running the session again", flush=True)
 
 
 def models_processes(card: str) -> None:
     """In processes of their own: each model's step under the profiler,
-    both at once, for its kernels a step and one gather_batch_kernel a step
-    (its times, taken beside the other process, are not kept); then
-    ``singlegpu`` and world-1 ``multigpu`` of each model in deterministic
-    mode on 10,240 images (``repeat_check``'s ``run_entries``), four at
-    once, each model's two loss histories bit for bit.  The profiled
-    processes run apart from the four: beside them the profiler once
-    missed a ``gather_batch_kernel`` launch (ROADMAP C3)."""
+    one after the other, for its kernels a step and one gather_batch_kernel
+    a step, as many as the wrapper launched, and the device clock's lead
+    over the host's (``clock_leads``); then ``singlegpu`` and world-1
+    ``multigpu`` of each model in deterministic mode on 10,240 images
+    (``repeat_check``'s ``run_entries``), four at once, each model's two
+    loss histories bit for bit.  The profiled processes run alone: beside
+    the four, and once beside each other, the profiler missed a
+    ``gather_batch_kernel`` launch (ROADMAP C3)."""
     t0 = time.time()
     results, errors = {}, []
 
@@ -4174,20 +4235,25 @@ def models_processes(card: str) -> None:
         except Exception as e:  # re-raised below, after every join
             errors.append(e)
 
-    for entries in (("profile",), ("singlegpu", "multigpu")):
-        threads = [threading.Thread(target=one, args=(n, e))
-                   for n in MODELS for e in entries]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
+    for name in MODELS:
+        one(name, "profile")
+    threads = [threading.Thread(target=one, args=(n, e))
+               for n in MODELS for e in ("singlegpu", "multigpu")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     if errors:
         raise errors[0]
     for name in MODELS:
         prof = results[name, "profile"]
-        check(prof["gather_batch_kernel_launches"] == 10,
+        print(f"models, {name} under the profiler ({card}): device clock "
+              f"against the host's {prof['clock']}", flush=True)
+        check(prof["gather_batch_launched"] == 10
+              and prof["gather_batch_kernel_launches"] == 10,
               f"{name} profile: {prof['gather_batch_kernel_launches']} "
-              f"gather_batch_kernel launches in 10 steps")
+              f"gather_batch_kernel records of "
+              f"{prof['gather_batch_launched']} launches in 10 steps")
         print(f"models, {name} under the profiler ({card}): "
               f"{prof['kernels_per_step']:g} CUDA kernels launched a step, "
               f"gather_batch_kernel 10 times in 10 steps", flush=True)
@@ -4317,10 +4383,12 @@ def models_phases(main: dict, main_bf16: dict, card: str) -> dict:
     return out
 
 
-BENCH_RUNS = (("vgg", ["--steps", "20", "--repeats", "3"]),
-              ("deepnn", ["--steps", "20", "--repeats", "3"]),
-              ("resnet18", ["--steps", "20", "--repeats", "3"]),
-              ("vgg", ["--e2e", "--resident", "--e2e_steps", "16"]))
+BENCH_RUNS = (("vgg", ["--steps", "10", "--repeats", "3", "--warmup", "5"]),
+              ("deepnn", ["--steps", "10", "--repeats", "3", "--warmup",
+                          "5"]),
+              ("resnet18", ["--steps", "10", "--repeats", "3", "--warmup",
+                            "5"]),
+              ("vgg", ["--e2e", "--resident", "--e2e_steps", "8"]))
 # The bench's fixed batch, the streamed step of a live record (CUDA events)
 # and the main path's resident step run the same device-bound VGG-11 work
 # (2.7% idle, PERF.md section 5; within 0.7% of each other, section 6): the
@@ -4415,6 +4483,155 @@ def bench_phase(main_ms: float, card: str) -> dict:
                   f"path's event median {main_ms:.3f} ({card})", flush=True)
     print(f"bench phase: {time.time() - t0:.1f} s, gather_batch launches "
           f"{launches}", flush=True)
+    return launches
+
+
+# The bench's modes that need no mesh (bench_modes_phase): VGG-11, each
+# command a process of its own, one after the other.
+# Windows of 50 steps, JAX's default: each K=50 window holds one audit.
+GUARD_RUN = ["--guard_overhead", "--steps", "50", "--repeats", "2"]
+SERVE_RUN = ["--serve", "--serve_buckets", "1,8,32,128", "--serve_secs",
+             "1"]
+BATCH_SWEEP_RUN = ["--batch_sweep", "512,1024", "--batch_sweep_flavors",
+                   "bf16_step", "--steps", "10", "--repeats", "2"]
+STREAM_ATTR_RUN = ["--stream_attr", "--e2e_steps", "8", "--repeats", "2"]
+GUARD_MAX_PCT = 1.0  # bench.py --guard_overhead's acceptance at K=50
+# The fleet phase's in-process figures (PERF.md section 6: 8 closed-loop
+# clients of 1-32 rows, H100 80GB HBM3, 700 W), printed beside the
+# bench's.
+B7_ROWS_PER_S = {1: "10,474.3-10,665.0", 2: "7,261.7-7,784.2"}
+
+
+def _bench_mode_launches(summary: dict, what: str, launches: dict) -> None:
+    """Hold a bench process's ``gather_batch`` launches to its train steps
+    plus its eval-form calls, by form, and add them to ``launches``."""
+    steps, calls, moved = (summary["steps"], summary["eval_calls"],
+                           summary["launches"])
+    want = {"gather_batch": sum(steps.values()) + sum(calls.values()),
+            "gather_batch_bf16": steps["bfloat16"] + calls["bfloat16"]}
+    check(moved == want, f"bench {what}: launches {moved} for train steps "
+          f"{steps} and eval-form calls {calls}")
+    launches["float32"] += moved["gather_batch"] - moved["gather_batch_bf16"]
+    launches["bfloat16"] += moved["gather_batch_bf16"]
+
+
+def _mode_record(summary: dict, what: str, fields: set) -> dict:
+    rec, = summary["records"]
+    check(set(rec) == fields, f"bench {what}: fields {sorted(rec)}")
+    check(math.isfinite(rec["value"]) and rec["value"] > 0,
+          f"bench {what}: value {rec['value']}")
+    check(rec["power_limit_w"] is not None and rec["power_limit_w"] > 0
+          and rec["device"] == {"name": torch.cuda.get_device_name(0),
+                                "count": 1},
+          f"bench {what}: device {rec['device']}, power limit "
+          f"{rec['power_limit_w']}")
+    return rec
+
+
+def bench_modes_phase(card: str) -> dict:
+    """``python -m ddp_tpu_torch.bench``'s modes that need no mesh on
+    VGG-11, each a process of its own and one after the other (see the
+    module's docstring).  Returns the launches of each form."""
+    t0 = time.time()
+    launches = {"float32": 0, "bfloat16": 0}
+    port = {"device", "power_limit_w"}
+
+    summary = run_bench(["--model", "vgg", *GUARD_RUN])
+    _bench_mode_launches(summary, "--guard_overhead", launches)
+    rec = _mode_record(summary, "--guard_overhead", {
+        "metric", "value", "unit", "vs_baseline", "guard_overhead",
+        "audit_call_ms", "derived_audit_overhead_pct",
+        "audit_payload_bytes", "audit_n_leaves"} | port)
+    k50 = rec["derived_audit_overhead_pct"]["k50"]
+    check(k50 < GUARD_MAX_PCT, f"--guard_overhead: the K=50 audit costs "
+          f"{k50}% a step, acceptance < {GUARD_MAX_PCT}%")
+    per = rec["guard_overhead"]
+    print(f"bench --guard_overhead ({card}): audit call "
+          f"{rec['audit_call_ms']} ms, derived overhead K=50 {k50}%, K=10 "
+          f"{rec['derived_audit_overhead_pct']['k10']}%; median ms/step "
+          + ", ".join(f"{k} {v['median_ms_per_step']}"
+                      + (f" ({v['overhead_pct_vs_off']:+}%)"
+                         if "overhead_pct_vs_off" in v else "")
+                      for k, v in per.items()), flush=True)
+
+    for n in (1, 2):
+        what = f"--serve --fleet {n}"
+        summary = run_bench(["--model", "vgg", *SERVE_RUN, "--fleet", str(n)])
+        _bench_mode_launches(summary, what, launches)
+        check(summary["eval_calls"]["float32"] == 2 * 4 * n,
+              f"bench {what}: eval-form calls {summary['eval_calls']}")
+        rec = _mode_record(summary, what, {
+            "metric", "value", "unit", "vs_baseline", "serve"} | port)
+        serve = rec["serve"]
+        timed_out = serve["closed_loop"]["timed_out"] + sum(
+            p["timed_out"] for p in serve["open_loop"])
+        check(serve["compiled_executables"] == 4 * n and timed_out == 0
+              and (serve["router"] is not None) == (n > 1),
+              f"bench {what}: {serve['compiled_executables']} graphs, "
+              f"{timed_out} timed out, router {serve['router']}")
+        knee = next((p for p in serve["open_loop"]
+                     if p["offered_rps"] == serve["knee_offered_rps"]),
+                    serve["open_loop"][-1])
+        closed = serve["closed_loop"]
+        print(f"bench {what} ({card}): {rec['value']} {rec['unit']}; at "
+              f"that point p50/p99 {knee['latency_ms']['p50']}/"
+              f"{knee['latency_ms']['p99']} ms, shed {knee['shed']}; closed "
+              f"loop ({closed['clients']} clients of 1 row) "
+              f"{closed['throughput_rps']} rows/s, p99 "
+              f"{closed['latency_ms']['p99']} ms; r0's batcher "
+              f"{serve['batcher']['mean_batch_rows']} rows a batch, "
+              f"{serve['batcher']['batches']} batches; "
+              + (f"router routed {serve['router']['routed']}, served "
+                 f"{[r['served'] for r in serve['router']['per_replica']]}; "
+                 if n > 1 else "")
+              + f"the fleet phase in process (8 clients of 1-32 rows, "
+              f"PERF.md): {B7_ROWS_PER_S[n]} rows/s", flush=True)
+
+    summary = run_bench(["--model", "vgg", *BATCH_SWEEP_RUN])
+    _bench_mode_launches(summary, "--batch_sweep", launches)
+    check(summary["steps"]["bfloat16"] == 2 * (10 + 2 * 10),
+          f"bench --batch_sweep: steps {summary['steps']}")
+    rec = _mode_record(summary, "--batch_sweep", {
+        "metric", "value", "unit", "vs_baseline", "batch_sweep"} | port)
+    cells = {b: c["bf16_step"] for b, c in rec["batch_sweep"].items()}
+    check(set(cells) == {"512", "1024"} and all(
+        0 < c["mfu"] <= MFU_MAX for c in cells.values()),
+          f"bench --batch_sweep: cells {cells}")
+    print(f"bench --batch_sweep ({card}): " + ", ".join(
+        f"batch {b} bf16 {c['samples_per_sec_per_chip']} samples/s, "
+        f"{c['median_ms_per_step']} ms/step, MFU {c['mfu']}"
+        for b, c in cells.items()) + f"; headline {rec['value']} "
+        f"{rec['unit']}", flush=True)
+
+    summary = run_bench(["--model", "vgg", *STREAM_ATTR_RUN])
+    _bench_mode_launches(summary, "--stream_attr", launches)
+    rec = _mode_record(summary, "--stream_attr", {
+        "metric", "value", "unit", "vs_baseline", "attribution_ms_per_step",
+        "phase_ms", "prefetch", "window_epoch_s"} | port)
+    attr = rec["attribution_ms_per_step"]
+    stages = ("host_augment_ms", "h2d_ms", "device_step_ms")
+    check(set(attr) == set(stages) | {
+        "streaming_wall_ms", "bottleneck", "pipeline_floor_ms",
+        "dispatch_gap_ms", "overlap_efficiency"}
+          and attr["bottleneck"] in stages
+          and 0 < attr["overlap_efficiency"] <= 1
+          and set(rec["phase_ms"]) == {"data_wait", "dispatch", "h2d",
+                                       "host_augment", "loss_flush"}
+          and rec["prefetch"]["batches"] == 8 * 2,
+          f"bench --stream_attr: {json.dumps(rec)}")
+    print(f"bench --stream_attr ({card}): {json.dumps(attr)}, phase_ms "
+          f"{json.dumps(rec['phase_ms'])}, prefetch "
+          f"{json.dumps(rec['prefetch'])}", flush=True)
+
+    summary = run_bench(["--pipeline"])
+    rec = _mode_record(summary, "--pipeline", {
+        "metric", "value", "unit", "vs_baseline"} | port)
+    check(summary["launches"] == {"gather_batch": 0, "gather_batch_bf16": 0},
+          f"bench --pipeline launched {summary['launches']}")
+    print(f"bench --pipeline ({card}): {rec['value']} {rec['unit']}",
+          flush=True)
+    print(f"bench-modes phase: {time.time() - t0:.1f} s, gather_batch "
+          f"launches {launches}", flush=True)
     return launches
 
 
@@ -4599,6 +4816,8 @@ def main() -> int:
     stamp("checkpoint and bf16 main path")
     bench = bench_phase(step_ms, card)
     stamp("bench phase")
+    bench_modes = bench_modes_phase(card)
+    stamp("bench-modes phase")
     runshape_launches = runshape_phase(step_ms, card)
     stamp("run-shape phase")
     ddp_launches, ddp = ddp_phase(out, card)
@@ -4656,6 +4875,7 @@ def main() -> int:
                  launches_stream_path=stream_launches,
                  launches_models_path=models["launches_f32"],
                  launches_bench_path=bench["float32"],
+                 launches_bench_modes_path=bench_modes["float32"],
                  launches_runshape_path=runshape_launches,
                  launches_resilience_path=survive_launches,
                  launches_storage_path=storage_launches,
@@ -4690,6 +4910,7 @@ def main() -> int:
                       launches_stream_path=stream_bf16_launches,
                       launches_models_path=models["launches_bf16"],
                       launches_bench_path=bench["bfloat16"],
+                      launches_bench_modes_path=bench_modes["bfloat16"],
                       stream_batch_cases=stream_cases[BF16],
                       launches_serve_path=serve_bf16["warm_launches"]
                       + serve_bf16["profiled_replay_launches"],

@@ -2,7 +2,7 @@
 measured spans joined against a cost model's predictions, phase by phase.
 
 A calibration record (the JSON ``bench.py --calibrate_cost`` writes; its
-producer in this package is ROADMAP A13b) predicts ms a step for each
+producer in this package is ROADMAP A13c) predicts ms a step for each
 audited program; the spill measures what ran.  Each traced phase with a
 program (``dispatch`` → the train step, ``eval`` → the eval step,
 ``drift_audit`` → the audit, ``forward`` → the serve forward) gets a

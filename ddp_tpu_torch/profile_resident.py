@@ -27,6 +27,7 @@ from torch.profiler import ProfilerActivity, profile, schedule
 from .data import TrainLoader, synthetic
 from .device import dtype_name, resolve_device, set_tf32
 from .models import NAMES as MODEL_NAMES, get_model
+from .ops.gather import gather_batch
 from .optim import SGDConfig, triangular_lr
 from .parallel import dist
 from .train.trainer import Trainer
@@ -54,6 +55,10 @@ GROUPS = (("nccl", "collectives (NCCL)"),
           ("gather", "indexing (crop/flip, labels)"),
           ("elementwise", "elementwise (BN, ReLU, SGD)"),
           ("vectorized", "elementwise (BN, ReLU, SGD)"))
+# The host's idle between the measured window's start and its first
+# launch: the profiler keeps only device records stamped after the
+# window's start, and a record near it can be lost (ROADMAP C3).
+LEAD_IN_S = 0.1
 
 
 def device_events(prof) -> dict:
@@ -79,6 +84,29 @@ def kernel_launches(events: dict) -> int:
     """The kernel launches among :func:`device_events`' entries."""
     return sum(n for name, (_, n) in events.items()
                if not name.startswith(("Memcpy", "Memset")))
+
+
+def clock_leads(prof, host_ns: int) -> dict:
+    """How the device records' clock stands to the host's, in µs: the
+    first kernel's start after ``host_ns`` (``time.time_ns()`` taken just
+    before its launch) and the least lead of a kernel's start over its
+    launch call's (``cudaLaunchKernel`` and the like, matched by
+    correlation id).  A negative lead is a device stamp behind the host
+    clock: the profiler drops such a record at a window's start."""
+    events = prof.profiler.kineto_results.events()
+    calls = {e.correlation_id(): e.start_ns() for e in events
+             if e.device_type() == torch.autograd.DeviceType.CPU
+             and "Launch" in e.name()}
+    kernels = [e for e in events
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not e.name().startswith(("Memcpy", "Memset"))]
+    leads = [k.start_ns() - calls[k.correlation_id()] for k in kernels
+             if k.correlation_id() in calls]
+    first = min((k.start_ns() for k in kernels), default=None)
+    return {"first_kernel_us": None if first is None
+            else (first - host_ns) / 1e3,
+            "launch_lead_us_min": min(leads) / 1e3 if leads else None,
+            "launches_matched": len(leads)}
 
 
 def _group(name: str) -> str:
@@ -140,21 +168,25 @@ def _profile(args: argparse.Namespace, device: torch.device) -> dict:
     w = args.warmup
     # The warm-up steps run in the profiler's own warm-up phase, traced and
     # dropped: a session can miss the device work at its start (ROADMAP C3),
-    # and the measured window then starts after it.
+    # and the measured window then starts LEAD_IN_S after it.
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1)) as prof:
         run(0, w)
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(LEAD_IN_S)
+        launched = gather_batch.launches
+        host_ns = time.time_ns()
         t0 = time.perf_counter()
         run(w, w + args.steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        launched = gather_batch.launches - launched
     kernels = device_events(prof)
     busy_ms = sum(ms for ms, _ in kernels.values())
     launches = kernel_launches(kernels)
-    # One gather_batch launch a step: fewer means the profiler missed the
-    # start of the session.
+    # One gather_batch launch a step (the wrapper's count): fewer in the
+    # profile means the profiler lost records (ROADMAP C3).
     gather_launches = sum(n for name, (_, n) in kernels.items()
                           if "gather_batch_kernel" in name)
     groups = {}
@@ -167,7 +199,7 @@ def _profile(args: argparse.Namespace, device: torch.device) -> dict:
           f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}, "
           f"{launches / args.steps:g} CUDA kernels launched per step, "
           f"gather_batch_kernel {gather_launches} times in {args.steps} "
-          f"steps")
+          f"steps ({launched} launched)")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g:32s} {ms / args.steps:9.3f} ms/step "
               f"{ms / busy_ms:6.1%}")
@@ -183,6 +215,8 @@ def _profile(args: argparse.Namespace, device: torch.device) -> dict:
                "idle_share": 1 - busy_ms / wall_ms,
                "kernels_per_step": launches / args.steps,
                "gather_batch_kernel_launches": gather_launches,
+               "gather_batch_launched": launched,
+               "clock": clock_leads(prof, host_ns),
                "groups_ms_per_step": {g: ms / args.steps
                                       for g, ms in groups.items()}}
     print(json.dumps(summary))

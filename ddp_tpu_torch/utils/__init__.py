@@ -1,2 +1,2 @@
 """Run utilities of the port (counterpart of ``ddp_tpu/utils/``): the
-metrics stream."""
+metrics stream and the streaming-gap attribution."""

@@ -91,10 +91,9 @@ def test_e2e_prints_its_line_with_phase_ms(capsys, resident):
     assert summary["steps"]["float32"] == 5 * 2  # 2 warm-up + 3 timed
 
 
-REFUSALS = [([flag] + ([] if flag in ("--serve", "--pipeline") else ["x"]),
-             item.split(":")[0]) for flag, item in bench.REFUSED.items()]
-REFUSALS += [(["--dispatch", "scan"], "no eager counterpart"),
-             (["--num_devices", "2"], "A13b")]
+REFUSALS = [([flag, "x"], item.split(":")[0])
+            for flag, item in bench.REFUSED.items()]
+REFUSALS += [(["--dispatch", "scan"], "no eager counterpart")]
 
 
 @pytest.mark.parametrize("argv,item", REFUSALS,

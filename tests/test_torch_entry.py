@@ -44,7 +44,8 @@ new = {"ddp_tpu_torch.multigpu", "ddp_tpu_torch.parallel",
        "ddp_tpu_torch.chaos_campaign", "ddp_tpu_torch.obs.export",
        "ddp_tpu_torch.obs.ledger", "ddp_tpu_torch.obs.inspect",
        "ddp_tpu_torch.obs.__main__", "ddp_tpu_torch.serve.router",
-       "ddp_tpu_torch.serve.fleet"}
+       "ddp_tpu_torch.serve.fleet", "ddp_tpu_torch.utils.profiling",
+       "ddp_tpu_torch.fleet_load", "ddp_tpu_torch.bench_trend"}
 assert new <= set(names), sorted(new - set(names))
 """
 
