@@ -218,15 +218,27 @@
    a strict load.  Then each model's step under the profiler, one process
    after the other (``profile_resident --model``: kernels a step, one
    ``gather_batch_kernel`` a step, as many as the wrapper launched, the
-   device clock's lead over the host's), and after them, four processes at
-   once, ``singlegpu`` and world-1 ``multigpu`` of each model under
-   deterministic mode (``repeat_check``), bit for bit; and each model's
-   world-2 drill over gloo on the card and on the CPU (``MODEL_DRILLS``, sync-BN and the
-   sharded update), after ``drill.margins`` shows every ReLU and max-pool
-   decision at least 1e-6 from flipping: each card rank within
-   ``PARITY_TOL`` of the drill's float64 epoch
-   (``tests/torch_float64.py::float64_drill``), the CPU's distance from it
-   printed beside.
+   device clock's lead over the host's); and each model's world-2 drill
+   over gloo on the card (``MODEL_DRILLS``, sync-BN and the sharded
+   update), after ``drill.margins`` shows every ReLU and max-pool decision
+   at least 1e-6 from flipping: each card rank within ``PARITY_TOL`` of
+   the drill's float64 epoch (``tests/torch_float64.py::float64_drill``).
+   Tensor-parallel phase (``tp_phase``): DeepNN's plan table at m = 2;
+   ``multigpu --mesh_shape 1,1`` in this process against the models
+   phase's plain DeepNN run on the same arguments (the largest difference
+   printed, within ``PARITY_TOL``: cuDNN is not in deterministic mode
+   here); then two gloo ranks on this card at mesh (1, 2)
+   (``drill.py``'s ``mesh_shape``), DeepNN at full width, batch 512,
+   resident, 2,048 images (4 steps) and one eval batch, saved with
+   ``--ckpt_format sharded``: the gathered weights, momentum and losses
+   within ``PARITY_TOL`` of the world-1 drill from the same start run in
+   this process (or of the drill's float64 epoch, computed on the card,
+   where ``drill.margins`` finds a ReLU or max-pool decision within 1e-6
+   of flipping), the model-axis all-reduces ``expected_collectives``'
+   3 + 2 a step and 3 an eval batch, 5 ``gather_batch`` launches a rank,
+   and the 2-slot file restored in this process onto world 1 bit for bit
+   equal to the gathered state.  Its ms a step is gloo's host staging on
+   one card, not NVLink.
 9. Serving phase: ``ServeEngine.from_checkpoint`` on that epoch-0 file at
    full width with buckets 1, 8, 32 and 128; ``warm()`` must capture exactly
    4 CUDA graphs (the ``gather_batch`` wrapper runs once eagerly and once at
@@ -319,6 +331,8 @@
     on the storage path: its VGG-11 children that complete (one launch a
     train step and an eval batch each),
     and on the models path: the models phase's runs, serving and drills,
+    on the tensor-parallel path: the ``--mesh_shape 1,1`` run, both card
+    ranks of the mesh (1, 2) drill and the world-1 drill beside it,
     on the bench
     path: the train steps the bench's processes ran in that form, and on
     the run-shape path: the split, uninterrupted and streamed runs, on
@@ -383,6 +397,9 @@ from ddp_tpu_torch.obs.registry import parse_exposition
 from ddp_tpu_torch.optim import SGDConfig, triangular_lr
 from ddp_tpu_torch.parallel import dist, drill
 from ddp_tpu_torch.parallel.dist import free_port
+from ddp_tpu_torch.parallel.tp.plan import (expected_collectives,
+                                            format_plan_table,
+                                            plan_for_model)
 from ddp_tpu_torch.profile_resident import (_group, device_events,
                                             kernel_launches)
 from ddp_tpu_torch.repeat_check import compare, run_entries
@@ -390,6 +407,7 @@ from ddp_tpu_torch.resilience import lineage
 from ddp_tpu_torch.resilience.faults import FAULT_ENV
 from ddp_tpu_torch.serve import (DynamicBatcher, QueueFull, ServeEngine,
                                  ServeFleet, ServeHTTPServer, percentiles)
+from ddp_tpu_torch.train import ckpt_shard
 from ddp_tpu_torch.train.checkpoint import (load_checkpoint, restore,
                                            save_checkpoint)
 from ddp_tpu_torch.train.epoch import make_train_epoch
@@ -888,15 +906,14 @@ def ddp_phase(out: dict, card: str) -> tuple:
           "differs from singlegpu's")
 
     # World 2 on the one card: gloo, the only backend that takes two ranks
-    # on one device, against the same ranks on the CPU.
+    # on one device, against the same ranks on the CPU (both at once).
     train, test = synthetic(n_train=40, n_test=24, seed=1)
     model = VGG(DDP_ARCH, generator=torch.Generator().manual_seed(0))
-    runs = {}
-    for device in ("cuda", "cpu"):
-        spec = drill.spec(DDP_ARCH, model.state_dict(), train, test,
-                          batch=8, lr=0.05, seed=0, augment=True,
-                          device=device, backend="gloo")
-        runs[device] = drill.run(spec, 2, same_device=True, timeout=300)
+    runs = concurrently({device: functools.partial(
+        drill.run, drill.spec(DDP_ARCH, model.state_dict(), train, test,
+                              batch=8, lr=0.05, seed=0, augment=True,
+                              device=device, backend="gloo"),
+        2, same_device=True, timeout=300) for device in ("cuda", "cpu")})
     worst = 0.0
     for got, want in zip(runs["cuda"], runs["cpu"]):
         check(got["backend"] == "gloo" and got["device"] == "cuda:0" and
@@ -1078,14 +1095,13 @@ def strategy_phase(ddp: dict, card: str) -> tuple:
                                seed=STRATEGY_DRILL_SEED, world=2, accum=2))
     check(margin >= KINK_MARGIN, f"the strategy world-2 epoch has a ReLU "
           f"input or a max-pool gap {margin:.3e} from flipping")
-    runs = {}
-    for device in ("cuda", "cpu"):
-        spec = drill.spec(DDP_ARCH, model.state_dict(), train, test,
-                          batch=8, lr=0.05, seed=STRATEGY_DRILL_SEED,
-                          augment=True,
-                          device=device, backend="gloo", grad_accum=2,
-                          sync_bn=True, shard_update=True)
-        runs[device] = drill.run(spec, 2, same_device=True, timeout=300)
+    runs = concurrently({device: functools.partial(
+        drill.run, drill.spec(DDP_ARCH, model.state_dict(), train, test,
+                              batch=8, lr=0.05, seed=STRATEGY_DRILL_SEED,
+                              augment=True, device=device, backend="gloo",
+                              grad_accum=2, sync_bn=True,
+                              shard_update=True),
+        2, same_device=True, timeout=300) for device in ("cuda", "cpu")})
     want, formula = model_collectives(model, 2, 3, sync_bn=True, zero=True,
                                       saves=1)
     worst = 0.0
@@ -1854,14 +1870,13 @@ def bf16_strategy_phase(composed: dict, margin: float, card: str) -> int:
     train, test = synthetic(n_train=40, n_test=24, seed=1)
     model = VGG(DDP_ARCH, generator=torch.Generator().manual_seed(0))
     start = {k: v.clone() for k, v in model.state_dict().items()}
-    runs = {}
-    for device in ("cuda", "cpu"):
-        spec = drill.spec(DDP_ARCH, model.state_dict(), train, test,
-                          batch=8, lr=0.05, seed=STRATEGY_DRILL_SEED,
-                          augment=True, device=device, backend="gloo",
-                          grad_accum=2, sync_bn=True, shard_update=True,
-                          compute_dtype="bfloat16")
-        runs[device] = drill.run(spec, 2, same_device=True, timeout=300)
+    runs = concurrently({device: functools.partial(
+        drill.run, drill.spec(DDP_ARCH, model.state_dict(), train, test,
+                              batch=8, lr=0.05, seed=STRATEGY_DRILL_SEED,
+                              augment=True, device=device, backend="gloo",
+                              grad_accum=2, sync_bn=True, shard_update=True,
+                              compute_dtype="bfloat16"),
+        2, same_device=True, timeout=300) for device in ("cuda", "cpu")})
     worst = {"loss": 0.0, "update": 0.0, "momentum": 0.0}
     for got, ref in zip(runs["cuda"], runs["cpu"]):
         check(got["device"] == "cuda:0" and got["steps"] == 2 and
@@ -2146,16 +2161,16 @@ def stream_phase(out: dict, out_bf16: dict, resident_det: dict, card: str,
               for k, v in det.items()), flush=True)
 
     # World 2 on the one card over gloo, each rank streaming its own
-    # host-augmented batches, against the same ranks on the CPU.
+    # host-augmented batches, against the same ranks on the CPU (both at
+    # once).
     train, test = synthetic(n_train=40, n_test=24, seed=1)
     model = VGG(DDP_ARCH, generator=torch.Generator().manual_seed(0))
-    runs = {}
-    for device in ("cuda", "cpu"):
-        spec = drill.spec(DDP_ARCH, model.state_dict(), train, test,
-                          batch=8, lr=0.05, seed=STREAM_DRILL_SEED,
-                          augment=True, device=device, backend="gloo",
-                          streaming=True)
-        runs[device] = drill.run(spec, 2, same_device=True, timeout=300)
+    runs = concurrently({device: functools.partial(
+        drill.run, drill.spec(DDP_ARCH, model.state_dict(), train, test,
+                              batch=8, lr=0.05, seed=STREAM_DRILL_SEED,
+                              augment=True, device=device, backend="gloo",
+                              streaming=True),
+        2, same_device=True, timeout=300) for device in ("cuda", "cpu")})
     worst = 0.0
     for got, want_rank in zip(runs["cuda"], runs["cpu"]):
         check(got["backend"] == "gloo" and got["device"] == "cuda:0" and
@@ -4184,7 +4199,11 @@ def model_phase(name: str, main: dict, main_bf16: dict, card: str,
             "launches_bf16": bf16["launches"]["gather_batch_bf16"]
             + serve_bf16["launches"],
             "f32_ms": statistics.median(f32["step_ms"]),
-            "bf16_ms": statistics.median(bf16["step_ms"])}
+            "bf16_ms": statistics.median(bf16["step_ms"]),
+            "f32_losses": list(f32["loss_history"]),
+            "f32_state": {k: v.detach().cpu().clone() for k, v in
+                          f32["state"].model.state_dict().items()},
+            "f32_collectives": dict(f32["collectives"])}
 
 
 def _profile_process(name: str, attempts: int = 3) -> dict:
@@ -4214,39 +4233,19 @@ def _profile_process(name: str, attempts: int = 3) -> dict:
 
 
 def models_processes(card: str) -> None:
-    """In processes of their own: each model's step under the profiler,
-    one after the other, for its kernels a step and one gather_batch_kernel
+    """In processes of their own, one after the other: each model's step
+    under the profiler, for its kernels a step and one gather_batch_kernel
     a step, as many as the wrapper launched, and the device clock's lead
-    over the host's (``clock_leads``); then ``singlegpu`` and world-1
-    ``multigpu`` of each model in deterministic mode on 10,240 images
-    (``repeat_check``'s ``run_entries``), four at once, each model's two
-    loss histories bit for bit.  The profiled processes run alone: beside
-    the four, and once beside each other, the profiler missed a
-    ``gather_batch_kernel`` launch (ROADMAP C3)."""
+    over the host's (``clock_leads``).  The profiled processes run alone:
+    beside other processes, and once beside each other, the profiler missed
+    a ``gather_batch_kernel`` launch (ROADMAP C3).  The world-1
+    ``multigpu`` against ``singlegpu`` pair in deterministic mode runs on
+    the card for VGG-11 only (the DDP phase); the models' entry points are
+    held on the CPU (``tests/test_torch_models_train.py``)."""
     t0 = time.time()
-    results, errors = {}, []
-
-    def one(name, entry):
-        try:
-            results[name, entry] = _profile_process(name) \
-                if entry == "profile" else run_entries(
-                    [entry], FLAG_ARGS + MODEL_ARGS[name],
-                    deterministic=True)[0]
-        except Exception as e:  # re-raised below, after every join
-            errors.append(e)
-
+    results = {name: _profile_process(name) for name in MODELS}
     for name in MODELS:
-        one(name, "profile")
-    threads = [threading.Thread(target=one, args=(n, e))
-               for n in MODELS for e in ("singlegpu", "multigpu")]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise errors[0]
-    for name in MODELS:
-        prof = results[name, "profile"]
+        prof = results[name]
         print(f"models, {name} under the profiler ({card}): device clock "
               f"against the host's {prof['clock']}", flush=True)
         check(prof["gather_batch_launched"] == 10
@@ -4257,21 +4256,16 @@ def models_processes(card: str) -> None:
         print(f"models, {name} under the profiler ({card}): "
               f"{prof['kernels_per_step']:g} CUDA kernels launched a step, "
               f"gather_batch_kernel 10 times in 10 steps", flush=True)
-        pair, = compare([results[name, "singlegpu"],
-                         results[name, "multigpu"]])
-        print(f"models, {name}: world-1 multigpu against singlegpu, "
-              f"deterministic mode ({card}): {pair}", flush=True)
-        check(pair["bit_equal"], f"{name}: under deterministic mode the "
-              f"world-1 history differs from singlegpu's")
     print(f"models processes: {time.time() - t0:.1f} s", flush=True)
 
 
 def models_drills(card: str) -> int:
-    """Each model's world-2 epoch of MODEL_DRILLS on the one card over gloo
-    and the same two ranks on the CPU, sync-BN and --shard_update composed
-    (margins checked first; the four drills at once), each rank held
-    against the drill's float64 epoch.  Returns the card ranks'
-    gather_batch launches."""
+    """Each model's world-2 epoch of MODEL_DRILLS on the one card over gloo,
+    sync-BN and --shard_update composed (margins checked first; the two
+    drills at once), each rank held against the drill's float64 epoch.
+    Returns the card ranks' gather_batch launches.  The same drills on the
+    CPU are not run here: ``tests/test_torch_models_train.py`` holds the
+    CPU's world-2 epoch against the float64 epoch."""
     f64 = _tests_module("torch_float64")
     specs, models, counts, refs = {}, {}, {}, {}
     for name in MODELS:
@@ -4299,12 +4293,11 @@ def models_drills(card: str) -> int:
               f"from the kink, smallest max-pool gap {gap:.3e}; steps, "
               f"micro-batches and eval batches a rank {counts[name]}",
               flush=True)
-        for device in ("cuda", "cpu"):
-            specs[name, device] = drill.spec(
-                name, models[name].state_dict(), train, test,
-                batch=cfg["batch"], lr=0.05, seed=cfg["seed"], augment=True,
-                device=device, backend="gloo", grad_accum=cfg["accum"],
-                sync_bn=True, shard_update=True)
+        specs[name] = drill.spec(
+            name, models[name].state_dict(), train, test,
+            batch=cfg["batch"], lr=0.05, seed=cfg["seed"], augment=True,
+            device="cuda", backend="gloo", grad_accum=cfg["accum"],
+            sync_bn=True, shard_update=True)
     runs, errors = {}, []
 
     def one(key):
@@ -4327,9 +4320,8 @@ def models_drills(card: str) -> int:
         steps, micro, evals = counts[name]
         want, formula = model_collectives(models[name], steps, micro,
                                           sync_bn=True, zero=True, saves=1)
-        far = {"cuda": (0.0, "", 0.0), "cpu": (0.0, "", 0.0)}
-        apart = 0.0
-        for got, cpu in zip(runs[name, "cuda"], runs[name, "cpu"]):
+        on_card = (0.0, "", 0.0)
+        for got in runs[name]:
             check(got["device"] == "cuda:0" and got["steps"] == steps and
                   got["collectives"] == want and
                   (got["train_launches"], got["eval_launches"]) ==
@@ -4339,28 +4331,18 @@ def models_drills(card: str) -> int:
                   f"{got['steps']} steps, collectives {got['collectives']} "
                   f"(expected {want}), launches {got['train_launches']} + "
                   f"{got['eval_launches']}")
-            for device, run in (("cuda", got), ("cpu", cpu)):
-                far[device] = max(far[device],
-                                  f64.drill_distance(run, refs[name]))
-            apart = max(apart, *(float((got["state_dict"][k] - v).abs()
-                                       .max())
-                                 for k, v in cpu["state_dict"].items()))
+            on_card = max(on_card, f64.drill_distance(got, refs[name]))
             launches += got["train_launches"] + got["eval_launches"]
-        on_card, on_cpu = far["cuda"], far["cpu"]
         check(on_card[0] <= PARITY_TOL, f"{name} world 2 on the card lies "
               f"{on_card[0]:.3e} from the float64 epoch (at {on_card[1]}, "
-              f"max |value| {on_card[2]:.3e}); the CPU {on_cpu[0]:.3e} (at "
-              f"{on_cpu[1]})")
+              f"max |value| {on_card[2]:.3e})")
         print(f"models, {name} world 2 on one card over gloo ({card}): "
               f"{steps} optimizer step(s), {micro} micro-batch(es) a rank, "
               f"sync-BN, sharded update; from the float64 epoch (losses, "
               f"weights, buffers, momentum; tolerance {PARITY_TOL:g}) the "
               f"card {on_card[0]:.3e} at {on_card[1]} (max |value| "
-              f"{on_card[2]:.3e}), the CPU {on_cpu[0]:.3e} at {on_cpu[1]} "
-              f"(max |value| {on_cpu[2]:.3e}); card from CPU (weights, "
-              f"buffers) {apart:.3e}; collectives a rank "
-              f"{runs[name, 'cuda'][0]['collectives']} = {formula}",
-              flush=True)
+              f"{on_card[2]:.3e}); collectives a rank "
+              f"{runs[name][0]['collectives']} = {formula}", flush=True)
     print(f"models drills: {time.time() - t0:.1f} s", flush=True)
     return launches
 
@@ -4381,6 +4363,162 @@ def models_phases(main: dict, main_bf16: dict, card: str) -> dict:
     out["launches_bf16"] = sum(out[n]["launches_bf16"] for n in MODELS)
     print(f"models phase: {time.time() - t0:.1f} s", flush=True)
     return out
+
+
+TP_DRILL = {"n_train": 2048, "n_test": 512, "batch": 512, "data": 0,
+            "seed": 0, "lr": 0.05}
+
+
+def tp_phase(models: dict, card: str) -> int:
+    """The tensor-parallel path on the card (see the module docstring):
+    the plan table, ``--mesh_shape 1,1`` against the plain DeepNN run, and
+    the two-rank mesh (1, 2) over gloo on this card against the world-1
+    drill, with its 2-slot checkpoint.  Returns the ``gather_batch``
+    launches on this path."""
+    t0 = time.time()
+    plan = plan_for_model("deepnn", get_model("deepnn", device="meta"),
+                          model_size=2)
+    print(format_plan_table(plan), flush=True)
+    launches = tp_mesh11(models, card) + tp_drill(plan, card)
+    print(f"tp phase: {time.time() - t0:.1f} s", flush=True)
+    return launches
+
+
+def tp_mesh11(models: dict, card: str) -> int:
+    """``--mesh_shape 1,1`` against the models phase's plain DeepNN run on
+    the same arguments.  Returns its ``gather_batch`` launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh11 = model_run(MAIN_ARGS + MODEL_ARGS["deepnn"] +
+                           ["--mesh_shape", "1,1"],
+                           os.path.join(tmp, "m11.pt"))
+    plain = models["deepnn"]
+    n = MAIN_TRAIN_STEPS + MAIN_EVAL_STEPS
+    check(mesh11["mesh_shape"] == [1, 1] and
+          mesh11["launches"] == _launches(n) and
+          mesh11["collectives"] == plain["f32_collectives"] and
+          mesh11["model_axis_collectives"] == {"psum_model_fwd": 0,
+                                               "psum_model_bwd": 0},
+          f"--mesh_shape 1,1: mesh {mesh11['mesh_shape']}, launches "
+          f"{mesh11['launches']}, collectives {mesh11['collectives']} "
+          f"(plain {plain['f32_collectives']})")
+    live = mesh11["state"].model.state_dict()
+    d11 = max(max(abs(a - b) for a, b in zip(mesh11["loss_history"],
+                                             plain["f32_losses"])),
+              max(float((live[k].cpu() - v).abs().max())
+                  for k, v in plain["f32_state"].items()))
+    check(d11 <= PARITY_TOL, f"--mesh_shape 1,1 lies {d11:.3e} from the "
+          f"plain DeepNN run")
+    print(f"tp, --mesh_shape 1,1 ({card}): the data-parallel path, "
+          f"{d11:.3e} from the plain DeepNN run on the same arguments "
+          f"(losses and weights; cuDNN not in deterministic mode), "
+          f"{_step_line(mesh11, MAIN_TRAIN_STEPS)}", flush=True)
+    return mesh11["launches"]["gather_batch"]
+
+
+def tp_drill(plan, card: str, device: str = "cuda",
+             cfg: dict = TP_DRILL) -> int:
+    """Two gloo ranks on this card at mesh (1, 2) against the world-1
+    drill (or the float64 one), their model-axis all-reduces and launches,
+    and their 2-slot checkpoint restored onto world 1 (``device`` "cpu"
+    and a smaller ``cfg`` rehearse it on the CPU).  Returns the
+    ``gather_batch`` launches."""
+    train, test = synthetic(n_train=cfg["n_train"], n_test=cfg["n_test"],
+                            seed=cfg["data"])
+    model = get_model("deepnn", generator=torch.Generator().manual_seed(0))
+    steps = cfg["n_train"] // cfg["batch"]
+    evals = cfg["n_test"] // cfg["batch"]
+    f64 = _tests_module("torch_float64")
+    kink, gap = drill.margins(model, train, batch=cfg["batch"],
+                              seed=cfg["seed"], world=1, accum=1,
+                              device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        save = os.path.join(tmp, "tp.pt")
+        common = dict(batch=cfg["batch"], lr=cfg["lr"], seed=cfg["seed"],
+                      augment=True, device=device)
+        launches = gather_batch.launches
+        ranks = drill.run(drill.spec(
+            "deepnn", model.state_dict(), train, test, backend="gloo",
+            mesh_shape=(1, 2), save_path=save, ckpt_format="sharded",
+            **common), 2, same_device=True, timeout=300)
+        # The world-1 drill from the same start, in this process (no
+        # rendezvous: world 1 without a process group).
+        spec_path = os.path.join(tmp, "w1.pt")
+        torch.save(drill.spec("deepnn", model.state_dict(), train, test,
+                              **common), spec_path)
+        threads = torch.get_num_threads()
+        drill.rank_main(spec_path, tmp)
+        torch.set_num_threads(threads)
+        ref = torch.load(os.path.join(tmp, "rank0.pt"), weights_only=True)
+        launches = gather_batch.launches - launches
+        names = [k for k, _ in model.named_parameters()]
+        sd = interop.gather_state(plan, [r["state_dict"] for r in ranks])
+        mom = interop.gather_state(plan, [dict(zip(names, r["momentum"]))
+                                          for r in ranks])
+        got = {"losses": ranks[0]["losses"], "state_dict": sd,
+               "momentum": [mom[k] for k in names]}
+        vs_w1 = f64.drill_distance(got, (
+            ref["losses"].double().numpy(),
+            {k: v.double() for k, v in ref["state_dict"].items()},
+            [m.double() for m in ref["momentum"]]))
+        held = "the world-1 drill"
+        dist_held = vs_w1
+        if min(kink, gap) < KINK_MARGIN:
+            held = f"the float64 drill (computed on {device})"
+            dist_held = f64.drill_distance(got, f64.float64_drill(
+                model.state_dict(), train, batch=cfg["batch"],
+                lr=cfg["lr"], seed=cfg["seed"], world=1, accum=1,
+                sync_bn=False, model="deepnn", device=device))
+        exp = expected_collectives(plan, backward=True)
+        for r in ranks:
+            check(r["device"].startswith(device) and r["steps"] == steps and
+                  r["mesh_shape"] == [1, 2] and
+                  (r["train_launches"], r["eval_launches"]) ==
+                  ((steps, evals) if device == "cuda" else (0, 0)) and
+                  r["collectives"]["psum_model_fwd"] ==
+                  exp["psum_model_fwd"] * steps + 3 * evals and
+                  r["collectives"]["psum_model_bwd"] ==
+                  exp["psum_model_bwd"] * steps and
+                  torch.equal(r["losses"], ranks[0]["losses"]),
+                  f"tp rank {r['rank']}: {r['device']}, {r['steps']} steps, "
+                  f"launches {r['train_launches']} + {r['eval_launches']}, "
+                  f"collectives {r['collectives']}")
+        check(dist_held[0] <= PARITY_TOL, f"mesh (1, 2) lies "
+              f"{dist_held[0]:.3e} from {held} (at {dist_held[1]}); the "
+              f"world-1 drill {vs_w1[0]:.3e}")
+        index = ckpt_shard.read_shard_index(save)
+        ck = load_checkpoint(save)
+        whole = get_model("deepnn", device=device)
+        momentum = [torch.zeros_like(p) for p in whole.parameters()]
+        restore(ck, whole, momentum)
+        check(index["n_slots"] == 2 and index["mesh_shape"] == [1, 2] and
+              ck.step == steps and
+              all(torch.equal(v.cpu(), sd[k])
+                  for k, v in whole.state_dict().items()) and
+              all(torch.equal(m.cpu(), mom[k])
+                  for k, m in zip(names, momentum)),
+              f"the 2-slot v2 file ({index['n_slots']} slots, mesh "
+              f"{index['mesh_shape']}, step {ck.step}) does not restore "
+              f"onto world 1 bit for bit equal to the gathered state")
+    tp_ms = max(r["train_s"] for r in ranks) * 1e3 / steps
+    print(f"tp, mesh (1, 2) over gloo on one card ({card}): DeepNN "
+          f"{sum(p.numel() for p in model.parameters())} parameters, "
+          f"{steps} steps of {cfg['batch']} and {evals} eval batch; "
+          f"nearest ReLU input "
+          f"{kink:.3e} from the kink, smallest max-pool gap {gap:.3e}; "
+          f"held to {held}: {dist_held[0]:.3e} at {dist_held[1]} (the "
+          f"world-1 drill {vs_w1[0]:.3e} at {vs_w1[1]}; tolerance "
+          f"{PARITY_TOL:g}); model-axis all-reduces a rank "
+          f"{ranks[0]['collectives']['psum_model_fwd']} forward + "
+          f"{ranks[0]['collectives']['psum_model_bwd']} backward = "
+          f"{exp['psum_model_fwd']}+{exp['psum_model_bwd']} a step and 3 "
+          f"an eval batch; gather_batch {steps} + {evals} a rank; the "
+          f"2-slot v2 file restores onto world 1 bit for bit", flush=True)
+    print(f"tp, mesh (1, 2) ({card}): {tp_ms:.1f} ms/step, the world-1 "
+          f"drill {ref['train_s'] * 1e3 / steps:.1f} ms/step (gloo's host "
+          f"staging of the model-axis all-reduces on one card, not "
+          f"NVLink)", flush=True)
+    return launches + sum(r["train_launches"] + r["eval_launches"]
+                          for r in ranks)
 
 
 BENCH_RUNS = (("vgg", ["--steps", "10", "--repeats", "3", "--warmup", "5"]),
@@ -4842,6 +4980,8 @@ def main() -> int:
     stamp("obs phase")
     models = models_phases(out, out_bf16, card)
     stamp("models phases")
+    tp_launches = tp_phase(models, card)
+    stamp("tensor-parallel phase")
     serve = serve_phase(snapshot)
     print(f"serve: {json.dumps(serve)}", flush=True)
     serve_bf16 = bf16_serve_phase(snapshot_bf16, serve)
@@ -4874,6 +5014,7 @@ def main() -> int:
                  launches_strategy_path=strategy_launches,
                  launches_stream_path=stream_launches,
                  launches_models_path=models["launches_f32"],
+                 launches_tp_path=tp_launches,
                  launches_bench_path=bench["float32"],
                  launches_bench_modes_path=bench_modes["float32"],
                  launches_runshape_path=runshape_launches,

@@ -163,10 +163,10 @@ from .utils.profiling import attribute_streaming
 # ROADMAP item that ports each.
 REFUSED = {
     "--calibrate_cost": "A13c", "--mem_ledger": "A13c",
-    "--tp_sweep": "A10/A11", "--pp_sweep": "A10/A11",
-    "--mesh_shape": "A10/A11", "--auto_plan": "A10/A11",
-    "--autoplan_bench": "A10/A11", "--generate": "A12",
-    "--ckpt_bench": "A10",
+    "--tp_sweep": "A10b", "--pp_sweep": "A11",
+    "--mesh_shape": "A10b", "--auto_plan": "A13c",
+    "--autoplan_bench": "A13c", "--generate": "A12",
+    "--ckpt_bench": "A10b",
     "--dump_hlo": "none: an eager program has no compiled program to dump",
 }
 BATCH_SWEEP_FLAVORS = ("fp32_step", "bf16_step")

@@ -35,7 +35,10 @@ Every child runs in deterministic mode, so that bit parity means something
 on a card: ``python -m ddp_tpu_torch.repeat_check --child singlegpu
 --deterministic -- <arguments>``, where the supervisor's appended
 ``--resume`` lands among the training arguments.  The configs are the JAX
-campaign's in the port's form (the port has no ``--mesh_shape``): DeepNN at
+campaign's in the port's form: the JAX campaign runs A and B at
+``--mesh_shape 8,1`` over eight virtual CPU devices, and a ``(D, 1)`` mesh
+is the port's data-parallel run of D ranks, so A and B run here without
+``--mesh_shape`` at world 1 (one card holds one NCCL rank).  DeepNN at
 lr 0.05, seed 3; A is 64 images in batches of 32 (2 steps an epoch, 3
 epochs) at world 1; B is 320 images (10 steps an epoch) with
 ``save_every`` 2, so the guard has its 8-step history before the poisoned

@@ -19,7 +19,7 @@
         [--drift_audit_every K] [--drift_action abort|restore] \\
         [--watchdog_secs S] [--ckpt_format gathered|sharded] \\
         [--mirror URI] [--trace_spill PATH | --obs_off] \\
-        [--inspect_port PORT] [--profile_dir DIR]
+        [--inspect_port PORT] [--profile_dir DIR] [--mesh_shape D,M]
     python -m ddp_tpu_torch.multigpu <same arguments> [--spawn N]
 
 ``--model`` trains VGG-11 (the default, the reference's model), DeepNN (the
@@ -48,7 +48,22 @@ one ``gather_batch`` launch.
 size and must agree), or on ``cuda`` one per visible card (the reference's
 ``mp.spawn`` over ``torch.cuda.device_count()``, multigpu.py:262-263), and
 returns the largest exit code of its ranks.  ``--batch_size`` is the
-per-rank batch.  The strategy flags have the JAX CLI's meaning
+per-rank batch (per data shard under ``--mesh_shape``).
+
+``--mesh_shape D,M`` (also ``DxM``; ``ddp_tpu/cli.py:87-122, 626-735``)
+lays the D×M ranks out as a (data, model) grid (``parallel/mesh.py``):
+the batch is split over the data axis and replicated over the model axis,
+the parameters are sharded by the model's ``TP_RECIPE``
+(``parallel/tp/``; rank 0 prints the plan table at start-up, ``python -m
+ddp_tpu_torch.parallel.tp`` prints it offline), and every collective
+reduces over one axis.  ``--spawn``/``--num_devices`` must equal D×M; a
+malformed shape, a contradicting ``--num_devices``, an infeasible plan and
+a model without a recipe at M > 1 are refused in the JAX CLI's words, and
+``--auto_plan`` (the auto-plan search, ROADMAP A13c) is refused by name.
+At M = 1 the run is the data-parallel one.  Checkpoints stay canonical:
+``--ckpt_format gathered`` joins the slices over the model group and rank
+0 writes one file, ``sharded`` writes one shard file a model slot, and
+``--resume`` restores either, from any mesh, onto this one.  The strategy flags have the JAX CLI's meaning
 (``ddp_tpu/cli.py:215-227``) and compose with each other and with
 ``--resume``: ``--grad_accum A`` takes
 one optimizer step per A micro-batches (the LR schedule counts optimizer
@@ -146,6 +161,7 @@ import time
 import traceback
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from . import interop
@@ -164,6 +180,8 @@ from .ops.conv_candidates import conv3x3_fused
 from .ops.gather import gather_batch, gather_rows
 from .optim import SGDConfig, triangular_lr
 from .parallel import dist
+from .parallel.mesh import Mesh
+from .parallel.tp.plan import format_plan_table, plan_for_model
 from .resilience.drift import DriftDetectedError
 from .resilience.faults import install_env_faults
 from .resilience.guard import LossSpikeError, NonFiniteLossError
@@ -263,6 +281,20 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    help="World size: multigpu's rank count (the same as "
                         "--spawn, which must agree); singlegpu takes only "
                         "1")
+    p.add_argument("--mesh_shape", default=None, metavar="D,M",
+                   help="2-D (data x model) rank grid for tensor-model "
+                        "parallelism (parallel/tp/): D-way data parallel "
+                        "x M-way model parallel over D*M ranks, params "
+                        "sharded per the model's TP_RECIPE (plan table "
+                        "printed at startup; python -m "
+                        "ddp_tpu_torch.parallel.tp shows it offline).  "
+                        "Batches split over the data axis only; "
+                        "checkpoints stay canonical, so snapshots "
+                        "interchange with any other mesh shape.  Default: "
+                        "data parallel over every rank")
+    p.add_argument("--auto_plan", default=None, metavar="PLAN.json",
+                   help="Refused: the auto-plan search's plans are not "
+                        "ported (ROADMAP A13c)")
     p.add_argument("--schedule_epochs", default=None, type=int,
                    help="Pin the LR triangle's epoch span (the reference "
                         "hardcodes 20, multigpu.py:136; default: "
@@ -446,11 +478,61 @@ def load_torch_init(model: torch.nn.Module, path: str) -> None:
     model.load_state_dict(interop.from_reference(model.name, sd))
 
 
-def export_torch(model: torch.nn.Module, path: str) -> None:
-    """``--export_torch``: ``model`` as the reference's torch ``state_dict``
-    file (``ddp_tpu/cli.py:482-507``)."""
-    torch.save(interop.to_reference(model.name, model.state_dict()), path)
+def export_torch(model: torch.nn.Module, path: str,
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> None:
+    """``--export_torch``: ``model`` (or its whole ``state_dict``, gathered
+    from a tensor-parallel run's slices) as the reference's torch
+    ``state_dict`` file (``ddp_tpu/cli.py:482-507``)."""
+    torch.save(interop.to_reference(
+        model.name, model.state_dict() if state_dict is None
+        else state_dict), path)
     print(f"Torch state_dict exported to {path}")
+
+
+def _parse_mesh_shape(text: str) -> tuple:
+    """``--mesh_shape`` 'D,M' / 'D,M,S' (or x-separated) as an int tuple
+    (``ddp_tpu/cli.py::_parse_mesh_shape``'s words).  A stage axis above 1
+    is pipeline parallelism, not ported (ROADMAP A11)."""
+    try:
+        dims = tuple(int(x) for x in str(text).replace("x", ",").split(","))
+    except ValueError:
+        dims = ()
+    if len(dims) not in (2, 3) or any(v < 1 for v in dims):
+        raise SystemExit(
+            f"--mesh_shape wants 'D,M' or 'D,M,S' — positive ints, in "
+            f"(data, model, pipeline stage) order, e.g. 2,4 or 2,1,2 — "
+            f"got {text!r}")
+    if len(dims) == 3 and dims[2] > 1:
+        raise SystemExit(
+            f"--mesh_shape {text}: a pipeline stage axis of {dims[2]} needs "
+            f"pipeline parallelism, which the port does not have yet "
+            f"(ROADMAP A11); use D,M")
+    return dims[:2]
+
+
+def mesh_dims(args: argparse.Namespace) -> Optional[tuple]:
+    """``(D, M)`` of ``--mesh_shape``, or None."""
+    return _parse_mesh_shape(args.mesh_shape) if args.mesh_shape else None
+
+
+def tp_plan(args: argparse.Namespace, model=None):
+    """The run's tensor-parallel plan: None without ``--mesh_shape``, and at
+    M = 1 for a model that declares no recipe (the data-parallel run); else
+    ``plan_for_model`` at M against ``model`` (a meta model of
+    ``--model`` when None).  An infeasible plan, or a model without a
+    recipe at M > 1, is refused in the JAX package's words."""
+    dims = mesh_dims(args)
+    if dims is None:
+        return None
+    if model is None:
+        model = get_model(args.model, device="meta")
+    try:
+        return plan_for_model(args.model, model, model_size=dims[1])
+    except ValueError as e:
+        if dims[1] == 1 and "declares no TP_RECIPE" in str(e):
+            return None
+        raise SystemExit(str(e)) from None
 
 
 def _check_args(args: argparse.Namespace) -> None:
@@ -468,6 +550,20 @@ def _check_args(args: argparse.Namespace) -> None:
     if args.keep_checkpoints < 1:
         raise SystemExit(f"--keep_checkpoints must be at least 1, not "
                          f"{args.keep_checkpoints}")
+    if args.auto_plan:
+        raise SystemExit(
+            "--auto_plan: the auto-plan search's plan documents are not "
+            "ported (ROADMAP A13c, with the analysis passes); pass "
+            "--mesh_shape D,M for the model's TP_RECIPE")
+    dims = mesh_dims(args)
+    if dims is not None:
+        n_mesh = dims[0] * dims[1]
+        if args.num_devices and args.num_devices != n_mesh:
+            raise SystemExit(
+                f"--num_devices {args.num_devices} contradicts "
+                f"--mesh_shape {','.join(map(str, dims))} (= {n_mesh} "
+                "devices); drop one")
+        tp_plan(args)
     if args.tensorboard_dir:
         # Every rank refuses, before any of them joins a collective.
         require_tensorboard()
@@ -498,6 +594,14 @@ def run(args: argparse.Namespace, *, data_parallel: bool = False,
             raise SystemExit(
                 f"--num_devices {args.num_devices} contradicts this run's "
                 f"world of {dist.world_size()}")
+        dims = mesh_dims(args)
+        if dims is not None:
+            if dims[0] * dims[1] != dist.world_size():
+                raise SystemExit(
+                    f"--mesh_shape {dims[0]},{dims[1]} needs "
+                    f"{dims[0] * dims[1]} ranks; this run's world is "
+                    f"{dist.world_size()}")
+            dist.init_mesh(Mesh(dims, dist.rank()))
         return _train_and_evaluate(args, device)
     except PreemptionInterrupt as e:
         # Every rank stopped at the same boundary with the checkpoint on
@@ -521,6 +625,7 @@ def run(args: argparse.Namespace, *, data_parallel: bool = False,
             _hard_exit(1)
         raise
     finally:
+        dist.clear_mesh()
         if data_parallel:
             dist.shutdown()
 
@@ -550,7 +655,7 @@ def _train_and_evaluate(args: argparse.Namespace,
 def _train(args: argparse.Namespace, device: torch.device,
            metrics: MetricsLogger,
            preemption: Optional[PreemptionGuard]) -> Dict:
-    rank, world = dist.rank(), dist.world_size()
+    rank, replicas = dist.rank(), dist.data_size()
     set_tf32(False)
     compute_dtype = torch.bfloat16 if args.bf16 else None
     if args.synthetic:
@@ -565,10 +670,13 @@ def _train(args: argparse.Namespace, device: torch.device,
     model = get_model(args.model, device=device, generator=generator)
     if args.init_from_torch:
         load_torch_init(model, args.init_from_torch)
+    plan = tp_plan(args, model)
+    if plan is not None and rank == 0:
+        print(format_plan_table(plan), flush=True)
     device_augment = args.device_augment or args.resident
-    train_loader = TrainLoader(train_ds, args.batch_size, world,
+    train_loader = TrainLoader(train_ds, args.batch_size, replicas,
                                seed=args.seed, augment=not device_augment,
-                               local_replicas=[rank])
+                               local_replicas=[dist.data_rank()])
     # The span tracer, process-wide for the run (evaluate() and the
     # checkpoint writer read the process tracer), and the null one again
     # after it: a caller that runs again in this process must not inherit
@@ -578,7 +686,7 @@ def _train(args: argparse.Namespace, device: torch.device,
     try:
         return _train_traced(args, device, metrics, preemption, tracer,
                              model, train_loader, test_ds, compute_dtype,
-                             device_augment)
+                             device_augment, plan)
     finally:
         set_tracer(None)
         tracer.close()
@@ -617,7 +725,7 @@ def _train_traced(args: argparse.Namespace, device: torch.device,
                   preemption: Optional[PreemptionGuard], tracer,
                   model: torch.nn.Module, train_loader: TrainLoader,
                   test_ds, compute_dtype: Optional[torch.dtype],
-                  device_augment: bool) -> Dict:
+                  device_augment: bool, plan=None) -> Dict:
     rank, world = dist.rank(), dist.world_size()
     # What crops and flips on the host: the C++ library (built here, before
     # the clock starts) or numpy; None where the card does it.
@@ -642,7 +750,8 @@ def _train_traced(args: argparse.Namespace, device: torch.device,
         # on every rank; the window spans at least the cadence.
         live = LiveStats(
             metrics,
-            global_batch=args.batch_size * world * args.grad_accum,
+            global_batch=(args.batch_size * dist.data_size()
+                          * args.grad_accum),
             n_chips=world, log_every=args.log_every,
             window=max(100, args.log_every), model=args.model,
             device_kind=device_kind(device),
@@ -771,7 +880,8 @@ def _train_traced(args: argparse.Namespace, device: torch.device,
         drift_action=args.drift_action, guard_window=args.guard_window,
         guard_spike_factor=args.guard_spike_factor,
         guard_action=args.guard_action, ckpt_format=args.ckpt_format,
-        mirror=args.mirror, registry=registry, step_probe=step_probe)
+        mirror=args.mirror, registry=registry, step_probe=step_probe,
+        tp_plan=plan)
     trainer_ref.append(trainer)
     install_env_faults(trainer)  # the drills' faults; nothing unless set
     # The inspect server binds only for --inspect_port, after the trainer,
@@ -818,17 +928,18 @@ def _run_training(args: argparse.Namespace, device: torch.device,
                   prefetch: PrefetchStats,
                   registry: MetricsRegistry) -> Dict:
     rank, world = dist.rank(), dist.world_size()
-    eval_loader = EvalLoader(test_ds, args.batch_size, world,
-                             local_replicas=[rank])
+    eval_loader = EvalLoader(test_ds, args.batch_size, dist.data_size(),
+                             local_replicas=[dist.data_rank()])
     resident_test: List[ResidentData] = []  # uploaded at most once
+    tp = trainer._tp
 
     def _eval() -> float:
         if not args.resident:
-            return evaluate(model, eval_loader, compute_dtype)
+            return evaluate(model, eval_loader, compute_dtype, tp)
         if not resident_test:
             resident_test.append(ResidentData(test_ds, device))
         return evaluate_resident(model, resident_test[0], eval_loader,
-                                 compute_dtype)
+                                 compute_dtype, tp)
 
     eval_history: List[List] = []  # [epoch, accuracy] of --eval_every
 
@@ -875,11 +986,18 @@ def _run_training(args: argparse.Namespace, device: torch.device,
         torch.cuda.synchronize(device)
     training_seconds = time.time() - start
     n_params = sum(p.numel() for p in model.parameters())
+    whole = None
+    if tp is not None:
+        # The whole model: its size, and the file --export_torch writes
+        # (a gather over the model group, on every rank).
+        n_params = sum(int(np.prod(r[2])) for r in trainer.tp_plan.rows)
+        if args.export_torch:
+            whole = trainer.full_state()[0]
     if rank == 0:
         print(f"Total training time: {training_seconds:.2f} seconds")
         print(f"fp32 model has size={n_params * 32 / MiB:.2f} MiB")
         if args.export_torch:
-            export_torch(model, args.export_torch)
+            export_torch(model, args.export_torch, whole)
 
     start = time.time()
     # The weights after the last epoch were evaluated already when
@@ -910,6 +1028,11 @@ def _run_training(args: argparse.Namespace, device: torch.device,
            "metrics_path": args.metrics_path, "log_every": args.log_every,
            "restores": trainer.restores, "data_state": trainer.data_state(),
            "ckpt_format": args.ckpt_format,
+           "mesh_shape": (list(mesh_dims(args)) if args.mesh_shape
+                          else None),
+           "model_axis_collectives": {
+               k: dist.collective_calls[k]
+               for k in ("psum_model_fwd", "psum_model_bwd")},
            "checkpoint_saves": list(trainer.saves),
            "mirror": _mirror_summary(trainer, registry)}
     if rank == 0:
@@ -975,6 +1098,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.num_devices not in (None, 1):
         raise SystemExit(f"singlegpu runs on one device; --num_devices "
                          f"{args.num_devices} belongs to multigpu")
+    dims = mesh_dims(args)
+    if dims is not None and dims[0] * dims[1] != 1:
+        raise SystemExit(f"singlegpu runs one process; --mesh_shape "
+                         f"{args.mesh_shape} belongs to multigpu")
     return run(args)
 
 
@@ -995,8 +1122,17 @@ def main_multi(argv: Optional[List[str]] = None, *,
             raise SystemExit(f"--num_devices {args.num_devices} contradicts "
                              f"--spawn {args.spawn}; both give the world "
                              f"size, drop one")
-        n = args.num_devices or args.spawn or (
-            torch.cuda.device_count() if device.type == "cuda" else 0)
+        dims = mesh_dims(args)
+        n_mesh = dims[0] * dims[1] if dims is not None else 0
+        if n_mesh and args.spawn and args.spawn != n_mesh:
+            raise SystemExit(f"--spawn {args.spawn} must equal D×M = "
+                             f"{n_mesh} of --mesh_shape {args.mesh_shape}")
+        # Without --spawn/--num_devices: the mesh's ranks (one per card,
+        # or on the CPU gloo ranks), else one rank per visible card.
+        cards = torch.cuda.device_count() if device.type == "cuda" else 0
+        default = (n_mesh if n_mesh > 1 or cards else 0) if n_mesh \
+            else cards
+        n = args.num_devices or args.spawn or default
         if device.type == "cuda" and n > torch.cuda.device_count():
             raise SystemExit(f"--num_devices {n} asks for more ranks than "
                              f"the {torch.cuda.device_count()} visible "

@@ -22,6 +22,15 @@ a list in ``model.parameters()`` order (:func:`momentum_tree_from_list`,
 The reference's own files (``--init_from_torch`` / ``--export_torch``) are
 the port's ``state_dict`` plus BatchNorm's ``num_batches_tracked`` counters
 (:func:`from_reference`, :func:`to_reference`).
+
+Under tensor parallelism (``parallel/tp/plan.py``) a rank holds one model
+slice of each sharded leaf: :func:`shard_state` cuts a whole ``state_dict``
+(or a momentum dict keyed alike) to model index k's slice by the plan's
+specs, which name the split dimension of the port's tensors;
+:func:`gather_state` joins the M slices again; :func:`rank_state_from_jax`
+takes a JAX tree straight to one rank's slice.  :func:`tree_dim` maps a
+dimension of a port tensor to the same dimension of the JAX package's
+layout, where the JAX package's specs and shard files name it.
 """
 from __future__ import annotations
 
@@ -155,6 +164,77 @@ def _from_tree(a: np.ndarray, layout: Optional[str]) -> np.ndarray:
         return a.T.reshape(out, h, w, c).transpose(0, 3, 1, 2).reshape(
             out, -1)
     return a
+
+
+# A port tensor's dimension -> the same dimension in ddp_tpu's layout.
+_TREE_DIMS = {"conv": (3, 2, 0, 1),            # OIHW -> HWIO
+              "linear": (1, 0), "flat_linear": (1, 0)}
+
+
+def tree_dim(layout: Optional[str], dim: int) -> int:
+    """Where dimension ``dim`` of a port tensor of ``layout`` lies in
+    ``ddp_tpu``'s layout of it (a flat linear's input axis is permuted
+    within itself, so its dimensions map as a linear's)."""
+    return _TREE_DIMS[layout][dim] if layout in _TREE_DIMS else dim
+
+
+def rule_of(name: str, port_key: str) -> Tuple[str, Rule]:
+    """Model ``name``'s tree path of the port key ``port_key`` and its
+    rule; ValueError for a key no rule matches."""
+    for port, _, rule in _rules(name):
+        m = port.match(port_key)
+        if m:
+            return rule.path.format(**m.groupdict()), rule
+    raise ValueError(f"{port_key!r} is not a {name} state_dict key")
+
+
+def split_dim(spec) -> Optional[int]:
+    """The dimension a spec (a tuple with an axis name on the split
+    dimension, None elsewhere) splits, or None for a replicated leaf."""
+    dims = [d for d, e in enumerate(spec) if e is not None]
+    return dims[0] if dims else None
+
+
+def shard_state(plan, state_dict: Dict[str, torch.Tensor],
+                model_index: int) -> Dict[str, torch.Tensor]:
+    """Model index ``model_index``'s slice of the whole ``state_dict`` (or a
+    momentum dict keyed by parameter name) under ``plan``: each leaf the
+    plan shards is cut to its ``model_index``-th of ``plan.model_size``
+    blocks along its spec's dimension, the rest is kept whole.  Copies."""
+    out = {}
+    for key, v in state_dict.items():
+        path, _ = rule_of(plan.model_name, key)
+        dim = split_dim(plan.param_specs.get(path, ()))
+        if dim is not None:
+            n = v.shape[dim] // plan.model_size
+            v = v.narrow(dim, model_index * n, n)
+        out[key] = v.detach().clone()
+    return out
+
+
+def gather_state(plan, slices: List[Dict[str, torch.Tensor]]
+                 ) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`shard_state`: model indices 0..M-1's slices
+    (``slices[k]``) joined into the whole ``state_dict``; a leaf the plan
+    replicates is taken from slice 0."""
+    out = {}
+    for key, v in slices[0].items():
+        path, _ = rule_of(plan.model_name, key)
+        dim = split_dim(plan.param_specs.get(path, ()))
+        out[key] = v.clone() if dim is None else \
+            torch.cat([s[key] for s in slices], dim=dim)
+    return out
+
+
+def rank_state_from_jax(plan, params: Dict[str, Any],
+                        batch_stats: Dict[str, Any], model_index: int
+                        ) -> Dict[str, torch.Tensor]:
+    """``ddp_tpu``'s ``(params, batch_stats)`` (numpy trees) -> the port
+    ``state_dict`` slice of model index ``model_index`` under ``plan``: the
+    start a test hands to a port rank where ``ddp_tpu`` takes the whole
+    tree on its mesh."""
+    return shard_state(plan, state_dict_from_jax(plan.model_name, params,
+                                                 batch_stats), model_index)
 
 
 def _leaves(tree: Dict[str, Any], prefix: str = ""):

@@ -122,7 +122,7 @@ def _sync_bn_stats(xf: torch.Tensor, mean_over_ranks
     mean_r((x - mean)²) / world``, over ``count = n * world`` elements.
     ``mean_over_ranks(t)`` is ``Σ_r t_r / world``; the second pass waits on
     the first's result."""
-    world = dist.world_size()
+    world = dist.data_size()
     n = float(xf.shape[0] * xf.shape[2] * xf.shape[3])
     mean = mean_over_ranks(xf.mean(dim=_REDUCE))
     d = xf - _ch(mean)
@@ -131,7 +131,7 @@ def _sync_bn_stats(xf: torch.Tensor, mean_over_ranks
 
 
 def _mean_over_ranks(t: torch.Tensor) -> torch.Tensor:
-    return dist.all_reduce_sum_(t) / dist.world_size()
+    return dist.all_reduce_sum_(t) / dist.data_size()
 
 
 class _MeanOverRanks(torch.autograd.Function):

@@ -30,6 +30,17 @@ phase medians a rank) takes the same group and counts as
 ``straggler_gather``.  The
 drift audit's two sums count as ``drift_audit``.  :func:`abort` is the
 teardown of the failure paths: it never blocks.
+
+Under ``--mesh_shape D,M`` (:func:`init_mesh`, ``parallel/mesh.py``) the
+data-parallel collectives above reduce over this rank's data group (its
+model column) only, and :func:`data_size`/:func:`data_rank` are the data
+axis's extent and this rank's data index, where they are the world and the
+rank without a mesh.  The tensor-parallel layers' all-reduces over the
+model group (``parallel/tp/layers.py``) count as ``psum_model_fwd`` (a
+row-parallel layer's partial sums) and ``psum_model_bwd`` (a
+column-parallel layer's input gradient), and the checkpoint's gather of the
+model-sharded state over that group as ``ckpt_gather_model``.  At ``M = 1``
+no group is made: the data group is the world and the run is the 1-D one.
 """
 from __future__ import annotations
 
@@ -61,6 +72,11 @@ collective_calls: collections.Counter = collections.Counter()
 # process group up.
 _vote_group = None
 _aborted = False
+# Under --mesh_shape: the grid, this rank's data group (None: the world)
+# and its model group (None: no tensor parallelism).
+_mesh = None
+_data_group = None
+_model_group = None
 
 
 def in_rendezvous() -> bool:
@@ -115,11 +131,66 @@ def backend() -> Optional[str]:
     return tdist.get_backend() if tdist.is_initialized() else None
 
 
+def init_mesh(mesh) -> None:
+    """Lay this run's ranks out as ``mesh`` (a
+    :class:`~ddp_tpu_torch.parallel.mesh.Mesh` of ``world_size()`` ranks
+    seen from this rank) and make its process groups.  At a model axis
+    above 1 every rank makes every data group (one for each model index)
+    and then every model group (one for each data index), in the same
+    order, the groups it is not in included: ``new_group`` is collective.
+    At a model axis of 1 no group is made."""
+    global _mesh, _data_group, _model_group
+    if mesh.size != world_size():
+        raise ValueError(f"mesh {mesh.dims[0]},{mesh.dims[1]} has "
+                         f"{mesh.size} ranks; this run's world is "
+                         f"{world_size()}")
+    _mesh, _data_group, _model_group = mesh, None, None
+    if mesh.dims[1] == 1 or not tdist.is_initialized():
+        return
+    for k in range(mesh.dims[1]):
+        g = tdist.new_group(mesh.data_ranks(k), timeout=TIMEOUT)
+        if k == mesh.model_index:
+            _data_group = g
+    for j in range(mesh.dims[0]):
+        g = tdist.new_group(mesh.model_ranks(j), timeout=TIMEOUT)
+        if j == mesh.data_index:
+            _model_group = g
+
+
+def mesh():
+    """The run's mesh (:func:`init_mesh`), or None."""
+    return _mesh
+
+
+def data_size() -> int:
+    """The data axis's extent: the number of batch shards (the world
+    without a mesh)."""
+    return _mesh.dims[0] if _mesh is not None else world_size()
+
+
+def data_rank() -> int:
+    """This rank's data index: the batch shard it trains on (the rank
+    without a mesh)."""
+    return _mesh.data_index if _mesh is not None else rank()
+
+
+def model_group():
+    """This rank's model group, or None when the model axis is 1."""
+    return _model_group
+
+
+def clear_mesh() -> None:
+    """Forget the mesh and its groups (the 1-D layout again)."""
+    global _mesh, _data_group, _model_group
+    _mesh = _data_group = _model_group = None
+
+
 def shutdown() -> None:
     """``destroy_process_group()`` (multigpu.py:250) if a group exists and
     :func:`abort` has not given it up."""
     global _vote_group
     _vote_group = None
+    clear_mesh()
     if tdist.is_initialized() and not _aborted:
         tdist.destroy_process_group()
 
@@ -170,8 +241,28 @@ def all_gather_rows(row: np.ndarray) -> List[np.ndarray]:
 
 
 def _all_reduce_sum(t: torch.Tensor, kind: str = "all_reduce") -> None:
-    tdist.all_reduce(t, op=tdist.ReduceOp.SUM)
+    tdist.all_reduce(t, op=tdist.ReduceOp.SUM, group=_data_group)
     collective_calls[kind] += 1
+
+
+def all_reduce_model_(t: torch.Tensor, group, kind: str) -> torch.Tensor:
+    """``t`` summed over the model ``group`` in place (one ``all_reduce``,
+    counted under ``kind``): the tensor-parallel layers' reduction."""
+    tdist.all_reduce(t, op=tdist.ReduceOp.SUM, group=group)
+    collective_calls[kind] += 1
+    return t
+
+
+def all_gather_model(flat: torch.Tensor) -> List[torch.Tensor]:
+    """Every rank's 1-D ``flat`` of this rank's model group, in model
+    order: one ``all_gather``, counted as ``ckpt_gather_model`` (the
+    gathered checkpoint's collective); ``[flat]`` without a model group."""
+    if _model_group is None:
+        return [flat]
+    out = [torch.empty_like(flat) for _ in range(_mesh.dims[1])]
+    tdist.all_gather(out, flat, group=_model_group)
+    collective_calls["ckpt_gather_model"] += 1
+    return out
 
 
 def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -213,7 +304,7 @@ def average_buffers(model: nn.Module) -> None:
         return
     flat = _flat(bufs)
     _all_reduce_sum(flat)
-    flat.div_(tdist.get_world_size())
+    flat.div_(data_size())
     torch._foreach_copy_(bufs, _views(flat, bufs))
 
 
@@ -222,12 +313,14 @@ def broadcast_state(model: nn.Module,
                     momentum: Sequence[torch.Tensor]) -> None:
     """Rank 0's weights, buffers and momentum on every rank, in place: one
     ``broadcast`` of one flat copy.  DDP makes the same broadcast when it
-    wraps a model; JAX's replicated state needs none."""
+    wraps a model; JAX's replicated state needs none.  Under a mesh each
+    data group takes its data-row-0 rank's (its model slice's)."""
     if not tdist.is_initialized():
         return
     tensors = list(model.parameters()) + _buffers(model) + list(momentum)
     flat = _flat(tensors)
-    tdist.broadcast(flat, src=0)
+    src = 0 if _mesh is None else _mesh.rank_of(0, _mesh.model_index)
+    tdist.broadcast(flat, src=src, group=_data_group)
     collective_calls["broadcast"] += 1
     torch._foreach_copy_(tensors, _views(flat, tensors))
 
@@ -251,12 +344,13 @@ def reduce_scatter_flat(flat: torch.Tensor) -> torch.Tensor:
     group (the JAX package's ``psum_scatter``, ``ddp_tpu/train/zero.py``)."""
     if not tdist.is_initialized():
         return flat
-    world = tdist.get_world_size()
+    world = data_size()
     if flat.dim() != 1 or flat.numel() % world:
         raise ValueError(f"reduce_scatter_flat: {tuple(flat.shape)} is not "
                          f"a flat buffer of a multiple of {world} elements")
     out = flat.new_empty(flat.numel() // world)
-    tdist.reduce_scatter_tensor(out, flat, op=tdist.ReduceOp.SUM)
+    tdist.reduce_scatter_tensor(out, flat, op=tdist.ReduceOp.SUM,
+                                group=_data_group)
     collective_calls["reduce_scatter"] += 1
     return out
 
@@ -267,8 +361,8 @@ def all_gather_flat(shard: torch.Tensor) -> torch.Tensor:
     ``shard`` itself without a group (``lax.all_gather(tiled=True)``)."""
     if not tdist.is_initialized():
         return shard
-    out = shard.new_empty(shard.numel() * tdist.get_world_size())
-    tdist.all_gather_into_tensor(out, shard)
+    out = shard.new_empty(shard.numel() * data_size())
+    tdist.all_gather_into_tensor(out, shard, group=_data_group)
     collective_calls["all_gather"] += 1
     return out
 

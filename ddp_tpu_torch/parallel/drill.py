@@ -11,13 +11,20 @@ results.  The spec (:func:`spec`) holds the model (a name of
 datasets, the per-rank batch, the learning rate and seed, whether to crop
 and flip, the device, an optional backend, the strategy
 flags (``grad_accum``, ``sync_bn``, ``shard_update``), the compute dtype
-(``compute_dtype``: ``"bfloat16"`` for ``--bf16``, ``""`` for float32) and
-the data path (``streaming``, with its ``prefetch_depth``).
+(``compute_dtype``: ``"bfloat16"`` for ``--bf16``, ``""`` for float32),
+the data path (``streaming``, with its ``prefetch_depth``), an optional
+``mesh_shape`` ``(D, M)`` (tensor parallelism: the ranks laid out as
+``parallel/mesh.py``'s grid, the model cut to each rank's slices by its
+``TP_RECIPE``, the loader, the draws and the dropout masks keyed on the
+data index; each rank's result holds its slices, which
+``interop.gather_state`` joins) and an optional ``save_path`` (after the
+epoch the state is saved there as the trainer saves it, in
+``ckpt_format``).
 :func:`margins` says how far a drill epoch's ReLU and max-pool decisions
 lie from flipping.
 
 Resident (the default): crop/flip draws come from numpy, keyed on ``(seed,
-rank, step)`` and, for micro-batch k > 0, ``k`` after them, and DeepNN's
+rank, step)`` (the data index under a mesh) and, for micro-batch k > 0, ``k`` after them, and DeepNN's
 dropout masks from a CPU generator keyed on ``(seed, rank, step, k)``
 (:func:`dropout_generator`; the mask is drawn on the CPU and copied), so a
 run on the card and a run on the CPU draw the same.  Each rank runs its columns of the
@@ -42,6 +49,7 @@ import math
 import os
 import sys
 import tempfile
+import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -55,12 +63,17 @@ from ..models import get_model
 from ..models.vgg import VGG
 from ..ops.gather import gather_batch, gather_batch_plain
 from ..optim import SGDConfig, triangular_lr
+from .. import interop
+from ..train import checkpoint as ckpt_lib
+from ..train.ckpt_shard import save_checkpoint_sharded, write_slot
 from ..train.epoch import make_eval_epoch, make_train_epoch
 from ..train.evaluate import eval_counts
 from ..train.step import _as_input, init_train_state
-from ..train.trainer import Trainer
+from ..train.trainer import Trainer, tp_full_state
 from ..train.zero import init_opt_shard, opt_shard_to_list
 from . import dist
+from .mesh import Mesh
+from .tp.plan import plan_for_model, shard_module_, wiring
 
 
 def spec(model: Union[str, Sequence[Union[int, str]]],
@@ -69,7 +82,10 @@ def spec(model: Union[str, Sequence[Union[int, str]]],
          augment: bool, device: str, backend: Optional[str] = None,
          grad_accum: int = 1, sync_bn: bool = False,
          shard_update: bool = False, compute_dtype: str = "",
-         streaming: bool = False, prefetch_depth: int = 2) -> Dict:
+         streaming: bool = False, prefetch_depth: int = 2,
+         mesh_shape: Optional[Sequence[int]] = None,
+         save_path: Optional[str] = None,
+         ckpt_format: str = "gathered") -> Dict:
     """The drill's input as a dict of tensors and plain values; ``model`` is
     a model name or a VGG architecture list."""
     named = isinstance(model, str)
@@ -85,7 +101,9 @@ def spec(model: Union[str, Sequence[Union[int, str]]],
             "device": device, "backend": backend or "",
             "grad_accum": grad_accum, "sync_bn": sync_bn,
             "shard_update": shard_update, "compute_dtype": compute_dtype,
-            "streaming": streaming, "prefetch_depth": prefetch_depth}
+            "streaming": streaming, "prefetch_depth": prefetch_depth,
+            "mesh_shape": list(mesh_shape) if mesh_shape else [],
+            "save_path": save_path or "", "ckpt_format": ckpt_format}
 
 
 def draws_np(seed: int, rank: int, step: int, n: int, micro: int = 0):
@@ -155,14 +173,15 @@ class Margins(torch.overrides.TorchFunctionMode):
 
 
 def margins(model: torch.nn.Module, train: Dataset, *, batch: int,
-            seed: int, world: int, accum: int) -> Tuple[float, float]:
+            seed: int, world: int, accum: int,
+            device: str = "cpu") -> Tuple[float, float]:
     """``(kink, gap)`` of :class:`Margins` over a sync-BN drill epoch
     (:func:`spec` with ``augment=True``) at the start weights, in float64
-    on the CPU (BatchNorm's statistics in float32, as the port computes
+    on ``device`` (BatchNorm's statistics in float32, as the port computes
     them): each global micro-batch, the ranks' gathered and cropped rows
     together, through the model in training mode with the drill's dropout
     masks of rank 0."""
-    m64 = copy.deepcopy(model).cpu().double().train()
+    m64 = copy.deepcopy(model).to(device).double().train()
     loader = TrainLoader(train, batch, world, seed=seed)
     loader.set_epoch(0)
     table = torch.from_numpy(np.array(train.images))
@@ -178,7 +197,8 @@ def margins(model: torch.nn.Module, train: Dataset, *, batch: int,
                         tuple(torch.from_numpy(d) for d in draws_np(
                             seed, r, step, c.shape[2], k)))[0]
                         for r, c in enumerate(calls)]
-                    m64(_as_input(torch.cat(xs)).double(), sync_bn=True,
+                    m64(_as_input(torch.cat(xs)).double().to(device),
+                        sync_bn=True,
                         generator=dropout_generator(seed, 0, step, k))
                 step += 1
     return mode.kink, mode.gap
@@ -203,34 +223,55 @@ def rank_main(spec_path: str, out_dir: str) -> None:
             get_model(s["model"])
         model.load_state_dict(s["state_dict"])
         model.to(device)
+        plan = tp = None
+        if s["mesh_shape"]:
+            mesh = Mesh(s["mesh_shape"], rank)
+            dist.init_mesh(mesh)
+            plan = plan_for_model(s["model"], model,
+                                  model_size=mesh.dims[1])
+            tp = wiring(plan, dist.model_group())
+            if tp is not None and not s["streaming"]:
+                # The streaming path's Trainer cuts the model itself.
+                shard_module_(model, plan, mesh.model_index)
+        replica, replicas = dist.data_rank(), dist.data_size()
         train, test = _dataset(s, "train"), _dataset(s, "test")
-        loader = TrainLoader(train, s["batch"], world, seed=s["seed"],
+        loader = TrainLoader(train, s["batch"], replicas, seed=s["seed"],
                              augment=s["augment"] and s["streaming"],
-                             local_replicas=[rank])
+                             local_replicas=[replica])
         sched = functools.partial(
             triangular_lr, base_lr=s["lr"], num_epochs=1,
             steps_per_epoch=loader.optimizer_steps_per_epoch(
                 s["grad_accum"]))
-        run = _streaming if s["streaming"] else _resident
         launches = gather_batch.launches
-        state, losses = run(s, model, loader, sched, cd, device, rank)
+        t0 = _synced_clock(device)
+        if s["streaming"]:
+            state, losses = _streaming(s, model, loader, sched, cd, device,
+                                       plan)
+        else:
+            state, losses = _resident(s, model, loader, sched, cd, device,
+                                      replica, tp)
+        train_s = _synced_clock(device) - t0
         train_launches = gather_batch.launches - launches
         launches = gather_batch.launches
         if s["streaming"]:
             correct, total = eval_counts(
-                model, EvalLoader(test, s["batch"], world,
-                                  local_replicas=[rank]), cd)
+                model, EvalLoader(test, s["batch"], replicas,
+                                  local_replicas=[replica]), cd, tp)
         else:
             idx, mask = EvalLoader(test, s["batch"],
-                                   world).rank_index_matrix(rank)
+                                   replicas).rank_index_matrix(replica)
             tres = ResidentData(test, device)
-            correct, total = make_eval_epoch(model, cd)(
+            correct, total = make_eval_epoch(model, cd, tp)(
                 tres.images, tres.labels, torch.from_numpy(idx).to(device),
                 torch.from_numpy(mask).to(device))
+        eval_launches = gather_batch.launches - launches
         momentum = state.momentum
         if s["shard_update"]:
             momentum = opt_shard_to_list(list(model.parameters()),
                                          state.momentum)
+        if s["save_path"]:
+            _save(s, model, momentum, plan if tp is not None else None,
+                  state.step)
         torch.save({
             "rank": rank, "world": world, "backend": dist.backend(),
             "device": str(device), "losses": losses.cpu(),
@@ -240,17 +281,60 @@ def rank_main(spec_path: str, out_dir: str) -> None:
             "momentum_numel": sum(m.numel() for m in state.momentum),
             "steps": state.step, "correct": float(correct),
             "total": float(total), "train_launches": train_launches,
-            "eval_launches": gather_batch.launches - launches,
+            "eval_launches": eval_launches, "train_s": train_s,
+            "mesh_shape": s["mesh_shape"],
+            "data_index": replica,
+            "model_index": rank - replica * (world // replicas),
             "collectives": dict(dist.collective_calls)},
             os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.shutdown()
 
 
+def _synced_clock(device: torch.device) -> float:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def _save(s: Dict, model: torch.nn.Module, momentum, plan, step: int
+          ) -> None:
+    """The end state at ``s["save_path"]`` as epoch 0, as the trainer saves
+    it: under a plan, ``gathered`` joins the slices over the model group
+    (every rank) and rank 0 writes the v1 file; ``sharded`` has each
+    data-row-0 rank write its slot and rank 0 the index.  Without a plan,
+    rank 0 writes its state."""
+    path, rank = s["save_path"], dist.rank()
+    names = [n for n, _ in model.named_parameters()]
+    if plan is not None and s["ckpt_format"] == "sharded":
+        if dist.data_rank() != 0:
+            return
+        arrays = ckpt_lib.state_arrays(model.name, model.state_dict(),
+                                       dict(zip(names, momentum)))
+        if rank == 0:
+            save_checkpoint_sharded(
+                path, arrays, step, 0, n_slots=plan.model_size,
+                tree_specs=plan.tree_specs, mesh_shape=dist.mesh().dims)
+        else:
+            write_slot(path, arrays, step, 0, slot=rank,
+                       n_slots=plan.model_size, tree_specs=plan.tree_specs)
+        return
+    sd, mom = (tp_full_state(model, momentum, plan) if plan is not None
+               else (model.state_dict(), dict(zip(names, momentum))))
+    if rank != 0:
+        return
+    arrays = ckpt_lib.state_arrays(model.name, sd, mom)
+    if s["ckpt_format"] == "sharded":
+        save_checkpoint_sharded(path, arrays, step, 0,
+                                world=dist.world_size())
+    else:
+        ckpt_lib.write_gathered(path, arrays, step, 0)
+
+
 def _resident(s: Dict, model: torch.nn.Module, loader: TrainLoader, sched,
-              cd, device: torch.device, rank: int):
-    """The resident epoch with the drill's numpy draws: ``(state, the
-    global-mean losses)``."""
+              cd, device: torch.device, rank: int, tp=None):
+    """The resident epoch with the drill's numpy draws keyed on ``rank``
+    (the data index): ``(state, the global-mean losses)``."""
     loader.set_epoch(0)
     state = init_train_state(model)
     dist.broadcast_state(model, state.momentum)
@@ -258,7 +342,8 @@ def _resident(s: Dict, model: torch.nn.Module, loader: TrainLoader, sched,
         state.momentum = init_opt_shard(list(model.parameters()))
     run = make_train_epoch(model, SGDConfig(lr=s["lr"]), sched,
                            device_augment=s["augment"], sync_bn=s["sync_bn"],
-                           shard_update=s["shard_update"], compute_dtype=cd)
+                           shard_update=s["shard_update"], compute_dtype=cd,
+                           tp=tp)
 
     def draws(step: int, n: int, micro: int = 0):
         return tuple(torch.from_numpy(d).to(device) for d in
@@ -276,7 +361,7 @@ def _resident(s: Dict, model: torch.nn.Module, loader: TrainLoader, sched,
 
 
 def _streaming(s: Dict, model: torch.nn.Module, loader: TrainLoader, sched,
-               cd, device: torch.device, rank: int):
+               cd, device: torch.device, plan=None):
     """The trainer's streaming epoch: ``(state, the global-mean
     losses)``."""
     trainer = Trainer(model, loader, device=device, lr_schedule=sched,
@@ -284,7 +369,7 @@ def _streaming(s: Dict, model: torch.nn.Module, loader: TrainLoader, sched,
                       snapshot_path=None, grad_accum=s["grad_accum"],
                       sync_bn=s["sync_bn"], shard_update=s["shard_update"],
                       compute_dtype=cd, resident=False,
-                      prefetch_depth=s["prefetch_depth"])
+                      prefetch_depth=s["prefetch_depth"], tp_plan=plan)
     trainer.train(1)
     return trainer.state, torch.tensor(trainer.loss_history)
 

@@ -17,10 +17,10 @@ closes the recovery loop:
 Relaunches manage ``--num_devices``: before each, the live card count is
 probed in a throwaway interpreter (``torch.cuda.device_count()``; the
 wrapper never initialises CUDA itself, which would hold the cards the
-child needs) and the child's world is the smaller of the two.  The port's
-CLI has no ``--mesh_shape`` yet: a child command carrying one is refused
-by name (tensor and pipeline parallelism, ROADMAP A10 and A11, bring the
-mesh and the JAX package's ``shrink_mesh`` with it).
+child needs) and the child's world is the smaller of the two.  A child
+command carrying ``--mesh_shape`` is refused by name: the supervisor's
+management of a mesh and the JAX package's ``shrink_mesh`` are ROADMAP
+A10b (and the stage-first shrink A11).
 
 The failure ledger tails the child's metrics JSONL between launches and
 keeps, per death, the exit code, the world it ran at, the last guard or
@@ -362,9 +362,9 @@ class Supervisor:
         if any(a == "--mesh_shape" or a.startswith("--mesh_shape=")
                for a in self.child_argv):
             raise ValueError(
-                "the child command carries --mesh_shape, which the port's "
-                "CLI does not have yet: tensor and pipeline parallelism "
-                "(ROADMAP A10, A11) bring the mesh and its elastic shrink; "
+                "the child command carries --mesh_shape, whose management "
+                "(the mesh's relaunch and its elastic shrink_mesh) the "
+                "port's supervisor does not have yet (ROADMAP A10b, A11); "
                 "the supervisor manages --num_devices")
         ndev = _get_flag(self.child_argv, "--num_devices")
         self._full_num_devices = (int(ndev)

@@ -457,14 +457,14 @@ class ServeFleet:
     def _serving_plan(self, ckpt):
         """None on a data-parallel serving layout (``model_axis`` 1): a
         checkpoint trained with tensor parallelism serves replicated.  A
-        serving model axis above 1 is refused until tensor parallelism is
-        ported."""
+        serving model axis above 1 is refused until the fleet's model axis
+        is ported (ROADMAP A10b)."""
         if self.model_axis <= 1:
             return None
         raise NotPorted(
             f"ServeFleet(model_axis={self.model_axis}): serving with a "
             "tensor-parallel model axis is not ported yet (ROADMAP queue "
-            "A10)")
+            "A10b)")
 
     def _make_batcher(self, engine, replica_id: str):
         return DynamicBatcher(engine, max_batch=self.max_batch,

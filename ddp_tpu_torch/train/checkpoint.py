@@ -239,17 +239,24 @@ class HostSnapshot:
         return {k: torch.empty(v.shape, dtype=v.dtype, device="cpu",
                                pin_memory=pin) for k, v in tensors.items()}
 
-    @torch.no_grad()
     def capture(self, model: nn.Module, momentum: List[torch.Tensor]
                 ) -> None:
         """Copy ``model``'s state and ``momentum`` into the pool."""
-        sd = model.state_dict()
-        mom = _named_momentum(model, momentum)
+        self.capture_state(model.name, model.state_dict(),
+                           _named_momentum(model, momentum))
+
+    @torch.no_grad()
+    def capture_state(self, name: str, sd: Dict[str, torch.Tensor],
+                      mom: Dict[str, torch.Tensor]) -> None:
+        """Copy model ``name``'s ``state_dict`` ``sd`` and its momentum
+        ``mom`` (keyed by parameter name) into the pool: a model's own, or
+        the whole state a tensor-parallel run gathered."""
         cuda = next(iter(sd.values())).device.type == "cuda"
-        if self._sd is None or self.name != model.name:
+        if self._sd is None or self.name != name or any(
+                self._sd[k].shape != v.shape for k, v in sd.items()):
             self._sd, self._momentum = self._pool(sd, cuda), \
                 self._pool(mom, cuda)
-        self.name = model.name
+        self.name = name
         for pool, src in ((self._sd, sd), (self._momentum, mom)):
             for k, v in src.items():
                 pool[k].copy_(v, non_blocking=cuda)
@@ -396,7 +403,8 @@ def restore(ckpt: Checkpoint, model: nn.Module,
     (parallel to ``model.parameters()``), in place, on their devices.  A
     file whose trees are not ``model``'s (another model, another width)
     raises :class:`CheckpointError` naming both, before anything is
-    copied."""
+    copied.  A tensor-parallel rank's model holds its slices: hand it
+    ``ckpt_shard.shard_checkpoint``'s cut of the file."""
     sd = _checked(ckpt, model, ckpt.params, ckpt.batch_stats,
                   model.state_dict())
     params = dict(model.named_parameters())

@@ -10,7 +10,11 @@ program; here it is a Python loop that enqueues each step's kernels without
 waiting for the device: losses and eval counters stay on the device until
 the epoch ends.  In a data-parallel run each rank runs its own columns of
 the matrices (``data/loader.py::replica_columns``), and the counters are
-summed over the ranks once, at the end.
+summed over the ranks once, at the end.  Under ``--mesh_shape D,M`` a
+rank's columns are its data row's (every rank of a row gathers the same
+batch through ``gather_batch``), the sums run over the data group, and
+``tp`` (``parallel/tp/plan.py::TPWiring``) runs the tensor-parallel
+forward (``ddp_tpu/train/epoch.py``'s TP epochs).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from ..data.device_augment import Draws
 from ..ops.gather import gather_batch
 from ..optim import sgd as sgd_lib
 from ..parallel import dist
+from ..parallel.tp.plan import TPWiring
 from .step import (TrainState, make_accum_grads, make_eval_apply,
                    make_group_update, make_local_grads, micro_from_batch,
                    micro_from_table)
@@ -37,14 +42,15 @@ DropoutFn = Callable[..., torch.Generator]
 def _optimizer_step(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
                     lr_schedule: Callable[[int], float], *, sync_bn: bool,
                     shard_update: bool,
-                    compute_dtype: Optional[torch.dtype]):
+                    compute_dtype: Optional[torch.dtype],
+                    tp: Optional[TPWiring] = None):
     """``step(state, get_micro, micros, draws, dropout=None) -> loss``: one
     optimizer step, :func:`~ddp_tpu_torch.train.step.make_accum_grads` over
     ``micros`` then the update stage (the replicated one, or the sharded
     one of ``train/zero.py``); micro-batch k's draws are ``draws(state.step,
     B, micro=k)`` and its dropout generator ``dropout(state.step,
     micro=k)``."""
-    local_grads = make_local_grads(model, sync_bn, compute_dtype)
+    local_grads = make_local_grads(model, sync_bn, compute_dtype, tp)
     update = (make_zero_update if shard_update else make_group_update)(
         sgd_config, lr_schedule)
 
@@ -65,7 +71,8 @@ def make_train_step(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
                     lr_schedule: Callable[[int], float],
                     device_augment: bool = False, *, sync_bn: bool = False,
                     shard_update: bool = False,
-                    compute_dtype: Optional[torch.dtype] = None):
+                    compute_dtype: Optional[torch.dtype] = None,
+                    tp: Optional[TPWiring] = None):
     """``step_fn(state, micros, draws=None, dropout=None) -> loss``: one
     optimizer step of
     the streaming path over ``micros``, its A micro-batches as device
@@ -81,7 +88,7 @@ def make_train_step(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
     device."""
     step = _optimizer_step(model, sgd_config, lr_schedule, sync_bn=sync_bn,
                            shard_update=shard_update,
-                           compute_dtype=compute_dtype)
+                           compute_dtype=compute_dtype, tp=tp)
     get_micro = micro_from_batch(device_augment,
                                  compute_dtype or torch.float32)
 
@@ -96,7 +103,8 @@ def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
                      lr_schedule: Callable[[int], float],
                      device_augment: bool = False, *, sync_bn: bool = False,
                      shard_update: bool = False,
-                     compute_dtype: Optional[torch.dtype] = None):
+                     compute_dtype: Optional[torch.dtype] = None,
+                     tp: Optional[TPWiring] = None):
     """``epoch_fn(state, images, labels, idx, draws=None, events=None,
     dropout=None, after_step=None) -> losses``: one optimizer step per group of the device
     index tensor
@@ -129,7 +137,7 @@ def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
     shape of group, as the JAX trainer does."""
     step = _optimizer_step(model, sgd_config, lr_schedule, sync_bn=sync_bn,
                            shard_update=shard_update,
-                           compute_dtype=compute_dtype)
+                           compute_dtype=compute_dtype, tp=tp)
 
     def epoch_fn(state: TrainState, images: torch.Tensor,
                  labels: torch.Tensor, idx: torch.Tensor,
@@ -155,7 +163,8 @@ def make_train_epoch(model: nn.Module, sgd_config: sgd_lib.SGDConfig,
 
 
 def make_eval_epoch(model: nn.Module,
-                    compute_dtype: Optional[torch.dtype] = None):
+                    compute_dtype: Optional[torch.dtype] = None,
+                    tp: Optional[TPWiring] = None):
     """``eval_fn(images, labels, idx, mask) -> (correct, total)``: this
     rank's columns of the test set through the eval forward in
     ``compute_dtype`` (the batch from the kernel in it), row by row of
@@ -164,7 +173,7 @@ def make_eval_epoch(model: nn.Module,
     over the ranks by one all-reduce at the end (the JAX eval's ``psum``,
     ``ddp_tpu/train/step.py:516``), so every rank returns the global
     counts."""
-    apply_fn = make_eval_apply(model, compute_dtype)
+    apply_fn = make_eval_apply(model, compute_dtype, tp)
     dtype = compute_dtype or torch.float32
 
     @torch.no_grad()

@@ -38,6 +38,7 @@ from ..ops.gather import IMAGE_SHAPE, gather_batch
 from ..ops.losses import cross_entropy_sum_count
 from ..optim import sgd as sgd_lib
 from ..parallel import dist
+from ..parallel.tp.plan import TPWiring, forward_kwargs
 
 
 def _as_input(x: torch.Tensor,
@@ -78,7 +79,8 @@ def init_train_state(model: nn.Module) -> TrainState:
 
 
 def make_local_grads(model: nn.Module, sync_bn: bool = False,
-                     compute_dtype: Optional[torch.dtype] = None):
+                     compute_dtype: Optional[torch.dtype] = None,
+                     tp: Optional[TPWiring] = None):
     """``fn(images [B,32,32,3], labels [B], generator=None) -> (loss,
     grads)`` on this rank's batch, with no collective but sync-BN's: the
     forward in training mode (BatchNorm over every rank's batch with
@@ -97,15 +99,20 @@ def make_local_grads(model: nn.Module, sync_bn: bool = False,
     a ``DistributedDataParallel`` wrapper, whose hooks fire in
     ``.backward()``, would never see them: the collectives are explicit, as
     the JAX package's are.  Build it after the process group exists: it
-    reads the world size once."""
+    reads the data axis's size once (the world without a mesh: the ranks
+    of one data row share a batch, so ``world`` is the data axis ``D``).
+    ``tp`` runs the model's tensor-parallel forward (the JAX package's
+    ``_make_local_grads(..., tp_axis=MODEL_AXIS)``)."""
     params = list(model.parameters())
-    world = dist.world_size()
+    world = dist.data_size()
+    tp_kwargs = forward_kwargs(tp)
 
     def local_grads(images: torch.Tensor, labels: torch.Tensor,
                     generator: Optional[torch.Generator] = None):
         model.train()
         logits = model(_as_input(images, compute_dtype), sync_bn=sync_bn,
-                       compute_dtype=compute_dtype, generator=generator)
+                       compute_dtype=compute_dtype, generator=generator,
+                       **tp_kwargs)
         ce_sum, count = cross_entropy_sum_count(logits, labels)
         loss = ce_sum / (count * world)
         return loss.detach(), list(torch.autograd.grad(loss, params))
@@ -269,19 +276,23 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device, *,
 
 
 def make_eval_apply(model: nn.Module,
-                    compute_dtype: Optional[torch.dtype] = None):
+                    compute_dtype: Optional[torch.dtype] = None,
+                    tp: Optional[TPWiring] = None):
     """``fn(images [B,32,32,3]) -> logits [B,10]``: the eval-mode
     forward (BatchNorm on running statistics) in ``compute_dtype``, without
     autograd; the logits are float32.  The one eval forward of the port:
     the resident eval and every serving program (:func:`make_eval_forward`)
     run it, in the compute dtype of the training (``ddp_tpu/cli.py:
-    1123-1127``)."""
+    1123-1127``).  ``tp`` runs the tensor-parallel forward (the TP eval
+    forward, ``ddp_tpu/train/step.py:411-437``): one model-group
+    all-reduce a row-parallel layer."""
+    tp_kwargs = forward_kwargs(tp)
 
     @torch.no_grad()
     def apply_fn(images: torch.Tensor) -> torch.Tensor:
         model.eval()
         return model(_as_input(images, compute_dtype),
-                     compute_dtype=compute_dtype)
+                     compute_dtype=compute_dtype, **tp_kwargs)
 
     return apply_fn
 

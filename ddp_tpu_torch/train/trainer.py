@@ -36,6 +36,16 @@ and re-raises its error there.  With ``mirror`` (a store URI,
 ``resilience/store.py``) each committed checkpoint is also uploaded by the
 mirror's own thread, and resume and restore fall back to it when no local
 file restores.
+
+Tensor parallelism (``tp_plan``, under ``--mesh_shape D,M``;
+``ddp_tpu/train/trainer.py:765-800``): the model is cut to this rank's
+slices, its steps run the tensor-parallel forward, the loader and the
+draws follow the rank's data index (every rank of a data row takes the
+same batch and the same dropout mask), and the data-parallel collectives
+run over the data group.  A gathered (v1) checkpoint joins the slices over
+the model group on every rank, then rank 0 writes the one whole file; a
+sharded (v2) one is written slot by slot by the data-row-0 ranks
+(``train/ckpt_shard.py``).  A restore cuts any file to the live slices.
 """
 from __future__ import annotations
 
@@ -66,7 +76,9 @@ from ..resilience.lineage import CheckpointLineage, latest_verifiable
 from ..resilience.preemption import PreemptionInterrupt
 from ..resilience.store import MirrorUploader, open_store
 from . import checkpoint as ckpt_lib
-from .ckpt_shard import save_checkpoint_sharded
+from .. import interop
+from ..parallel.tp.plan import shard_module_, wiring
+from .ckpt_shard import save_checkpoint_sharded, shard_checkpoint, write_slot
 from .epoch import make_train_epoch, make_train_step
 from .step import init_train_state
 from .zero import list_to_opt_shard, opt_shard_to_list
@@ -157,6 +169,32 @@ def dropout_seed(seed: int, epoch: int, step: int, rank: int = 0,
     ``singlegpu`` draws.  ``folds`` re-keys it as in :func:`draw_seed`."""
     return _seed_of(_folded([seed, epoch, step, rank, micro,
                              _DROPOUT_STREAM], folds))
+
+
+def tp_full_state(model: nn.Module, momentum: List[torch.Tensor], plan
+                  ) -> Tuple[Dict[str, torch.Tensor],
+                             Dict[str, torch.Tensor]]:
+    """``model``'s whole ``state_dict`` and its per-parameter ``momentum``
+    (keyed by parameter name).  Under a ``plan`` (the model holds this
+    rank's slices) a collective: every rank of the model group joins one
+    all-gather of its flat slices (``dist.all_gather_model``), and each
+    gets the whole state (``interop.gather_state``); without one, the
+    model's own."""
+    names = [n for n, _ in model.named_parameters()]
+    sd = model.state_dict()
+    mom = dict(zip(names, momentum))
+    if plan is None:
+        return sd, mom
+    like = list(sd.values()) + list(mom.values())
+    parts = dist.all_gather_model(torch.cat([t.reshape(-1) for t in like]))
+    slices = []
+    for part in parts:
+        views = [v.view_as(t) for v, t in zip(
+            part.split([t.numel() for t in like]), like)]
+        slices.append((dict(zip(sd, views[:len(sd)])),
+                       dict(zip(mom, views[len(sd):]))))
+    return (interop.gather_state(plan, [a for a, _ in slices]),
+            interop.gather_state(plan, [b for _, b in slices]))
 
 
 class Trainer:
@@ -275,14 +313,27 @@ class Trainer:
                  guard_action: str = "rollback",
                  ckpt_format: str = "gathered", mirror=None,
                  registry=None,
-                 step_probe: Optional[Callable[[int], None]] = None):
-        if train_loader.num_replicas != dist.world_size():
+                 step_probe: Optional[Callable[[int], None]] = None,
+                 tp_plan=None):
+        if train_loader.num_replicas != dist.data_size():
             raise ValueError(f"the train loader has "
                              f"{train_loader.num_replicas} replicas; the "
-                             f"world is {dist.world_size()}")
+                             f"data axis is {dist.data_size()}")
         self.train_loader = train_loader
         self.device = device
         self.rank = dist.rank()
+        # The batch shard this rank trains on (its data index under a
+        # mesh), which keys its loader columns and its draws.
+        self.replica = dist.data_rank()
+        mesh = dist.mesh()
+        model_axis = mesh.dims[1] if mesh is not None else 1
+        if tp_plan is not None and tp_plan.model_size != model_axis:
+            raise ValueError(f"the plan is for a model axis of "
+                             f"{tp_plan.model_size}; the mesh has "
+                             f"{model_axis}")
+        self.tp_plan = tp_plan
+        self._tp = wiring(tp_plan, dist.model_group())
+        self._model_index = mesh.model_index if mesh is not None else 0
         self._base_lr_schedule = lr_schedule
         self._lr_scale = 1.0  # the guard's lr_backoff scale
         self.metrics = metrics if self.rank == 0 else None
@@ -336,10 +387,18 @@ class Trainer:
         self._skip_batches: set = set()
         self._epoch_origin: Dict[int, Tuple[int, int]] = {}
         self._preempt_pending: Optional[Tuple[int, int]] = None
+        if self._tp is not None:
+            if drift_audit_every:
+                raise ValueError(
+                    "--drift_audit_every compares every rank's parameters "
+                    "bit for bit, and under a model axis the ranks of a "
+                    "data row hold different slices; drop it with "
+                    "--mesh_shape D,M (M > 1)")
+            shard_module_(model, tp_plan, self._model_index)
         self.state = init_train_state(model)
         self.resident: Optional[ResidentData] = None
         kw = dict(sync_bn=sync_bn, shard_update=shard_update,
-                  compute_dtype=compute_dtype)
+                  compute_dtype=compute_dtype, tp=self._tp)
         if resident:
             if train_loader.augment:
                 raise ValueError(
@@ -357,11 +416,12 @@ class Trainer:
                 model, sgd_config, self.lr_schedule, device_augment=True,
                 **kw)
         else:
-            if train_loader.local_replicas != [self.rank]:
+            if train_loader.local_replicas != [self.replica]:
                 raise ValueError(
                     f"the streaming loader builds replicas "
                     f"{train_loader.local_replicas}; rank {self.rank} "
-                    f"streams its own: pass local_replicas=[{self.rank}]")
+                    f"streams its own: pass "
+                    f"local_replicas=[{self.replica}]")
             self.train_step = make_train_step(
                 model, sgd_config, self.lr_schedule, device_augment, **kw)
         self._drift = (DriftAuditor(model, every=drift_audit_every,
@@ -405,9 +465,12 @@ class Trainer:
 
     def _restore_into_state(self, ckpt: ckpt_lib.Checkpoint, path: str,
                             sharded: bool = False) -> None:
-        """``ckpt``'s weights, buffers, momentum and step into the state;
-        with ``sharded`` (a live ``shard_update`` state) the momentum is
-        cut to this rank's slice again."""
+        """``ckpt``'s weights, buffers, momentum and step into the state,
+        cut to this rank's model slices under a plan; with ``sharded`` (a
+        live ``shard_update`` state) the momentum is cut to this rank's
+        slice again."""
+        if self._tp is not None:
+            ckpt = shard_checkpoint(ckpt, self.tp_plan, self._model_index)
         momentum = ([torch.zeros_like(p)
                      for p in self.state.model.parameters()]
                     if sharded else self.state.momentum)
@@ -458,20 +521,38 @@ class Trainer:
         restores), and of the runs it resumed."""
         return self._health.restores
 
+    def full_state(self, momentum: Optional[List[torch.Tensor]] = None
+                   ) -> Tuple[Dict[str, torch.Tensor],
+                              Dict[str, torch.Tensor]]:
+        """The whole ``state_dict`` and per-parameter momentum (keyed by
+        parameter name; the state's own when ``momentum`` is None); under
+        a plan a collective (:func:`tp_full_state`)."""
+        return tp_full_state(self.state.model,
+                             self.state.momentum if momentum is None
+                             else momentum,
+                             self.tp_plan if self._tp is not None else None)
+
     def _checkpoint(self, epoch: int, data_state: Optional[dict] = None
                     ) -> None:
         """Save the state as of ``epoch`` on every rank's call (gathering
-        the sharded momentum is a collective).  Rank 0 joins the previous
+        the sharded momentum, and under a plan the gathered format's
+        slices, are collectives).  The writing rank joins its previous
         write, copies the state into the host pool and hands the write to
-        its writer thread (:meth:`_write`).  ``data_state`` defaults to the
-        next epoch's first batch."""
+        its writer thread: rank 0 (:meth:`_write`), and under a plan with
+        ``ckpt_format="sharded"`` each data-row-0 rank its own slot
+        (:meth:`_write_slot`).  ``data_state`` defaults to the next epoch's
+        first batch."""
         t0 = time.perf_counter()
         tracer = get_tracer()
         with tracer.span("ckpt_write", step=self.state.step):
             momentum = (opt_shard_to_list(list(self.state.model.parameters()),
                                           self.state.momentum)
                         if self.shard_update else self.state.momentum)
-            if self.rank != 0:
+            slots = self._tp is not None and self.ckpt_format == "sharded"
+            state = None
+            if self._tp is not None and not slots:
+                state = self.full_state(momentum)
+            if self.rank != 0 and not (slots and self.replica == 0):
                 return
             if data_state is None:
                 data_state = self._data_state(epoch + 1, 0)
@@ -479,15 +560,36 @@ class Trainer:
             # the previous write has read it.
             self._join_pending_save()
             t1 = time.perf_counter()
-            self._snapshot.capture(self.state.model, momentum)
+            if state is None:
+                self._snapshot.capture(self.state.model, momentum)
+            else:
+                self._snapshot.capture_state(self.state.model.name, *state)
             record = {"epoch": int(epoch), "step": int(self.state.step),
                       "join_ms": (t1 - t0) * 1e3}
             self.saves.append(record)
             self._save_thread = threading.Thread(
-                target=self._write, args=(epoch, data_state, record),
-                name="ckpt-writer", daemon=True)
+                target=self._write if self.rank == 0 else self._write_slot,
+                args=(epoch, data_state, record), name="ckpt-writer",
+                daemon=True)
             self._save_thread.start()
             record["main_ms"] = (time.perf_counter() - t1) * 1e3
+
+    def _write_slot(self, epoch: int, data_state: dict, record: dict
+                    ) -> None:
+        """A data-row-0 rank's writer thread under a plan: its slot's shard
+        file and sidecar (``ckpt_shard.write_slot``), which rank 0's
+        :meth:`_write` waits for.  An error is kept for the next join."""
+        t0 = time.perf_counter()
+        try:
+            with get_tracer().span("ckpt_write", step=record["step"],
+                                   overlap=True):
+                write_slot(self.snapshot_path, self._snapshot.arrays(),
+                           record["step"], epoch, slot=self._model_index,
+                           n_slots=self.tp_plan.model_size,
+                           tree_specs=self.tp_plan.tree_specs)
+            record["writer_s"] = time.perf_counter() - t0
+        except BaseException as e:  # surfaced at the next join
+            self._save_error = e
 
     def _write(self, epoch: int, data_state: dict, record: dict) -> None:
         """The writer thread: the lineage's preserve, the file (hashed as it
@@ -502,9 +604,18 @@ class Trainer:
                 arrays = self._snapshot.arrays()
                 shards = None
                 if self.ckpt_format == "sharded":
+                    mesh = dist.mesh()
+                    slotted = self._tp is not None
                     sha, shards = save_checkpoint_sharded(
                         self.snapshot_path, arrays, step, epoch,
-                        world=dist.world_size(), data_state=data_state)
+                        world=dist.world_size(),
+                        n_slots=(self.tp_plan.model_size if slotted
+                                 else 1),
+                        tree_specs=(self.tp_plan.tree_specs if slotted
+                                    else None),
+                        mesh_shape=(mesh.dims if mesh is not None
+                                    else None),
+                        data_state=data_state)
                 else:
                     sha = ckpt_lib.write_gathered(self.snapshot_path, arrays,
                                                   step, epoch, data_state)
@@ -562,7 +673,7 @@ class Trainer:
         """This rank's crop/flip draws of micro-batch ``micro`` of optimizer
         step ``step`` for ``n`` images."""
         self._generator.manual_seed(draw_seed(
-            self.seed, self._epoch, step, self.rank, micro,
+            self.seed, self._epoch, step, self.replica, micro,
             self._health.restores))
         return make_draws(self._generator, n, self.device)
 
@@ -570,13 +681,13 @@ class Trainer:
         """This rank's dropout generator for micro-batch ``micro`` of
         optimizer step ``step``, seeded by :func:`dropout_seed`."""
         return self._dropout_generator.manual_seed(dropout_seed(
-            self.seed, self._epoch, step, self.rank, micro,
+            self.seed, self._epoch, step, self.replica, micro,
             self._health.restores))
 
     def _epoch_losses_resident(self, events) -> List[torch.Tensor]:
         """The epoch's index matrix in optimizer-step groups, each group
         one call of the resident epoch."""
-        full, tail = self.train_loader.rank_index_matrix(self.rank)
+        full, tail = self.train_loader.rank_index_matrix(self.replica)
         tracer = get_tracer()
         parts = []
         for idx in optimizer_groups(full, tail, self.grad_accum):

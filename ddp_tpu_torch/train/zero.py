@@ -15,6 +15,16 @@ holds the per-parameter momentum every mode reads
 update is the replicated one, element for element: at world 1 it is
 bit-equal to it.  Under ``--bf16`` the gradients it flattens are float32,
 as the parameters are (``ddp_tpu/train/zero.py:188-235``).
+
+Under ``--mesh_shape D,M`` (``ddp_tpu/train/zero.py``'s TP composition,
+``:100-180, 189-230``) "the ranks" are the rank's data group and "the
+world" is the data axis ``D``: each rank's LOCAL flat vector (its model
+slices of the sharded leaves and the replicated leaves,
+``parallel/tp/plan.py::local_param_count``) is padded and split over its
+data group, so each rank holds ``local / D`` of the momentum and both
+savings compose.  :func:`opt_shard_to_list` then gives the rank's local
+per-parameter momentum, which the checkpoint joins over the model group
+(``train/trainer.py``).
 """
 from __future__ import annotations
 
@@ -55,7 +65,7 @@ def _rank_slice(flat: torch.Tensor, world: int, rank: int) -> torch.Tensor:
 
 def init_opt_shard(params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """This rank's momentum: one flat zero buffer of ``n_pad / world``."""
-    world = dist.world_size()
+    world = dist.data_size()
     p = next(iter(params))
     return [p.new_zeros(padded_size(params, world) // world)]
 
@@ -64,9 +74,9 @@ def list_to_opt_shard(momentum: Sequence[torch.Tensor]
                       ) -> List[torch.Tensor]:
     """Per-parameter momentum (the same on every rank) -> this rank's flat
     slice (``pytree_to_opt_shard``, ``ddp_tpu/train/zero.py:151-185``)."""
-    world = dist.world_size()
+    world = dist.data_size()
     flat = _padded_flat(momentum, padded_size(momentum, world))
-    return [_rank_slice(flat, world, dist.rank()).clone()]
+    return [_rank_slice(flat, world, dist.data_rank()).clone()]
 
 
 def opt_shard_to_list(params: Sequence[torch.Tensor],
@@ -92,7 +102,7 @@ def make_zero_update(sgd_config: sgd_lib.SGDConfig,
     ``optim/sgd.py::apply_updates`` itself, the slices all-gathered and
     copied back into the parameters; then ``state.step += 1``.  Build it
     after the process group exists."""
-    world, rank = dist.world_size(), dist.rank()
+    world, rank = dist.data_size(), dist.data_rank()
 
     @torch.no_grad()
     def update(state: TrainState, grads) -> None:

@@ -160,7 +160,9 @@ def test_specs_are_jax_lists():
 
 
 def test_n_slots_above_1_is_refused_by_name(tmp_path):
-    with pytest.raises(ckpt_shard.UnportedLayoutError, match="A10"):
+    # More than one slot needs the plan's leaf specs, which say what each
+    # slot holds (tests/test_torch_tp.py writes such sets).
+    with pytest.raises(ValueError, match="tree_specs"):
         ckpt_shard.save_checkpoint_sharded(str(tmp_path / "ck.pt"),
                                            _port_state(), 0, 0, n_slots=2)
     assert not os.listdir(tmp_path)

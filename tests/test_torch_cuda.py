@@ -529,6 +529,34 @@ def test_world2_gloo_on_one_card_equals_cpu(cuda):
             np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
 
 
+def test_tp_mesh_bf16_over_gloo_on_one_card(cuda):
+    """Tensor parallelism at mesh (1, 2) as two gloo ranks on the one card
+    in bfloat16: every model-axis all-reduce is a bfloat16 CUDA tensor
+    through gloo (3 forward and 2 backward a step, 3 an eval batch; 4
+    steps and 2 eval batches of 8), the
+    ranks agree, and the losses hold the bfloat16 tolerance (1e-2
+    relative, ``tests/test_torch_bf16.py``'s) against the world-1 drill
+    on the card from the same start."""
+    from ddp_tpu_torch.models import get_model
+    train, test = synthetic(n_train=32, n_test=16, seed=0)
+    model = get_model("deepnn", generator=torch.Generator().manual_seed(0))
+    common = dict(batch=8, lr=0.05, seed=0, augment=True, device="cuda",
+                  compute_dtype="bfloat16")
+    ranks = drill.run(drill.spec("deepnn", model.state_dict(), train, test,
+                                 backend="gloo", mesh_shape=(1, 2),
+                                 **common), 2, same_device=True, timeout=300)
+    ref, = drill.run(drill.spec("deepnn", model.state_dict(), train, test,
+                                **common), 1, timeout=300)
+    for got in ranks:
+        assert (got["backend"], got["device"]) == ("gloo", "cuda:0")
+        assert got["collectives"]["psum_model_fwd"] == 3 * 4 + 3 * 2
+        assert got["collectives"]["psum_model_bwd"] == 2 * 4
+        assert torch.equal(got["losses"], ranks[0]["losses"])
+        assert (got["train_launches"], got["eval_launches"]) == (4, 2)
+    np.testing.assert_allclose(ranks[0]["losses"], ref["losses"],
+                               rtol=1e-2)
+
+
 _STRATEGY_WORKER = r'''
 import sys
 import torch

@@ -924,7 +924,7 @@ def test_fleet_refuses_bad_construction(tmp_path):
     model = get_model("deepnn", generator=torch.Generator().manual_seed(0))
     ck = str(tmp_path / "ck.pt")
     save_checkpoint(ck, model, init_train_state(model).momentum, 0, 0)
-    with pytest.raises(tserve.NotPorted, match="A10"):
+    with pytest.raises(tserve.NotPorted, match="A10b"):
         tserve.ServeFleet(ck, "deepnn", device="cpu", model_axis=2)
     with pytest.raises(CheckpointError, match="ck.pt"):
         tserve.ServeFleet(ck, "vgg", device="cpu", n_replicas=1,

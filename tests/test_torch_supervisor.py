@@ -8,7 +8,7 @@ script) and the same clock, sleep alike, relaunch with the same argv and
 environment, keep the same failure-ledger entries, write the same
 ``.supervisor.prom`` bytes and exit alike: 0, 86 (budget) or 87
 (deterministic, with ``diagnosis.json``).  The port manages
-``--num_devices`` and refuses ``--mesh_shape`` (ROADMAP A10, A11); its
+``--num_devices`` and refuses ``--mesh_shape`` (ROADMAP A10b, A11); its
 probe counts cards with torch in a throwaway interpreter.  End to end, a
 DeepNN run on the CPU under ``python -m ddp_tpu_torch.supervise`` with
 ``sigterm@step=2`` exits 0 on the uninterrupted run's bytes, through the
@@ -166,10 +166,10 @@ def test_num_devices_follows_the_probe_and_mesh_shape_is_refused(
     got = _run_both(tmp_path, [(75, [], None), (0, [], None)],
                     child_extra=("--num_devices", "4"), probe=2)
     assert tsup._get_flag(got["launches"][1][0], "--num_devices") == "2"
-    with pytest.raises(ValueError, match="A10, A11"):
+    with pytest.raises(ValueError, match="A10b, A11"):
         tsup.Supervisor(["x", "--mesh_shape", "2,4"])
     assert tsup.main(["--", "-m", "x", "--mesh_shape=8,1"]) == 2
-    assert "A10, A11" in capsys.readouterr().err
+    assert "A10b, A11" in capsys.readouterr().err
     assert tsup.probe_device_count({tsup.PROBE_ENV: "3"}) == 3
     seen = []
     monkeypatch.setattr(subprocess, "run", lambda argv, **kw: seen.append(

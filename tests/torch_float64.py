@@ -45,7 +45,7 @@ def deepnn_forward64(q, x, bn, mask=None):
     x = torch.relu(F.linear(x.flatten(1), q["classifier.0.weight"],
                             q["classifier.0.bias"]))
     if mask is not None:
-        x = torch.where(mask, x / 0.9, torch.zeros((), dtype=x.dtype))
+        x = torch.where(mask.to(x.device), x / 0.9, x.new_zeros(()))
     return F.linear(x, q["classifier.3.weight"], q["classifier.3.bias"])
 
 
@@ -111,7 +111,7 @@ def batch_norm64(q, running, bn_momentum=0.1, eps=1e-5):
 def float64_epoch(sd, train, groups, lr_at, *, world, sync_bn,
                   momentum=0.9, wd=5e-4, eps=1e-5, bn_momentum=0.1,
                   state=None, step0=0, arch=NARROW, model=None,
-                  masks=None, margins=None):
+                  masks=None, margins=None, device="cpu"):
     """The epoch in float64 plain PyTorch, written apart from both
     packages: for each optimizer step, the sum over its micro-batches and
     ranks of the gradients of each rank's share of the global-mean loss,
@@ -127,17 +127,21 @@ def float64_epoch(sd, train, groups, lr_at, *, world, sync_bn,
     max pools, global average pool, linear); ``masks(step, k, r)`` gives
     DeepNN's dropout keep mask of micro-batch k of rank r.  When
     ``margins`` is a list, each step appends the ``(kink, gap)`` of its
-    forwards (``ddp_tpu_torch.parallel.drill.Margins``).  Returns (losses,
-    state dict, momentum list in parameter order)."""
+    forwards (``ddp_tpu_torch.parallel.drill.Margins``).  ``device`` runs
+    the float64 arithmetic there (the card's float64 units take a
+    full-width epoch in a fraction of a second); the results come back on
+    the CPU.  Returns (losses, state dict, momentum list in parameter
+    order)."""
     forward = FORWARDS[model] if model else vgg_forward64(arch)
     names = [k for k in sd if not k.endswith(("running_mean", "running_var"))]
     if state is None:
-        p = {k: v.detach().double().clone() for k, v in sd.items()}
+        p = {k: v.detach().to(device, torch.float64, copy=True)
+             for k, v in sd.items()}
         buf = {k: torch.zeros_like(p[k]) for k in names}
     else:
         p, buf = state
-    images = torch.from_numpy(train.images)
-    labels = torch.from_numpy(train.labels).long()
+    images = torch.from_numpy(train.images).to(device)
+    labels = torch.from_numpy(train.labels).long().to(device)
     losses = []
     for step, group in enumerate(groups):
         b = len(group[0]) // world
@@ -150,7 +154,8 @@ def float64_epoch(sd, train, groups, lr_at, *, world, sync_bn,
         seen = Margins()
         for m, row in enumerate(group):
             for j, part in enumerate(parts):
-                idx = torch.from_numpy(np.asarray(row[part])).long()
+                idx = torch.from_numpy(np.asarray(row[part])).long().to(
+                    device)
                 x = images[idx].permute(0, 3, 1, 2).double() / 255.0
                 q = {k: p[k].clone().requires_grad_() for k in names}
                 mask = None if masks is None else \
@@ -173,18 +178,22 @@ def float64_epoch(sd, train, groups, lr_at, *, world, sync_bn,
             buf[k] = momentum * buf[k] + grads[k] + wd * p[k]
             p[k] = p[k] - lr_t * buf[k]
         losses.append(total)
+    if device != "cpu":
+        return (np.array(losses), {k: v.cpu() for k, v in p.items()},
+                [buf[k].cpu() for k in names])
     return np.array(losses), p, [buf[k] for k in names]
 
 
 def float64_drill(sd, train, *, batch, lr, seed, world, accum, sync_bn,
-                  model=None, arch=NARROW, margins=None):
+                  model=None, arch=NARROW, margins=None, device="cpu"):
     """The float64 epoch of a resident drill
     (``ddp_tpu_torch/parallel/drill.py`` with ``augment=True``) from the
     state dict ``sd``: each rank's rows of each micro-batch (its
     ``TrainLoader`` columns in ``optimizer_groups``) cropped and flipped
     with the drill's draws, DeepNN's keep masks from the drill's dropout
     generators, the drill's learning-rate schedule.  Returns
-    :func:`float64_epoch`'s result; ``margins`` as there."""
+    :func:`float64_epoch`'s result; ``margins`` and ``device`` as
+    there."""
     loader = TrainLoader(train, batch, world, seed=seed)
     loader.set_epoch(0)
     images, labels, groups, masks, at, step = [], [], [], {}, 0, 0
@@ -221,7 +230,7 @@ def float64_drill(sd, train, *, batch, lr, seed, world, accum, sync_bn,
         world=world, sync_bn=sync_bn, model=model, arch=arch,
         masks=lambda s, k, j: torch.cat([masks[s, k, r] for r in (
             range(world) if sync_bn else [j])]),
-        margins=margins)
+        margins=margins, device=device)
 
 
 def drill_distance(got, ref):
