@@ -65,12 +65,14 @@
    mesh, one process each, one after the other): VGG-11 ``--guard_overhead
    --steps 50 --repeats 2`` (``bench.py``'s fields, the derived K=50 audit
    overhead under 1%; 50-step windows, so each K=50 window holds one
-   audit); ``--serve --fleet 1``, then ``--fleet 2``, at
-   buckets 1, 8, 32 and 128 (4 CUDA graphs an engine, nothing timed out,
-   a router at 2; rows/s, p99 and rows a batch printed beside the fleet
-   phase's in-process figures); ``--batch_sweep 512,1024
-   --batch_sweep_flavors bf16_step --steps 10 --repeats 2`` (a child a
-   cell, its steps and launches in the parent's summary); ``--stream_attr
+   audit); ``--serve --fleet 2`` at buckets 1, 8, 32 and 128 (4 CUDA
+   graphs an engine, nothing timed out, a router; rows/s, p99 and rows a
+   batch printed beside the fleet phase's in-process figures; a fleet of
+   1 is the serving phase's engine behind no router, so it has no process
+   of its own); ``--batch_sweep 1024 --batch_sweep_flavors bf16_step
+   --steps 10 --repeats 2`` (a child a cell, its steps and launches in the
+   parent's summary; the bench phase's bf16 record is the step at 512, so
+   that cell has no child of its own); ``--stream_attr
    --e2e_steps 8 --repeats 2`` (the attribution's keys, a named
    bottleneck, 0 < overlap efficiency <= 1, the streamed ``--e2e``
    record's phases); ``--pipeline`` (value > 0).  Every process's
@@ -168,18 +170,22 @@
    s and bytes per save beside the checkpoint phase's synchronous save,
    and the step median of the steps dispatched while a write ran; S3's
    ``slow_put@ms=500`` mirror run alone, its step median within 1% of
-   S1's and its lag gauge above 0, then 0.  Then six chains at once:
+   S1's and its lag gauge above 0, then 0.  Then five chains at once:
    ``--ckpt_format sharded`` bit for bit S1's state, one shard and the
    index, served logits bit for bit the v1 lineage's; ``fail_put@n=2``
    retried; ``torn_remote_object@`` caught by the store's verification
    and skipped by the mirror walk; under ``python -m
    ddp_tpu_torch.supervise`` ``sigterm@step=25`` (75, then 0, bit for bit)
-   and the local wipe resumed from the mirror alone (bit for bit);
-   ``fail_ckpt_write@epoch=1`` (exit 1).  Then four: a poisoned DeepNN
-   batch under ``--keep_fault_env`` (87, ``diagnosis.json``,
-   ``postmortem.json``), a repeated stall under ``--max_restarts 1`` (86),
-   the failed write at world 2 over gloo (both ranks end), and the chaos
-   campaign's CI subset (one campaign a drill, their scorecards).
+   and the local wipe resumed from the mirror alone (bit for bit).  Then
+   three: a poisoned DeepNN batch under ``--keep_fault_env`` (87,
+   ``diagnosis.json``, ``postmortem.json``), a repeated stall under
+   ``--max_restarts 1`` (86), and ``fail_ckpt_write@epoch=1`` at world 2
+   over gloo (rank 0 exits 1 with the error named, both ranks end).
+   Beside both waves, from the start of the first, the chaos campaign's
+   ``watchdog_stall`` and ``kill_stage`` (one campaign a drill, their
+   scorecards; ``kill_stage`` on the card is mesh (1, 1, 2) as two gloo
+   ranks, collapsed to (1, 1, 1) at the relaunch, bit for bit the
+   pipelined control).
    The storage phase's repeated stall also checks the watchdog's stall
    line: it names the tracer's last ``dispatch`` and ``loss_flush`` spans.
    Obs phase (``obs_phase``, A8): the streamed VGG-11 at full width on
@@ -239,6 +245,17 @@
    and the 2-slot file restored in this process onto world 1 bit for bit
    equal to the gathered state.  Its ms a step is gloo's host staging on
    one card, not NVLink.
+   Pipeline phase (``pp_phase``): DeepNN's stage table at s = 2, A = 2;
+   mesh (1, 1, 2) as two gloo ranks on this card (``drill.py``'s 3-D
+   ``mesh_shape``), DeepNN at full width, batch 512, streamed, ``--grad_accum
+   2`` on 2,048 images (2 steps) and 2 eval batches, under 1F1B (saved) and
+   at the same time under GPipe, beside the world-1 ``--grad_accum 2``
+   drill, all in deterministic mode: losses, the whole state gathered to
+   rank 0 and the eval counts bit for bit; ``gather_batch`` on stage 0
+   only (4 + 2), 2 handoffs a micro-batch a rank of [512, 64, 16, 16]
+   float32 staged through pinned host buffers; the measured bubble beside
+   (s-1)/(A+s-1); then the pipelined file resumed at (1, 1) in this
+   process, bit for bit, for one more epoch.
 9. Serving phase: ``ServeEngine.from_checkpoint`` on that epoch-0 file at
    full width with buckets 1, 8, 32 and 128; ``warm()`` must capture exactly
    4 CUDA graphs (the ``gather_batch`` wrapper runs once eagerly and once at
@@ -332,7 +349,9 @@
     train step and an eval batch each),
     and on the models path: the models phase's runs, serving and drills,
     on the tensor-parallel path: the ``--mesh_shape 1,1`` run, both card
-    ranks of the mesh (1, 2) drill and the world-1 drill beside it,
+    ranks of the mesh (1, 2) drill and the world-1 drill beside it, on the
+    pipeline path (``launches_pp_path``): stage 0's of both mesh (1, 1, 2)
+    drills, the world-1 drill beside them and the resumed epoch,
     on the bench
     path: the train steps the bench's processes ran in that form, and on
     the run-shape path: the split, uninterrupted and streamed runs, on
@@ -397,6 +416,8 @@ from ddp_tpu_torch.obs.registry import parse_exposition
 from ddp_tpu_torch.optim import SGDConfig, triangular_lr
 from ddp_tpu_torch.parallel import dist, drill
 from ddp_tpu_torch.parallel.dist import free_port
+from ddp_tpu_torch.parallel.pp.partition import (format_stage_table,
+                                                 plan_stages)
 from ddp_tpu_torch.parallel.tp.plan import (expected_collectives,
                                             format_plan_table,
                                             plan_for_model)
@@ -415,7 +436,8 @@ from ddp_tpu_torch.train.evaluate import evaluate_resident
 from ddp_tpu_torch.train.step import (_as_input, init_train_state,
                                       make_eval_apply, micro_from_batch,
                                       to_device)
-from ddp_tpu_torch.train.trainer import _stack_groups, micro_batches
+from ddp_tpu_torch.train.trainer import (Trainer, _stack_groups,
+                                         micro_batches)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BF16 = torch.bfloat16
@@ -2521,6 +2543,11 @@ SUPERVISE = [sys.executable, "-m", "ddp_tpu_torch.supervise",
              "--backoff_base", "0.2", "--backoff_max", "5", "--seed", "0"]
 DETERMINISTIC_CHILD = ["-m", "ddp_tpu_torch.repeat_check", "--child",
                        "singlegpu", "--deterministic", "--"]
+# S6's campaign drills, one campaign each, at once: the CI subset's stall,
+# and kill_stage, whose pipelined run is preempted at step 2 and resumed
+# under the supervisor bit for bit (the sigterm_step drill's check, with the
+# stage-first shrink; S4 runs the supervised SIGTERM at full width).
+STORE_DRILLS = ("watchdog_stall", "kill_stage")
 
 
 def _load_json(path: str):
@@ -2604,16 +2631,18 @@ def storage_phase(card: str, tmp: str, sync_write_s: float) -> int:
     0, bit for bit S1's state, the recovery seconds) and the local wipe
     (``wipe_local_ckpt@epoch=0`` and the SIGTERM with ``--mirror``, the
     checkpoint directory then removed: the supervised resume restores from
-    the mirror alone, bit for bit); S5 ``fail_ckpt_write@epoch=1`` (exit 1,
-    the error named).  Then four at once: S4 ``poison_batch@step=30`` with
+    the mirror alone, bit for bit).  Then three at once: S4
+    ``poison_batch@step=30`` with
     ``--guard_action abort --keep_fault_env`` on DeepNN (VGG-11's
     BatchNorm normalises a scaled input away; ``--on_nan skip`` leaves the
     verdict to the spike itself): 87, ``diagnosis.json`` naming step 30, a
     valid ``postmortem.json`` and a repeated stall with
-    ``--max_restarts 1`` (86); S5 at world 2 over gloo on this card (rank
-    0 exits 1, rank 1 ends too, each waited for); S6 the chaos campaign's
-    CI subset (``sigterm_step,watchdog_stall``), one campaign a drill, both
-    at once, each scorecard printed.
+    ``--max_restarts 1`` (86); S5 ``fail_ckpt_write@epoch=1`` at world 2
+    over gloo on this card (rank 0 exits 1 with the error named, rank 1
+    ends too, each waited for).  S6, the chaos campaign's
+    ``watchdog_stall`` and ``kill_stage`` (``STORE_DRILLS``), one campaign
+    a drill, run beside both waves from the start of the first, each
+    scorecard printed.
     Every child that completes launches ``gather_batch`` once a train step
     and an eval batch.  Returns those launches."""
     from ddp_tpu_torch import chaos_campaign
@@ -2755,17 +2784,17 @@ def storage_phase(card: str, tmp: str, sync_write_s: float) -> int:
         return sup_run("sup_wipe", "", mirror("sup_wipe"), resume=True,
                        snapshot=path)
 
-    def fail_write():
-        got, _ = child("fail_write", (), "fail_ckpt_write@epoch=1")
-        check(got[0] == 1 and "injected checkpoint write failure at epoch 1"
-              in got[3], f"S5 fail_ckpt_write@epoch=1: exit {got[0]}: "
-                         f"{got[3][-3000:]}")
-        return got[0]
-
-    t1 = time.time()
-    run_chains({"sharded": sharded, "fail_put": fail_put, "torn": torn,
-                "sigterm": sigterm, "wipe": wipe, "fail_write": fail_write})
-    t_wave1 = time.time() - t1
+    def campaign(drill: str):
+        out = os.path.join(workdir(f"campaign_{drill}"), "chaos.json")
+        r = subprocess.run(
+            [sys.executable, "-m", "ddp_tpu_torch.chaos_campaign",
+             "--drills", drill, "--out", out,
+             "--workdir", workdir(f"campaign_runs_{drill}")],
+            capture_output=True, text=True, timeout=900)
+        check(r.returncode == 0, f"S6 the chaos campaign's {drill}: exit "
+                                 f"{r.returncode}: {r.stdout[-3000:]}"
+                                 f"{r.stderr[-3000:]}")
+        return _load_json(out)
 
     def poison():
         # DeepNN: VGG-11's BatchNorm normalises a scaled input away.  With
@@ -2788,23 +2817,25 @@ def storage_phase(card: str, tmp: str, sync_write_s: float) -> int:
             "--snapshot_path", os.path.join(d, "checkpoint.pt")],
             "fail_ckpt_write@epoch=1", timeout=400)
 
-    def campaign(drill: str):
-        out = os.path.join(workdir(f"campaign_{drill}"), "chaos.json")
-        r = subprocess.run(
-            [sys.executable, "-m", "ddp_tpu_torch.chaos_campaign",
-             "--drills", drill, "--out", out,
-             "--workdir", workdir(f"campaign_runs_{drill}")],
-            capture_output=True, text=True, timeout=900)
-        check(r.returncode == 0, f"S6 the chaos campaign's {drill}: exit "
-                                 f"{r.returncode}: {r.stdout[-3000:]}"
-                                 f"{r.stderr[-3000:]}")
-        return _load_json(out)
-
-    t2 = time.time()
-    run_chains({"poison": poison, "stall": stall, "world2": world2,
-                **{f"campaign_{d}": functools.partial(campaign, d)
-                   for d in chaos_campaign.CI_DRILLS.split(",")}})
-    t_wave2 = time.time() - t2
+    # S6's campaigns (~75-100 s each) run beside both waves.
+    t1 = time.time()
+    campaigns = [chain(f"campaign_{d}", functools.partial(campaign, d))
+                 for d in STORE_DRILLS]
+    for t in campaigns:
+        t.start()
+    try:
+        run_chains({"sharded": sharded, "fail_put": fail_put, "torn": torn,
+                    "sigterm": sigterm, "wipe": wipe})
+        t_wave1 = time.time() - t1
+        t2 = time.time()
+        run_chains({"poison": poison, "stall": stall, "world2": world2})
+        t_wave2 = time.time() - t2
+    finally:
+        for t in campaigns:
+            t.join()
+    if errors:
+        raise errors[0]
+    t_campaigns = time.time() - t1
 
     # S2: formats.
     sh, sh_path = results["sharded"]
@@ -2927,25 +2958,27 @@ def storage_phase(card: str, tmp: str, sync_write_s: float) -> int:
           f"{secs_stall:.1f} s, postmortem.json watchdog_stall; the stall "
           f"line: {stall_lines[-1]}", flush=True)
 
-    # S5: a failed write, at world 1 and 2.
+    # S5: a failed write, at world 2.
     (rc0, s0, err0), (rc1, s1_secs, _) = results["world2"]
     check(rc0 == 1 and "async checkpoint write failed" in err0 and
+          "injected checkpoint write failure at epoch 1" in err0 and
           rc1 not in (0, None) and s1_secs < 300,
           f"S5 world 2: rank 0 exit {rc0} after {s0:.1f} s, rank 1 exit "
           f"{rc1} after {s1_secs:.1f} s: {err0[-3000:]}")
-    print(f"storage S5 ({card}): fail_ckpt_write@epoch=1: exit 1 with the "
-          f"error named; at world 2 over gloo on this card rank 0 exit 1 "
+    print(f"storage S5 ({card}): fail_ckpt_write@epoch=1 at world 2 over "
+          f"gloo on this card: rank 0 exit 1 with the error named "
           f"after {s0:.1f} s, rank 1 ended by itself with {rc1} after "
           f"{s1_secs:.1f} s", flush=True)
 
-    # S6: the campaign's CI subset, one campaign a drill, run at once.
-    for d in chaos_campaign.CI_DRILLS.split(","):
+    # S6: the campaign's drills, one campaign a drill, run at once.
+    for d in STORE_DRILLS:
         card6 = results[f"campaign_{d}"]
         check(card6["verdict"] == "PASS", f"S6 {d}: {card6}")
         print(f"storage S6 ({card}): chaos campaign {d}: "
               f"{json.dumps(card6)}", flush=True)
     print(f"storage phase: {time.time() - t0:.1f} s (alone {t_alone:.1f} s,"
-          f" six chains {t_wave1:.1f} s, four chains {t_wave2:.1f} s); "
+          f" five chains {t_wave1:.1f} s, three chains {t_wave2:.1f} s, the "
+          f"two campaigns beside them {t_campaigns:.1f} s); "
           f"gather_batch launches {launches}", flush=True)
     return launches
 
@@ -4521,6 +4554,157 @@ def tp_drill(plan, card: str, device: str = "cuda",
                           for r in ranks)
 
 
+# The pipeline phase: DeepNN at full width, batch 512, streamed, --grad_accum
+# 2 on 2,048 images (2 optimizer steps of 2 micro-batches) and 1,024 test
+# images (2 eval batches), in deterministic mode.
+PP_DRILL = {"n_train": 2048, "n_test": 1024, "batch": 512, "accum": 2,
+            "data": 0, "seed": 0, "lr": 0.05}
+
+
+def pp_phase(card: str, device: str = "cuda", cfg: dict = PP_DRILL) -> int:
+    """Pipeline parallelism on the card (see the module docstring): the
+    stage table, mesh (1, 1, 2) as two gloo ranks on this card under 1F1B
+    and, at the same time, under GPipe, beside the world-1 ``--grad_accum
+    2`` drill from the same start (five processes at once, each in
+    deterministic mode): losses, the whole state gathered to rank 0 and the
+    eval counts bit for bit, ``gather_batch`` on stage 0 only, the
+    handoffs, the measured bubble against ``(s-1)/(A+s-1)``; then the
+    pipelined save resumed at (1, 1) in this process.  Returns the
+    ``gather_batch`` launches on this path (``device`` "cpu" and a smaller
+    ``cfg`` rehearse it on the CPU)."""
+    t0 = time.time()
+    plan = plan_stages("deepnn", 2, model=get_model("deepnn",
+                                                     device="meta"))
+    print(format_stage_table(plan, num_micro=cfg["accum"]), flush=True)
+    train, test = synthetic(n_train=cfg["n_train"], n_test=cfg["n_test"],
+                            seed=cfg["data"])
+    model = get_model("deepnn", generator=torch.Generator().manual_seed(0))
+    steps = cfg["n_train"] // (cfg["batch"] * cfg["accum"])
+    micros, evals = steps * cfg["accum"], cfg["n_test"] // cfg["batch"]
+    with tempfile.TemporaryDirectory() as tmp:
+        save = os.path.join(tmp, "pp.pt")
+        common = dict(batch=cfg["batch"], lr=cfg["lr"], seed=cfg["seed"],
+                      augment=True, device=device, streaming=True,
+                      grad_accum=cfg["accum"], deterministic=True)
+
+        def pair(schedule, **kw):
+            return drill.run(drill.spec(
+                "deepnn", model.state_dict(), train, test, backend="gloo",
+                mesh_shape=(1, 1, 2), pp_schedule=schedule, **common, **kw),
+                2, same_device=True, timeout=300)
+
+        runs = concurrently({
+            "1f1b": functools.partial(pair, "1f1b", save_path=save),
+            "gpipe": functools.partial(pair, "gpipe"),
+            "w1": lambda: drill.run(drill.spec(
+                "deepnn", model.state_dict(), train, test, **common), 1,
+                timeout=300)})
+        ref = runs["w1"][0]
+        names = [k for k, _ in model.named_parameters()]
+
+        def same(r):
+            return (torch.equal(r["losses"], ref["losses"])
+                    and list(r["state_dict"]) == list(ref["state_dict"])
+                    and all(torch.equal(v, ref["state_dict"][k])
+                            for k, v in r["state_dict"].items())
+                    and all(torch.equal(a, b) for a, b in
+                            zip(r["momentum"], ref["momentum"]))
+                    and (r["correct"], r["total"]) ==
+                    (ref["correct"], ref["total"]))
+
+        act = cfg["batch"] * 64 * 16 * 16 * 4
+        for schedule in ("1f1b", "gpipe"):
+            ranks = runs[schedule]
+            check(same(ranks[0]), f"pp {schedule}: mesh (1, 1, 2) is not "
+                  f"bit for bit the world-1 --grad_accum 2 drill (losses "
+                  f"{ranks[0]['losses'].tolist()} against "
+                  f"{ref['losses'].tolist()})")
+            for r in ranks:
+                first = r["stage_index"] == 0
+                check(r["device"].startswith(device)
+                      and r["backend"] == "gloo"
+                      and torch.equal(r["losses"], ref["losses"])
+                      and (r["train_launches"], r["eval_launches"]) ==
+                      ((micros, evals) if first and device == "cuda"
+                       else (0, 0))
+                      and r["collectives"]["pp_handoff"] == 2 * micros
+                      and r["handoff"]["bytes_sent"] == micros * act,
+                      f"pp {schedule} stage {r['stage_index']}: launches "
+                      f"{r['train_launches']} + {r['eval_launches']}, "
+                      f"collectives {r['collectives']}, handoff "
+                      f"{r['handoff']}")
+        bub = [runs[s][0]["pp_bubble"] for s in ("1f1b", "gpipe")]
+        check(all(b["num_micro"] == cfg["accum"] and 0 <= b[
+            "bubble_measured"] < 1 for b in bub), f"pp bubbles {bub}")
+        ck = load_checkpoint(save)
+        check(ck.step == steps, f"pp save: step {ck.step}")
+        # The pipelined file resumed at (1, 1) in this process: its state
+        # restored bit for bit, then one more epoch.
+        resumed = get_model("deepnn", device=device)
+        loader = TrainLoader(train, cfg["batch"], 1, seed=cfg["seed"])
+        trainer = Trainer(resumed, loader, device=torch.device(device),
+                          lr_schedule=functools.partial(
+                              triangular_lr, base_lr=cfg["lr"], num_epochs=2,
+                              steps_per_epoch=steps),
+                          sgd_config=SGDConfig(lr=cfg["lr"]),
+                          seed=cfg["seed"], snapshot_path=save, resume=True,
+                          save_every=10 ** 9, grad_accum=cfg["accum"],
+                          resident=False)
+        restored = all(torch.equal(v.cpu(), ref["state_dict"][k])
+                       for k, v in resumed.state_dict().items()) and all(
+            torch.equal(m.cpu(), ref["momentum"][i])
+            for i, m in enumerate(trainer.state.momentum))
+        launches = gather_batch.launches
+        trainer.train(2)
+        resume_launches = gather_batch.launches - launches
+        check(restored and trainer.start_epoch == 1 and
+              len(trainer.loss_history) == steps and
+              all(math.isfinite(x) for x in trainer.loss_history) and
+              resume_launches == (micros if device == "cuda" else 0),
+              f"pp resume at (1, 1): restored {restored}, start epoch "
+              f"{trainer.start_epoch}, losses {trainer.loss_history}, "
+              f"gather_batch {resume_launches}")
+    def last_ms(r):
+        # The last step's device ms (CUDA events after consecutive steps;
+        # the first step holds the process's warm-up; none on the CPU).
+        return r["step_ms"][-1] if r["step_ms"] else math.nan
+
+    w1_ms = last_ms(ref)
+    for schedule in ("1f1b", "gpipe"):
+        r0, r1 = runs[schedule]
+        b = r0["pp_bubble"]
+        hs = r0["handoff"]["seconds"] + r1["handoff"]["seconds"]
+        print(f"pp, mesh (1, 1, 2) {schedule} over gloo on one card "
+              f"({card}): DeepNN "
+              f"{sum(p.numel() for p in model.parameters())} parameters, "
+              f"{steps} steps of {cfg['accum']} micro-batches of "
+              f"{cfg['batch']}, {evals} eval batches; bit for bit the "
+              f"world-1 --grad_accum {cfg['accum']} drill (losses, the "
+              f"whole state gathered to rank 0, eval counts); the last "
+              f"step {max(last_ms(r0), last_ms(r1)):.1f} ms (stage 0 "
+              f"{last_ms(r0):.1f}, stage 1 {last_ms(r1):.1f}; CUDA events) "
+              f"against the world-1 "
+              f"drill's {w1_ms:.1f}; bubble "
+              f"measured {b['bubble_measured']:.3f} against predicted "
+              f"{b['bubble_predicted']:.3f} (makespan "
+              f"{b['makespan_s'] * 1e3:.1f} ms, the second step under CUDA "
+              f"events), peak in-flight graphs "
+              f"{b['peak_inflight_acts']}; handoffs "
+              f"{r0['collectives']['pp_handoff']} a rank, "
+              f"{r0['handoff']['bytes_sent']} bytes each way, "
+              f"{hs * 1e3:.1f} ms of host time in the calls over both "
+              f"ranks (staged through pinned host buffers: gloo on one "
+              f"card); gather_batch {r0['train_launches']} + "
+              f"{r0['eval_launches']} on stage 0, 0 on stage 1", flush=True)
+    print(f"pp: the pipelined save (step {steps}) resumed at (1, 1) in "
+          f"this process bit for bit, one more epoch, {resume_launches} "
+          f"gather_batch launches; pp phase: {time.time() - t0:.1f} s",
+          flush=True)
+    return (sum(r["train_launches"] + r["eval_launches"]
+                for s in ("1f1b", "gpipe", "w1") for r in runs[s])
+            + resume_launches)
+
+
 BENCH_RUNS = (("vgg", ["--steps", "10", "--repeats", "3", "--warmup", "5"]),
               ("deepnn", ["--steps", "10", "--repeats", "3", "--warmup",
                           "5"]),
@@ -4630,7 +4814,8 @@ def bench_phase(main_ms: float, card: str) -> dict:
 GUARD_RUN = ["--guard_overhead", "--steps", "50", "--repeats", "2"]
 SERVE_RUN = ["--serve", "--serve_buckets", "1,8,32,128", "--serve_secs",
              "1"]
-BATCH_SWEEP_RUN = ["--batch_sweep", "512,1024", "--batch_sweep_flavors",
+# One cell: the bench phase's bf16 record is the step at 512.
+BATCH_SWEEP_RUN = ["--batch_sweep", "1024", "--batch_sweep_flavors",
                    "bf16_step", "--steps", "10", "--repeats", "2"]
 STREAM_ATTR_RUN = ["--stream_attr", "--e2e_steps", "8", "--repeats", "2"]
 GUARD_MAX_PCT = 1.0  # bench.py --guard_overhead's acceptance at K=50
@@ -4692,47 +4877,47 @@ def bench_modes_phase(card: str) -> dict:
                          if "overhead_pct_vs_off" in v else "")
                       for k, v in per.items()), flush=True)
 
-    for n in (1, 2):
-        what = f"--serve --fleet {n}"
-        summary = run_bench(["--model", "vgg", *SERVE_RUN, "--fleet", str(n)])
-        _bench_mode_launches(summary, what, launches)
-        check(summary["eval_calls"]["float32"] == 2 * 4 * n,
-              f"bench {what}: eval-form calls {summary['eval_calls']}")
-        rec = _mode_record(summary, what, {
-            "metric", "value", "unit", "vs_baseline", "serve"} | port)
-        serve = rec["serve"]
-        timed_out = serve["closed_loop"]["timed_out"] + sum(
-            p["timed_out"] for p in serve["open_loop"])
-        check(serve["compiled_executables"] == 4 * n and timed_out == 0
-              and (serve["router"] is not None) == (n > 1),
-              f"bench {what}: {serve['compiled_executables']} graphs, "
-              f"{timed_out} timed out, router {serve['router']}")
-        knee = next((p for p in serve["open_loop"]
-                     if p["offered_rps"] == serve["knee_offered_rps"]),
-                    serve["open_loop"][-1])
-        closed = serve["closed_loop"]
-        print(f"bench {what} ({card}): {rec['value']} {rec['unit']}; at "
-              f"that point p50/p99 {knee['latency_ms']['p50']}/"
-              f"{knee['latency_ms']['p99']} ms, shed {knee['shed']}; closed "
-              f"loop ({closed['clients']} clients of 1 row) "
-              f"{closed['throughput_rps']} rows/s, p99 "
-              f"{closed['latency_ms']['p99']} ms; r0's batcher "
-              f"{serve['batcher']['mean_batch_rows']} rows a batch, "
-              f"{serve['batcher']['batches']} batches; "
-              + (f"router routed {serve['router']['routed']}, served "
-                 f"{[r['served'] for r in serve['router']['per_replica']]}; "
-                 if n > 1 else "")
-              + f"the fleet phase in process (8 clients of 1-32 rows, "
-              f"PERF.md): {B7_ROWS_PER_S[n]} rows/s", flush=True)
+    # A fleet of 2 (the serving phase serves one engine).
+    n = 2
+    what = f"--serve --fleet {n}"
+    summary = run_bench(["--model", "vgg", *SERVE_RUN, "--fleet", str(n)])
+    _bench_mode_launches(summary, what, launches)
+    check(summary["eval_calls"]["float32"] == 2 * 4 * n,
+          f"bench {what}: eval-form calls {summary['eval_calls']}")
+    rec = _mode_record(summary, what, {
+        "metric", "value", "unit", "vs_baseline", "serve"} | port)
+    serve = rec["serve"]
+    timed_out = serve["closed_loop"]["timed_out"] + sum(
+        p["timed_out"] for p in serve["open_loop"])
+    check(serve["compiled_executables"] == 4 * n and timed_out == 0
+          and serve["router"] is not None,
+          f"bench {what}: {serve['compiled_executables']} graphs, "
+          f"{timed_out} timed out, router {serve['router']}")
+    knee = next((p for p in serve["open_loop"]
+                 if p["offered_rps"] == serve["knee_offered_rps"]),
+                serve["open_loop"][-1])
+    closed = serve["closed_loop"]
+    print(f"bench {what} ({card}): {rec['value']} {rec['unit']}; at "
+          f"that point p50/p99 {knee['latency_ms']['p50']}/"
+          f"{knee['latency_ms']['p99']} ms, shed {knee['shed']}; closed "
+          f"loop ({closed['clients']} clients of 1 row) "
+          f"{closed['throughput_rps']} rows/s, p99 "
+          f"{closed['latency_ms']['p99']} ms; r0's batcher "
+          f"{serve['batcher']['mean_batch_rows']} rows a batch, "
+          f"{serve['batcher']['batches']} batches; router routed "
+          f"{serve['router']['routed']}, served "
+          f"{[r['served'] for r in serve['router']['per_replica']]}; the "
+          f"fleet phase in process (8 clients of 1-32 rows, PERF.md): "
+          f"{B7_ROWS_PER_S[n]} rows/s", flush=True)
 
     summary = run_bench(["--model", "vgg", *BATCH_SWEEP_RUN])
     _bench_mode_launches(summary, "--batch_sweep", launches)
-    check(summary["steps"]["bfloat16"] == 2 * (10 + 2 * 10),
+    check(summary["steps"]["bfloat16"] == 10 + 2 * 10,
           f"bench --batch_sweep: steps {summary['steps']}")
     rec = _mode_record(summary, "--batch_sweep", {
         "metric", "value", "unit", "vs_baseline", "batch_sweep"} | port)
     cells = {b: c["bf16_step"] for b, c in rec["batch_sweep"].items()}
-    check(set(cells) == {"512", "1024"} and all(
+    check(set(cells) == {"1024"} and all(
         0 < c["mfu"] <= MFU_MAX for c in cells.values()),
           f"bench --batch_sweep: cells {cells}")
     print(f"bench --batch_sweep ({card}): " + ", ".join(
@@ -4982,6 +5167,8 @@ def main() -> int:
     stamp("models phases")
     tp_launches = tp_phase(models, card)
     stamp("tensor-parallel phase")
+    pp_launches = pp_phase(card)
+    stamp("pipeline phase")
     serve = serve_phase(snapshot)
     print(f"serve: {json.dumps(serve)}", flush=True)
     serve_bf16 = bf16_serve_phase(snapshot_bf16, serve)
@@ -5015,6 +5202,7 @@ def main() -> int:
                  launches_stream_path=stream_launches,
                  launches_models_path=models["launches_f32"],
                  launches_tp_path=tp_launches,
+                 launches_pp_path=pp_launches,
                  launches_bench_path=bench["float32"],
                  launches_bench_modes_path=bench_modes["float32"],
                  launches_runshape_path=runshape_launches,

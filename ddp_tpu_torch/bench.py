@@ -163,7 +163,7 @@ from .utils.profiling import attribute_streaming
 # ROADMAP item that ports each.
 REFUSED = {
     "--calibrate_cost": "A13c", "--mem_ledger": "A13c",
-    "--tp_sweep": "A10b", "--pp_sweep": "A11",
+    "--tp_sweep": "A10b", "--pp_sweep": "A10b",
     "--mesh_shape": "A10b", "--auto_plan": "A13c",
     "--autoplan_bench": "A13c", "--generate": "A12",
     "--ckpt_bench": "A10b",

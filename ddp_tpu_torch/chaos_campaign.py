@@ -27,9 +27,11 @@ The matrix:
                    the epoch-boundary resume, warned
   local_wipe       preempt with ``--mirror``, then remove the whole local
                    checkpoint directory -> resume from the mirror alone
-
-``kill_stage`` (the JAX matrix's pipelined stage loss) needs pipeline
-parallelism and is refused by name (ROADMAP A11).
+  kill_stage       a pipelined run preempted mid-schedule, a whole stage
+                   plane dead at relaunch (the probe sees fewer cards) ->
+                   the supervisor's stage-first shrink collapses the
+                   stage axis and the canonical checkpoint restores onto
+                   the 2-D mesh bit for bit
 
 Every child runs in deterministic mode, so that bit parity means something
 on a card: ``python -m ddp_tpu_torch.repeat_check --child singlegpu
@@ -46,7 +48,14 @@ step 12 and no checkpoint lands between the poison and the abort; C is A
 at world 2 in batches of 16 a rank, since a drift needs two replicas: on
 the CPU ``--spawn 2``, on a card two ranks over gloo on the one card
 (NCCL refuses two ranks on one card), started by this module's
-``--gloo_ranks 2``.  Exits nonzero when any drill fails.
+``--gloo_ranks 2``.  P is the JAX campaign's pipelined config, 32 images,
+``--grad_accum 2``, 2 optimizer steps an epoch: on the CPU ``--mesh_shape
+2,1,2`` in batches of 4 (``multigpu`` spawns the mesh's four gloo ranks),
+its probe reporting 2 cards at relaunch, so (2,1,2) becomes (2,1,1); on a
+card ``--mesh_shape 1,1,2`` in batches of 8 as gloo ranks on the one card
+(this module's hidden ``--gloo_mesh``, which starts as many as the mesh
+has), its probe reporting 1, so (1,1,2) becomes (1,1,1).  Exits nonzero
+when any drill fails.
 """
 from __future__ import annotations
 
@@ -62,6 +71,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .resilience.supervisor import PROBE_ENV, _get_flag
+
 SCHEMA = "chaos_campaign/1"
 
 _COMMON = ["--model", "deepnn", "--lr", "0.05", "--synthetic", "--seed", "3"]
@@ -69,7 +80,12 @@ _CONFIGS = {
     "A": ["3", "1", "--batch_size", "32", "--synthetic_size", "64"],
     "B": ["3", "2", "--batch_size", "32", "--synthetic_size", "320"],
     "C": ["3", "1", "--batch_size", "16", "--synthetic_size", "64"],
+    "P": ["3", "1", "--synthetic_size", "32", "--grad_accum", "2"],
 }
+# Config P's mesh, batch and the card count its drill's probe reports, by
+# device.
+_P_MESH = {"cpu": (["--batch_size", "4", "--mesh_shape", "2,1,2"], "2"),
+           "cuda": (["--batch_size", "8", "--mesh_shape", "1,1,2"], "1")}
 # name -> (config, DDP_TPU_FAULT spec, or None for a two-stage drill, extra
 # training arguments); the faults and flags are the JAX campaign's.
 _DRILLS = {
@@ -84,10 +100,8 @@ _DRILLS = {
                       "--guard_action", "abort"]),
     "torn_data_state": ("A", None, []),
     "local_wipe": ("A", None, []),
+    "kill_stage": ("P", "sigterm@step=2", []),
 }
-_REFUSED = {"kill_stage": "a pipelined (d, m, s) run and the supervisor's "
-                          "stage-first shrink, which come with pipeline "
-                          "parallelism (ROADMAP A11)"}
 CI_DRILLS = "sigterm_step,watchdog_stall"
 
 
@@ -111,8 +125,16 @@ def _child_argv(config: str, extra: List[str], workdir: str, device: str,
     args = (_CONFIGS[config] + _COMMON + extra
             + ["--snapshot_path", snapshot or os.path.join(workdir, "ck.pt"),
                "--metrics_path", os.path.join(workdir, "metrics.jsonl")])
+    if config == "P":
+        args += _P_MESH[device][0]
     if device == "cpu":
         args += ["--device", "cpu"]
+    if config == "P":
+        if device == "cpu":
+            return ["-m", "ddp_tpu_torch.repeat_check", "--child",
+                    "multigpu", "--deterministic", "--", *args]
+        return ["-m", "ddp_tpu_torch.chaos_campaign", "--gloo_mesh", "--",
+                *args]
     if config == "C":
         if device == "cpu":
             return ["-m", "ddp_tpu_torch.repeat_check", "--child",
@@ -283,6 +305,28 @@ def _run_local_wipe(root: str, env: dict, device: str,
             "fault": fault, "wall_s": round(wall1 + wall2, 1)}
 
 
+def _run_kill_stage(root: str, env: dict, device: str,
+                    timeout: float) -> dict:
+    """Stage loss: the pipelined config P is SIGTERMed mid-schedule (exit
+    75, emergency checkpoint on disk), and at the relaunch the
+    supervisor's probe reports one (data, model) plane of cards only: the
+    stage-first shrink must give the stage axis up (S -> 1) rather than
+    the data axis, and the canonical checkpoint must restore onto the
+    collapsed mesh and finish bit for bit the undisturbed pipelined
+    control (``tools/chaos_campaign.py:311-331``)."""
+    workdir = os.path.join(root, "kill_stage")
+    os.makedirs(workdir, exist_ok=True)
+    child = _child_argv("P", [], workdir, device)
+    # The probe seam: the supervisor believes one stage plane survived.
+    drill_env = dict(env)
+    drill_env[PROBE_ENV] = _P_MESH[device][1]
+    rc, wall = _supervised(child, drill_env, timeout, "kill_stage",
+                           fault="sigterm@step=2")
+    return {"workdir": workdir, "supervisor_exit": rc,
+            "fault": "sigterm@step=2 + stage plane dead at relaunch",
+            "wall_s": round(wall, 1)}
+
+
 def run_campaign(drills: List[str], root: str, env: dict, device: str,
                  timeout: float) -> dict:
     configs = sorted({_DRILLS[d][0] for d in drills})
@@ -295,6 +339,8 @@ def run_campaign(drills: List[str], root: str, env: dict, device: str,
             res = _run_torn(root, env, device, timeout)
         elif name == "local_wipe":
             res = _run_local_wipe(root, env, device, timeout)
+        elif name == "kill_stage":
+            res = _run_kill_stage(root, env, device, timeout)
         else:
             workdir = os.path.join(root, name)
             os.makedirs(workdir, exist_ok=True)
@@ -335,7 +381,7 @@ def run_campaign(drills: List[str], root: str, env: dict, device: str,
 
 
 def _gloo_rank(argv: List[str]) -> None:
-    """One rank of config C on a card: deterministic mode (as
+    """One rank of config C or P on a card: deterministic mode (as
     ``repeat_check``'s children), gloo."""
     import torch
     torch.backends.cudnn.deterministic = True
@@ -368,22 +414,24 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="Per-subprocess timeout in seconds (default 900)")
     p.add_argument("--gloo_ranks", type=int, default=0,
                    help=argparse.SUPPRESS)
+    p.add_argument("--gloo_mesh", action="store_true",
+                   help=argparse.SUPPRESS)
     p.add_argument("--gloo_rank", action="store_true",
                    help=argparse.SUPPRESS)
     args = p.parse_args(own)
     if args.gloo_rank:
         _gloo_rank(rest)
         return 0
-    if args.gloo_ranks:
+    if args.gloo_ranks or args.gloo_mesh:
+        # --gloo_mesh: as many ranks as the child's --mesh_shape, which
+        # the supervisor rewrites at a relaunch.
         from .parallel import dist
+        n = args.gloo_ranks or int(np.prod([
+            int(v) for v in _get_flag(rest, "--mesh_shape").split(",")]))
         return dist.launch_local(
             [sys.executable, "-m", "ddp_tpu_torch.chaos_campaign",
-             "--gloo_rank", "--", *rest], args.gloo_ranks, same_device=True)
+             "--gloo_rank", "--", *rest], n, same_device=True)
     drills = [d.strip() for d in args.drills.split(",") if d.strip()]
-    for d in drills:
-        if d in _REFUSED:
-            p.error(f"drill {d!r} needs {_REFUSED[d]}; the port's matrix: "
-                    + ",".join(_DRILLS))
     unknown = [d for d in drills if d not in _DRILLS]
     if unknown:
         p.error(f"unknown drill(s) {unknown}; matrix: " + ",".join(_DRILLS))

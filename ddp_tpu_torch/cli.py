@@ -19,7 +19,8 @@
         [--drift_audit_every K] [--drift_action abort|restore] \\
         [--watchdog_secs S] [--ckpt_format gathered|sharded] \\
         [--mirror URI] [--trace_spill PATH | --obs_off] \\
-        [--inspect_port PORT] [--profile_dir DIR] [--mesh_shape D,M]
+        [--inspect_port PORT] [--profile_dir DIR] \\
+        [--mesh_shape D,M[,S] [--pp_schedule 1f1b|gpipe]]
     python -m ddp_tpu_torch.multigpu <same arguments> [--spawn N]
 
 ``--model`` trains VGG-11 (the default, the reference's model), DeepNN (the
@@ -60,7 +61,17 @@ reduces over one axis.  ``--spawn``/``--num_devices`` must equal D×M; a
 malformed shape, a contradicting ``--num_devices``, an infeasible plan and
 a model without a recipe at M > 1 are refused in the JAX CLI's words, and
 ``--auto_plan`` (the auto-plan search, ROADMAP A13c) is refused by name.
-At M = 1 the run is the data-parallel one.  Checkpoints stay canonical:
+At M = 1 the run is the data-parallel one.  A third entry ``S > 1``
+(``--mesh_shape D,M,S``, ``--spawn`` D×M×S) adds pipeline parallelism
+(``parallel/pp/``): the model's ``PP_BLOCKS`` are cut into S balanced
+stages (rank 0 prints the stage table, ``python -m
+ddp_tpu_torch.parallel.pp`` prints it offline) and each optimizer step runs
+its ``--grad_accum`` micro-batches through the ``--pp_schedule`` pipeline,
+bit for bit the ``D,M`` run with the same ``--grad_accum``; evaluation runs
+on stage 0 with the gathered parameters, and a model without
+``PP_BLOCKS``, ``--resident``, ``--shard_update``, ``--sync_bn``,
+``--drift_audit_every`` and ``--ckpt_format sharded`` are refused in the
+JAX CLI's words.  Checkpoints stay canonical:
 ``--ckpt_format gathered`` joins the slices over the model group and rank
 0 writes one file, ``sharded`` writes one shard file a model slot, and
 ``--resume`` restores either, from any mesh, onto this one.  The strategy flags have the JAX CLI's meaning
@@ -181,6 +192,7 @@ from .ops.gather import gather_batch, gather_rows
 from .optim import SGDConfig, triangular_lr
 from .parallel import dist
 from .parallel.mesh import Mesh
+from .parallel.pp.partition import format_stage_table, plan_stages
 from .parallel.tp.plan import format_plan_table, plan_for_model
 from .resilience.drift import DriftDetectedError
 from .resilience.faults import install_env_faults
@@ -190,7 +202,7 @@ from .resilience.preemption import (EMERGENCY_CHECKPOINT_EXIT_STATUS,
 from .resilience.supervisor import SUPERVISED_ENV
 from .resilience.watchdog import WATCHDOG_EXIT_STATUS, Watchdog
 from .train.evaluate import evaluate, evaluate_resident
-from .train.trainer import Trainer
+from .train.trainer import Trainer, pp_refusal
 from .utils.metrics import MetricsLogger, require_tensorboard
 
 # The reference's unit constants: model sizes are kept in bits.
@@ -281,17 +293,35 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    help="World size: multigpu's rank count (the same as "
                         "--spawn, which must agree); singlegpu takes only "
                         "1")
-    p.add_argument("--mesh_shape", default=None, metavar="D,M",
+    p.add_argument("--mesh_shape", default=None, metavar="D,M[,S]",
                    help="2-D (data x model) rank grid for tensor-model "
                         "parallelism (parallel/tp/): D-way data parallel "
                         "x M-way model parallel over D*M ranks, params "
                         "sharded per the model's TP_RECIPE (plan table "
                         "printed at startup; python -m "
                         "ddp_tpu_torch.parallel.tp shows it offline).  "
-                        "Batches split over the data axis only; "
-                        "checkpoints stay canonical, so snapshots "
-                        "interchange with any other mesh shape.  Default: "
-                        "data parallel over every rank")
+                        "A third S entry adds S-way PIPELINE parallelism "
+                        "(parallel/pp/): the model's PP_BLOCKS are cut "
+                        "into S balanced stages (stage table printed at "
+                        "startup; python -m ddp_tpu_torch.parallel.pp "
+                        "shows it offline) and each optimizer step runs "
+                        "--grad_accum micro-batches through the "
+                        "--pp_schedule pipeline.  S=1 is bit-identical "
+                        "to the 2-D mesh.  Batches split over the data "
+                        "axis only; checkpoints stay canonical, so "
+                        "snapshots interchange with any other mesh shape "
+                        "(incl. 1-D serving).  Default: data parallel "
+                        "over every rank")
+    p.add_argument("--pp_schedule", default="1f1b",
+                   choices=("1f1b", "gpipe"),
+                   help="Microbatch schedule for the pipeline stage axis "
+                        "(--mesh_shape D,M,S with S>1): '1f1b' "
+                        "interleaves one-forward-one-backward (min(S,A) "
+                        "in-flight activations), 'gpipe' runs all "
+                        "forwards then all backwards (A in flight).  "
+                        "Same math, bit-identical results, same bubble "
+                        "fraction (S-1)/(A+S-1) — the choice is an "
+                        "activation-memory knob")
     p.add_argument("--auto_plan", default=None, metavar="PLAN.json",
                    help="Refused: the auto-plan search's plans are not "
                         "ported (ROADMAP A13c)")
@@ -492,8 +522,7 @@ def export_torch(model: torch.nn.Module, path: str,
 
 def _parse_mesh_shape(text: str) -> tuple:
     """``--mesh_shape`` 'D,M' / 'D,M,S' (or x-separated) as an int tuple
-    (``ddp_tpu/cli.py::_parse_mesh_shape``'s words).  A stage axis above 1
-    is pipeline parallelism, not ported (ROADMAP A11)."""
+    (``ddp_tpu/cli.py::_parse_mesh_shape``'s words)."""
     try:
         dims = tuple(int(x) for x in str(text).replace("x", ",").split(","))
     except ValueError:
@@ -503,17 +532,17 @@ def _parse_mesh_shape(text: str) -> tuple:
             f"--mesh_shape wants 'D,M' or 'D,M,S' — positive ints, in "
             f"(data, model, pipeline stage) order, e.g. 2,4 or 2,1,2 — "
             f"got {text!r}")
-    if len(dims) == 3 and dims[2] > 1:
-        raise SystemExit(
-            f"--mesh_shape {text}: a pipeline stage axis of {dims[2]} needs "
-            f"pipeline parallelism, which the port does not have yet "
-            f"(ROADMAP A11); use D,M")
-    return dims[:2]
+    return dims
 
 
 def mesh_dims(args: argparse.Namespace) -> Optional[tuple]:
-    """``(D, M)`` of ``--mesh_shape``, or None."""
+    """``(D, M)`` or ``(D, M, S)`` of ``--mesh_shape``, or None."""
     return _parse_mesh_shape(args.mesh_shape) if args.mesh_shape else None
+
+
+def mesh_ranks(dims: Optional[tuple]) -> int:
+    """The rank count of a ``--mesh_shape`` (0 without one)."""
+    return int(np.prod(dims)) if dims else 0
 
 
 def tp_plan(args: argparse.Namespace, model=None):
@@ -533,6 +562,22 @@ def tp_plan(args: argparse.Namespace, model=None):
         if dims[1] == 1 and "declares no TP_RECIPE" in str(e):
             return None
         raise SystemExit(str(e)) from None
+
+
+def pp_plan(args: argparse.Namespace):
+    """The run's stage plan under ``--mesh_shape D,M,S`` with S > 1 (None
+    otherwise): the balanced cut of the model's ``PP_BLOCKS``, priced with
+    its layers' forward flops (``ddp_tpu/cli.py:719-737``).  A model
+    without ``PP_BLOCKS`` or an infeasible cut is refused in the JAX CLI's
+    words."""
+    dims = mesh_dims(args)
+    if dims is None or len(dims) < 3 or dims[2] == 1:
+        return None
+    try:
+        return plan_stages(args.model, dims[2], model_size=dims[1],
+                           model=get_model(args.model, device="meta"))
+    except ValueError as e:
+        raise SystemExit(f"--mesh_shape: {e}") from None
 
 
 def _check_args(args: argparse.Namespace) -> None:
@@ -557,13 +602,21 @@ def _check_args(args: argparse.Namespace) -> None:
             "--mesh_shape D,M for the model's TP_RECIPE")
     dims = mesh_dims(args)
     if dims is not None:
-        n_mesh = dims[0] * dims[1]
+        n_mesh = mesh_ranks(dims)
         if args.num_devices and args.num_devices != n_mesh:
             raise SystemExit(
                 f"--num_devices {args.num_devices} contradicts "
                 f"--mesh_shape {','.join(map(str, dims))} (= {n_mesh} "
                 "devices); drop one")
         tp_plan(args)
+        if pp_plan(args) is not None:
+            why = pp_refusal(resident=args.resident,
+                             shard_update=args.shard_update,
+                             sync_bn=args.sync_bn,
+                             drift_audit_every=args.drift_audit_every,
+                             ckpt_format=args.ckpt_format)
+            if why:
+                raise SystemExit(why)
     if args.tensorboard_dir:
         # Every rank refuses, before any of them joins a collective.
         require_tensorboard()
@@ -596,10 +649,10 @@ def run(args: argparse.Namespace, *, data_parallel: bool = False,
                 f"world of {dist.world_size()}")
         dims = mesh_dims(args)
         if dims is not None:
-            if dims[0] * dims[1] != dist.world_size():
+            if mesh_ranks(dims) != dist.world_size():
                 raise SystemExit(
-                    f"--mesh_shape {dims[0]},{dims[1]} needs "
-                    f"{dims[0] * dims[1]} ranks; this run's world is "
+                    f"--mesh_shape {','.join(map(str, dims))} needs "
+                    f"{mesh_ranks(dims)} ranks; this run's world is "
                     f"{dist.world_size()}")
             dist.init_mesh(Mesh(dims, dist.rank()))
         return _train_and_evaluate(args, device)
@@ -673,6 +726,12 @@ def _train(args: argparse.Namespace, device: torch.device,
     plan = tp_plan(args, model)
     if plan is not None and rank == 0:
         print(format_plan_table(plan), flush=True)
+    stages = pp_plan(args)
+    if stages is not None and rank == 0:
+        # The micro-batch count is the group's: the pipeline injects
+        # exactly those a step (ddp_tpu/cli.py:720-737).
+        print(format_stage_table(stages, num_micro=max(args.grad_accum, 1)),
+              flush=True)
     device_augment = args.device_augment or args.resident
     train_loader = TrainLoader(train_ds, args.batch_size, replicas,
                                seed=args.seed, augment=not device_augment,
@@ -686,7 +745,7 @@ def _train(args: argparse.Namespace, device: torch.device,
     try:
         return _train_traced(args, device, metrics, preemption, tracer,
                              model, train_loader, test_ds, compute_dtype,
-                             device_augment, plan)
+                             device_augment, plan, stages)
     finally:
         set_tracer(None)
         tracer.close()
@@ -725,7 +784,7 @@ def _train_traced(args: argparse.Namespace, device: torch.device,
                   preemption: Optional[PreemptionGuard], tracer,
                   model: torch.nn.Module, train_loader: TrainLoader,
                   test_ds, compute_dtype: Optional[torch.dtype],
-                  device_augment: bool, plan=None) -> Dict:
+                  device_augment: bool, plan=None, stages=None) -> Dict:
     rank, world = dist.rank(), dist.world_size()
     # What crops and flips on the host: the C++ library (built here, before
     # the clock starts) or numpy; None where the card does it.
@@ -881,7 +940,7 @@ def _train_traced(args: argparse.Namespace, device: torch.device,
         guard_spike_factor=args.guard_spike_factor,
         guard_action=args.guard_action, ckpt_format=args.ckpt_format,
         mirror=args.mirror, registry=registry, step_probe=step_probe,
-        tp_plan=plan)
+        tp_plan=plan, pp_plan=stages, pp_schedule=args.pp_schedule)
     trainer_ref.append(trainer)
     install_env_faults(trainer)  # the drills' faults; nothing unless set
     # The inspect server binds only for --inspect_port, after the trainer,
@@ -934,6 +993,13 @@ def _run_training(args: argparse.Namespace, device: torch.device,
     tp = trainer._tp
 
     def _eval() -> float:
+        if trainer.pp_plan is not None:
+            # On stage 0's plane with the gathered parameters
+            # (ddp_tpu/cli.py:1132-1144); its accuracy to every stage.
+            whole = trainer.eval_model()
+            return trainer.pp_share(
+                evaluate(whole, eval_loader, compute_dtype, tp)
+                if whole is not None else 0.0)
         if not args.resident:
             return evaluate(model, eval_loader, compute_dtype, tp)
         if not resident_test:
@@ -987,10 +1053,11 @@ def _run_training(args: argparse.Namespace, device: torch.device,
     training_seconds = time.time() - start
     n_params = sum(p.numel() for p in model.parameters())
     whole = None
-    if tp is not None:
+    if tp is not None or trainer.pp_plan is not None:
         # The whole model: its size, and the file --export_torch writes
-        # (a gather over the model group, on every rank).
-        n_params = sum(int(np.prod(r[2])) for r in trainer.tp_plan.rows)
+        # (a gather over the model group and the stages, on every rank).
+        n_params = sum(p.numel() for p in
+                       get_model(args.model, device="meta").parameters())
         if args.export_torch:
             whole = trainer.full_state()[0]
     if rank == 0:
@@ -1033,6 +1100,13 @@ def _run_training(args: argparse.Namespace, device: torch.device,
            "model_axis_collectives": {
                k: dist.collective_calls[k]
                for k in ("psum_model_fwd", "psum_model_bwd")},
+           "pp_schedule": (args.pp_schedule if trainer.pp_plan is not None
+                           else None),
+           "pp_bubble": (trainer.pp_step.bubble
+                         if trainer.pp_plan is not None else None),
+           "pp_handoff": (dict(dist.handoff_stats, peak_inflight=(
+               trainer.pp_step.peak_inflight))
+               if trainer.pp_plan is not None else None),
            "checkpoint_saves": list(trainer.saves),
            "mirror": _mirror_summary(trainer, registry)}
     if rank == 0:
@@ -1098,8 +1172,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.num_devices not in (None, 1):
         raise SystemExit(f"singlegpu runs on one device; --num_devices "
                          f"{args.num_devices} belongs to multigpu")
-    dims = mesh_dims(args)
-    if dims is not None and dims[0] * dims[1] != 1:
+    if mesh_ranks(mesh_dims(args)) > 1:
         raise SystemExit(f"singlegpu runs one process; --mesh_shape "
                          f"{args.mesh_shape} belongs to multigpu")
     return run(args)
@@ -1123,9 +1196,10 @@ def main_multi(argv: Optional[List[str]] = None, *,
                              f"--spawn {args.spawn}; both give the world "
                              f"size, drop one")
         dims = mesh_dims(args)
-        n_mesh = dims[0] * dims[1] if dims is not None else 0
+        n_mesh = mesh_ranks(dims)
         if n_mesh and args.spawn and args.spawn != n_mesh:
-            raise SystemExit(f"--spawn {args.spawn} must equal D×M = "
+            axes = "D×M×S" if len(dims) == 3 else "D×M"
+            raise SystemExit(f"--spawn {args.spawn} must equal {axes} = "
                              f"{n_mesh} of --mesh_shape {args.mesh_shape}")
         # Without --spawn/--num_devices: the mesh's ranks (one per card,
         # or on the CPU gloo ranks), else one rank per visible card.

@@ -28,7 +28,8 @@ slice of each sharded leaf: :func:`shard_state` cuts a whole ``state_dict``
 (or a momentum dict keyed alike) to model index k's slice by the plan's
 specs, which name the split dimension of the port's tensors;
 :func:`gather_state` joins the M slices again; :func:`rank_state_from_jax`
-takes a JAX tree straight to one rank's slice.  :func:`tree_dim` maps a
+takes a JAX tree straight to one rank's slice, under a stage plan
+(``parallel/pp/``) its stage's part of it (:func:`stage_state`).  :func:`tree_dim` maps a
 dimension of a port tensor to the same dimension of the JAX package's
 layout, where the JAX package's specs and shard files name it.
 """
@@ -226,15 +227,28 @@ def gather_state(plan, slices: List[Dict[str, torch.Tensor]]
     return out
 
 
+def stage_state(pp_plan, state_dict: Dict[str, torch.Tensor],
+                stage: int) -> Dict[str, torch.Tensor]:
+    """The keys of ``state_dict`` (or of a momentum dict keyed alike) that
+    stage ``stage`` of ``pp_plan`` owns: block ``"a/b"`` owns the tree
+    paths under ``a/b`` (``parallel/pp/partition.py``)."""
+    from .parallel.pp.partition import stage_of_path
+    return {k: v for k, v in state_dict.items()
+            if stage_of_path(pp_plan, rule_of(pp_plan.model_name, k)[0])
+            == stage}
+
+
 def rank_state_from_jax(plan, params: Dict[str, Any],
-                        batch_stats: Dict[str, Any], model_index: int
+                        batch_stats: Dict[str, Any], model_index: int,
+                        pp_plan=None, stage: int = 0
                         ) -> Dict[str, torch.Tensor]:
     """``ddp_tpu``'s ``(params, batch_stats)`` (numpy trees) -> the port
-    ``state_dict`` slice of model index ``model_index`` under ``plan``: the
-    start a test hands to a port rank where ``ddp_tpu`` takes the whole
-    tree on its mesh."""
-    return shard_state(plan, state_dict_from_jax(plan.model_name, params,
-                                                 batch_stats), model_index)
+    ``state_dict`` slice of model index ``model_index`` under ``plan``, and
+    of stage ``stage`` under ``pp_plan``: the start a test hands to a port
+    rank where ``ddp_tpu`` takes the whole tree on its mesh."""
+    sd = shard_state(plan, state_dict_from_jax(plan.model_name, params,
+                                               batch_stats), model_index)
+    return sd if pp_plan is None else stage_state(pp_plan, sd, stage)
 
 
 def _leaves(tree: Dict[str, Any], prefix: str = ""):

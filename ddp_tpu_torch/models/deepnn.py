@@ -26,12 +26,18 @@ group (``forward(..., tp_group=...)``; the parameters are then this rank's
 slices, ``parallel/tp/plan.py::shard_module_``) the recipe's members run
 through the column/row wrappers of ``parallel/tp/layers.py`` and the
 dropout after a column-parallel ``linear0`` draws the full-width mask and
-takes this rank's block.  The pipeline hooks (``PP_BLOCKS``,
-``apply_blocks``) belong to the pipeline-parallel slice (ROADMAP A11).
+takes this rank's block.
+
+Pipeline parallelism (``parallel/pp/``): ``PP_BLOCKS`` is the JAX model's
+block list and ``PP_SHARDED_OUT`` its column-parallel blocks;
+:meth:`DeepNN.forward_blocks` runs a contiguous range of blocks, and
+:meth:`DeepNN.forward` is that range over every block, so a stage axis of
+1 cannot drift from the plain path.  A stage's model holds only its
+blocks' layers (``parallel/pp/schedule.py::stage_module_``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -75,6 +81,35 @@ TP_BARRIERS = ("features/conv3",)
 # gradients w.r.t. the parameters only, so the stem's column-style
 # input-gradient sum never runs (parallel/tp/plan.py).
 TP_STEM = "features/conv0"
+
+# Pipeline-parallel block list (parallel/pp/partition.py): the model as an
+# ordered sequence of cut-able units, one per TP_RECIPE layer, each owning
+# the layer and its trailing ReLU/pool/flatten/dropout, so a cut between
+# any two blocks is a clean activation handoff.  Block names ARE the
+# recipe paths, and block "a/b" owns the parameters under tree path "a/b".
+PP_BLOCKS = (
+    "features/conv0",      # conv + relu
+    "features/conv1",      # conv + relu + maxpool
+    "features/conv2",      # conv + relu
+    "features/conv3",      # conv + relu + maxpool + flatten
+    "classifier/linear0",  # linear + relu + dropout (train)
+    "classifier/linear1",  # linear + float32 logits
+)
+
+# Blocks whose OUTPUT is model-sharded under the TP recipe (column
+# layers): a pipeline cut after one would hand a sharded activation across
+# stages, so the planner rejects those cuts when m > 1.
+PP_SHARDED_OUT = tuple(p for p, s in TP_RECIPE.items() if s == "column")
+
+# Each block's modules: (Sequential, first index, end index).
+_BLOCK_MODULES = {
+    "features/conv0": ("features", 0, 2),
+    "features/conv1": ("features", 2, 5),
+    "features/conv2": ("features", 5, 7),
+    "features/conv3": ("features", 7, 10),
+    "classifier/linear0": ("classifier", 0, 3),
+    "classifier/linear1": ("classifier", 3, 4),
+}
 
 
 class Dropout(nn.Module):
@@ -133,54 +168,69 @@ class DeepNN(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 tp_group=None, tp_recipe: Optional[Dict[str, str]] = None
                 ) -> torch.Tensor:
-        """The logits.  With ``tp_group`` (a model group; the parameters
-        are this rank's slices under the plan) the recipe's members run
-        through the tensor-parallel wrappers; ``tp_recipe`` overrides
-        ``TP_RECIPE``, and a layer it omits or maps to ``"replicated"``
-        runs the plain op."""
-        x = x.to(compute_dtype or x.dtype)
-        if tp_group is not None:
-            return self._forward_tp(x, generator, tp_group,
-                                    TP_RECIPE if tp_recipe is None
-                                    else tp_recipe)
-        x = self.features(x)
-        x = x.reshape(x.shape[0], -1)
-        for layer in self.classifier:
-            x = layer(x, generator) if isinstance(layer, Dropout) \
-                else layer(x)
-        return x.float()
+        """The logits: :meth:`forward_blocks` over every block.  With
+        ``tp_group`` (a model group; the parameters are this rank's slices
+        under the plan) the recipe's members run through the
+        tensor-parallel wrappers; ``tp_recipe`` overrides ``TP_RECIPE``,
+        and a layer it omits or maps to ``"replicated"`` runs the plain
+        op."""
+        return self.forward_blocks(x, (0, len(PP_BLOCKS)),
+                                   compute_dtype=compute_dtype,
+                                   generator=generator, tp_group=tp_group,
+                                   tp_recipe=tp_recipe)
 
-    def _forward_tp(self, x: torch.Tensor,
-                    generator: Optional[torch.Generator], group,
-                    recipe: Dict[str, str]) -> torch.Tensor:
-        from ..parallel.tp import layers as tp
+    def forward_blocks(self, x: torch.Tensor, blocks: Tuple[int, int], *,
+                       compute_dtype: Optional[torch.dtype] = None,
+                       generator: Optional[torch.Generator] = None,
+                       tp_group=None,
+                       tp_recipe: Optional[Dict[str, str]] = None
+                       ) -> torch.Tensor:
+        """The ``PP_BLOCKS`` half-open range ``blocks=(lo, hi)`` (the
+        counterpart of the JAX model's ``apply_blocks``): ``x`` is the
+        network input for ``lo == 0``, otherwise the activation handed over
+        by the previous stage; the result is the activation after block
+        ``hi - 1`` (the float32 logits after the last).  Only the range's
+        layers are touched, so a stage's model needs no others."""
+        lo, hi = blocks
+        if not 0 <= lo < hi <= len(PP_BLOCKS):
+            raise ValueError(
+                f"blocks must be a non-empty range within "
+                f"(0, {len(PP_BLOCKS)}), got {blocks!r}")
+        x = x.to(compute_dtype or x.dtype)
+        recipe = TP_RECIPE if tp_recipe is None else tp_recipe
+        if tp_group is not None:
+            from ..parallel.tp import layers as tp
 
         def layer(module, path, x):
-            style = recipe.get(path, "replicated")
+            style = ("replicated" if tp_group is None
+                     else recipe.get(path, "replicated"))
             if style == "replicated":
                 return module(x)
             w, b = module.weight.to(x.dtype), module.bias.to(x.dtype)
             if isinstance(module, Conv):
                 fn = tp.column_conv2d if style == "column" else \
                     tp.row_conv2d
-                return fn(x, w, b, group, stride=module.stride,
+                return fn(x, w, b, tp_group, stride=module.stride,
                           padding=module.padding)
             fn = tp.column_linear if style == "column" else tp.row_linear
-            return fn(x, w, b, group)
+            return fn(x, w, b, tp_group)
 
-        conv = 0
-        for module in self.features:
-            if isinstance(module, Conv):
-                x = layer(module, f"features/conv{conv}", x)
-                conv += 1
-            else:
-                x = module(x)
-        x = x.reshape(x.shape[0], -1)
-        linear0, relu, drop, linear1 = self.classifier
-        x = relu(layer(linear0, "classifier/linear0", x))
-        if recipe.get("classifier/linear0") == "column":
-            x = tp.sharded_dropout(x, drop.rate, train=drop.training,
-                                   group=group, generator=generator)
-        else:
-            x = drop(x, generator)
-        return layer(linear1, "classifier/linear1", x).float()
+        for name in PP_BLOCKS[lo:hi]:
+            seq, first, end = _BLOCK_MODULES[name]
+            modules = list(getattr(self, seq))[first:end]
+            x = layer(modules[0], name, x)
+            for module in modules[1:]:
+                if not isinstance(module, Dropout):
+                    x = module(x)
+                elif tp_group is not None and recipe.get(name) == "column":
+                    x = tp.sharded_dropout(x, module.rate,
+                                           train=module.training,
+                                           group=tp_group,
+                                           generator=generator)
+                else:
+                    x = module(x, generator)
+            if name == "features/conv3":
+                x = x.reshape(x.shape[0], -1)
+            elif name == "classifier/linear1":
+                x = x.float()
+        return x

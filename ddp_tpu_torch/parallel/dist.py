@@ -40,7 +40,24 @@ model group (``parallel/tp/layers.py``) count as ``psum_model_fwd`` (a
 row-parallel layer's partial sums) and ``psum_model_bwd`` (a
 column-parallel layer's input gradient), and the checkpoint's gather of the
 model-sharded state over that group as ``ckpt_gather_model``.  At ``M = 1``
-no group is made: the data group is the world and the run is the 1-D one.
+(and ``S = 1``) no group is made: the data group is the world and the run
+is the 1-D one.
+
+Under a stage axis (``--mesh_shape D,M,S``, ``parallel/pp/``) the data
+group is the ranks of this rank's (model, stage) position and the model
+group those of its (data, stage) position.  The stages of one pipeline
+hand activations forward and cotangents back point to point
+(:func:`send_stage`, :func:`recv_stage`; ``pp_handoff``, one a send or a
+receive, with their bytes and host seconds in :data:`handoff_stats`), each
+direction between two neighbouring stages over a group of its own (NCCL
+runs the operations of one communicator in the order each rank issues
+them, and a schedule's sends and receives between two stages do not
+alternate alike on both), move
+state to stage 0 or rank 0 the same way (``pp_state``), and broadcast the
+last stage's losses and stage 0's accuracy over their pipe group
+(``pp_broadcast``).  gloo takes no CUDA tensor point to point, so on a
+card its handoffs are staged through pinned host buffers; NCCL sends the
+device tensors.
 """
 from __future__ import annotations
 
@@ -52,7 +69,7 @@ import socket
 import subprocess
 import sys
 import time
-from typing import List, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,11 +89,18 @@ collective_calls: collections.Counter = collections.Counter()
 # process group up.
 _vote_group = None
 _aborted = False
-# Under --mesh_shape: the grid, this rank's data group (None: the world)
-# and its model group (None: no tensor parallelism).
+# Under --mesh_shape: the grid, this rank's data group (None: the world),
+# its model group (None: no tensor parallelism), its pipe group (None: no
+# stage axis) and the groups of the links to its neighbouring stages, by
+# (from stage, to stage).
 _mesh = None
 _data_group = None
 _model_group = None
+_pipe_group = None
+_links: Dict[Tuple[int, int], Any] = {}
+# The pipeline's point-to-point traffic in this process: sends, receives,
+# bytes each way and the host seconds spent in the calls.
+handoff_stats: collections.Counter = collections.Counter()
 
 
 def in_rendezvous() -> bool:
@@ -134,27 +158,48 @@ def backend() -> Optional[str]:
 def init_mesh(mesh) -> None:
     """Lay this run's ranks out as ``mesh`` (a
     :class:`~ddp_tpu_torch.parallel.mesh.Mesh` of ``world_size()`` ranks
-    seen from this rank) and make its process groups.  At a model axis
-    above 1 every rank makes every data group (one for each model index)
-    and then every model group (one for each data index), in the same
-    order, the groups it is not in included: ``new_group`` is collective.
-    At a model axis of 1 no group is made."""
-    global _mesh, _data_group, _model_group
+    seen from this rank) and make its process groups.  Every rank makes
+    every data group (one for each (model, stage) position), then at a
+    model axis above 1 every model group (one for each (data, stage)
+    position), then at a stage axis above 1 every pipe group (one for each
+    (data, model) position) and every link group (two for each pair of
+    neighbouring stages of a pipe, one a direction), in the same order, the
+    groups it is not in included: ``new_group`` is collective.  On a 2-D
+    grid with a model axis of 1 no group is made."""
+    global _mesh, _data_group, _model_group, _pipe_group
     if mesh.size != world_size():
-        raise ValueError(f"mesh {mesh.dims[0]},{mesh.dims[1]} has "
+        raise ValueError(f"mesh {','.join(map(str, mesh.dims))} has "
                          f"{mesh.size} ranks; this run's world is "
                          f"{world_size()}")
-    _mesh, _data_group, _model_group = mesh, None, None
-    if mesh.dims[1] == 1 or not tdist.is_initialized():
+    _mesh, _data_group, _model_group, _pipe_group = mesh, None, None, None
+    _links.clear()
+    d, m, s = mesh.dims[0], mesh.dims[1], mesh.stages
+    if (m == 1 and s == 1) or not tdist.is_initialized():
         return
-    for k in range(mesh.dims[1]):
-        g = tdist.new_group(mesh.data_ranks(k), timeout=TIMEOUT)
-        if k == mesh.model_index:
-            _data_group = g
-    for j in range(mesh.dims[0]):
-        g = tdist.new_group(mesh.model_ranks(j), timeout=TIMEOUT)
-        if j == mesh.data_index:
-            _model_group = g
+    for k in range(m):
+        for st in range(s):
+            g = tdist.new_group(mesh.data_ranks(k, st), timeout=TIMEOUT)
+            if (k, st) == (mesh.model_index, mesh.stage_index):
+                _data_group = g
+    if m > 1:
+        for j in range(d):
+            for st in range(s):
+                g = tdist.new_group(mesh.model_ranks(j, st), timeout=TIMEOUT)
+                if (j, st) == (mesh.data_index, mesh.stage_index):
+                    _model_group = g
+    if s > 1:
+        for j in range(d):
+            for k in range(m):
+                g = tdist.new_group(mesh.stage_ranks(j, k), timeout=TIMEOUT)
+                if (j, k) == (mesh.data_index, mesh.model_index):
+                    _pipe_group = g
+                for st in range(s - 1):
+                    for link in ((st, st + 1), (st + 1, st)):
+                        g = tdist.new_group(
+                            [mesh.rank_of(j, k, st),
+                             mesh.rank_of(j, k, st + 1)], timeout=TIMEOUT)
+                        if (j, k) == (mesh.data_index, mesh.model_index):
+                            _links[link] = g
 
 
 def mesh():
@@ -179,10 +224,96 @@ def model_group():
     return _model_group
 
 
+def stage_index() -> int:
+    """This rank's pipeline stage (0 without a stage axis)."""
+    return _mesh.stage_index if _mesh is not None else 0
+
+
+def num_stages() -> int:
+    """The stage axis's extent (1 without one)."""
+    return _mesh.stages if _mesh is not None else 1
+
+
 def clear_mesh() -> None:
     """Forget the mesh and its groups (the 1-D layout again)."""
-    global _mesh, _data_group, _model_group
-    _mesh = _data_group = _model_group = None
+    global _mesh, _data_group, _model_group, _pipe_group
+    _mesh = _data_group = _model_group = _pipe_group = None
+    _links.clear()
+
+
+def _stage_rank(stage: int) -> int:
+    return _mesh.rank_of(_mesh.data_index, _mesh.model_index, stage)
+
+
+def _staged() -> bool:
+    """gloo point to point takes CPU tensors only."""
+    return tdist.get_backend() == "gloo"
+
+
+def send_stage(t: torch.Tensor, stage: int, tag: int = 0, *,
+               kind: str = "pp_handoff") -> list:
+    """Send ``t`` to this pipeline's stage ``stage`` without waiting: one
+    ``isend`` (over the link's group to a neighbour, the world's to
+    another stage), counted under ``kind``.  Returns what the caller keeps
+    until :func:`wait_sends`: the work and the buffer it reads (on gloo
+    with a CUDA tensor, a pinned host copy)."""
+    t0 = time.perf_counter()
+    buf = t.detach().contiguous()
+    if buf.is_cuda and _staged():
+        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+        host.copy_(buf)
+        buf = host
+    work = tdist.isend(buf, _stage_rank(stage), tag=tag,
+                       group=_links.get((_mesh.stage_index, stage)))
+    collective_calls[kind] += 1
+    if kind == "pp_handoff":
+        handoff_stats["sends"] += 1
+        handoff_stats["bytes_sent"] += buf.numel() * buf.element_size()
+        handoff_stats["seconds"] += time.perf_counter() - t0
+    return [work, buf]
+
+
+def wait_sends(pending: list) -> None:
+    """Wait for the sends :func:`send_stage` returned."""
+    for work, _ in pending:
+        work.wait()
+    pending.clear()
+
+
+def recv_stage(shape, dtype: torch.dtype, device: torch.device,
+               stage: int, tag: int = 0, *, kind: str = "pp_handoff"
+               ) -> torch.Tensor:
+    """A ``shape``/``dtype`` tensor on ``device`` received from this
+    pipeline's stage ``stage``: one ``recv`` (over the link's group from a
+    neighbour), counted under ``kind``.  On gloo with a CUDA ``device`` it
+    lands in pinned host memory and is copied to the card on the current
+    stream."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    staged = device.type == "cuda" and _staged()
+    buf = torch.empty(shape, dtype=dtype, device="cpu" if staged else device,
+                      pin_memory=staged)
+    tdist.recv(buf, _stage_rank(stage), tag=tag,
+               group=_links.get((stage, _mesh.stage_index)))
+    if staged:
+        buf = buf.to(device, non_blocking=True)
+    collective_calls[kind] += 1
+    if kind == "pp_handoff":
+        handoff_stats["recvs"] += 1
+        handoff_stats["bytes_recv"] += buf.numel() * buf.element_size()
+        handoff_stats["seconds"] += time.perf_counter() - t0
+    return buf
+
+
+def pipe_broadcast_(t: torch.Tensor, stage: int) -> torch.Tensor:
+    """``t`` as stage ``stage`` of this pipeline holds it, in place on
+    every stage (one ``broadcast`` over the pipe group, counted as
+    ``pp_broadcast``); ``t`` itself without a stage axis."""
+    if _pipe_group is None:
+        return t
+    tdist.broadcast(t, src=_stage_rank(stage), group=_pipe_group)
+    collective_calls["pp_broadcast"] += 1
+    return t
 
 
 def shutdown() -> None:
@@ -226,17 +357,19 @@ def any_rank(flag: bool) -> bool:
     return bool(t.item())
 
 
-def all_gather_rows(row: np.ndarray) -> List[np.ndarray]:
+def all_gather_rows(row: np.ndarray, kind: str = "straggler_gather"
+                    ) -> List[np.ndarray]:
     """Every rank's float32 ``row``, in rank order: one ``all_gather`` of
     CPU tensors over the gloo side group, so it never waits for the card's
-    queue.  Every rank must call it at the same point with a row of the
-    same length; without a group, or at world 1, it is ``[row]``."""
+    queue (counted under ``kind``).  Every rank must call it at the same
+    point with a row of the same length; without a group, or at world 1, it
+    is ``[row]``."""
     if _vote_group is None:
         return [np.asarray(row, np.float32)]
     t = torch.from_numpy(np.ascontiguousarray(row, np.float32))
     out = [torch.empty_like(t) for _ in range(world_size())]
     tdist.all_gather(out, t, group=_vote_group)
-    collective_calls["straggler_gather"] += 1
+    collective_calls[kind] += 1
     return [o.numpy() for o in out]
 
 
@@ -319,7 +452,8 @@ def broadcast_state(model: nn.Module,
         return
     tensors = list(model.parameters()) + _buffers(model) + list(momentum)
     flat = _flat(tensors)
-    src = 0 if _mesh is None else _mesh.rank_of(0, _mesh.model_index)
+    src = 0 if _mesh is None else _mesh.rank_of(0, _mesh.model_index,
+                                                 _mesh.stage_index)
     tdist.broadcast(flat, src=src, group=_data_group)
     collective_calls["broadcast"] += 1
     torch._foreach_copy_(tensors, _views(flat, tensors))

@@ -17,9 +17,14 @@ the data path (``streaming``, with its ``prefetch_depth``), an optional
 ``parallel/mesh.py``'s grid, the model cut to each rank's slices by its
 ``TP_RECIPE``, the loader, the draws and the dropout masks keyed on the
 data index; each rank's result holds its slices, which
-``interop.gather_state`` joins) and an optional ``save_path`` (after the
-epoch the state is saved there as the trainer saves it, in
-``ckpt_format``).
+``interop.gather_state`` joins) or ``(D, M, S)`` (pipeline parallelism,
+streaming only: the trainer's ``pp_schedule`` pipeline over the stages of
+``parallel/pp/``; rank 0's result holds the whole state, gathered as a
+save gathers it, and stage 0's ranks the eval counts), ``deterministic``
+(cuDNN's deterministic algorithms and ``use_deterministic_algorithms``, as
+``repeat_check --deterministic`` sets them) and an optional
+``save_path`` (after the epoch the state is saved there as the trainer
+saves it, in ``ckpt_format``).
 :func:`margins` says how far a drill epoch's ReLU and max-pool decisions
 lie from flipping.
 
@@ -73,6 +78,7 @@ from ..train.trainer import Trainer, tp_full_state
 from ..train.zero import init_opt_shard, opt_shard_to_list
 from . import dist
 from .mesh import Mesh
+from .pp.partition import plan_stages
 from .tp.plan import plan_for_model, shard_module_, wiring
 
 
@@ -84,6 +90,7 @@ def spec(model: Union[str, Sequence[Union[int, str]]],
          shard_update: bool = False, compute_dtype: str = "",
          streaming: bool = False, prefetch_depth: int = 2,
          mesh_shape: Optional[Sequence[int]] = None,
+         pp_schedule: str = "1f1b", deterministic: bool = False,
          save_path: Optional[str] = None,
          ckpt_format: str = "gathered") -> Dict:
     """The drill's input as a dict of tensors and plain values; ``model`` is
@@ -103,6 +110,7 @@ def spec(model: Union[str, Sequence[Union[int, str]]],
             "shard_update": shard_update, "compute_dtype": compute_dtype,
             "streaming": streaming, "prefetch_depth": prefetch_depth,
             "mesh_shape": list(mesh_shape) if mesh_shape else [],
+            "pp_schedule": pp_schedule, "deterministic": deterministic,
             "save_path": save_path or "", "ckpt_format": ckpt_format}
 
 
@@ -212,6 +220,12 @@ def rank_main(spec_path: str, out_dir: str) -> None:
     """This process's rank of the drill."""
     torch.set_num_threads(1)
     s = torch.load(spec_path, weights_only=True)
+    if s.get("deterministic"):
+        # cuBLAS reads its workspace setting when CUDA starts, below.
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.use_deterministic_algorithms(True)
     device = dist.initialize(resolve_device(s["device"]),
                              backend=s["backend"] or None)
     try:
@@ -223,12 +237,17 @@ def rank_main(spec_path: str, out_dir: str) -> None:
             get_model(s["model"])
         model.load_state_dict(s["state_dict"])
         model.to(device)
-        plan = tp = None
+        plan = tp = stages = None
         if s["mesh_shape"]:
             mesh = Mesh(s["mesh_shape"], rank)
             dist.init_mesh(mesh)
             plan = plan_for_model(s["model"], model,
                                   model_size=mesh.dims[1])
+            if mesh.stages > 1:
+                stages = plan_stages(s["model"], mesh.stages,
+                                     model_size=mesh.dims[1],
+                                     model=get_model(s["model"],
+                                                     device="meta"))
             tp = wiring(plan, dist.model_group())
             if tp is not None and not s["streaming"]:
                 # The streaming path's Trainer cuts the model itself.
@@ -244,9 +263,12 @@ def rank_main(spec_path: str, out_dir: str) -> None:
                 s["grad_accum"]))
         launches = gather_batch.launches
         t0 = _synced_clock(device)
+        trainer = None
         if s["streaming"]:
-            state, losses = _streaming(s, model, loader, sched, cd, device,
-                                       plan)
+            trainer = _streaming(s, model, loader, sched, cd, device, plan,
+                                 stages)
+            state = trainer.state
+            losses = torch.tensor(trainer.loss_history)
         else:
             state, losses = _resident(s, model, loader, sched, cd, device,
                                       replica, tp)
@@ -254,9 +276,12 @@ def rank_main(spec_path: str, out_dir: str) -> None:
         train_launches = gather_batch.launches - launches
         launches = gather_batch.launches
         if s["streaming"]:
-            correct, total = eval_counts(
-                model, EvalLoader(test, s["batch"], replicas,
-                                  local_replicas=[replica]), cd, tp)
+            whole = trainer.eval_model()
+            correct = total = torch.zeros(())
+            if whole is not None:
+                correct, total = eval_counts(
+                    whole, EvalLoader(test, s["batch"], replicas,
+                                      local_replicas=[replica]), cd, tp)
         else:
             idx, mask = EvalLoader(test, s["batch"],
                                    replicas).rank_index_matrix(replica)
@@ -269,14 +294,23 @@ def rank_main(spec_path: str, out_dir: str) -> None:
         if s["shard_update"]:
             momentum = opt_shard_to_list(list(model.parameters()),
                                          state.momentum)
-        if s["save_path"]:
+        sd = model.state_dict()
+        if stages is not None:
+            # The whole state on rank 0 (a collective of every rank), saved
+            # there as the trainer saves it.
+            sd, named = trainer.full_state()
+            momentum = list(named.values())
+            if s["save_path"] and rank == 0:
+                ckpt_lib.write_gathered(s["save_path"], ckpt_lib.state_arrays(
+                    model.name, sd, named), state.step, 0,
+                    trainer.data_state())
+        elif s["save_path"]:
             _save(s, model, momentum, plan if tp is not None else None,
                   state.step)
         torch.save({
             "rank": rank, "world": world, "backend": dist.backend(),
             "device": str(device), "losses": losses.cpu(),
-            "state_dict": {k: v.cpu() for k, v in
-                           model.state_dict().items()},
+            "state_dict": {k: v.cpu() for k, v in sd.items()},
             "momentum": [m.cpu() for m in momentum],
             "momentum_numel": sum(m.numel() for m in state.momentum),
             "steps": state.step, "correct": float(correct),
@@ -284,7 +318,13 @@ def rank_main(spec_path: str, out_dir: str) -> None:
             "eval_launches": eval_launches, "train_s": train_s,
             "mesh_shape": s["mesh_shape"],
             "data_index": replica,
-            "model_index": rank - replica * (world // replicas),
+            "model_index": dist.mesh().model_index if dist.mesh() else 0,
+            "stage_index": dist.stage_index(),
+            "pp_bubble": None if stages is None else trainer.pp_step.bubble,
+            "pp_peak_inflight": (None if stages is None
+                                 else trainer.pp_step.peak_inflight),
+            "handoff": dict(dist.handoff_stats),
+            "step_ms": [] if trainer is None else list(trainer.step_ms),
             "collectives": dict(dist.collective_calls)},
             os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
@@ -361,17 +401,17 @@ def _resident(s: Dict, model: torch.nn.Module, loader: TrainLoader, sched,
 
 
 def _streaming(s: Dict, model: torch.nn.Module, loader: TrainLoader, sched,
-               cd, device: torch.device, plan=None):
-    """The trainer's streaming epoch: ``(state, the global-mean
-    losses)``."""
+               cd, device: torch.device, plan=None, stages=None) -> Trainer:
+    """The trainer after its streaming epoch."""
     trainer = Trainer(model, loader, device=device, lr_schedule=sched,
                       sgd_config=SGDConfig(lr=s["lr"]), seed=s["seed"],
                       snapshot_path=None, grad_accum=s["grad_accum"],
                       sync_bn=s["sync_bn"], shard_update=s["shard_update"],
                       compute_dtype=cd, resident=False,
-                      prefetch_depth=s["prefetch_depth"], tp_plan=plan)
+                      prefetch_depth=s["prefetch_depth"], tp_plan=plan,
+                      pp_plan=stages, pp_schedule=s["pp_schedule"])
     trainer.train(1)
-    return trainer.state, torch.tensor(trainer.loss_history)
+    return trainer
 
 
 def run(drill_spec: Dict, world: int, *, same_device: bool = False,

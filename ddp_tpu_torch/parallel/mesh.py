@@ -1,21 +1,23 @@
-"""The rank grid of a ``--mesh_shape D,M`` run (counterpart of
+"""The rank grid of a ``--mesh_shape D,M[,S]`` run (counterpart of
 ``ddp_tpu/parallel/mesh.py``).
 
-The JAX package lays its devices out as a named ``(data, model)`` mesh in
-one program; the port runs one process a rank, and :class:`Mesh` is that
-layout seen from one rank: rank r sits at data index ``r // M`` and model
-index ``r % M``, the device order of ``make_mesh(shape=(d, m))``
-(``devices[:d*m].reshape(d, m)``).  The batch is split over the data axis
-and replicated over the model axis, so every piece of batch math divides
-by :func:`data_axis_size`, never by the rank count.
+The JAX package lays its devices out as a named ``(data, model[, stage])``
+mesh in one program; the port runs one process a rank, and :class:`Mesh`
+is that layout seen from one rank: rank r sits at data index
+``r // (M * S)``, model index ``(r // S) % M`` and stage index ``r % S``,
+the device order of ``make_mesh(shape=(d, m, s))``
+(``devices[:d*m*s].reshape(d, m, s)``).  The batch is split over the data
+axis and replicated over the model and stage axes, so every piece of batch
+math divides by :func:`data_axis_size`, never by the rank count.
 
 The process groups follow the grid (``parallel/dist.py::init_mesh``): one
-data group for each model index (the ranks of a model column, over which
-the gradients, the loss sums and the sharded update reduce) and one model
-group for each data index (the ranks of a data row, over which the
-tensor-parallel layers reduce, ``parallel/tp/layers.py``).  A third axis
-``S > 1`` is pipeline parallelism, which the port does not have yet
-(ROADMAP A11); ``(D, M, 1)`` is the 2-D grid.
+data group for each (model, stage) position (the ranks over which the
+gradients, the loss sums and the sharded update reduce), one model group
+for each (data, stage) position (over which the tensor-parallel layers
+reduce, ``parallel/tp/layers.py``), and under a stage axis ``S > 1`` one
+pipe group for each (data, model) position: the S stages of one pipeline,
+which hand activations and cotangents to their neighbours
+(``parallel/pp/``).  ``(D, M, 1)`` is the 2-D grid.
 """
 from __future__ import annotations
 
@@ -56,27 +58,22 @@ def _check_shape(shape) -> Tuple[int, ...]:
 
 
 class Mesh:
-    """A ``(data, model)`` grid of ``D * M`` ranks, seen from ``rank``.
+    """A ``(data, model[, stage])`` grid of ``D * M * S`` ranks, seen from
+    ``rank``.
 
-    ``shape`` is ``(D,)``, ``(D, M)`` or ``(D, M, 1)``; a stage axis above 1
-    is refused (pipeline parallelism, ROADMAP A11).  ``devices`` is the
-    ``[D, M]`` grid of ranks, ``data_index``/``model_index`` this rank's
-    place in it."""
-
-    axis_names = (DATA_AXIS, MODEL_AXIS)
+    ``shape`` is ``(D,)``, ``(D, M)`` or ``(D, M, S)``; ``(D, M, 1)`` is the
+    2-D grid, as ``make_mesh`` collapses it.  ``dims`` is ``(D, M)``, or
+    ``(D, M, S)`` with ``S > 1``; ``devices`` is the grid of ranks,
+    ``data_index``/``model_index``/``stage_index`` this rank's place in
+    it."""
 
     def __init__(self, shape, rank: int = 0):
         dims = _check_shape(shape)
-        if len(dims) == 3:
-            if dims[2] != 1:
-                raise ValueError(
-                    f"mesh shape {'x'.join(map(str, dims))} has a pipeline "
-                    f"stage axis of {dims[2]}: pipeline parallelism is not "
-                    f"ported yet (ROADMAP A11); use D,M")
+        if len(dims) == 3 and dims[2] == 1:
             dims = dims[:2]
         if len(dims) == 1:
             dims = (dims[0], 1)
-        self.dims: Tuple[int, int] = dims
+        self.dims: Tuple[int, ...] = dims
         if not 0 <= rank < self.size:
             raise ValueError(f"rank {rank} is outside the "
                              f"{'x'.join(map(str, dims))} mesh of "
@@ -84,41 +81,77 @@ class Mesh:
         self.rank = int(rank)
 
     @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return _AXIS_ORDER[:len(self.dims)]
+
+    @property
     def shape(self) -> Dict[str, int]:
-        """``{"data": D, "model": M}``, as ``jax.sharding.Mesh.shape``."""
+        """``{"data": D, "model": M[, "stage": S]}``, as
+        ``jax.sharding.Mesh.shape``."""
         return dict(zip(self.axis_names, self.dims))
 
     @property
+    def stages(self) -> int:
+        """The stage axis's extent S (1 on a 2-D grid)."""
+        return self.dims[2] if len(self.dims) == 3 else 1
+
+    @property
     def size(self) -> int:
-        return self.dims[0] * self.dims[1]
+        return int(np.prod(self.dims))
 
     @property
     def devices(self) -> np.ndarray:
-        """The ``[D, M]`` grid of ranks."""
+        """The ``[D, M]`` or ``[D, M, S]`` grid of ranks."""
         return np.arange(self.size).reshape(self.dims)
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.dims[1]
+        return self.rank // (self.dims[1] * self.stages)
 
     @property
     def model_index(self) -> int:
-        return self.rank % self.dims[1]
+        return (self.rank // self.stages) % self.dims[1]
 
-    def rank_of(self, data_index: int, model_index: int) -> int:
-        return data_index * self.dims[1] + model_index
+    @property
+    def stage_index(self) -> int:
+        return self.rank % self.stages
 
-    def data_ranks(self, model_index: int) -> List[int]:
-        """The ranks of model column ``model_index``: one data group."""
-        return [self.rank_of(j, model_index) for j in range(self.dims[0])]
+    def rank_of(self, data_index: int, model_index: int,
+                stage_index: int = 0) -> int:
+        return (data_index * self.dims[1] + model_index) * self.stages \
+            + stage_index
 
-    def model_ranks(self, data_index: int) -> List[int]:
-        """The ranks of data row ``data_index``: one model group."""
-        return [self.rank_of(data_index, k) for k in range(self.dims[1])]
+    def data_ranks(self, model_index: int, stage_index: int = 0
+                   ) -> List[int]:
+        """The ranks at (``model_index``, ``stage_index``): one data
+        group."""
+        return [self.rank_of(j, model_index, stage_index)
+                for j in range(self.dims[0])]
+
+    def model_ranks(self, data_index: int, stage_index: int = 0
+                    ) -> List[int]:
+        """The ranks at (``data_index``, ``stage_index``): one model
+        group."""
+        return [self.rank_of(data_index, k, stage_index)
+                for k in range(self.dims[1])]
+
+    def stage_ranks(self, data_index: int, model_index: int) -> List[int]:
+        """The ranks at (``data_index``, ``model_index``), stage 0 first:
+        one pipeline (its pipe group)."""
+        return [self.rank_of(data_index, model_index, k)
+                for k in range(self.stages)]
+
+    def stage_plane(self, stage_index: int) -> List[int]:
+        """Every rank of stage ``stage_index``: its ``(data, model)``
+        plane, in rank order."""
+        return [self.rank_of(j, k, stage_index) for j in range(self.dims[0])
+                for k in range(self.dims[1])]
 
     def __repr__(self) -> str:
-        return (f"Mesh({self.dims[0]}x{self.dims[1]}, rank {self.rank} at "
-                f"({self.data_index}, {self.model_index}))")
+        where = (self.data_index, self.model_index) + (
+            (self.stage_index,) if self.stages > 1 else ())
+        return (f"Mesh({'x'.join(map(str, self.dims))}, rank {self.rank} at "
+                f"{where})")
 
 
 def make_mesh(shape, rank: int = 0) -> Mesh:
@@ -137,6 +170,11 @@ def data_axis_size(mesh: Mesh) -> int:
 def model_axis_size(mesh: Mesh) -> int:
     """Model-axis extent (1 on a data-parallel grid)."""
     return int(mesh.shape.get(MODEL_AXIS, 1))
+
+
+def stage_axis_size(mesh: Mesh) -> int:
+    """Stage-axis extent (1 on a 2-D grid: no pipeline)."""
+    return int(mesh.shape.get(STAGE_AXIS, 1))
 
 
 def local_replica_ids(mesh: Mesh) -> List[int]:

@@ -14,16 +14,17 @@ closes the recovery loop:
 - any other nonzero exit: a crash; relaunch under the same backoff while
   the failure ledger calls the death transient.
 
-Relaunches manage ``--num_devices``: before each, the live card count is
-probed in a throwaway interpreter (``torch.cuda.device_count()``; the
+Relaunches manage the topology flags: before each, the live card count
+is probed in a throwaway interpreter (``torch.cuda.device_count()``; the
 wrapper never initialises CUDA itself, which would hold the cards the
-child needs) and the child's world is the smaller of the two.  A child
-command carrying ``--mesh_shape`` is refused by name: the supervisor's
-management of a mesh and the JAX package's ``shrink_mesh`` are ROADMAP
-A10b (and the stage-first shrink A11).
+child needs).  A ``--mesh_shape`` child is relaunched on
+:func:`shrink_mesh` of the full mesh (parsed once from the original
+command) and the probe: the stage axis gives way first, then the data
+axis, and the canonical checkpoint restores onto whatever survives; a
+``--num_devices`` child's world is the smaller of the two.
 
 The failure ledger tails the child's metrics JSONL between launches and
-keeps, per death, the exit code, the world it ran at, the last guard or
+keeps, per death, the exit code, the mesh or world it ran at, the last guard or
 drift event, the failure signature and the flight recorder's
 ``postmortem.json`` (``obs/blackbox.py``).  The same ``drift_detected`` or
 ``spike_*``/``nonfinite_*`` event at the same global step twice is a
@@ -89,6 +90,44 @@ def backoff_delay(restart_no: int, *, base: float, cap: float,
     nominal = min(base * (2.0 ** restart_no), cap)
     spread = 1.0 + jitter * (2.0 * rng.random() - 1.0)
     return max(0.0, nominal * spread)
+
+
+def shrink_mesh(full: Tuple[int, ...], ndev: int) -> Tuple[int, ...]:
+    """The largest surviving mesh under ``full`` that fits on ``ndev``
+    devices; same arity out as in.
+
+    2-D ``(D, M)``: the model axis is load-bearing (the checkpoint's
+    layer shards assume M-way TP unless resharded), so shrink the DATA
+    axis first and only split M when even one M-wide replica no longer
+    fits — then the largest divisor of M that does.
+
+    3-D ``(D, M, S)``: the STAGE axis shrinks first — losing a host
+    kills a whole stage plane, the canonical checkpoint restores onto
+    any stage count, and the partitioner simply re-cuts the model into
+    the surviving ``s'`` stages at relaunch (``s'=1`` collapses to the
+    plain 2-D mesh), so stages are the cheapest axis to give up.  Only
+    when not even one (D, M) plane survives does the 2-D policy above
+    take over (with s=1)."""
+    dims = tuple(int(v) for v in full)
+    ndev = max(1, int(ndev))
+    if len(dims) == 3:
+        d, m, s = dims
+        if d * m * s <= ndev:
+            return (d, m, s)
+        if d * m <= ndev:
+            return (d, m, max(1, ndev // (d * m)))
+        d2, m2 = shrink_mesh((d, m), ndev)
+        return (d2, m2, 1)
+    d, m = dims
+    if d * m <= ndev:
+        return (d, m)
+    if m <= ndev:
+        return (max(1, ndev // m), m)
+    # Not even one full model replica fits: largest divisor of M <= ndev.
+    for cand in range(ndev, 0, -1):
+        if m % cand == 0:
+            return (1, cand)
+    return (1, 1)
 
 
 def _get_flag(argv: Sequence[str], name: str) -> Optional[str]:
@@ -174,8 +213,9 @@ def _failure_signature(events) -> Optional[Tuple[str, int]]:
 
 
 class FailureLedger:
-    """Per-death forensic record: exit code, classified reason, the world
-    the attempt ran at (``mesh``: its ``--num_devices``), the metrics
+    """Per-death forensic record: exit code, classified reason, the mesh
+    the attempt ran at (``mesh``: its ``--mesh_shape``, else its
+    ``--num_devices``), the metrics
     events it appended, and the failure signature, on which the
     transient-vs-deterministic call is made.  Printed whenever the
     supervisor gives up."""
@@ -359,13 +399,17 @@ class Supervisor:
         self._device_probe = device_probe or probe_device_count
         self._sleep = sleep
         self._clock = clock
-        if any(a == "--mesh_shape" or a.startswith("--mesh_shape=")
-               for a in self.child_argv):
-            raise ValueError(
-                "the child command carries --mesh_shape, whose management "
-                "(the mesh's relaunch and its elastic shrink_mesh) the "
-                "port's supervisor does not have yet (ROADMAP A10b, A11); "
-                "the supervisor manages --num_devices")
+        # Full-mesh topology to grow back to, parsed once from the ORIGINAL
+        # argv (later relaunches rewrite the flags in place).
+        mesh = _get_flag(self.child_argv, "--mesh_shape")
+        self._full_mesh: Optional[Tuple[int, ...]] = None
+        if mesh:
+            try:
+                dims = tuple(int(x) for x in mesh.split(","))
+                if len(dims) in (2, 3):
+                    self._full_mesh = dims
+            except ValueError:
+                pass
         ndev = _get_flag(self.child_argv, "--num_devices")
         self._full_num_devices = (int(ndev)
                                   if ndev and ndev.isdigit() else None)
@@ -402,12 +446,32 @@ class Supervisor:
 
     def _relaunch_argv(self, argv: Sequence[str]) -> List[str]:
         argv = _ensure_resume(argv)
-        if self._full_num_devices is None:
-            return argv  # no topology flag to manage
+        if self._full_mesh is None and self._full_num_devices is None:
+            return argv  # no topology flags to manage
         ndev = self._device_probe(self._child_env(first_launch=False))
-        want = self._full_num_devices
-        n = want if ndev is None else min(want, ndev)
-        return _set_flag(argv, "--num_devices", str(max(1, n)))
+        if self._full_mesh is not None:
+            full_n = 1
+            for v in self._full_mesh:
+                full_n *= v
+            new = shrink_mesh(self._full_mesh,
+                              full_n if ndev is None else ndev)
+            if new != self._full_mesh:
+                note = ""
+                if len(new) == 3 and new[2] != self._full_mesh[2]:
+                    note = (f" (stage plane lost: the partitioner re-cuts "
+                            f"{self._full_mesh[2]} -> {new[2]} stage(s) "
+                            f"from the canonical checkpoint)")
+                print(f"[supervise] {ndev} device(s) live: shrinking mesh "
+                      f"{','.join(map(str, self._full_mesh))} -> "
+                      f"{','.join(map(str, new))} for this relaunch{note}",
+                      file=sys.stderr)
+            argv = _set_flag(argv, "--mesh_shape",
+                             ",".join(map(str, new)))
+        else:
+            want = self._full_num_devices
+            n = want if ndev is None else min(want, ndev)
+            argv = _set_flag(argv, "--num_devices", str(max(1, n)))
+        return argv
 
     def _write_prom(self) -> None:
         if not self.prom_path:
@@ -480,7 +544,8 @@ class Supervisor:
         first = True
         backoff_no = 0  # escalates on stall/crash only, never preemption
         while True:
-            mesh = _get_flag(argv, "--num_devices")
+            mesh = (_get_flag(argv, "--mesh_shape")
+                    or _get_flag(argv, "--num_devices"))
             print(f"[supervise] launching (attempt "
                   f"{self.restarts_used + 1}/"
                   f"{self.max_restarts + 1}): {' '.join(argv)}",
@@ -551,7 +616,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Restart wrapper for ddp_tpu_torch training runs: "
                     "relaunch with --resume on preemption (75) / stall "
                     "(124) / transient crash, under a bounded backoff "
-                    "budget, with --num_devices shrunk to the live cards.",
+                    "budget, with elastic mesh shrink-and-grow-back.",
         epilog="Everything after `--` is the child command; a leading "
                "*.py token is run under this interpreter.")
     p.add_argument("--max_restarts", type=int, default=5,
@@ -590,15 +655,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 2
     if child[0].endswith(".py") or child[0] == "-m":
         child = [sys.executable] + child
-    try:
-        sup = Supervisor(child, max_restarts=args.max_restarts,
-                         backoff_base=args.backoff_base,
-                         backoff_max=args.backoff_max, jitter=args.jitter,
-                         seed=args.seed, prom_path=args.prom,
-                         keep_fault_env=args.keep_fault_env)
-    except ValueError as e:
-        print(f"[supervise] {e}", file=sys.stderr)
-        return 2
+    sup = Supervisor(child, max_restarts=args.max_restarts,
+                     backoff_base=args.backoff_base,
+                     backoff_max=args.backoff_max, jitter=args.jitter,
+                     seed=args.seed, prom_path=args.prom,
+                     keep_fault_env=args.keep_fault_env)
     return sup.run()
 
 

@@ -370,11 +370,17 @@ def shard_checkpoint(ckpt: Checkpoint, plan, model_index: int
         momentum=_slice_tree(ckpt.momentum, specs, n, model_index))
 
 
-def load_for_mesh(path: str, plan=None, model_index: int = 0
-                  ) -> Checkpoint:
+def load_for_mesh(path: str, plan=None, model_index: int = 0,
+                  pp_plan=None, stage: int = 0) -> Checkpoint:
     """The v1 file or v2 set at ``path`` (any saved mesh) for the live
     layout: model index ``model_index``'s slices under ``plan``
-    (:func:`shard_checkpoint`), or the whole state without one.  Raises
+    (:func:`shard_checkpoint`), and under a stage plan ``pp_plan`` stage
+    ``stage``'s subtrees of them (``parallel/pp/schedule.py::
+    stage_checkpoint``), or the whole state without either.  Raises
     :class:`CheckpointError` where ``load_checkpoint`` does."""
     from .checkpoint import load_checkpoint
-    return shard_checkpoint(load_checkpoint(path), plan, model_index)
+    ckpt = shard_checkpoint(load_checkpoint(path), plan, model_index)
+    if pp_plan is None:
+        return ckpt
+    from ..parallel.pp.schedule import stage_checkpoint
+    return stage_checkpoint(ckpt, pp_plan, stage)

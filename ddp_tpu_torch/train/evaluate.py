@@ -7,7 +7,10 @@ rank returns the same accuracy.  Each evaluation is one ``eval`` span of
 the process tracer (``obs/tracer.py``), its host read included.  Under
 ``--mesh_shape D,M`` the test set is split over the data axis (the ranks of
 a data row score the same rows), the counters are summed over the data
-group, and ``tp`` runs the tensor-parallel forward."""
+group, and ``tp`` runs the tensor-parallel forward.  Under ``--mesh_shape
+D,M,S`` the evaluation runs on stage 0's plane with the gathered
+parameters (``Trainer.eval_model``; ``ddp_tpu/cli.py:1132-1144``), and its
+accuracy is broadcast to the other stages (``Trainer.pp_share``)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple

@@ -46,6 +46,17 @@ run over the data group.  A gathered (v1) checkpoint joins the slices over
 the model group on every rank, then rank 0 writes the one whole file; a
 sharded (v2) one is written slot by slot by the data-row-0 ranks
 (``train/ckpt_shard.py``).  A restore cuts any file to the live slices.
+
+Pipeline parallelism (``pp_plan``, under ``--mesh_shape D,M,S``;
+``ddp_tpu/train/trainer.py:185-208, 369-384, 468-490``): the model is cut to
+this rank's stage (and tensor-parallel) slices, each streamed group goes
+to its stages (images to stage 0, labels to the others;
+``parallel/pp/schedule.py::pp_feed``) and one optimizer step is the
+``pp_schedule`` pipeline over its micro-batches (``PPStep``).  The last
+stage's losses are summed over its data group and broadcast to the other
+stages.  A save gathers each stage's whole state to rank 0, which writes
+the canonical v1 file; a restore cuts any file to the live stage's
+slices.
 """
 from __future__ import annotations
 
@@ -77,10 +88,11 @@ from ..resilience.preemption import PreemptionInterrupt
 from ..resilience.store import MirrorUploader, open_store
 from . import checkpoint as ckpt_lib
 from .. import interop
+from ..parallel.pp import schedule as pp_lib
 from ..parallel.tp.plan import shard_module_, wiring
 from .ckpt_shard import save_checkpoint_sharded, shard_checkpoint, write_slot
 from .epoch import make_train_epoch, make_train_step
-from .step import init_train_state
+from .step import init_train_state, make_group_update
 from .zero import list_to_opt_shard, opt_shard_to_list
 
 
@@ -112,8 +124,9 @@ def _stack_groups(batches: Iterable[Dict[str, np.ndarray]], accum: int
 def micro_batches(batch: Dict[str, torch.Tensor], grad_accum: int
                   ) -> List[Dict[str, torch.Tensor]]:
     """A streamed batch's micro-batches: the batch itself, or under
-    ``grad_accum`` > 1 each row ``i`` of a stacked ``[A, B, ...]`` group
-    as views into the group's tensors."""
+    ``grad_accum`` > 1 (0: a pipeline's group, stacked at any A) each row
+    ``i`` of a stacked ``[A, B, ...]`` group as views into the group's
+    tensors."""
     if grad_accum == 1:
         return [batch]
     return [{k: v[i] for k, v in batch.items()}
@@ -195,6 +208,28 @@ def tp_full_state(model: nn.Module, momentum: List[torch.Tensor], plan
                        dict(zip(mom, views[len(sd):]))))
     return (interop.gather_state(plan, [a for a, _ in slices]),
             interop.gather_state(plan, [b for _, b in slices]))
+
+
+def pp_refusal(*, resident: bool, shard_update: bool, sync_bn: bool,
+               drift_audit_every: int, ckpt_format: str) -> Optional[str]:
+    """Why these flags cannot train under a stage axis above 1, in the JAX
+    trainer's words (``ddp_tpu/train/trainer.py:189-208``), or None."""
+    incompatible = [flag for flag, on in (
+        ("--resident (per-stage programs dispatch per step)", resident),
+        ("--shard_update (ZeRO shards momentum over data; pp shards it "
+         "over stages)", shard_update),
+        ("--sync_bn (stage programs do not exchange batch stats)",
+         sync_bn),
+        ("--drift_audit_every (params are stage-partitioned, not "
+         "replicated over data)", bool(drift_audit_every)),
+        ("--ckpt_format sharded (pipeline checkpoints stay "
+         "canonical/gathered so any (d,m,s) restores anywhere)",
+         ckpt_format == "sharded"),
+    ) if on]
+    if not incompatible:
+        return None
+    return ("pipeline parallelism (stage axis s>1) is incompatible "
+            "with:\n" + "\n".join(f"  - {f}" for f in incompatible))
 
 
 class Trainer:
@@ -314,7 +349,7 @@ class Trainer:
                  ckpt_format: str = "gathered", mirror=None,
                  registry=None,
                  step_probe: Optional[Callable[[int], None]] = None,
-                 tp_plan=None):
+                 tp_plan=None, pp_plan=None, pp_schedule: str = "1f1b"):
         if train_loader.num_replicas != dist.data_size():
             raise ValueError(f"the train loader has "
                              f"{train_loader.num_replicas} replicas; the "
@@ -334,6 +369,21 @@ class Trainer:
         self.tp_plan = tp_plan
         self._tp = wiring(tp_plan, dist.model_group())
         self._model_index = mesh.model_index if mesh is not None else 0
+        stage_axis = mesh.stages if mesh is not None else 1
+        if pp_plan is not None and pp_plan.num_stages != stage_axis:
+            raise ValueError(f"the stage plan has {pp_plan.num_stages} "
+                             f"stages; the mesh's stage axis is "
+                             f"{stage_axis}")
+        self.pp_plan = pp_plan
+        self.pp_schedule = pp_schedule
+        self._stage = dist.stage_index()
+        if pp_plan is not None:
+            why = pp_refusal(resident=resident, shard_update=shard_update,
+                             sync_bn=sync_bn,
+                             drift_audit_every=drift_audit_every,
+                             ckpt_format=ckpt_format)
+            if why:
+                raise ValueError(why)
         self._base_lr_schedule = lr_schedule
         self._lr_scale = 1.0  # the guard's lr_backoff scale
         self.metrics = metrics if self.rank == 0 else None
@@ -395,6 +445,8 @@ class Trainer:
                     "data row hold different slices; drop it with "
                     "--mesh_shape D,M (M > 1)")
             shard_module_(model, tp_plan, self._model_index)
+        if pp_plan is not None:
+            pp_lib.stage_module_(model, pp_plan, self._stage)
         self.state = init_train_state(model)
         self.resident: Optional[ResidentData] = None
         kw = dict(sync_bn=sync_bn, shard_update=shard_update,
@@ -422,8 +474,17 @@ class Trainer:
                     f"{train_loader.local_replicas}; rank {self.rank} "
                     f"streams its own: pass "
                     f"local_replicas=[{self.replica}]")
-            self.train_step = make_train_step(
-                model, sgd_config, self.lr_schedule, device_augment, **kw)
+            if pp_plan is not None:
+                self.train_step = self.pp_step = pp_lib.PPStep(
+                    model, pp_plan, self._stage,
+                    make_group_update(sgd_config, self.lr_schedule),
+                    device=device, device_augment=device_augment,
+                    compute_dtype=compute_dtype, tp=self._tp,
+                    schedule=pp_schedule, tracer=get_tracer())
+            else:
+                self.train_step = make_train_step(
+                    model, sgd_config, self.lr_schedule, device_augment,
+                    **kw)
         self._drift = (DriftAuditor(model, every=drift_audit_every,
                                     action=drift_action)
                        if drift_audit_every else None)
@@ -471,6 +532,8 @@ class Trainer:
         slice again."""
         if self._tp is not None:
             ckpt = shard_checkpoint(ckpt, self.tp_plan, self._model_index)
+        if self.pp_plan is not None:
+            ckpt = pp_lib.stage_checkpoint(ckpt, self.pp_plan, self._stage)
         momentum = ([torch.zeros_like(p)
                      for p in self.state.model.parameters()]
                     if sharded else self.state.momentum)
@@ -526,11 +589,40 @@ class Trainer:
                               Dict[str, torch.Tensor]]:
         """The whole ``state_dict`` and per-parameter momentum (keyed by
         parameter name; the state's own when ``momentum`` is None); under
-        a plan a collective (:func:`tp_full_state`)."""
-        return tp_full_state(self.state.model,
-                             self.state.momentum if momentum is None
-                             else momentum,
-                             self.tp_plan if self._tp is not None else None)
+        a plan a collective (:func:`tp_full_state`).  Under a stage plan a
+        collective of every rank, whose whole state lands on rank 0
+        (``pp_lib.gather_whole_state``); the other ranks get their stage's
+        own (tensor-parallel gathered)."""
+        sd, mom = tp_full_state(self.state.model,
+                                self.state.momentum if momentum is None
+                                else momentum,
+                                self.tp_plan if self._tp is not None
+                                else None)
+        if self.pp_plan is None:
+            return sd, mom
+        whole = pp_lib.gather_whole_state(sd, mom, self.state.model.name,
+                                          self.pp_plan)
+        return (sd, mom) if whole is None else whole
+
+    def eval_model(self) -> Optional[nn.Module]:
+        """The model to evaluate: the state's own, or under a stage plan
+        (a collective of each pipeline) a whole model of this rank's
+        tensor-parallel slices on stage 0's ranks and None on the others
+        (``pp_lib.gather_eval_model``)."""
+        if self.pp_plan is None:
+            return self.state.model
+        return pp_lib.gather_eval_model(
+            self.state.model, self.pp_plan,
+            self.tp_plan if self._tp is not None else None,
+            self._model_index)
+
+    def pp_share(self, value: float) -> float:
+        """Stage 0's ``value`` on every stage of its pipeline (one
+        broadcast); ``value`` itself without a stage plan."""
+        if self.pp_plan is None:
+            return value
+        t = torch.tensor([value], dtype=torch.float64, device=self.device)
+        return float(dist.pipe_broadcast_(t, 0)[0])
 
     def _checkpoint(self, epoch: int, data_state: Optional[dict] = None
                     ) -> None:
@@ -550,7 +642,8 @@ class Trainer:
                         if self.shard_update else self.state.momentum)
             slots = self._tp is not None and self.ckpt_format == "sharded"
             state = None
-            if self._tp is not None and not slots:
+            if (self._tp is not None or self.pp_plan is not None) \
+                    and not slots:
                 state = self.full_state(momentum)
             if self.rank != 0 and not (slots and self.replica == 0):
                 return
@@ -708,8 +801,15 @@ class Trainer:
         consumed); a condemned batch is dropped without a step; after each
         step come the drift audit when due, the watchdog's beat and the
         step probe."""
-        source = self.train_loader if self.grad_accum == 1 else \
-            _stack_groups(self.train_loader, self.grad_accum)
+        if self.pp_plan is not None:
+            # A pipeline's micro-batches are the group stream's, at any A.
+            source = pp_lib.pp_feed(
+                _stack_groups(self.train_loader, self.grad_accum),
+                self._stage)
+        elif self.grad_accum == 1:
+            source = self.train_loader
+        else:
+            source = _stack_groups(self.train_loader, self.grad_accum)
         batches = prefetch_to_device(
             source, self.device, depth=self.prefetch_depth,
             workers=self.prefetch_workers, stats=self.prefetch_stats,
@@ -735,7 +835,8 @@ class Trainer:
                 with tracer.span("dispatch", step=step):
                     losses.append(self.train_step(
                         self.state,
-                        micro_batches(batch.wait(), self.grad_accum),
+                        micro_batches(batch.wait(), 0 if self.pp_plan
+                                      is not None else self.grad_accum),
                         self.draws, self.dropout))
                 k += 1
                 if events is not None:
@@ -799,8 +900,7 @@ class Trainer:
                                                        start_offset)
             parts = [torch.stack(step_losses)] if step_losses else []
         with get_tracer().span("loss_flush", step=start_step):
-            losses = dist.all_reduce_sum_(torch.cat(parts)).tolist() \
-                if parts else []
+            losses = self._sum_losses(parts)
         self.epoch_seconds.append(time.perf_counter() - t0)
         if self._live_pending:
             self._feed_live()  # the flush has waited for every step
@@ -808,6 +908,21 @@ class Trainer:
             self.step_ms.extend(a.elapsed_time(b)
                                 for a, b in zip(events, events[1:]))
         self._flush_losses(epoch, start_step, losses)
+
+    def _sum_losses(self, parts: List[torch.Tensor]) -> List[float]:
+        """The epoch's global-mean losses on the host: the ranks' shares
+        summed over the data group; under a stage plan the last stage's,
+        then broadcast to the other stages."""
+        if not parts:
+            return []
+        flat = torch.cat(parts)
+        last = self.pp_plan is None or \
+            self._stage == self.pp_plan.num_stages - 1
+        if last:
+            dist.all_reduce_sum_(flat)
+        if self.pp_plan is not None:
+            dist.pipe_broadcast_(flat, self.pp_plan.num_stages - 1)
+        return flat.tolist()
 
     def _flush_losses(self, epoch: int, start_step: int,
                       losses: List[float]) -> None:

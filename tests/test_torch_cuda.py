@@ -30,7 +30,11 @@ relative, each tensor's change 2^-3 of its largest magnitude (cuDNN's and
 the CPU's convolutions round to bfloat16 after sums in other orders).
 A DeepNN or ResNet-18 training step on the card and on the CPU is each
 held against the float64 step at 1e-4 (the CPU's float32 stem gradient
-is no closer to it than the card's).
+is no closer to it than the card's).  gloo's point-to-point ``send`` of a
+CUDA tensor aborts the sender, and the pipeline's staged handoff moves it
+bit for bit; the pipelined drill at mesh (1, 1, 2) as two gloo ranks on
+the card, deterministic, equals the world-1 ``--grad_accum 2`` drill bit
+for bit under both schedules.
 """
 import gc
 import math
@@ -555,6 +559,93 @@ def test_tp_mesh_bf16_over_gloo_on_one_card(cuda):
         assert (got["train_launches"], got["eval_launches"]) == (4, 2)
     np.testing.assert_allclose(ranks[0]["losses"], ref["losses"],
                                rtol=1e-2)
+
+
+_P2P_WORKER = r'''
+import json, os, sys
+import torch
+import torch.distributed as tdist
+from ddp_tpu_torch.parallel import dist
+from ddp_tpu_torch.parallel.mesh import Mesh
+device = dist.initialize(torch.device("cuda"), backend="gloo")
+dist.init_mesh(Mesh((1, 1, 2), dist.rank()))
+stage, out = dist.stage_index(), {}
+x = torch.arange(4096, dtype=torch.float32, device=device) * 0.5
+if sys.argv[2] == "raw":
+    # gloo's own send/recv of a CUDA tensor.
+    if stage == 0:
+        tdist.send(x, 1)
+    else:
+        tdist.recv(torch.zeros_like(x), 0)
+else:
+    # The pipeline's handoff, staged through pinned host buffers on gloo.
+    if stage == 0:
+        dist.wait_sends([dist.send_stage(x.to(torch.bfloat16), 1, tag=3)])
+    else:
+        y = dist.recv_stage(x.shape, torch.bfloat16, device, 0, tag=3)
+        out["staged_equal"] = bool(torch.equal(y, x.to(torch.bfloat16)))
+        out["staged_device"] = str(y.device)
+    out["handoff"] = dict(dist.handoff_stats)
+    with open(os.path.join(sys.argv[1], f"rank{stage}.json"), "w") as f:
+        json.dump(out, f)
+dist.shutdown()
+'''
+
+
+def test_gloo_point_to_point_with_cuda_tensors(cuda, tmp_path):
+    """gloo's ``send``/``recv`` do not take CUDA tensors: two gloo ranks on
+    the one card, the sender aborts (gloo writes the device pointer to its
+    socket as host memory: ``writev ... Bad address``, SIGABRT, 134) and
+    the receiver fails on the closed connection.  The pipeline's handoff
+    (``dist.send_stage``/``recv_stage``) stages them through pinned host
+    memory on gloo: bit for bit, on the card, its bytes counted."""
+    raw = dist.launch_local([sys.executable, "-c", _P2P_WORKER,
+                             str(tmp_path), "raw"], 2, same_device=True,
+                            timeout=120)
+    assert raw == 128 + 6
+    code = dist.launch_local([sys.executable, "-c", _P2P_WORKER,
+                              str(tmp_path), "staged"], 2, same_device=True,
+                             timeout=120)
+    assert code == 0
+    import json
+    got = [json.loads((tmp_path / f"rank{k}.json").read_text())
+           for k in (0, 1)]
+    assert got[1]["staged_equal"] and got[1]["staged_device"] == "cuda:0"
+    assert got[0]["handoff"]["bytes_sent"] == 4096 * 2
+    assert got[1]["handoff"]["bytes_recv"] == 4096 * 2
+
+
+def test_pp_mesh_over_gloo_on_one_card(cuda):
+    """Pipeline parallelism at mesh (1, 1, 2) as two gloo ranks on the one
+    card, streamed with ``--grad_accum 2`` in deterministic mode: bit for
+    bit the world-1 accumulation drill on the card from the same start
+    (losses, the whole state gathered to rank 0), under 1F1B and GPipe;
+    ``gather_batch`` launches on stage 0 only (4 micro-batches and 2 eval
+    batches of 8), and 2 handoffs a micro-batch on each stage."""
+    from ddp_tpu_torch.models import get_model
+    train, test = synthetic(n_train=64, n_test=16, seed=0)
+    model = get_model("deepnn", generator=torch.Generator().manual_seed(0))
+    common = dict(batch=8, lr=0.05, seed=0, augment=True, device="cuda",
+                  streaming=True, grad_accum=2, deterministic=True)
+    ref, = drill.run(drill.spec("deepnn", model.state_dict(), train, test,
+                                **common), 1, timeout=300)
+    for schedule in ("1f1b", "gpipe"):
+        ranks = drill.run(drill.spec(
+            "deepnn", model.state_dict(), train, test, backend="gloo",
+            mesh_shape=(1, 1, 2), pp_schedule=schedule, **common), 2,
+            same_device=True, timeout=300)
+        for got in ranks:
+            assert (got["backend"], got["device"]) == ("gloo", "cuda:0")
+            assert torch.equal(got["losses"], ref["losses"])
+            assert got["collectives"]["pp_handoff"] == 2 * 8
+            first = got["stage_index"] == 0
+            assert (got["train_launches"], got["eval_launches"]) == (
+                (8, 2) if first else (0, 0))
+        assert all(torch.equal(v, ref["state_dict"][k])
+                   for k, v in ranks[0]["state_dict"].items())
+        assert all(torch.equal(a, b) for a, b in zip(ranks[0]["momentum"],
+                                                     ref["momentum"]))
+        assert ranks[0]["correct"] == ref["correct"]
 
 
 _STRATEGY_WORKER = r'''

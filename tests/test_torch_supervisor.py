@@ -8,8 +8,9 @@ script) and the same clock, sleep alike, relaunch with the same argv and
 environment, keep the same failure-ledger entries, write the same
 ``.supervisor.prom`` bytes and exit alike: 0, 86 (budget) or 87
 (deterministic, with ``diagnosis.json``).  The port manages
-``--num_devices`` and refuses ``--mesh_shape`` (ROADMAP A10b, A11); its
-probe counts cards with torch in a throwaway interpreter.  End to end, a
+``--num_devices`` and ``--mesh_shape`` (``shrink_mesh``, stage axis first;
+``tests/test_torch_pp.py`` holds it and the relaunches against JAX's over a
+grid); its probe counts cards with torch in a throwaway interpreter.  End to end, a
 DeepNN run on the CPU under ``python -m ddp_tpu_torch.supervise`` with
 ``sigterm@step=2`` exits 0 on the uninterrupted run's bytes, through the
 chaos campaign's ``sigterm_step`` drill.
@@ -163,13 +164,24 @@ def test_supervisor_loop_equals_jax(scenario, tmp_path):
 
 def test_num_devices_follows_the_probe_and_mesh_shape_is_refused(
         tmp_path, monkeypatch, capsys):
-    got = _run_both(tmp_path, [(75, [], None), (0, [], None)],
+    """The probe sets a ``--num_devices`` child's world; a ``--mesh_shape``
+    child, refused before pipeline parallelism came, is now managed as the
+    JAX supervisor manages it: relaunched on ``shrink_mesh`` of the full
+    mesh (parsed from the original command in either spelling) and the
+    probe, the ledger naming each death's mesh."""
+    (tmp_path / "n").mkdir()
+    got = _run_both(tmp_path / "n", [(75, [], None), (0, [], None)],
                     child_extra=("--num_devices", "4"), probe=2)
     assert tsup._get_flag(got["launches"][1][0], "--num_devices") == "2"
-    with pytest.raises(ValueError, match="A10b, A11"):
-        tsup.Supervisor(["x", "--mesh_shape", "2,4"])
-    assert tsup.main(["--", "-m", "x", "--mesh_shape=8,1"]) == 2
-    assert "A10b, A11" in capsys.readouterr().err
+    (tmp_path / "m").mkdir()
+    got = _run_both(tmp_path / "m", [(75, [], None), (0, [], None)],
+                    child_extra=("--mesh_shape", "2,1,2"), probe=2)
+    assert tsup._get_flag(got["launches"][1][0], "--mesh_shape") == "2,1,1"
+    assert [d["mesh"] for d in got["ledger"]] == ["2,1,2"]
+    assert "shrinking mesh 2,1,2 -> 2,1,1" in capsys.readouterr().err
+    for argv in (["x", "--mesh_shape", "2,4"], ["x", "--mesh_shape=8,1"]):
+        assert tsup.Supervisor(argv)._full_mesh == \
+            jsup.Supervisor(argv)._full_mesh
     assert tsup.probe_device_count({tsup.PROBE_ENV: "3"}) == 3
     seen = []
     monkeypatch.setattr(subprocess, "run", lambda argv, **kw: seen.append(
@@ -205,7 +217,27 @@ def test_supervised_cpu_run_resumes_bit_equal(tmp_path):
         r.stderr
 
 
-def test_campaign_refuses_kill_stage_by_name(capsys):
+def test_campaign_refuses_kill_stage_by_name(monkeypatch, capsys,
+                                            tmp_path):
+    """``kill_stage``, refused by name before pipeline parallelism came, is
+    in the matrix now: its config P is the pipelined one on each device
+    (``--gloo_mesh`` on a card, which starts the mesh's ranks), and the
+    campaign runs it; an unknown drill is still refused by name."""
+    seen = []
+    monkeypatch.setattr(chaos_campaign, "run_campaign",
+                        lambda drills, *a: seen.append(drills) or {
+                            "verdict": "PASS"})
+    out = tmp_path / "c.json"
+    assert chaos_campaign.main(["--device", "cpu", "--drills",
+                                "kill_stage", "--out", str(out)]) == 0
+    assert seen == [["kill_stage"]]
+    assert chaos_campaign._DRILLS["kill_stage"] == ("P", "sigterm@step=2",
+                                                    [])
+    cpu = chaos_campaign._child_argv("P", [], "w", "cpu")
+    card = chaos_campaign._child_argv("P", [], "w", "cuda")
+    assert tsup._get_flag(cpu, "--mesh_shape") == "2,1,2"
+    assert tsup._get_flag(card, "--mesh_shape") == "1,1,2"
+    assert card[:3] == ["-m", "ddp_tpu_torch.chaos_campaign", "--gloo_mesh"]
     with pytest.raises(SystemExit):
-        chaos_campaign.main(["--device", "cpu", "--drills", "kill_stage"])
-    assert "ROADMAP A11" in capsys.readouterr().err
+        chaos_campaign.main(["--device", "cpu", "--drills", "kill_stages"])
+    assert "unknown drill(s) ['kill_stages']" in capsys.readouterr().err

@@ -278,8 +278,10 @@ def test_mesh_index_math_matches_jax(shape):
             assert str(got.value) == str(e)
             continue
         assert tmesh.local_batch_slice(batch, meshes[0]) * d == want
-    with pytest.raises(ValueError, match="A11"):
-        tmesh.Mesh((1, 2, 2))
+    # A stage axis is a pipeline now (tests/test_torch_pp.py): rank 3 of
+    # (1, 2, 2) is model index 1 at stage 1.
+    m3 = tmesh.Mesh((1, 2, 2), 3)
+    assert (m3.dims, m3.model_index, m3.stage_index) == ((1, 2, 2), 1, 1)
     assert tmesh.Mesh((2, 2, 1), 3).dims == (2, 2)
 
 
@@ -677,8 +679,10 @@ def test_cli_refusals_in_jax_words(start):
     assert "must equal" in _refused(base + ["--model", "deepnn",
                                             "--mesh_shape", "1,2",
                                             "--spawn", "3"])
-    assert "A11" in _refused(base + ["--model", "deepnn", "--mesh_shape",
-                                     "1,2,2"])
+    # --mesh_shape 1,2,2 is a pipelined mesh of four ranks now.
+    assert "must equal D×M×S = 4" in _refused(
+        base + ["--model", "deepnn", "--mesh_shape", "1,2,2", "--spawn",
+                "2"])
     assert "A13c" in _refused(base + ["--auto_plan", "p.json"])
     assert "infeasible" in _refused(base + ["--model", "deepnn",
                                             "--mesh_shape", "1x3"])
