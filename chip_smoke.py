@@ -62,7 +62,9 @@
    launches equal to the train steps it ran, by form; VGG's float32
    median ms/step within 3% of the main path's event median.
    Bench-modes phase (``bench_modes_phase``; the bench's modes that need no
-   mesh, one process each, one after the other): VGG-11 ``--guard_overhead
+   mesh, one after the other, each a process of its own but
+   ``--stream_attr`` and ``--pipeline``, which run the bench's main in this
+   process): VGG-11 ``--guard_overhead
    --steps 50 --repeats 2`` (``bench.py``'s fields, the derived K=50 audit
    overhead under 1%; 50-step windows, so each K=50 window holds one
    audit); ``--serve --fleet 2`` at buckets 1, 8, 32 and 128 (4 CUDA
@@ -75,7 +77,8 @@
    that cell has no child of its own); ``--stream_attr
    --e2e_steps 8 --repeats 2`` (the attribution's keys, a named
    bottleneck, 0 < overlap efficiency <= 1, the streamed ``--e2e``
-   record's phases); ``--pipeline`` (value > 0).  Every process's
+   record's phases); ``--pipeline`` (value > 0; the host loader with no
+   device in its loop).  Every run's
    ``gather_batch`` launches equal its train steps plus its eval-form
    calls (``warm()``'s eager run and capture a bucket), by form.
    ``--sweep`` needs more than one card (ROADMAP C4) and ``--chaos`` is the
@@ -312,6 +315,32 @@
    ``/stats``, ``/metrics``' ejection and retry totals equal to
    ``/stats``', SIGTERM exit 0, and ``python -m ddp_tpu_torch.obs
    --perfetto`` on the spill holding ``eject`` and ``swap_commit``.
+   Generate phase (``generate_phase``, A12), in this process: G1 ``python
+   -m ddp_tpu_torch.train.lm``'s main, 30 f32 steps of the byte LM
+   ``tinylm`` (16 sequences of 32 tokens), its losses descending and
+   within 1e-3 relative of the CPU port's from the same seed, no
+   ``gather_batch`` launch; G2 the KV-cache engine from its file (8 slots,
+   prompt buckets 16 and 64): 5 CUDA graphs, the compile bound, 24 decode
+   steps of a prompt in each bucket, each within 1e-4 of ``lm_forward``
+   of the history on the card and the same greedy token, the cache never
+   reallocated, the replay ms of the decode and prefill graphs and the
+   host ms of ``decode()`` at 8 live slots; G3 8 concurrent streams of 16
+   tokens through ``TokenBatcher``, each token for token the stream run
+   alone; G4 a 2-replica generative ``ServeFleet`` behind
+   ``ServeHTTPServer``, two sticky sessions of two turns over ``POST
+   /generate``, no migration, every turn the engine's; G5 the serve-chaos
+   drill (``serve_chaos.run_drill``) passing; G6 ``bench --serve
+   --generate --gen_streams 1,8 --serve_secs 2`` in process (tokens/s,
+   TTFT p50/p99, the
+   compile bound, the card and power limit); G7 a bfloat16 stream within
+   2^-5 of max |logit| of the bfloat16 forward; G8 the transformer encoder
+   through ``ServeEngine`` at buckets 1, 8 and 32: ``gather_batch``'s
+   wrapper counted from 0 (one eager run and one capture a bucket), five
+   profiled forwards a bucket each replaying one ``gather_batch_kernel``
+   with the wrapper's count unmoved, the
+   kernel bit for bit its plain version at each bucket's shape, the served
+   logits bit for bit the eager forward and within 1e-4 of max |logit| of
+   the CPU's.
    Accuracy anchors (ROADMAP C2): the configs of
    ``tests/golden/accuracy_parity_20epoch_noise0.25_bf16.json`` and of its
    float32 twin (batch 64, lr 0.05, 768 images of ``synthetic(seed=21,
@@ -355,9 +384,11 @@
     on the bench
     path: the train steps the bench's processes ran in that form, and on
     the run-shape path: the split, uninterrupted and streamed runs, on
-    the obs path: O1's and O2's runs, and on the fleet path: the eager runs
+    the obs path: O1's and O2's runs, on the fleet path: the eager runs
     of every engine F1 builds (its 2 at the start and 2 a swap) and the 5
-    profiled replays, in the bf16 entry the bf16 fleet's; both
+    profiled replays, in the bf16 entry the bf16 fleet's, and on the
+    generate path (``launches_generate_path``): the encoder engine's eager
+    warm-up runs and its 15 profiled replays; both
     entries
     give ``stream_batch_cases``, the streamed-batch comparisons in their
     dtype, whose launches are not counted), the card line, and last
@@ -4745,6 +4776,24 @@ def run_bench(args: list) -> dict:
     return summary
 
 
+def bench_in_process(args: list) -> dict:
+    """``ddp_tpu_torch.bench``'s main with ``args`` in this process (no
+    process start-up): its summary, whose first record must be the one line
+    it printed on stdout (taken here, not printed)."""
+    from ddp_tpu_torch import bench as bench_mod
+    t0 = time.time()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        summary = bench_mod.main(args)
+    lines = buf.getvalue().strip().splitlines()
+    check(len(lines) == 1 and json.loads(lines[0]) == summary["records"][0],
+          f"bench {' '.join(args)} in process printed {len(lines)} stdout "
+          f"lines, not its first record alone")
+    print(f"bench {' '.join(args)}: in process {time.time() - t0:.1f} s",
+          flush=True)
+    return summary
+
+
 def check_bench_record(rec: dict, fields: tuple) -> None:
     what = rec.get("metric")
     check(tuple(rec) == fields, f"bench record {what}: fields {list(rec)}")
@@ -4808,8 +4857,8 @@ def bench_phase(main_ms: float, card: str) -> dict:
     return launches
 
 
-# The bench's modes that need no mesh (bench_modes_phase): VGG-11, each
-# command a process of its own, one after the other.
+# The bench's modes that need no mesh (bench_modes_phase): VGG-11, one
+# command after the other, a process each but the last two (in process).
 # Windows of 50 steps, JAX's default: each K=50 window holds one audit.
 GUARD_RUN = ["--guard_overhead", "--steps", "50", "--repeats", "2"]
 SERVE_RUN = ["--serve", "--serve_buckets", "1,8,32,128", "--serve_secs",
@@ -4853,8 +4902,10 @@ def _mode_record(summary: dict, what: str, fields: set) -> dict:
 
 def bench_modes_phase(card: str) -> dict:
     """``python -m ddp_tpu_torch.bench``'s modes that need no mesh on
-    VGG-11, each a process of its own and one after the other (see the
-    module's docstring).  Returns the launches of each form."""
+    VGG-11, one after the other: ``--guard_overhead``, ``--serve --fleet
+    2`` and ``--batch_sweep`` each a process of its own, ``--stream_attr``
+    and ``--pipeline`` the bench's main in this process (see the module's
+    docstring).  Returns the launches of each form."""
     t0 = time.time()
     launches = {"float32": 0, "bfloat16": 0}
     port = {"device", "power_limit_w"}
@@ -4926,7 +4977,7 @@ def bench_modes_phase(card: str) -> dict:
         for b, c in cells.items()) + f"; headline {rec['value']} "
         f"{rec['unit']}", flush=True)
 
-    summary = run_bench(["--model", "vgg", *STREAM_ATTR_RUN])
+    summary = bench_in_process(["--model", "vgg", *STREAM_ATTR_RUN])
     _bench_mode_launches(summary, "--stream_attr", launches)
     rec = _mode_record(summary, "--stream_attr", {
         "metric", "value", "unit", "vs_baseline", "attribution_ms_per_step",
@@ -4946,7 +4997,7 @@ def bench_modes_phase(card: str) -> dict:
           f"{json.dumps(rec['phase_ms'])}, prefetch "
           f"{json.dumps(rec['prefetch'])}", flush=True)
 
-    summary = run_bench(["--pipeline"])
+    summary = bench_in_process(["--pipeline"])
     rec = _mode_record(summary, "--pipeline", {
         "metric", "value", "unit", "vs_baseline"} | port)
     check(summary["launches"] == {"gather_batch": 0, "gather_batch_bf16": 0},
@@ -5055,6 +5106,345 @@ def runshape_phase(main_ms: float, card: str) -> int:
           f"(step, median ms, p90 ms, mfu, occupancy) {summary}", flush=True)
     print(f"run-shape phase: {time.time() - t0:.1f} s", flush=True)
     return sum(r["kernel_launches"]["gather_batch"] for r in runs) + launches
+
+
+# The transformer workload (generate_phase, A12): the byte LM ``tinylm``
+# trained by ``python -m ddp_tpu_torch.train.lm``'s main in this process
+# (30 f32 steps of 16 sequences of 32 tokens), then served from its file.
+# The card's losses against the CPU port's from the same seed: f32 with
+# TF32 off, cuBLAS and the CPU sum in other orders, and 30 momentum steps
+# carry those last bits; 1e-3 relative leaves two orders above the ~1e-5
+# that gives.  Cached decode against the full-sequence forward of the
+# history on the card: the same f32 math over other shapes, 1e-4 absolute
+# (measured ~1e-6 on the CPU), and the same greedy token.  A bfloat16
+# stream within 2^-5 of max |logit| of the bfloat16 full forward.  The
+# encoder served through ServeEngine against its eager forward bit for bit
+# (the same kernels on the same shapes) and against the CPU forward at
+# 1e-4 of max |logit|.
+GEN_TRAIN = ["--steps", "30", "--batch", "16", "--seq_len", "32"]
+GEN_LOSS_RTOL = 1e-3
+GEN_DECODE_ATOL = 1e-4
+GEN_BUCKETS = (16, 64)
+# One prompt for each bucket; each decoded GEN_DECODE_STEPS steps.
+GEN_PROMPTS = ([5, 250, 17, 3, 99], [(7 * i + 1) % 256 for i in range(40)])
+GEN_DECODE_STEPS = 24
+GEN_STREAMS, GEN_NEW = 8, 16
+GEN_BENCH = ["--serve", "--generate", "--gen_streams", "1,8",
+             "--serve_secs", "2", "--gen_new_tokens", str(GEN_NEW)]
+ENCODER_BUCKETS = (1, 8, 32)
+
+
+def _gen_alone(eng, prompt: list, n: int) -> list:
+    """One greedy stream of ``n`` tokens on ``eng`` alone."""
+    slot, tok = eng.start_stream(prompt)
+    got = [tok]
+    while len(got) < n:
+        got.append(eng.decode({slot: got[-1]})[slot])
+    eng.release(slot)
+    return got
+
+
+def _post_generate(base: str, body: dict) -> dict:
+    req = urllib.request.Request(
+        base + "/generate", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.load(r)
+
+
+def _encoder_path(card: str) -> dict:
+    """The CIFAR encoder served through ServeEngine: every serving batch
+    goes through gather_batch's eval form.  Its wrapper's count is set to
+    0 before warm() and read after the forwards (the eager warm-up runs;
+    replays launch the kernel uncounted); then five forwards a bucket
+    under torch.profiler (``profiled_forwards``, as the serving and fleet
+    phases count theirs) must each replay one ``gather_batch_kernel`` and
+    leave the wrapper's count as it was.  The path's launches are the
+    eager runs plus the profiled replays'.  The kernel is then held against
+    its plain version at each bucket's shape, and the served logits
+    against the eager forward and the CPU's."""
+    gather_batch.launches = gather_batch.launches_bf16 = 0
+    gather_rows.launches = conv3x3_fused.launches = 0
+    model = get_model("transformer",
+                      generator=torch.Generator().manual_seed(0))
+    cpu_model = copy.deepcopy(model)
+    engine = ServeEngine(model, buckets=ENCODER_BUCKETS)
+    captured = engine.warm()
+    rng = np.random.default_rng(11)
+    batches = {b: rng.integers(0, 256, (b, 32, 32, 3), dtype=np.uint8)
+               for b in engine.buckets}
+    served = {b: engine.forward(x) for b, x in batches.items()}
+    torch.cuda.synchronize()
+    wrapper = gather_batch.launches
+    check(captured == len(ENCODER_BUCKETS) and
+          wrapper == 2 * len(ENCODER_BUCKETS) and
+          gather_rows.launches == conv3x3_fused.launches == 0,
+          f"encoder serving: {captured} graphs, gather_batch's wrapper "
+          f"{wrapper} times (expected one eager run and one capture a "
+          f"bucket), row_gather {gather_rows.launches}, conv3x3 "
+          f"{conv3x3_fused.launches}")
+    eager_runs = wrapper - captured
+    replays = {}
+    for b, x in batches.items():
+        seen, replayed, _ = profiled_forwards(engine, x,
+                                              f"encoder bucket {b}")
+        replays[b] = seen["gather_batch_kernel"]
+        check(replayed == seen["forwards"] == replays[b] == 5
+              and not seen["short_forwards"]
+              and gather_batch.launches == wrapper,
+              f"encoder bucket {b}: {replays[b]} gather_batch_kernel "
+              f"launches in {replayed} replays under the profiler (expected "
+              f"one each), the wrapper {gather_batch.launches} times "
+              f"(profile {seen})")
+    launches = eager_runs + sum(replays.values())
+    apply_fn = make_eval_apply(engine.model)
+    max_err, max_cpu = 0.0, 0.0
+    for b, x in batches.items():
+        table = torch.from_numpy(x).cuda()
+        zeros = torch.zeros(b, dtype=torch.int64, device="cuda")
+        rows = torch.arange(b, dtype=torch.int32, device="cuda")
+        images, _ = gather_batch(table, zeros, rows)
+        want_images, _ = gather_batch_plain(table, zeros, rows)
+        check(torch.equal(images, want_images),
+              f"gather_batch's eval form differs from its plain version at "
+              f"the encoder's bucket {b}")
+        max_err = max(max_err, float((images - want_images).abs().max()))
+        want = apply_fn(images).cpu().numpy()
+        check(np.array_equal(served[b], want),
+              f"the encoder's served logits at bucket {b} differ from its "
+              f"eager forward")
+        cpu = make_eval_apply(cpu_model)(torch.from_numpy(x)).numpy()
+        err = float(np.abs(served[b] - cpu).max())
+        max_cpu = max(max_cpu, err / max(float(np.abs(cpu).max()), 1e-30))
+        check(err <= 1e-4 * float(np.abs(cpu).max()),
+              f"the encoder's served logits at bucket {b} lie {err:.3e} "
+              f"from the CPU's")
+    print(f"generate G8 ({card}): the transformer encoder served through "
+          f"ServeEngine at buckets {list(engine.buckets)}: {captured} "
+          f"graphs, gather_batch launched {launches} times on its path "
+          f"({eager_runs} eager warm-up runs by its wrapper, "
+          f"{json.dumps(replays)} in 5 profiled replays a bucket by the "
+          f"profiler), "
+          f"served logits bit for bit the eager forward, {max_cpu:.3e} of "
+          f"max|logit| from the CPU's, the kernel bit for bit its plain "
+          f"version", flush=True)
+    return {"launches": launches, "max_abs_err": max_err,
+            "cpu_share": max_cpu, "replays_profiled": replays}
+
+
+def generate_phase(card: str, tmp: str) -> dict:
+    """The transformer workload on the card, in this process: G1
+    ``python -m ddp_tpu_torch.train.lm``'s main (the losses descending and
+    within GEN_LOSS_RTOL of the CPU port's); G2 the KV-cache engine from
+    that file (graphs captured equal to the compile bound, decode equal to
+    ``lm_forward`` at every step in both prompt buckets, replay times);
+    G3 GEN_STREAMS concurrent streams through the token batcher, each
+    token for token the stream run alone; G4 a 2-replica generative fleet
+    behind the HTTP server with two sticky sessions; G5 the serve-chaos
+    drill; G6 ``bench --serve --generate`` at 1 and 8 streams; G7 a
+    bfloat16 stream; G8 the encoder through ServeEngine and
+    ``gather_batch``.  Returns the encoder path's launches and the
+    numbers PERF.md keeps."""
+    from ddp_tpu_torch import serve_chaos
+    from ddp_tpu_torch.serve import KVCacheEngine, TokenBatcher
+    from ddp_tpu_torch.train import lm
+    t_phase = time.time()
+    gather_batch.launches = gather_batch.launches_bf16 = 0
+    check(not dist.in_rendezvous(), "the smoke is inside a rendezvous")
+    ck = os.path.join(tmp, "lm", "ck.npz")
+    res = os.path.join(tmp, "lm.json")
+    t0 = time.time()
+    check(lm.main(GEN_TRAIN + ["--snapshot_path", ck, "--result_json",
+                               res]) == 0, "train.lm did not exit 0")
+    train_s = time.time() - t0
+    with open(res) as f:
+        run = json.load(f)
+    losses = run["losses"]
+    _, cpu_losses = lm.train_lm(steps=30, batch=16, seq_len=32,
+                                device="cpu", quiet=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    check(len(losses) == 30 and all(math.isfinite(x) for x in losses) and
+          run["device"].startswith("cuda") and run["world"] == 1,
+          f"train.lm: {run}")
+    check(losses[-1] < losses[0] and
+          statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
+          f"train.lm's losses do not descend: {losses}")
+    check(rel <= GEN_LOSS_RTOL, f"train.lm's losses lie {rel:.3e} "
+          f"(relative) from the CPU port's")
+    check(gather_batch.launches == 0, "the LM path launched gather_batch")
+    print(f"generate G1 ({card}): python -m ddp_tpu_torch.train.lm "
+          f"{' '.join(GEN_TRAIN)}: {run['seconds']:.3f} s of steps, "
+          f"{train_s:.2f} s with the save, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, {rel:.3e} of the CPU port's at most",
+          flush=True)
+
+    eng = KVCacheEngine.from_checkpoint(ck, "tinylm", slots=GEN_STREAMS,
+                                        prompt_buckets=GEN_BUCKETS)
+    t0 = time.time()
+    captured = eng.warm()
+    warm_s = time.time() - t0
+    check(captured == eng.trace_count == eng.compile_bound ==
+          2 * len(GEN_BUCKETS) + 1 and
+          eng.stats()["compiled_executables"] == captured,
+          f"the KV engine captured {captured} graphs, bound "
+          f"{eng.compile_bound}")
+    model = eng.model
+    k, v = eng.cache_buffers()
+    ptrs = (k.data_ptr(), v.data_ptr())
+    decode_err = 0.0
+    for prompt in GEN_PROMPTS:
+        slot, tok = eng.start_stream(prompt)
+        hist = list(prompt)
+        with torch.no_grad():
+            first = model.lm_forward(torch.tensor([hist], device="cuda"))
+        check(tok == int(np.argmax(first[0, -1].cpu().numpy())),
+              f"the prefill's token differs from lm_forward's "
+              f"(prompt of {len(prompt)})")
+        for step in range(GEN_DECODE_STEPS):
+            hist.append(tok)
+            got = eng.decode_logits({slot: tok})[slot]
+            with torch.no_grad():
+                want = model.lm_forward(torch.tensor(
+                    [hist], device="cuda"))[0, -1].cpu().numpy()
+            err = float(np.abs(got - want).max())
+            decode_err = max(decode_err, err)
+            check(err <= GEN_DECODE_ATOL and
+                  int(np.argmax(got)) == int(np.argmax(want)),
+                  f"decode step {step} (prompt of {len(prompt)}) lies "
+                  f"{err:.3e} from lm_forward")
+            tok = int(np.argmax(got))
+        eng.release(slot)
+    check((k.data_ptr(), v.data_ptr()) == ptrs,
+          "the KV cache was reallocated")
+    replay_ms = {"decode": median_ms(lambda _: eng._decode.graph.replay(),
+                                     [None], 30)}
+    for b in GEN_BUCKETS:
+        replay_ms[f"prefill{b}"] = median_ms(
+            lambda _, p=eng._prefill[b]: p.graph.replay(), [None], 30)
+    live = {s: 1 for s in range(GEN_STREAMS)}
+    for s in live:
+        eng.start_stream([s + 1])
+    host = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        eng.decode(live)
+        host.append((time.perf_counter() - t0) * 1e3)
+    for s in live:
+        eng.release(s)
+    print(f"generate G2 ({card}): KVCacheEngine from {ck}: {captured} "
+          f"CUDA graphs (bound {eng.compile_bound}) in {warm_s:.3f} s; "
+          f"{GEN_DECODE_STEPS} decode steps a prompt in buckets "
+          f"{list(GEN_BUCKETS)}, max|decode - lm_forward| {decode_err:.3e}; "
+          f"replay ms {json.dumps(replay_ms)}; decode() host ms at "
+          f"{GEN_STREAMS} live slots median "
+          f"{statistics.median(host):.3f}; the cache written in place",
+          flush=True)
+
+    prompts = [[(13 * i + j) % 256 for j in range(3 + i)]
+               for i in range(GEN_STREAMS)]
+    refs = [_gen_alone(eng, p, GEN_NEW) for p in prompts]
+    batcher = TokenBatcher(eng, max_new_tokens=GEN_NEW).start()
+    try:
+        got = concurrently({i: functools.partial(batcher.generate, p,
+                                                 timeout=60)
+                            for i, p in enumerate(prompts)})
+        bstats = batcher.stats()
+    finally:
+        check(batcher.drain(timeout=30), "the token batcher did not drain")
+    check([got[i]["tokens"] for i in range(GEN_STREAMS)] == refs,
+          "concurrent streams differ from the streams run alone")
+    check(bstats["completed_streams"] == GEN_STREAMS and
+          bstats["tokens_generated"] == GEN_STREAMS * GEN_NEW,
+          f"token batcher stats {bstats}")
+    ttft = [got[i]["ttft_ms"] for i in range(GEN_STREAMS)]
+    print(f"generate G3 ({card}): {GEN_STREAMS} concurrent streams of "
+          f"{GEN_NEW} tokens through TokenBatcher, each token for token "
+          f"the stream alone; TTFT ms p50 {statistics.median(ttft):.3f} "
+          f"max {max(ttft):.3f}", flush=True)
+
+    fleet = ServeFleet(ck, "tinylm", n_replicas=2, generate=True, slots=4,
+                       prompt_buckets=GEN_BUCKETS, max_new_tokens=6)
+    fleet.start(poll_s=0)
+    httpd = ServeHTTPServer(("127.0.0.1", 0), fleet=fleet)
+    listener = threading.Thread(target=httpd.serve_forever, daemon=True)
+    listener.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        hist = {"a": list(GEN_PROMPTS[0]), "b": [42, 43]}
+        for _ in range(2):
+            for sid, h in hist.items():
+                out = _post_generate(base, {"prompt": h, "session": sid})
+                check(out["tokens"] == _gen_alone(eng, h, 6),
+                      f"session {sid}: the fleet's tokens differ from the "
+                      f"engine's")
+                h.extend(out["tokens"])
+        router = fleet.router.stats()
+        pins = {sid: fleet.router.session_replica(sid) for sid in hist}
+        check(router["session_migrations"] == 0 and
+              all(p is not None for p in pins.values()),
+              f"sticky sessions: pins {pins}, router {router}")
+        counts = [r.stats()["engine"]["compiled_executables"]
+                  for r in fleet.replicas]
+        check(counts == [5, 5], f"the fleet's engines captured {counts}")
+    finally:
+        httpd.close()
+        listener.join(timeout=10)
+        fleet.close(timeout=15)
+    print(f"generate G4 ({card}): serve --generate --fleet 2 over HTTP, two "
+          f"sticky sessions of two turns, pins {pins}, 0 migrations, every "
+          f"turn token for token the engine's", flush=True)
+
+    t0 = time.time()
+    drill_rec = serve_chaos.run_drill(ck, device="cuda")
+    check(drill_rec["pass"], f"the serve-chaos drill failed: {drill_rec}")
+    print(f"generate G5 ({card}): serve-chaos drill PASS in "
+          f"{time.time() - t0:.1f} s: {json.dumps(drill_rec)}", flush=True)
+
+    summary = bench_in_process(GEN_BENCH + ["--snapshot_path", ck])
+    rec = summary["records"][0]
+    gen = rec["generate"]
+    check(gen["compiled_executables"] == gen["compile_bound"] and
+          [p["streams"] for p in gen["curve"]] == [1, 8] and
+          all(p["tokens_per_sec"] > 0 and p["ttft_ms"]["p99"] is not None
+              for p in gen["curve"]) and rec["power_limit_w"] and
+          rec["device"]["name"] == torch.cuda.get_device_name(0),
+          f"bench --generate record {rec}")
+    print(f"generate G6 ({card}): bench record: {json.dumps(rec)}",
+          flush=True)
+
+    eng16 = KVCacheEngine.from_checkpoint(ck, "tinylm", slots=2,
+                                          prompt_buckets=GEN_BUCKETS[:1],
+                                          compute_dtype=BF16)
+    check(eng16.warm() == 3, "the bf16 engine's graphs")
+    hist = list(GEN_PROMPTS[0])
+    slot, tok = eng16.start_stream(hist)
+    bf16_share = 0.0
+    for _ in range(12):
+        hist.append(tok)
+        got = eng16.decode_logits({slot: tok})[slot]
+        with torch.no_grad():
+            want = eng16.model.lm_forward(
+                torch.tensor([hist], device="cuda"),
+                compute_dtype=BF16)[0, -1].float().cpu().numpy()
+        share = float(np.abs(got - want).max() / np.abs(want).max())
+        bf16_share = max(bf16_share, share)
+        check(share <= 2.0 ** -5, f"bf16 decode lies {share:.3e} of "
+              f"max|logit| from the bf16 forward")
+        tok = int(np.argmax(got))
+    print(f"generate G7 ({card}): a bf16 stream of 12 steps, decode within "
+          f"{bf16_share:.3e} of max|logit| of the bf16 lm_forward",
+          flush=True)
+
+    encoder = _encoder_path(card)
+    seconds = time.time() - t_phase
+    print(f"generate phase: {seconds:.1f} s", flush=True)
+    curve = {p["streams"]: p for p in gen["curve"]}
+    return {"launches": encoder["launches"],
+            "max_abs_err": encoder["max_abs_err"], "seconds": seconds,
+            "tokens_per_sec": {s: p["tokens_per_sec"]
+                               for s, p in curve.items()},
+            "ttft_ms": {s: p["ttft_ms"] for s, p in curve.items()},
+            "decode_err": decode_err, "replay_ms": replay_ms}
 
 
 def main() -> int:
@@ -5178,6 +5568,10 @@ def main() -> int:
                                                "stream.pt"),
                         snapshot_bf16, card)
     stamp("fleet phase")
+    with tempfile.TemporaryDirectory() as tmp:
+        generate = generate_phase(card, tmp)
+    print(f"generate: {json.dumps(generate)}", flush=True)
+    stamp("generate phase")
     snapshot_dir.cleanup()
     anchors = [anchor_phase(path, dtype, card) for path, dtype in ANCHORS]
     print(f"anchors: {json.dumps(anchors)}", flush=True)
@@ -5210,6 +5604,7 @@ def main() -> int:
                  launches_storage_path=storage_launches,
                  launches_obs_path=obs_launches,
                  launches_fleet_path=fleet["launches"],
+                 launches_generate_path=generate["launches"],
                  stream_batch_cases=stream_cases[torch.float32],
                  launches_serve_path=serve["warm_launches"]
                  + serve["http_profiled"]["gather_batch_kernel_launches"],
@@ -5224,7 +5619,8 @@ def main() -> int:
                      b: [p["gather_batch_kernel_profiled"],
                          p["forwards_profiled"]]
                      for b, p in serve["buckets"].items()},
-                 max_abs_err=max(batch["max_abs_err"], serve["max_abs_err"]))
+                 max_abs_err=max(batch["max_abs_err"], serve["max_abs_err"],
+                                 generate["max_abs_err"]))
     conv3x3.update(launches=sum(probe_routes.values()),
                    launches_by_route=probe_routes,
                    path="python -m ddp_tpu_torch.ops.conv_candidates "

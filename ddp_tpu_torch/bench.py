@@ -11,6 +11,8 @@ no mesh):
     python -m ddp_tpu_torch.bench --guard_overhead [--steps 50] [...]
     python -m ddp_tpu_torch.bench --serve [--fleet N] [--serve_secs 4] \\
         [--serve_loads auto] [--serve_buckets 1,8,32,128] [--snapshot_path P]
+    python -m ddp_tpu_torch.bench --serve --generate [--gen_streams 1,2,4,8] \\
+        [--gen_slots 8] [--gen_new_tokens 16] [--snapshot_path P]
     python -m ddp_tpu_torch.bench --batch_sweep 256,512 \\
         [--batch_sweep_flavors fp32_step,bf16_step]
     python -m ddp_tpu_torch.bench --sweep 1,2 [--sweep_platform cpu|real]
@@ -88,6 +90,15 @@ defaults and record fields (plus ``device`` and ``power_limit_w``):
   > 1), a closed-loop capacity probe, then the open-loop sweep and its
   knee.  ``compiled_executables`` counts the CUDA graphs ``warm()``
   captured (the CPU: buckets warmed).
+- ``--serve --generate`` (``bench.py:1272``): the ``tinylm`` KV-cache
+  engine (a ``--snapshot_path`` checkpoint, or fresh weights from seed 0)
+  behind a ``TokenBatcher``; for each ``--gen_streams`` count S, S
+  closed-loop clients loop whole streams (a ``--gen_prompt_len`` random
+  prompt, ``--gen_new_tokens`` tokens) for ``--serve_secs`` seconds.  The
+  record's ``generate.curve`` holds each point's ``tokens_per_sec``,
+  ``ttft_ms`` and ``stream_latency_ms`` percentiles; ``value`` is the
+  tokens/s at the largest S; ``compiled_executables`` (CUDA graphs on a
+  card) is held to ``compile_bound``.
 - ``--batch_sweep`` (``bench.py:814``) and ``--sweep`` (``bench.py:1391``):
   one child process a cell, ``python -m ddp_tpu_torch.bench ...
   --no_bf16 --primary_only``; ``--sweep``'s children run ``--num_devices
@@ -165,8 +176,7 @@ REFUSED = {
     "--calibrate_cost": "A13c", "--mem_ledger": "A13c",
     "--tp_sweep": "A10b", "--pp_sweep": "A10b",
     "--mesh_shape": "A10b", "--auto_plan": "A13c",
-    "--autoplan_bench": "A13c", "--generate": "A12",
-    "--ckpt_bench": "A10b",
+    "--autoplan_bench": "A13c", "--ckpt_bench": "A10b",
     "--dump_hlo": "none: an eager program has no compiled program to dump",
 }
 BATCH_SWEEP_FLAVORS = ("fp32_step", "bf16_step")
@@ -315,6 +325,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--snapshot_path", default=None,
                    help="With --serve: serve this trained checkpoint (head "
                         "path or directory) instead of fresh-init weights")
+    p.add_argument("--generate", action="store_true",
+                   help="With --serve: bench GENERATIVE decoding (the "
+                        "tinylm KV-cache engine + token-level continuous "
+                        "batcher) instead of the classifier stack — "
+                        "tokens/sec and TTFT vs concurrent streams")
+    p.add_argument("--gen_streams", default="1,2,4,8",
+                   metavar="S1,S2,...",
+                   help="With --generate: concurrent client-stream "
+                        "counts to sweep (default 1,2,4,8; each point "
+                        "runs --serve_secs seconds)")
+    p.add_argument("--gen_prompt_len", default=8, type=int,
+                   help="With --generate: prompt tokens per stream "
+                        "(default 8)")
+    p.add_argument("--gen_new_tokens", default=16, type=int,
+                   help="With --generate: tokens generated per stream "
+                        "(default 16)")
+    p.add_argument("--gen_slots", default=8, type=int,
+                   help="With --generate: KV-cache slots (the decode "
+                        "batch width; default 8)")
+    p.add_argument("--gen_prefill_buckets", default="16,64",
+                   help="With --generate: padded prompt buckets "
+                        "(default 16,64)")
     p.add_argument("--chaos", action="store_true",
                    help="Run the chaos campaign (python -m "
                         "ddp_tpu_torch.chaos_campaign): the DDP_TPU_FAULT "
@@ -338,6 +370,9 @@ def check_args(args: argparse.Namespace) -> None:
         if getattr(args, flag[2:]) is not None:
             raise SystemExit(f"{flag} is not ported to ddp_tpu_torch.bench "
                              f"(ROADMAP {item})")
+    if args.generate and not args.serve:
+        raise SystemExit("--generate benches the generative serving stack: "
+                         "pass it with --serve")
     if args.dispatch == "scan":
         raise SystemExit("--dispatch scan has no eager counterpart (none: "
                          "the resident-epoch record is the nearest)")
@@ -1015,6 +1050,116 @@ class _Bench:
             "device": self.card, "power_limit_w": self.power_limit_w,
         }
 
+    def generate_record(self) -> Dict:
+        """Generative serving throughput (``bench.py --serve --generate``):
+        tokens/s and TTFT against concurrent streams.  Each point runs S
+        closed-loop clients for ``--serve_secs`` seconds, each looping
+        whole streams (prompt, prefill, ``--gen_new_tokens`` decode steps).
+        The decode program advances every live slot a step at a fixed
+        ``[slots]`` shape, so the tokens/s should rise with S until the
+        slots are full; the TTFT percentiles of each point price what
+        sharing the decode costs the first token."""
+        from .models import transformer as tfm
+        from .serve import KVCacheEngine, TokenBatcher
+        a, device = self.args, self.device
+        dtype = torch.bfloat16 if a.bf16 else None
+        prefill_buckets = [int(b) for b in
+                           a.gen_prefill_buckets.split(",") if b]
+        t0 = time.perf_counter()
+        if a.snapshot_path:
+            engine = KVCacheEngine.from_checkpoint(
+                a.snapshot_path, tfm.LM_NAME, device=device,
+                slots=a.gen_slots, prompt_buckets=prefill_buckets,
+                compute_dtype=dtype)
+        else:
+            engine = KVCacheEngine(
+                get_model(tfm.LM_NAME,
+                          generator=torch.Generator().manual_seed(0)),
+                device=device, slots=a.gen_slots,
+                prompt_buckets=prefill_buckets, compute_dtype=dtype)
+        compiled = engine.warm()
+        if compiled > engine.compile_bound:
+            raise RuntimeError(f"compile bound broken: {compiled} > "
+                               f"{engine.compile_bound}")
+        warm_s = time.perf_counter() - t0
+        batcher = TokenBatcher(engine, max_new_tokens=a.gen_new_tokens,
+                               queue_depth=a.serve_queue_depth).start()
+        n_prompt = max(1, min(int(a.gen_prompt_len), engine.max_prompt))
+
+        def pct(values: List[float]) -> Dict:
+            return {k: (round(v, 3) if v is not None else None)
+                    for k, v in percentiles(values).items()}
+
+        def point(streams: int, secs: float) -> Dict:
+            stop = time.perf_counter() + secs
+            lock = threading.Lock()
+            tokens = [0]
+            ttfts: List[float] = []
+            stream_lat: List[float] = []
+            completed = [0]
+
+            def client(seed: int):
+                r = np.random.default_rng(seed)
+                while time.perf_counter() < stop:
+                    prompt = r.integers(0, tfm.VOCAB, n_prompt).tolist()
+                    t = time.perf_counter()
+                    try:
+                        out = batcher.generate(
+                            prompt, max_new_tokens=a.gen_new_tokens,
+                            timeout=60)
+                    except TimeoutError:
+                        continue  # counted absent: a dead point shows 0
+                    dt = (time.perf_counter() - t) * 1e3
+                    with lock:
+                        tokens[0] += len(out["tokens"])
+                        ttfts.append(out["ttft_ms"])
+                        stream_lat.append(dt)
+                        completed[0] += 1
+
+            threads = [threading.Thread(target=client, args=(1000 + i,))
+                       for i in range(streams)]
+            t_start = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - t_start
+            return {"streams": streams, "completed_streams": completed[0],
+                    "tokens": tokens[0],
+                    "tokens_per_sec": round(tokens[0] / wall, 2),
+                    "ttft_ms": pct(ttfts),
+                    "stream_latency_ms": pct(stream_lat)}
+
+        streams = sorted({max(1, int(x))
+                          for x in a.gen_streams.split(",") if x})
+        try:
+            curve = [point(n, a.serve_secs) for n in streams]
+            stats = {"engine": engine.stats(), "batcher": batcher.stats()}
+        finally:
+            batcher.drain(timeout=10.0)
+        head = curve[-1]
+        return {
+            "metric": f"{tfm.LM_NAME} generative decode tokens/sec vs "
+                      f"concurrent streams ({engine.slots} KV slots, prompt "
+                      f"{n_prompt}, {a.gen_new_tokens} new tokens/stream, "
+                      f"prompt buckets {list(engine.prompt_buckets)}, "
+                      f"{'bf16' if a.bf16 else 'fp32'}, 1 chip(s))",
+            "value": head["tokens_per_sec"],
+            "unit": f"tokens/s at {head['streams']} concurrent streams "
+                    "(continuous token-level batching; higher is better)",
+            "vs_baseline": 1.0,
+            "generate": {
+                "curve": curve,
+                "slots": engine.slots,
+                "compiled_executables": compiled,
+                "compile_bound": engine.compile_bound,
+                "warm_compile_s": round(warm_s, 2),
+                "checkpoint": a.snapshot_path,
+                **stats,
+            },
+            "device": self.card, "power_limit_w": self.power_limit_w,
+        }
+
     def stream_attr_record(self) -> Dict:
         """The streaming-gap attribution (``bench.py --stream_attr``): the
         host stage (sequential materialise+augment), the blocking H2D copy
@@ -1399,7 +1544,8 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict:
     elif args.inspect_overhead:
         records = [bench.inspect_overhead_record()]
     elif args.serve:
-        records = [bench.serve_record()]
+        records = [bench.generate_record() if args.generate
+                   else bench.serve_record()]
     elif args.batch_sweep:
         records = [batch_sweep_record(bench)]
     elif args.sweep:

@@ -1,7 +1,9 @@
 """Convert between ``ddp_tpu``'s parameter trees, the port's ``state_dict``
 and the reference's torch ``state_dict`` files, for VGG-11, DeepNN and
 ResNet-18 (counterpart of ``ddp_tpu/utils/torch_interop.py``, without its
-JAX import).
+JAX import), and between the trees and the port's ``state_dict`` of the
+transformer encoder and ``tinylm`` (``embed/...``, ``blocks/blockN/...``,
+``head/...``; a LayerNorm's ``scale`` is the port's ``weight``).
 
 ``ddp_tpu`` keeps ``(params, batch_stats)`` as nested dicts of arrays, conv
 kernels HWIO and linear weights ``[in, out]``; here they are numpy arrays
@@ -98,6 +100,33 @@ _RULES: Dict[str, List[Rule]] = {
         Rule("fc.weight", "params", "fc/weight", "linear"),
         Rule("fc.bias", "params", "fc/bias")],
 }
+
+
+def _ln(port: str, path: str) -> List[Rule]:
+    return [Rule(f"{port}.weight", "params", f"{path}/scale"),
+            Rule(f"{port}.bias", "params", f"{path}/bias")]
+
+
+def _lin(port: str, path: str) -> List[Rule]:
+    return [Rule(f"{port}.weight", "params", f"{path}/weight", "linear"),
+            Rule(f"{port}.bias", "params", f"{path}/bias")]
+
+
+# The two transformer models' shared block stack and head.
+_TFM_STACK = [
+    *_ln("blocks.{i}.ln1", "blocks/block{i}/ln1"),
+    *_lin("blocks.{i}.attn.qkv", "blocks/block{i}/attn/qkv"),
+    *_lin("blocks.{i}.attn.out", "blocks/block{i}/attn/out"),
+    *_ln("blocks.{i}.ln2", "blocks/block{i}/ln2"),
+    *_lin("blocks.{i}.mlp.fc1", "blocks/block{i}/mlp/fc1"),
+    *_lin("blocks.{i}.mlp.fc2", "blocks/block{i}/mlp/fc2"),
+    *_ln("head.ln", "head/ln"),
+    *_lin("head.linear", "head/linear")]
+_RULES["transformer"] = [*_lin("embed.patch", "embed/patch"),
+                         Rule("embed.pos", "params", "embed/pos"),
+                         *_TFM_STACK]
+_RULES["tinylm"] = [Rule("embed.tok", "params", "embed/tok"),
+                    Rule("embed.pos", "params", "embed/pos"), *_TFM_STACK]
 # DeepNN's last feature map, [C, H, W], whose flatten linear0 reads.
 _FLAT_CHW = (32, 8, 8)
 
@@ -121,7 +150,10 @@ def _rules(name: str):
 
 def model_of_tree(params: Dict[str, Any]) -> Optional[str]:
     """Which model a ``params`` tree belongs to, from its top-level keys
-    (None when it is none of the three)."""
+    (None when it is none of the five): the two transformer models share
+    ``embed``, whose ``tok`` table is the LM's."""
+    if "embed" in params:
+        return "tinylm" if "tok" in params["embed"] else "transformer"
     for name, top in (("vgg", "backbone"), ("deepnn", "features"),
                       ("resnet18", "fc")):
         if top in params:
@@ -345,6 +377,15 @@ def momentum_list_from_tree(model: nn.Module, tree: Dict[str, Any]
 
 
 _TRACKED = ".num_batches_tracked"
+# The models the reference's own torch files exist for.
+_REFERENCE_MODELS = ("vgg", "deepnn", "resnet18")
+
+
+def _reference_rules(name: str) -> None:
+    if name not in _REFERENCE_MODELS:
+        raise ValueError(f"{name!r} has no reference torch file; the "
+                         f"reference's models are "
+                         f"{', '.join(_REFERENCE_MODELS)}")
 
 
 def _deepnn_by_order(sd: Dict[str, torch.Tensor]
@@ -384,7 +425,7 @@ def from_reference(name: str, sd: Dict[str, torch.Tensor]
     port's ``state_dict`` (float32 CPU copies), for ``--init_from_torch``.
     ``num_batches_tracked`` counters are dropped; DeepNN's tensors are
     taken by rank and order, so any Sequential numbering loads."""
-    _rules(name)
+    _reference_rules(name)
     sd = {k: v for k, v in sd.items() if not k.endswith(_TRACKED)}
     if name == "deepnn":
         sd = _deepnn_by_order(sd)
@@ -400,7 +441,7 @@ def to_reference(name: str, sd: Dict[str, torch.Tensor]
     ``num_batches_tracked`` beside every BatchNorm's running mean, as
     ``ddp_tpu/cli.py:500-505`` writes them, so torch's BatchNorm2d (and
     torchvision's ``resnet18``) load it strictly."""
-    _rules(name)
+    _reference_rules(name)
     out = {k: v.detach().cpu().clone() for k, v in sd.items()}
     for k in list(out):
         if k.endswith(".running_mean"):

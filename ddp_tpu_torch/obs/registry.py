@@ -95,11 +95,19 @@ class _Counter:
 
 
 class _Gauge(_Counter):
-    """A gauge child: free to move both ways."""
+    """A gauge child: free to move both ways, and settable."""
 
     def inc(self, amount: float = 1.0) -> None:
         with self._lock:
             self._value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value -= amount
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._value = float(v)
 
 
 class _Histogram:

@@ -25,7 +25,7 @@ import importlib
 from typing import Dict, NamedTuple, Optional, Tuple
 
 # Registry name -> module name where it differs (as tp/plan.py's).
-_MODULE_FOR = {"resnet18": "resnet"}
+_MODULE_FOR = {"resnet18": "resnet", "tinylm": "transformer"}
 
 
 class StagePlan(NamedTuple):
@@ -54,10 +54,16 @@ def layer_forward_costs(model_name: str, model) -> Optional[Dict[str, int]]:
     each recipe layer priced as the JAX cost model prices its convolution
     or dot, ``2 * output elements * contraction`` (a conv's contraction is
     ``Cin * kh * kw``, a linear's its input width).  None when the model
-    has no recipe or a recipe layer holds no weight."""
+    has no recipe, a recipe layer holds no weight, the forward runs no
+    hooked module for some recipe layer (the transformer encoder calls its
+    layers functionally, and the JAX cost model does not match its
+    attention products to the recipe either), or the model takes tokens,
+    not images (``tinylm``)."""
     import torch
     from ... import interop
     from ..tp.plan import _recipe_for
+    if getattr(model, "workload", None) == "lm":
+        return None
     try:
         recipe, _ = _recipe_for(model_name)
     except ValueError:
@@ -95,6 +101,8 @@ def layer_forward_costs(model_name: str, model) -> Optional[Dict[str, int]]:
         model.train(was_training)
         for h in handles:
             h.remove()
+    if set(out) != set(recipe):
+        return None
     return {k: out[k] for k in recipe}
 
 

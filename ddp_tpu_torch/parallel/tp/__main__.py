@@ -15,7 +15,7 @@ import argparse
 import sys
 from typing import List, Optional
 
-from ...models import NAMES, get_model
+from ...models import ALL_NAMES, get_model
 from .plan import format_plan_table, plan_for_model
 
 
@@ -35,7 +35,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m ddp_tpu_torch.parallel.tp",
         description=__doc__.splitlines()[0])
-    p.add_argument("--model", default="deepnn", choices=list(NAMES))
+    p.add_argument("--model", default="deepnn", choices=list(ALL_NAMES))
     p.add_argument("--model_axis", default=4, type=int, metavar="M",
                    help="model-axis size to plan for (default 4)")
     p.add_argument("--mesh_shape", default=None, metavar="D,M",

@@ -39,7 +39,7 @@ import numpy as np
 from ..mesh import MODEL_AXIS
 
 # Model registry name -> module name where it differs.
-_MODULE_FOR = {"resnet18": "resnet"}
+_MODULE_FOR = {"resnet18": "resnet", "tinylm": "transformer"}
 
 STYLES = ("column", "row")
 # Styles an EXPLICIT recipe (recipe_override's form) may assign per layer.

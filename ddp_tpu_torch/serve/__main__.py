@@ -21,11 +21,21 @@ verifiable snapshot in with zero downtime.  The serve faults of
 ``DDP_TPU_FAULT`` (``crash_replica``, ``slow_forward``, ``torn_publish``)
 install on a fleet.
 
+``--model tinylm --generate`` serves ``POST /generate`` token streams
+instead: a KV-cache engine (prefill and cache-write programs for each
+``--prefill_buckets`` bucket and one decode program over ``--slots``
+slots; CUDA graphs on the card) behind a token-level continuous batcher,
+alone or with ``--fleet N`` behind the router's sticky sessions.
+
 Usage:
     python -m ddp_tpu_torch.singlegpu 5 1 --resident --snapshot_path ck.pt
     python -m ddp_tpu_torch.serve --snapshot_path ck.pt --port 8100 [--bf16]
     python -m ddp_tpu_torch.serve --snapshot_path ck.pt --fleet 2 \
         --swap_poll_s 2
+    python -m ddp_tpu_torch.train.lm --snapshot_path lm/ck.npz
+    python -m ddp_tpu_torch.serve --snapshot_path lm/ck.npz --model tinylm \
+        --generate [--fleet 2]
+    curl -s -X POST localhost:8100/generate -d '{"prompt": [1, 2, 3]}'
     curl -s localhost:8100/healthz
     curl -s -X POST localhost:8100/predict -d '{"instances": [[[..]]]}'
     python -m ddp_tpu.obs serve_spill.jsonl              # telemetry
@@ -50,9 +60,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "checkpoint.pt); the newest verifiable snapshot "
                         "of its lineage is served")
     p.add_argument("--model", default="vgg",
-                   choices=["vgg", "deepnn", "resnet18"],
+                   choices=["vgg", "deepnn", "resnet18", "transformer",
+                            "tinylm"],
                    help="Model architecture the checkpoint was trained "
-                        "with")
+                        "with (default: vgg — the reference's model); "
+                        "tinylm + --generate serves token streams")
     p.add_argument("--host", default="127.0.0.1",
                    help="Bind address (default 127.0.0.1; 0.0.0.0 to "
                         "expose)")
@@ -73,6 +85,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--queue_depth", default=256, type=int,
                    help="Admission queue bound; a full queue sheds with "
                         "503 (default 256 requests)")
+    p.add_argument("--generate", action="store_true",
+                   help="Generative decoding mode: front the tinylm "
+                        "decoder (models/transformer.py) with a KV-cache "
+                        "engine + token-level continuous batcher and "
+                        "serve POST /generate; /predict routes stay on "
+                        "classifier servers only")
+    p.add_argument("--slots", default=8, type=int,
+                   help="Generative only: concurrent KV-cache streams "
+                        "per replica (default 8)")
+    p.add_argument("--prefill_buckets", default="16,64",
+                   help="Generative only: padded prompt-length buckets, "
+                        "comma-separated; prefill + cache-write programs "
+                        "are made once per bucket (default 16,64)")
+    p.add_argument("--max_new_tokens", default=32, type=int,
+                   help="Generative only: per-request generation cap "
+                        "(requests may ask for fewer; default 32)")
     p.add_argument("--fleet", default=0, type=int, metavar="N",
                    help="Serve N in-process engine replicas behind the "
                         "fault-tolerant router (health-driven ejection, "
@@ -128,6 +156,7 @@ def main(argv: Optional[List[str]] = None) -> int:
               else SpanTracer(spill_path=trace_spill or None, host=0))
     registry = MetricsRegistry()  # one /metrics surface per process
     buckets = [int(b) for b in args.buckets.split(",") if b]
+    prefill_buckets = [int(b) for b in args.prefill_buckets.split(",") if b]
     try:
         set_tracer(tracer)
         print(f"loading checkpoint {args.snapshot_path!r} ...",
@@ -141,7 +170,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                 compute_dtype=compute_dtype, max_batch=args.max_batch,
                 max_wait_ms=args.max_wait_ms,
                 queue_depth=args.queue_depth, tracer=tracer,
-                registry=registry)
+                registry=registry, generate=args.generate,
+                slots=args.slots, prompt_buckets=prefill_buckets,
+                max_new_tokens=args.max_new_tokens)
             install_serve_faults(fleet)
             fleet.start(poll_s=args.swap_poll_s)
             watcher = (f"every {args.swap_poll_s:.1f}s"
@@ -151,6 +182,29 @@ def main(argv: Optional[List[str]] = None) -> int:
                   f"{fleet.health()['checkpoint_step']}; hot-swap watcher "
                   f"{watcher})", file=sys.stderr)
             httpd = ServeHTTPServer((args.host, args.port), fleet=fleet)
+        elif args.generate:
+            from .kvcache import KVCacheEngine
+            from .token_batcher import TokenBatcher
+            engine = KVCacheEngine.from_checkpoint(
+                args.snapshot_path, args.model, device=device,
+                slots=args.slots, prompt_buckets=prefill_buckets,
+                compute_dtype=compute_dtype, tracer=tracer,
+                registry=registry)
+            t0 = time.monotonic()
+            compiled = engine.warm()
+            print(f"compiled {compiled} executable(s) (bound "
+                  f"{engine.compile_bound}: prefill+write per prompt "
+                  f"bucket {list(engine.prompt_buckets)} + 1 decode) in "
+                  f"{time.monotonic() - t0:.1f}s (checkpoint "
+                  f"{engine.checkpoint_file!r}, step "
+                  f"{engine.checkpoint_step}); no stream pays a compile",
+                  file=sys.stderr)
+            batcher = TokenBatcher(engine,
+                                   max_new_tokens=args.max_new_tokens,
+                                   queue_depth=args.queue_depth,
+                                   tracer=tracer,
+                                   registry=registry).start()
+            httpd = ServeHTTPServer((args.host, args.port), engine, batcher)
         else:
             engine = ServeEngine.from_checkpoint(
                 args.snapshot_path, args.model, device=device,
@@ -182,8 +236,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         host, port = httpd.server_address[:2]
         what = (f"{args.model} fleet of {args.fleet}" if fleet is not None
                 else args.model)
+        routes = "/generate" if args.generate else "/predict"
         print(f"serving {what} on http://{host}:{port} "
-              "(/predict /healthz /stats /metrics); SIGTERM drains "
+              f"({routes} /healthz /stats /metrics); SIGTERM drains "
               "gracefully", flush=True)
         try:
             while guard is None or not guard.noticed():

@@ -46,6 +46,17 @@ fleet-rollup series (``ddp_fleet_healthy_replicas``,
 ``ddp_fleet_swap_commits_total``) — so one ``/metrics`` scrape reads the
 whole fleet.  On one card this costs N weight copies and N sets of
 graphs: the price of blast-radius isolation.
+
+``generate=True`` makes a generative fleet of the ``tinylm`` decoder: each
+replica is a :class:`~ddp_tpu_torch.serve.kvcache.KVCacheEngine` (its own
+KV cache and graphs) behind a
+:class:`~ddp_tpu_torch.serve.token_batcher.TokenBatcher`, streams are
+routed by the router's sticky sessions, and hot swap works as for
+classifiers (the warm check holds each engine to its ``compile_bound``).
+A classifier fleet serves replicated at any ``model_axis``, as the JAX
+fleet's classifier branch does; a generative fleet with a serving model
+axis above 1 (heads split across ranks a decode step) is refused with
+:class:`~ddp_tpu_torch.serve.http.NotPorted` (ROADMAP A12b).
 """
 from __future__ import annotations
 
@@ -329,19 +340,26 @@ class ServeFleet:
                  max_wait_ms: float = 5.0, queue_depth: int = 256,
                  drain_timeout_s: float = 30.0, tracer=None,
                  router_kwargs: Optional[dict] = None, registry=None,
-                 generate: bool = False, model_axis: int = 1):
+                 generate: bool = False, slots: int = 8,
+                 prompt_buckets=(16, 64), max_new_tokens: int = 32,
+                 model_axis: int = 1):
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
-        if generate:
-            raise NotPorted(
-                "ServeFleet(generate=True): generative serving (KV-cache "
-                "engine, token batcher) is not ported yet (ROADMAP queue "
-                "A12)")
+        self.generative = bool(generate)
+        if self.generative:
+            from ..models import transformer as tfm
+            if model_name != tfm.LM_NAME:
+                raise ValueError(
+                    f"generative fleets serve the {tfm.LM_NAME!r} decoder "
+                    f"(models/transformer.py), got {model_name!r}")
         self.device = resolve_device(device)
         self.snapshot_path = snapshot_path
         self.model_name = model_name
         self.model_axis = int(model_axis)
         self.buckets = buckets
+        self.slots = slots
+        self.prompt_buckets = prompt_buckets
+        self.max_new_tokens = max_new_tokens
         self.compute_dtype = compute_dtype
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
@@ -417,13 +435,15 @@ class ServeFleet:
                 "--snapshot_path first)")
         return loaded
 
-    def _make_engines(self, ckpt, used: str,
-                      replica_ids: List[str]) -> List[ServeEngine]:
+    def _make_engines(self, ckpt, used: str, replica_ids: List[str]):
         """One engine a replica, from one host copy of the snapshot's
-        weights: each engine gets its own copy of the model."""
+        weights: each engine gets its own copy of the model.  A generative
+        fleet's engines are KV-cache engines, which alone consult the
+        serving plan."""
         from ..models import get_model
         from ..train.checkpoint import CheckpointError, restore
-        self._serving_plan(ckpt)
+        if self.generative:
+            self._serving_plan(ckpt)
         model = get_model(self.model_name)
         try:
             restore(ckpt, model)
@@ -431,12 +451,19 @@ class ServeFleet:
             raise CheckpointError(f"checkpoint {used!r}: {e}") from None
         engines = []
         for rid in replica_ids:
-            eng = ServeEngine(copy.deepcopy(model), device=self.device,
-                              buckets=self.buckets,
-                              compute_dtype=self.compute_dtype,
-                              tracer=self.tracer, registry=self.registry,
-                              metric_labels={"replica": rid},
-                              stream=self._idle_stream(rid))
+            common = dict(device=self.device,
+                          compute_dtype=self.compute_dtype,
+                          tracer=self.tracer, registry=self.registry,
+                          metric_labels={"replica": rid},
+                          stream=self._idle_stream(rid))
+            if self.generative:
+                from .kvcache import KVCacheEngine
+                eng = KVCacheEngine(copy.deepcopy(model), slots=self.slots,
+                                    prompt_buckets=self.prompt_buckets,
+                                    **common)
+            else:
+                eng = ServeEngine(copy.deepcopy(model),
+                                  buckets=self.buckets, **common)
             eng.checkpoint_file = used
             eng.checkpoint_epoch = int(ckpt.epoch)
             eng.checkpoint_step = int(ckpt.step)
@@ -455,18 +482,27 @@ class ServeFleet:
         return pair[1 - self._slot.get(rid, 1)]
 
     def _serving_plan(self, ckpt):
-        """None on a data-parallel serving layout (``model_axis`` 1): a
+        """The generative engines' layout plan (the JAX fleet calls it on
+        its generative branch only): None at ``model_axis`` 1, where a
         checkpoint trained with tensor parallelism serves replicated.  A
-        serving model axis above 1 is refused until the fleet's model axis
-        is ported (ROADMAP A10b)."""
+        serving model axis above 1 splits the heads across ranks a decode
+        step, which is not ported yet (ROADMAP A12b)."""
         if self.model_axis <= 1:
             return None
         raise NotPorted(
-            f"ServeFleet(model_axis={self.model_axis}): serving with a "
-            "tensor-parallel model axis is not ported yet (ROADMAP queue "
-            "A10b)")
+            f"ServeFleet(generate=True, model_axis={self.model_axis}): the "
+            "KV-cache engine's serving model axis (heads split across "
+            "ranks) is not ported yet (ROADMAP queue A12b)")
 
     def _make_batcher(self, engine, replica_id: str):
+        if self.generative:
+            from .token_batcher import TokenBatcher
+            return TokenBatcher(engine,
+                                max_new_tokens=self.max_new_tokens,
+                                queue_depth=self.queue_depth,
+                                tracer=self.tracer,
+                                registry=self.registry,
+                                metric_labels={"replica": replica_id})
         return DynamicBatcher(engine, max_batch=self.max_batch,
                               max_wait_ms=self.max_wait_ms,
                               queue_depth=self.queue_depth,
@@ -478,15 +514,16 @@ class ServeFleet:
             return float(sum(1 for e in self.swap_history
                              if e["event"] == "swap_commit"))
 
-    def _warm_all(self, engines: List[ServeEngine]) -> int:
-        """Make every bucket's program on every engine (on the card: one
-        CUDA graph each); each engine's count must equal its bucket count
-        or the fleet refuses to (hot-)start — a swap must never smuggle
-        unbounded captures into serving."""
+    def _warm_all(self, engines) -> int:
+        """Make every program on every engine (on the card: one CUDA graph
+        each); each engine's count must equal its bound (a classifier's
+        bucket count, a KV-cache engine's ``compile_bound``) or the fleet
+        refuses to (hot-)start — a swap must never smuggle unbounded
+        captures into serving."""
         total = 0
         for eng in engines:
             compiled = eng.warm()
-            bound = len(eng.buckets)
+            bound = getattr(eng, "compile_bound", None) or len(eng.buckets)
             if compiled != bound:
                 raise RuntimeError(
                     f"compile bound violated: {compiled} executables, "

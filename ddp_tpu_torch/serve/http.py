@@ -1,5 +1,5 @@
 """Stdlib-only threaded HTTP front end for the serving stack
-(counterpart of ``ddp_tpu/serve/http.py`` without its generative branch).
+(counterpart of ``ddp_tpu/serve/http.py``).
 
 One ``ThreadingHTTPServer``: a thread per connection, parked in the
 backend's blocking ``submit()`` while the engine threads do the work.
@@ -16,6 +16,12 @@ server's ``submit``/``healthz_payload``/``stats_payload`` indirection.
   "draining", which is how either package's ``HTTPReplica`` tells it from
   a full queue.  On a single pair an ``X-Request-Id`` header rides into
   the spans; a fleet's router mints its own id at admission.
+- ``POST /generate`` body ``{"prompt": [token ids], "max_new_tokens": N?,
+  "session": "id"?}`` -> ``{"tokens": [generated ids], "prompt_len": n,
+  "ttft_ms": float}``: the ``tinylm`` decoder behind a KV-cache engine and
+  a token batcher (``serve/kvcache.py``, ``serve/token_batcher.py``), the
+  same status codes as ``/predict``; ``session`` is a fleet router's
+  sticky-routing key.  A server fronting a classifier answers 400.
 - ``GET /healthz``   liveness, the live checkpoint and the identity fields
   (``replica_id``, ``checkpoint_step``, ``uptime_s``, ``queue_depth``);
   503 ``"draining"`` during a graceful shutdown.  On a fleet the fleet's
@@ -26,8 +32,9 @@ server's ``submit``/``healthz_payload``/``stats_payload`` indirection.
 - ``GET /metrics``   the same counters as Prometheus text exposition: the
   pair's registry, or the fleet's shared one (replica-labelled series).
 
-``POST /generate`` answers 501 with :class:`NotPorted`, which names the
-queue item that ports it (ROADMAP queue A12).
+:class:`NotPorted` is the error of a serving feature the port does not
+have yet, named with its ROADMAP item (the fleet's serving model axis,
+A12b).
 """
 from __future__ import annotations
 
@@ -110,6 +117,23 @@ class ServeHTTPServer(ThreadingHTTPServer):
             return self.fleet.submit(images, timeout=timeout)
         return self.batcher.submit(images, timeout=timeout, req_id=req_id)
 
+    def generate(self, prompt, max_new_tokens: Optional[int],
+                 timeout: float, session: Optional[str] = None,
+                 req_id: Optional[str] = None) -> dict:
+        if self.fleet is not None:
+            return self.fleet.generate(prompt,
+                                       max_new_tokens=max_new_tokens,
+                                       timeout=timeout, session=session)
+        if not hasattr(self.batcher, "generate"):
+            raise TypeError(
+                "this server fronts a classifier; start it with "
+                "--generate (models/transformer.py decoder) for "
+                "/generate")
+        return self.batcher.generate(prompt,
+                                     max_new_tokens=max_new_tokens,
+                                     timeout=timeout, req_id=req_id,
+                                     session=session)
+
     def metrics_exposition(self) -> Optional[str]:
         """Prometheus text for ``/metrics``: the fleet's shared registry
         when fronting a fleet, else the pair's; None when the backend
@@ -126,7 +150,8 @@ class ServeHTTPServer(ThreadingHTTPServer):
         return 503 if draining else 200, {
             "status": "draining" if draining else "ok",
             "replica_id": self.replica_id,
-            "checkpoint_step": self.engine.checkpoint_step,
+            "checkpoint_step": getattr(self.engine, "checkpoint_step",
+                                       None),
             "uptime_s": round(time.monotonic() - self._t0, 3),
             "queue_depth": self.batcher.queue_depth(),
             "buckets": list(self.engine.buckets),
@@ -184,16 +209,11 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(200, text.encode("utf-8"), METRICS_CONTENT_TYPE)
         else:
             self._reply(404, {"error": f"no route {self.path!r}; try "
-                                       "/predict, /healthz, /stats, "
-                                       "/metrics"})
+                                       "/predict, /generate, /healthz, "
+                                       "/stats, /metrics"})
 
     def do_POST(self) -> None:  # noqa: N802 — stdlib naming
-        if self.path == "/generate":
-            self._reply(501, {"error": str(NotPorted(
-                "POST /generate: generative serving (KV-cache engine, token "
-                "batcher) is not ported yet (ROADMAP queue A12)"))})
-            return
-        if self.path != "/predict":
+        if self.path not in ("/predict", "/generate"):
             self._reply(404, {"error": f"no route {self.path!r}"})
             return
         try:
@@ -210,7 +230,10 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(400, {"error": f"body is not valid JSON: {e}"})
             return
         try:
-            out = self._run_predict(payload)
+            if self.path == "/generate":
+                out = self._run_generate(payload)
+            else:
+                out = self._run_predict(payload)
         except RequestTooLarge as e:
             self._reply(413, {"error": str(e)})
             return
@@ -253,3 +276,23 @@ class _Handler(BaseHTTPRequestHandler):
             "predictions": np.argmax(logits, axis=-1).astype(int).tolist(),
             "logits": [[float(v) for v in row] for row in logits],
         }
+
+    def _run_generate(self, payload) -> dict:
+        """Body ``{"prompt": [ids], "max_new_tokens": N?, "session":
+        id?}`` -> ``{"tokens": [...], "prompt_len": n, "ttft_ms":
+        float}``.  The session key is the router's sticky-routing handle;
+        a single pair accepts and records it."""
+        if not isinstance(payload, dict) or "prompt" not in payload:
+            raise ValueError(
+                'body must be {"prompt": [token ids], "max_new_tokens"?, '
+                '"session"?}')
+        max_new = payload.get("max_new_tokens")
+        if max_new is not None:
+            max_new = int(max_new)
+        session = payload.get("session")
+        if session is not None and not isinstance(session, str):
+            raise ValueError("session must be a string id")
+        return self.server.generate(
+            payload["prompt"], max_new, timeout=REQUEST_TIMEOUT_S,
+            session=session,
+            req_id=self.headers.get("X-Request-Id") or None)

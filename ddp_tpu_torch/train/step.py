@@ -297,45 +297,36 @@ def make_eval_apply(model: nn.Module,
     return apply_fn
 
 
-class EvalProgram:
-    """The serving forward at one batch size ``B``: the uint8 ``[B,32,32,3]``
-    batch in the static tensor ``input`` -> :func:`gather_batch`'s eval form
-    (rows ``arange(B)``, u8/255 into channels-first ``compute_dtype``) ->
-    :func:`make_eval_apply` in ``compute_dtype`` -> float32 ``[B,10]``
-    logits.
+class GraphProgram:
+    """A fixed computation ``fn()`` that reads static tensors (its inputs,
+    written in place before each run) and returns its outputs.  On the card
+    :meth:`capture` records it as one CUDA graph, the counterpart of one
+    compiled executable of the JAX package, and :meth:`run` replays it into
+    the static ``output``; the graph's output lives in its private memory
+    pool as long as the program.  On the CPU :meth:`run` is :meth:`eager`.
+    On the card a program that was not captured raises: it never runs
+    eagerly instead.  ``name`` says which program in that error;
+    ``inputs`` names the static tensors a caller writes before a run."""
 
-    On the card :meth:`capture` records that sequence as one CUDA graph, the
-    counterpart of one compiled executable of the JAX package's
-    ``make_eval_forward``, and :meth:`run` replays it into the static tensor
-    ``output``.  Both static tensors live as long as the program, so the
-    graph's input and output (the latter in the graph's private memory pool)
-    are never freed under it.  On the CPU :meth:`run` is :meth:`eager`."""
-
-    def __init__(self, model: nn.Module, batch: int,
-                 compute_dtype: Optional[torch.dtype] = None):
-        device = next(model.parameters()).device
-        self.batch = batch
-        self.dtype = compute_dtype or torch.float32
-        self.input = torch.zeros((batch,) + IMAGE_SHAPE, dtype=torch.uint8,
-                                 device=device)
-        self._labels = torch.zeros(batch, dtype=torch.int64, device=device)
-        self._rows = torch.arange(batch, dtype=torch.int32, device=device)
-        self._apply = make_eval_apply(model, compute_dtype)
+    def __init__(self, fn: Callable, device: torch.device, name: str,
+                 inputs: Optional[Dict[str, torch.Tensor]] = None):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.name = name
+        self.inputs = dict(inputs or {})
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        # The graph's static output (card); the warm-up run's logits (CPU).
-        self.output: Optional[torch.Tensor] = None
+        # The graph's static output (card); the latest run's outputs (CPU).
+        self.output = None
 
-    def eager(self) -> torch.Tensor:
-        """The program op by op: the CPU path, and on the card the reference
-        the graph is held against."""
-        images, _ = gather_batch(self.input, self._labels, self._rows,
-                                 dtype=self.dtype)
-        return self._apply(images)
+    def eager(self):
+        """The program op by op: the CPU path, and on the card the run
+        before the capture and the reference the graph is held against."""
+        return self.fn()
 
     def capture(self, stream: torch.cuda.Stream) -> None:
         """Record :meth:`eager` on ``stream`` as this program's CUDA graph.
-        The caller has run it eagerly first (see
-        :func:`make_eval_forward`).
+        The caller has run it eagerly first (its kernels built and loaded,
+        cuDNN's and cuBLAS's choices settled).
 
         The capture runs in ``thread_local`` capture mode: only this
         thread is barred from the calls a capture forbids.  A fleet's hot
@@ -346,24 +337,50 @@ class EvalProgram:
         capture.  The mode changes what other threads may do meanwhile,
         not what is recorded: the graph is the same."""
         if self.graph is not None:
-            raise RuntimeError(f"the {self.batch}-row program is captured")
+            raise RuntimeError(f"{self.name} is captured")
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=stream,
                               capture_error_mode="thread_local"):
             output = self.eager()
         self.graph, self.output = graph, output
 
-    def run(self) -> torch.Tensor:
-        """The logits of ``input``: the graph's replay on the current stream
-        (card), or :meth:`eager` (CPU).  On the card a program that was not
-        captured raises; it never runs eagerly instead."""
-        if self.input.device.type == "cpu":
-            return self.eager()
+    def run(self):
+        """The outputs: the graph's replay on the current stream (card), or
+        :meth:`eager` (CPU)."""
+        if self.device.type == "cpu":
+            self.output = self.eager()
+            return self.output
         if self.graph is None:
-            raise RuntimeError(f"the {self.batch}-row program was not "
-                               f"captured; call make_eval_forward first")
+            raise RuntimeError(f"{self.name} was not captured; it does not "
+                               f"run eagerly on the card")
         self.graph.replay()
         return self.output
+
+
+class EvalProgram(GraphProgram):
+    """The serving forward at one batch size ``B``: the uint8 ``[B,32,32,3]``
+    batch in the static tensor ``input`` -> :func:`gather_batch`'s eval form
+    (rows ``arange(B)``, u8/255 into channels-first ``compute_dtype``) ->
+    :func:`make_eval_apply` in ``compute_dtype`` -> float32 ``[B,10]``
+    logits: one :class:`GraphProgram`, the counterpart of one compiled
+    executable of the JAX package's ``make_eval_forward``."""
+
+    def __init__(self, model: nn.Module, batch: int,
+                 compute_dtype: Optional[torch.dtype] = None):
+        device = next(model.parameters()).device
+        super().__init__(self._forward, device, f"the {batch}-row program")
+        self.batch = batch
+        self.dtype = compute_dtype or torch.float32
+        self.input = torch.zeros((batch,) + IMAGE_SHAPE, dtype=torch.uint8,
+                                 device=device)
+        self._labels = torch.zeros(batch, dtype=torch.int64, device=device)
+        self._rows = torch.arange(batch, dtype=torch.int32, device=device)
+        self._apply = make_eval_apply(model, compute_dtype)
+
+    def _forward(self) -> torch.Tensor:
+        images, _ = gather_batch(self.input, self._labels, self._rows,
+                                 dtype=self.dtype)
+        return self._apply(images)
 
 
 def make_eval_forward(model: nn.Module, batches: Sequence[int], *,

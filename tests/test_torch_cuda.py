@@ -1299,3 +1299,118 @@ def test_profile_trigger_captures_two_resident_steps(cuda, tmp_path):
     got = json.loads(r.stdout.strip().splitlines()[-1])
     assert got == {"armed": False, "captures": 1, "window": [7, 9],
                    "launches": 2}, (got, r.stderr[-2000:])
+
+
+# -- the transformer workload (A12) ---------------------------------------------
+
+def _lm_on(device, seed=0):
+    from ddp_tpu_torch.models import get_model
+    return get_model("tinylm", generator=torch.Generator().manual_seed(seed)
+                     ).to(device)
+
+
+def test_kv_decode_graph_equals_eager_decode_and_cache_in_place(cuda):
+    """The engine's decode graph against an eager ``decode_step`` on copies
+    of the same caches and inputs, bit for bit (the same kernels on the
+    same shapes, TF32 off); the caches written in place (their
+    ``data_ptr`` stable across steps); graphs captured equal to the
+    compile bound."""
+    from ddp_tpu_torch.serve import KVCacheEngine
+    set_tf32(False)
+    eng = KVCacheEngine(_lm_on(cuda), device=cuda, slots=4,
+                        prompt_buckets=(8, 16))
+    assert eng.warm() == eng.compile_bound == 5
+    k, v = eng.cache_buffers()
+    ptrs = (k.data_ptr(), v.data_ptr())
+    sa, ta = eng.start_stream([5, 250, 17])
+    sb, tb = eng.start_stream(list(range(11)))
+    toks = {sa: ta, sb: tb}
+    for _ in range(6):
+        torch.cuda.synchronize()
+        kc, vc = k.clone(), v.clone()
+        tokens = torch.zeros(4, dtype=torch.long, device=cuda)
+        positions = torch.zeros(4, dtype=torch.long, device=cuda)
+        for s, t in toks.items():
+            tokens[s], positions[s] = t, eng.position(s)
+        got = eng.decode_logits(dict(toks))
+        with torch.no_grad():
+            want = eng.model.decode_step(tokens, positions, kc, vc)
+        np.testing.assert_array_equal(got, want.cpu().numpy())
+        assert torch.equal(k, kc) and torch.equal(v, vc)
+        toks = {s: int(np.argmax(got[s])) for s in toks}
+        assert (k.data_ptr(), v.data_ptr()) == ptrs
+    assert eng.trace_count == 5
+
+
+def test_kv_failed_capture_never_serves_eagerly(cuda, monkeypatch):
+    """A capture that fails leaves the engine cold: the next
+    ``start_stream`` tries the captures again and raises with them, and
+    takes no slot; nothing runs the programs eagerly in the graphs' place.
+    Once captures work, the engine holds exactly the compile bound."""
+    from ddp_tpu_torch.serve import KVCacheEngine
+    from ddp_tpu_torch.train.step import GraphProgram
+    set_tf32(False)
+    eng = KVCacheEngine(_lm_on(cuda), device=cuda, slots=2,
+                        prompt_buckets=(8,))
+    capture = GraphProgram.capture
+
+    def failing(self, stream):
+        if self.name == "the decode":
+            raise RuntimeError("capture fault")
+        return capture(self, stream)
+
+    monkeypatch.setattr(GraphProgram, "capture", failing)
+    with pytest.raises(RuntimeError, match="capture fault"):
+        eng.warm()
+    with pytest.raises(RuntimeError, match="capture fault"):
+        eng.start_stream([5, 250, 17])
+    assert not eng.warmed and eng.trace_count == 0
+    assert eng.free_slots() == 2
+    monkeypatch.setattr(GraphProgram, "capture", capture)
+    slot, _ = eng.start_stream([5, 250, 17])
+    assert eng.trace_count == eng.compile_bound == 3
+    assert eng._decode.graph is not None
+
+
+def test_lm_training_on_card_equals_cpu(cuda):
+    """Ten ``train_lm`` steps on the card and on the CPU from one start:
+    losses within 1e-4 relative, parameters within 1e-4 (cuBLAS and the
+    CPU sum the products in other orders, TF32 off)."""
+    from ddp_tpu_torch.train import lm
+    set_tf32(False)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        state, losses = lm.train_lm(steps=10, batch=8, seq_len=32,
+                                    device=dev, model=_lm_on("cpu"),
+                                    quiet=True)
+        runs[dev.type] = (losses, {k: t.detach().cpu() for k, t in
+                                   state.model.state_dict().items()})
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    assert runs["cuda"][0][-1] < runs["cuda"][0][0]
+    for key, t in runs["cpu"][1].items():
+        assert float((runs["cuda"][1][key] - t).abs().max()) <= 1e-4, key
+
+
+def test_kv_bf16_stream_on_card(cuda):
+    """A bfloat16 engine: its decode logits within 2^-5 of max |logit| of
+    the bfloat16 full forward of the history on the card, float32
+    logits, the cache in bfloat16."""
+    from ddp_tpu_torch.serve import KVCacheEngine
+    set_tf32(False)
+    model = _lm_on(cuda, seed=3)
+    eng = KVCacheEngine(model, device=cuda, slots=2, prompt_buckets=(8,),
+                        compute_dtype=torch.bfloat16)
+    assert eng.warm() == 3
+    assert eng.cache_buffers()[0].dtype == torch.bfloat16
+    hist = [7, 8, 9, 10]
+    slot, tok = eng.start_stream(hist)
+    for _ in range(8):
+        hist.append(tok)
+        got = eng.decode_logits({slot: tok})[slot]
+        with torch.no_grad():
+            want = model.lm_forward(torch.tensor([hist], device=cuda),
+                                    compute_dtype=torch.bfloat16)[0, -1]
+        want = want.float().cpu().numpy()
+        assert got.dtype == np.float32
+        assert np.abs(got - want).max() <= 2.0 ** -5 * np.abs(want).max()
+        tok = int(np.argmax(got))

@@ -918,14 +918,20 @@ def test_fleet_refuses_bad_construction(tmp_path):
     with pytest.raises(CheckpointError, match="no checkpoint"):
         tserve.ServeFleet(str(tmp_path / "missing.pt"), "deepnn",
                           device="cpu", n_replicas=1, buckets=(8,))
-    with pytest.raises(tserve.NotPorted, match="A12"):
+    with pytest.raises(ValueError, match="'tinylm' decoder"):
         tserve.ServeFleet(str(tmp_path / "missing.pt"), "deepnn",
                           device="cpu", generate=True)
     model = get_model("deepnn", generator=torch.Generator().manual_seed(0))
     ck = str(tmp_path / "ck.pt")
     save_checkpoint(ck, model, init_train_state(model).momentum, 0, 0)
-    with pytest.raises(tserve.NotPorted, match="A10b"):
-        tserve.ServeFleet(ck, "deepnn", device="cpu", model_axis=2)
+    # A serving model axis is the KV-cache engine's (the JAX fleet consults
+    # its plan on the generative branch only): refused there, naming A12b.
+    lm = get_model("tinylm", generator=torch.Generator().manual_seed(0))
+    lm_ck = str(tmp_path / "lm.npz")
+    save_checkpoint(lm_ck, lm, init_train_state(lm).momentum, 0, 0)
+    with pytest.raises(tserve.NotPorted, match="A12b"):
+        tserve.ServeFleet(lm_ck, "tinylm", device="cpu", generate=True,
+                          model_axis=2)
     with pytest.raises(CheckpointError, match="ck.pt"):
         tserve.ServeFleet(ck, "vgg", device="cpu", n_replicas=1,
                           buckets=(8,))

@@ -133,8 +133,9 @@ def test_parameter_count_and_state_dict_layout(name):
 
 
 def test_get_model_names_what_the_port_has():
-    with pytest.raises(ValueError, match="vgg, deepnn, resnet18"):
-        get_model("transformer")
+    with pytest.raises(ValueError, match="vgg, deepnn, resnet18, "
+                                         "transformer, tinylm"):
+        get_model("vit")
 
 
 def test_initializers():
@@ -357,7 +358,7 @@ def test_deepnn_reference_loads_by_order():
     with pytest.raises(ValueError, match="DeepNN state_dict"):
         interop.from_reference("deepnn", {k: v for k, v in sd.items()
                                           if "classifier.3" not in k})
-    with pytest.raises(ValueError, match="unknown model"):
+    with pytest.raises(ValueError, match="no reference torch file"):
         interop.to_reference("tinylm", sd)
 
 

@@ -414,10 +414,10 @@ def test_http_error_mapping(http_server):
     with pytest.raises(urllib.error.HTTPError) as e:
         _get(base + "/nope")
     assert e.value.code == 404
-    with pytest.raises(urllib.error.HTTPError) as e:  # not ported: A12
+    with pytest.raises(urllib.error.HTTPError) as e:  # a classifier pair
         _post(base + "/generate", {"prompt": [1, 2]})
-    assert e.value.code == 501 and "A12" in json.loads(e.value.read())[
-        "error"]
+    assert e.value.code == 400 and "--generate" in json.loads(
+        e.value.read())["error"]
     batcher.drain(timeout=5)
     with pytest.raises(urllib.error.HTTPError) as e:
         _get(base + "/healthz")
@@ -430,10 +430,11 @@ def test_http_error_mapping(http_server):
 
 def test_http_server_refuses_a_fleet():
     """What the server refuses of a fleet-backed front end: no backend at
-    all (ValueError) and ``/generate`` (501 naming A12).  A fleet itself is
-    accepted: /predict goes through its submit, /healthz is its health
-    (503 when unavailable), /stats its stats, /metrics its registry, and a
-    router's shed is a 503 with its derived Retry-After."""
+    all (ValueError), and ``/generate`` on a classifier fleet, whose
+    replicas answer TypeError (400).  A fleet itself is accepted: /predict
+    goes through its submit, /healthz is its health (503 when unavailable),
+    /stats its stats, /metrics its registry, and a router's shed is a 503
+    with its derived Retry-After."""
     from ddp_tpu_torch.serve import NoHealthyReplicas
     with pytest.raises(ValueError, match="needs either"):
         ServeHTTPServer(("127.0.0.1", 0), None, None)
@@ -447,6 +448,12 @@ def test_http_server_refuses_a_fleet():
             if self.shed is not None:
                 raise self.shed
             return np.full((len(images), 10), 2.0, np.float32)
+
+        def generate(self, prompt, max_new_tokens=None, timeout=None,
+                     session=None):
+            raise TypeError("replica r0 serves a classifier "
+                            "(DynamicBatcher); start the fleet with "
+                            "generate=True for token streams")
 
         def health(self):
             return {"status": self.status, "healthy_replicas": 2}
@@ -477,8 +484,8 @@ def test_http_server_refuses_a_fleet():
         assert e.value.code == 503 and e.value.headers["Retry-After"] == "7"
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(base + "/generate", {"prompt": [1, 2]})
-        assert e.value.code == 501 and "A12" in json.loads(e.value.read())[
-            "error"]
+        assert e.value.code == 400 and "generate=True" in json.loads(
+            e.value.read())["error"]
         fleet.status = "unavailable"
         with pytest.raises(urllib.error.HTTPError) as e:
             _get(base + "/healthz")
