@@ -48,8 +48,9 @@
    before and read just after: 18 finite losses, 23 launches of
    ``gather_batch``'s bfloat16 form, none of ``row_gather`` or ``conv3x3``,
    a float32 checkpoint; its ms/step and samples/s beside the float32 run's.
-   Bench phase (``python -m ddp_tpu_torch.bench``, one process each, so
-   this process's cuDNN and allocator state stay out of its windows):
+   Bench phase (``python -m ddp_tpu_torch.bench``; VGG-11's fixed batch
+   through the bench's main in this process, which saves a process
+   start-up of ~13 s, the other three one process each):
    VGG-11, DeepNN and ResNet-18 at ``--steps 10 --repeats 3 --warmup 5``
    (each its stdout record, the resident-epoch and the bf16 records from stderr;
    VGG-11 ran the default 5 windows of 50 steps until the storage phase
@@ -62,16 +63,16 @@
    launches equal to the train steps it ran, by form; VGG's float32
    median ms/step within 3% of the main path's event median.
    Bench-modes phase (``bench_modes_phase``; the bench's modes that need no
-   mesh, one after the other, each a process of its own but
-   ``--stream_attr`` and ``--pipeline``, which run the bench's main in this
-   process): VGG-11 ``--guard_overhead
-   --steps 50 --repeats 2`` (``bench.py``'s fields, the derived K=50 audit
-   overhead under 1%; 50-step windows, so each K=50 window holds one
-   audit); ``--serve --fleet 2`` at buckets 1, 8, 32 and 128 (4 CUDA
-   graphs an engine, nothing timed out, a router; rows/s, p99 and rows a
-   batch printed beside the fleet phase's in-process figures; a fleet of
-   1 is the serving phase's engine behind no router, so it has no process
-   of its own); ``--batch_sweep 1024 --batch_sweep_flavors bf16_step
+   mesh, one after the other, each the bench's main in this process;
+   ``--batch_sweep``'s cell is a child process of its own): VGG-11
+   ``--guard_overhead --steps 50 --repeats 1`` (``bench.py``'s fields,
+   the derived K=50 audit overhead under 1%; 50-step windows, so each
+   K=50 window holds one audit; one window a configuration); ``--serve
+   --fleet 2`` at buckets 1, 8, 32 and 128 (4 CUDA graphs an engine,
+   nothing timed out, a router; rows/s, p99 and rows a batch printed
+   beside the fleet phase's in-process figures; a fleet of 1 is the
+   serving phase's engine behind no router, so it has no process of its
+   own); ``--batch_sweep 1024 --batch_sweep_flavors bf16_step
    --steps 10 --repeats 2`` (a child a cell, its steps and launches in the
    parent's summary; the bench phase's bf16 record is the step at 512, so
    that cell has no child of its own); ``--stream_attr
@@ -83,6 +84,22 @@
    calls (``warm()``'s eager run and capture a bucket), by form.
    ``--sweep`` needs more than one card (ROADMAP C4) and ``--chaos`` is the
    storage phase's campaign: both run on the CPU only.
+   Mesh bench phase (``mesh_bench_phase``, A10b; its processes run on a
+   thread of their own beside the DDP and strategy phases, at the lowest
+   CPU priority, and are checked after them): the bench's mesh modes on
+   DeepNN at full width as gloo ranks sharing this card, the three at once
+   (each a process with its children and ranks; the times printed are
+   contended): ``--tp_sweep 1,2 --num_devices 2`` (children 2x1 and 1x2)
+   and ``--pp_sweep 1,2 --num_devices 2 --pp_micro 2`` (2x1x1 and
+   1x1x2, the measured bubble beside the static 1/3) at a global batch of
+   128, 5-step windows, and ``--ckpt_bench --ckpt_sizes 16`` (8 ranks save
+   on (2, 4), 4 restore onto (2, 2) through ``load_for_mesh``, gathered
+   and sharded): each record's fields ``bench.py``'s plus ``device``,
+   ``power_limit_w`` and ``backend`` ("gloo"), every rank's
+   ``gather_batch`` launches its micro-batch steps (stage 1 none), every
+   restore's slices bit for bit the saved state, the sharded restore
+   staging less than the gathered one; the kernel bit for bit its plain
+   version at the sweeps' 64 and 128 rows.
    Run-shape phase on 10,240 images: in deterministic mode
    (``repeat_check``'s), ``singlegpu 1 1 --schedule_epochs 2`` then ``2 1
    --resume --schedule_epochs 2`` against an uninterrupted ``2 1``, the
@@ -340,7 +357,15 @@
    with the wrapper's count unmoved, the
    kernel bit for bit its plain version at each bucket's shape, the served
    logits bit for bit the eager forward and within 1e-4 of max |logit| of
-   the CPU's.
+   the CPU's; G9 (A12b, after G4) G1's file served at model axis 2 by a
+   generative fleet of one replica, rank 0 here and one follower process,
+   gloo ranks sharing this card, f32: every program captured (the
+   prefills and the decode in 5 segments, split at their row sums, the
+   cache writes whole), 8 concurrent 16-token streams token for token
+   G3's 1-D streams, each decode segment's replay ms and ``decode()``'s
+   host ms at 8 live slots beside the 1-D engine's, then a new publish
+   (``train.lm`` at 36 steps) hot-swapped onto both ranks and the streams
+   token for token a 1-D engine of the new file.
    Accuracy anchors (ROADMAP C2): the configs of
    ``tests/golden/accuracy_parity_20epoch_noise0.25_bf16.json`` and of its
    float32 twin (batch 64, lr 0.05, 768 images of ``synthetic(seed=21,
@@ -382,7 +407,9 @@
     pipeline path (``launches_pp_path``): stage 0's of both mesh (1, 1, 2)
     drills, the world-1 drill beside them and the resumed epoch,
     on the bench
-    path: the train steps the bench's processes ran in that form, and on
+    path: the train steps the bench's processes ran in that form, on the
+    mesh bench path (``launches_mesh_bench_path``): every rank's of the
+    sweeps' children, and on
     the run-shape path: the split, uninterrupted and streamed runs, on
     the obs path: O1's and O2's runs, on the fleet path: the eager runs
     of every engine F1 builds (its 2 at the start and 2 a swap) and the 5
@@ -400,6 +427,7 @@ exits 1 and prints no result.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import copy
 import functools
@@ -4751,17 +4779,27 @@ MAIN_MEDIAN_TOL = 0.03
 MFU_MAX = 1.05
 
 
-def run_bench(args: list) -> dict:
+# ``python -m ddp_tpu_torch.bench`` at the lowest CPU priority (its
+# children inherit it): a run beside other phases takes the cores they
+# leave idle.
+NICE_BENCH = [sys.executable, "-c",
+              "import os, runpy; os.nice(19); "
+              "runpy.run_module('ddp_tpu_torch.bench', run_name='__main__')"]
+
+
+def run_bench(args: list, niced: bool = False) -> dict:
     """``python -m ddp_tpu_torch.bench args`` in a process of its own (no
-    cuDNN or allocator state of this one): its ``--result_json`` summary,
-    whose first record must be the one stdout line."""
+    cuDNN or allocator state of this one; at the lowest CPU priority with
+    ``niced``): its ``--result_json`` summary, whose first record must be
+    the one stdout line."""
     t0 = time.time()
+    cmd = (NICE_BENCH if niced
+           else [sys.executable, "-m", "ddp_tpu_torch.bench"])
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "bench.json")
         r = subprocess.run(
-            [sys.executable, "-m", "ddp_tpu_torch.bench", *args,
-             "--result_json", path], capture_output=True, text=True,
-            timeout=600)
+            [*cmd, *args, "--result_json", path], capture_output=True,
+            text=True, timeout=600)
         check(r.returncode == 0, f"bench {' '.join(args)} exited with "
               f"{r.returncode}: {r.stderr[-2000:]}")
         lines = r.stdout.strip().splitlines()
@@ -4813,8 +4851,9 @@ def check_bench_record(rec: dict, fields: tuple) -> None:
 def bench_phase(main_ms: float, card: str) -> dict:
     """``python -m ddp_tpu_torch.bench`` for VGG-11, DeepNN and ResNet-18
     at 20 steps by 3 windows (fixed batch, resident epoch, bf16), and
-    VGG-11's ``--e2e --resident``, one process each (VGG-11's first and
-    alone, the other three at once, so their records share the card):
+    VGG-11's ``--e2e --resident``: VGG-11's first and alone, the bench's
+    main in this process, then the other three at once, a process each,
+    so their records share the card:
     every record's fields, value, MFU, card and power limit; one
     ``gather_batch`` launch a train step, by form; VGG's float32 median
     within ``MAIN_MEDIAN_TOL`` of the main path's.  Returns the launches of
@@ -4822,10 +4861,11 @@ def bench_phase(main_ms: float, card: str) -> dict:
     from ddp_tpu_torch.bench import E2E_FIELDS, RECORD_FIELDS
     t0 = time.time()
     launches = {"float32": 0, "bfloat16": 0}
-    # VGG-11's fixed batch alone (its median is held to the main path's);
-    # the other three processes at once, their records contended.
+    # VGG-11's fixed batch alone in this process (its median is held to
+    # the main path's, run here too); the other three processes at once,
+    # their records contended.
     first, *rest = BENCH_RUNS
-    summaries = [run_bench(["--model", first[0], *first[1]])]
+    summaries = [bench_in_process(["--model", first[0], *first[1]])]
     summaries += concurrently({
         i: functools.partial(run_bench, ["--model", model, *extra])
         for i, (model, extra) in enumerate(rest)}).values()
@@ -4860,7 +4900,7 @@ def bench_phase(main_ms: float, card: str) -> dict:
 # The bench's modes that need no mesh (bench_modes_phase): VGG-11, one
 # command after the other, a process each but the last two (in process).
 # Windows of 50 steps, JAX's default: each K=50 window holds one audit.
-GUARD_RUN = ["--guard_overhead", "--steps", "50", "--repeats", "2"]
+GUARD_RUN = ["--guard_overhead", "--steps", "50", "--repeats", "1"]
 SERVE_RUN = ["--serve", "--serve_buckets", "1,8,32,128", "--serve_secs",
              "1"]
 # One cell: the bench phase's bf16 record is the step at 512.
@@ -4902,15 +4942,16 @@ def _mode_record(summary: dict, what: str, fields: set) -> dict:
 
 def bench_modes_phase(card: str) -> dict:
     """``python -m ddp_tpu_torch.bench``'s modes that need no mesh on
-    VGG-11, one after the other: ``--guard_overhead``, ``--serve --fleet
-    2`` and ``--batch_sweep`` each a process of its own, ``--stream_attr``
-    and ``--pipeline`` the bench's main in this process (see the module's
-    docstring).  Returns the launches of each form."""
+    VGG-11, one after the other, each the bench's main in this process
+    (``--batch_sweep``'s cell a child process of its own; see the module's
+    docstring): ``--guard_overhead``, ``--serve --fleet 2``,
+    ``--batch_sweep``, ``--stream_attr`` and ``--pipeline``.  Returns the
+    launches of each form."""
     t0 = time.time()
     launches = {"float32": 0, "bfloat16": 0}
     port = {"device", "power_limit_w"}
 
-    summary = run_bench(["--model", "vgg", *GUARD_RUN])
+    summary = bench_in_process(["--model", "vgg", *GUARD_RUN])
     _bench_mode_launches(summary, "--guard_overhead", launches)
     rec = _mode_record(summary, "--guard_overhead", {
         "metric", "value", "unit", "vs_baseline", "guard_overhead",
@@ -4931,7 +4972,8 @@ def bench_modes_phase(card: str) -> dict:
     # A fleet of 2 (the serving phase serves one engine).
     n = 2
     what = f"--serve --fleet {n}"
-    summary = run_bench(["--model", "vgg", *SERVE_RUN, "--fleet", str(n)])
+    summary = bench_in_process(["--model", "vgg", *SERVE_RUN, "--fleet",
+                                str(n)])
     _bench_mode_launches(summary, what, launches)
     check(summary["eval_calls"]["float32"] == 2 * 4 * n,
           f"bench {what}: eval-form calls {summary['eval_calls']}")
@@ -4961,7 +5003,7 @@ def bench_modes_phase(card: str) -> dict:
           f"fleet phase in process (8 clients of 1-32 rows, PERF.md): "
           f"{B7_ROWS_PER_S[n]} rows/s", flush=True)
 
-    summary = run_bench(["--model", "vgg", *BATCH_SWEEP_RUN])
+    summary = bench_in_process(["--model", "vgg", *BATCH_SWEEP_RUN])
     _bench_mode_launches(summary, "--batch_sweep", launches)
     check(summary["steps"]["bfloat16"] == 10 + 2 * 10,
           f"bench --batch_sweep: steps {summary['steps']}")
@@ -5007,6 +5049,161 @@ def bench_modes_phase(card: str) -> dict:
     print(f"bench-modes phase: {time.time() - t0:.1f} s, gather_batch "
           f"launches {launches}", flush=True)
     return launches
+
+
+# The bench's mesh modes (mesh_bench_phase): DeepNN at full width, gloo
+# ranks sharing this card, a small batch and few steps.
+MESH_RUN = ["--model", "deepnn", "--batch_size", "128", "--steps", "5",
+            "--warmup", "1", "--repeats", "2", "--num_devices", "2"]
+MESH_MICRO = 2
+MESH_CKPT_MB = 16
+
+
+def _mesh_children(summary: dict, what: str, launches: list) -> list:
+    """The sweep's children's per-rank rows, each rank's ``gather_batch``
+    launches held to its micro-batch steps (stage 0 of a pipeline takes
+    ``MESH_MICRO`` a step, a later stage none) and added to
+    ``launches``."""
+    rows = []
+    for child in summary["children"]:
+        staged = any(r["stage"] for r in child["ranks"])
+        for r in child["ranks"]:
+            want = (0 if r["stage"] else
+                    r["steps"] * (MESH_MICRO if staged else 1))
+            check(r["gather_batch"] == want and r["steps"] > 0,
+                  f"bench {what}: rank {r['rank']} (stage {r['stage']}) "
+                  f"launched gather_batch {r['gather_batch']} times in "
+                  f"{r['steps']} steps, expected {want}")
+            launches[0] += r["gather_batch"]
+        rows.append(child["ranks"])
+    return rows
+
+
+def mesh_bench_runs() -> dict:
+    """The mesh bench phase's three bench processes, run at once (on a
+    thread of their own, beside the DDP and strategy phases, at the lowest
+    CPU priority, so that those phases' CPU drills keep their cores):
+    their summaries by mode, and the seconds they took."""
+    t0 = time.time()
+    out = concurrently({
+        "tp": functools.partial(run_bench, MESH_RUN + ["--tp_sweep", "1,2"],
+                                niced=True),
+        "pp": functools.partial(run_bench, MESH_RUN + [
+            "--pp_sweep", "1,2", "--pp_micro", str(MESH_MICRO)], niced=True),
+        "ckpt": functools.partial(run_bench, [
+            "--ckpt_bench", "--ckpt_sizes", str(MESH_CKPT_MB)],
+            niced=True)})
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def mesh_bench_phase(card: str, summaries: dict) -> int:
+    """``python -m ddp_tpu_torch.bench``'s mesh modes (A10b), the three
+    at once, each a process of its own with its children and ranks, beside
+    the DDP and strategy phases (:func:`mesh_bench_runs`; their times
+    contended): DeepNN at full width as gloo ranks sharing this card.
+    ``--tp_sweep 1,2`` (children 2x1 and 1x2) and ``--pp_sweep 1,2
+    --pp_micro 2`` (2x1x1 and 1x1x2, its measured bubble beside the static
+    1/3) over 2 ranks, then ``--ckpt_bench --ckpt_sizes 16`` (8 ranks save
+    on (2,4), 4 restore onto (2,2), each restore's slices bit for bit the
+    saved state).  Each record's fields are ``bench.py``'s plus
+    ``device``, ``power_limit_w`` and ``backend`` (gloo: a figure from
+    ranks sharing one card is host staging, not NVLink); each rank's
+    ``gather_batch`` launches are its micro-batch steps; the kernel is
+    held bit for bit against its plain version at the sweeps' batch
+    shapes.  Returns the launches of the path."""
+    launches = [0]
+    port = {"device", "power_limit_w", "backend"}
+    name = torch.cuda.get_device_name(0)
+
+    summary = summaries["tp"]
+    rec = _mode_record_mesh(summary, "--tp_sweep", {
+        "metric", "value", "unit", "vs_baseline", "tp_sweep"} | port, 2)
+    check(list(rec["tp_sweep"]) == ["2x1", "1x2"] and all(
+        set(c) == {"ms_per_step", "best_window_ms_per_step",
+                   "samples_per_sec_per_chip", "mfu"}
+        for c in rec["tp_sweep"].values()),
+          f"bench --tp_sweep: cells {rec['tp_sweep']}")
+    _mesh_children(summary, "--tp_sweep", launches)
+    print(f"bench --tp_sweep 1,2 ({card}, gloo ranks sharing the card, "
+          f"contended): "
+          + ", ".join(f"{k} {c['ms_per_step']} ms/step, "
+                      f"{c['samples_per_sec_per_chip']} samples/s/rank, "
+                      f"MFU {c['mfu']}" for k, c in rec["tp_sweep"].items())
+          + f"; headline {rec['value']} {rec['unit']}", flush=True)
+
+    summary = summaries["pp"]
+    rec = _mode_record_mesh(summary, "--pp_sweep", {
+        "metric", "value", "unit", "vs_baseline", "pp_sweep"} | port, 2)
+    pp = rec["pp_sweep"].get("1x1x2", {}).get("pp") or {}
+    check(list(rec["pp_sweep"]) == ["2x1x1", "1x1x2"]
+          and rec["pp_sweep"]["2x1x1"]["pp"] is None
+          and abs(pp.get("bubble_predicted", 0) - 1 / 3) < 1e-9
+          and 0 <= pp.get("bubble_measured", -1) < 1,
+          f"bench --pp_sweep: cells {rec['pp_sweep']}")
+    _mesh_children(summary, "--pp_sweep", launches)
+    print(f"bench --pp_sweep 1,2 --pp_micro {MESH_MICRO} ({card}, gloo "
+          f"ranks sharing the card, contended): "
+          + ", ".join(f"{k} {c['ms_per_step']} ms/step"
+                      for k, c in rec["pp_sweep"].items())
+          + f"; measured bubble {pp['bubble_measured']:.4f} beside the "
+          f"static {pp['bubble_predicted']:.4f}, makespan "
+          f"{pp['makespan_s'] * 1e3:.3f} ms, peak in-flight "
+          f"{pp['peak_inflight_acts']}", flush=True)
+
+    summary = summaries["ckpt"]
+    rec = _mode_record_mesh(summary, "--ckpt_bench", {
+        "metric", "value", "unit", "vs_baseline", "ckpt_bench"} | port, 8)
+    children = summary["children"]
+    check([(c["phase"], c["format"], c["mesh"], c["ranks"], c["backend"])
+           for c in children] == [
+        ("save", "gathered", "2x4", 8, "gloo"),
+        ("restore", "gathered", "2x2", 4, "gloo"),
+        ("save", "sharded", "2x4", 8, "gloo"),
+        ("restore", "sharded", "2x2", 4, "gloo")]
+          and all(c["exact"] for c in children if c["phase"] == "restore"),
+          f"bench --ckpt_bench: children {children}")
+    cells = rec["ckpt_bench"][f"{MESH_CKPT_MB}MB"]
+    check(cells["sharded"]["restore_engine_peak_staging_mb"]
+          < cells["gathered"]["restore_engine_peak_staging_mb"],
+          f"bench --ckpt_bench: the sharded restore staged no less than the "
+          f"gathered one: {cells}")
+    print(f"bench --ckpt_bench --ckpt_sizes {MESH_CKPT_MB} ({card}, gloo "
+          f"ranks sharing the card, contended; each restore bit for bit): "
+          f"{json.dumps(cells)}; headline {rec['value']} {rec['unit']}",
+          flush=True)
+
+    # The kernel at the sweeps' batch shapes (64 and 128 rows a rank).
+    table = torch.randint(0, 256, (128, 32, 32, 3), dtype=torch.uint8,
+                          device="cuda")
+    labels = torch.randint(0, 10, (128,), device="cuda")
+    before = gather_batch.launches
+    for b in (64, 128):
+        rows = torch.arange(b, dtype=torch.int32, device="cuda")
+        got = gather_batch(table, labels, rows)
+        want = gather_batch_plain(table, labels, rows)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"gather_batch differs from its plain version at {b} rows")
+    gather_batch.launches = before  # comparison launches do not count
+    print(f"mesh bench phase: {summaries['seconds']:.1f} s beside the DDP "
+          f"and strategy phases, gather_batch launches {launches[0]} on "
+          f"{name}", flush=True)
+    return launches[0]
+
+
+def _mode_record_mesh(summary: dict, what: str, fields: set,
+                      count: int) -> dict:
+    rec, = summary["records"]
+    check(set(rec) == fields, f"bench {what}: fields {sorted(rec)}")
+    check(math.isfinite(rec["value"]) and rec["value"] > 0,
+          f"bench {what}: value {rec['value']}")
+    check(rec["power_limit_w"] is not None and rec["power_limit_w"] > 0
+          and rec["backend"] == "gloo"
+          and rec["device"] == {"name": torch.cuda.get_device_name(0),
+                                "count": count},
+          f"bench {what}: device {rec['device']}, backend "
+          f"{rec['backend']}, power limit {rec['power_limit_w']}")
+    return rec
 
 
 def runshape_phase(main_ms: float, card: str) -> int:
@@ -5394,6 +5591,8 @@ def generate_phase(card: str, tmp: str) -> dict:
           f"sticky sessions of two turns, pins {pins}, 0 migrations, every "
           f"turn token for token the engine's", flush=True)
 
+    model_axis = _model_axis_step(card, ck, eng, prompts, refs)
+
     t0 = time.time()
     drill_rec = serve_chaos.run_drill(ck, device="cuda")
     check(drill_rec["pass"], f"the serve-chaos drill failed: {drill_rec}")
@@ -5444,7 +5643,107 @@ def generate_phase(card: str, tmp: str) -> dict:
             "tokens_per_sec": {s: p["tokens_per_sec"]
                                for s, p in curve.items()},
             "ttft_ms": {s: p["ttft_ms"] for s, p in curve.items()},
-            "decode_err": decode_err, "replay_ms": replay_ms}
+            "decode_err": decode_err, "replay_ms": replay_ms,
+            "model_axis": model_axis}
+
+
+def _model_axis_step(card: str, ck: str, eng, prompts: list,
+                     refs: list) -> dict:
+    """G9, the serving model axis (A12b): G1's ``tinylm`` served at M = 2
+    by a generative fleet of one replica, rank 0 here and one follower
+    process, gloo ranks sharing this card, in float32.  Every program's
+    segments captured (the prefills and the decode split at their
+    ``2 * N_LAYERS`` row sums, the cache writes whole); GEN_STREAMS
+    concurrent GEN_NEW-token greedy streams token for token the 1-D
+    engine's (G3's ``refs``); each decode segment's replay ms and
+    ``decode()``'s host ms at GEN_STREAMS live slots beside the 1-D
+    engine's; then a new publish (``train.lm`` again, more steps) hot
+    swapped onto both ranks and the streams held to a 1-D engine of it."""
+    from ddp_tpu_torch.models import transformer as tfm
+    from ddp_tpu_torch.serve import KVCacheEngine
+    from ddp_tpu_torch.train import lm
+    t0 = time.time()
+    fleet = ServeFleet(ck, "tinylm", n_replicas=1, generate=True,
+                       model_axis=2, slots=GEN_STREAMS,
+                       prompt_buckets=GEN_BUCKETS, max_new_tokens=GEN_NEW)
+    build_s = time.time() - t0
+    try:
+        eng2 = fleet.replicas[0].engine
+        st = eng2.stats()
+        mg = st["model_group"]
+        cuts = 2 * tfm.N_LAYERS + 1
+        want = {**{f"prefill{b}": cuts for b in GEN_BUCKETS},
+                **{f"write{b}": 1 for b in GEN_BUCKETS}, "decode": cuts}
+        check(st["compiled_executables"] == st["compile_bound"] ==
+              2 * len(GEN_BUCKETS) + 1 and st["mesh_devices"] == 2 and
+              mg["backend"] == "gloo" and mg["segments"] == want,
+              f"the model-axis engine: {st['compiled_executables']} "
+              f"programs, group {mg}")
+
+        def stream(i, p):
+            return fleet.generate(p, max_new_tokens=GEN_NEW, timeout=120,
+                                  session=f"m{i}")["tokens"]
+
+        got = concurrently({i: functools.partial(stream, i, p)
+                            for i, p in enumerate(prompts)})
+        check([got[i] for i in range(len(prompts))] == refs,
+              "the model-axis fleet's streams differ from the 1-D engine's")
+        # Both engines at GEN_STREAMS live slots: decode()'s host ms, and
+        # each decode segment's replay ms, that graph replayed alone (as
+        # G3's replay_ms; it rewrites the cache at the last positions of
+        # these streams, which are released next).
+        timing = {}
+        for m, e in ((1, eng), (2, eng2)):
+            live = {}
+            for i in range(GEN_STREAMS):
+                slot, _ = e.start_stream([i + 1])
+                live[slot] = 1
+            host = []
+            for _ in range(20):
+                t1 = time.perf_counter()
+                e.decode(live)
+                host.append((time.perf_counter() - t1) * 1e3)
+            seg = [round(median_ms(lambda _, g=g: g.replay(), [None], 30),
+                         4) for g in e.programs()["decode"].segments]
+            for slot in live:
+                e.release(slot)
+            timing[m] = {"decode_host_ms": round(statistics.median(host), 3),
+                         "decode_segment_ms": seg}
+        sum_ms = eng2.stats()["model_group"]["sum_ms"]
+        # A new publish: the fleet loads and warms it on both ranks, then
+        # commits; its streams follow it.
+        check(lm.main(["--steps", "36", "--batch", "16", "--seq_len", "32",
+                       "--snapshot_path", ck]) == 0,
+              "train.lm's second publish did not exit 0")
+        t1 = time.time()
+        check(fleet.poll_once() == "swap_commit",
+              f"the model-axis fleet did not swap: "
+              f"{fleet.stats()['swaps']}")
+        swap_s = time.time() - t1
+        new = KVCacheEngine.from_checkpoint(ck, "tinylm", slots=GEN_STREAMS,
+                                            prompt_buckets=GEN_BUCKETS)
+        refs2 = [_gen_alone(new, p, GEN_NEW) for p in prompts]
+        got = concurrently({i: functools.partial(stream, i, p)
+                            for i, p in enumerate(prompts)})
+        check([got[i] for i in range(len(prompts))] == refs2 and
+              fleet.health()["checkpoint_step"] == 36,
+              "after the swap the model-axis fleet's streams differ from "
+              "the new file's 1-D engine's")
+    finally:
+        fleet.close(timeout=15)
+    seconds = time.time() - t0
+    print(f"generate G9 ({card}): tinylm at model axis 2 (one fleet "
+          f"replica: rank 0 here, one follower process, gloo ranks sharing "
+          f"the card, f32), built and warmed in {build_s:.2f} s, segments "
+          f"{json.dumps(mg['segments'])}; {GEN_STREAMS} concurrent "
+          f"{GEN_NEW}-token streams token for token the 1-D engine's, "
+          f"before and after a hot swap ({swap_s:.2f} s, load and warm on "
+          f"both ranks); at {GEN_STREAMS} live slots M=1 "
+          f"{json.dumps(timing[1])}, M=2 {json.dumps(timing[2])}; host ms "
+          f"in the row sums so far {json.dumps(sum_ms)}; {seconds:.1f} s",
+          flush=True)
+    return {"seconds": seconds, "swap_s": swap_s, "build_s": build_s,
+            "timing": timing}
 
 
 def main() -> int:
@@ -5463,6 +5762,13 @@ def main() -> int:
     pycache = tempfile.TemporaryDirectory(prefix="chip_smoke_pycache_")
     os.environ["PYTHONPYCACHEPREFIX"] = pycache.name
     os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    # One import of the bench, at the lowest CPU priority, fills that cache
+    # while the first phases run in this process: the first children then
+    # start warm (three at once would each compile everything).
+    warm_cache = subprocess.Popen(
+        [sys.executable, "-c", "import os; os.nice(19); "
+         "import ddp_tpu_torch.bench, ddp_tpu_torch.cli"],
+        stdout=subprocess.DEVNULL)
 
     t_start = time.time()
 
@@ -5527,18 +5833,27 @@ def main() -> int:
     snapshot_bf16 = os.path.join(snapshot_dir.name, "checkpoint_bf16.pt")
     out_bf16 = bf16_main_phase(out, card, snapshot_bf16)
     stamp("checkpoint and bf16 main path")
+    check(warm_cache.wait(timeout=300) == 0,
+          "the bytecode cache's warm-up import failed")
     bench = bench_phase(step_ms, card)
     stamp("bench phase")
     bench_modes = bench_modes_phase(card)
     stamp("bench-modes phase")
     runshape_launches = runshape_phase(step_ms, card)
     stamp("run-shape phase")
+    # The mesh bench's processes run beside the DDP and strategy phases,
+    # whose checks are counts and bit- or tolerance-equalities.
+    mesh_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    mesh_runs = mesh_pool.submit(mesh_bench_runs)
     ddp_launches, ddp = ddp_phase(out, card)
     stamp("DDP phase")
     strategy_launches, composed, margin, resident_det = strategy_phase(
         ddp, card)
     strategy_bf16_launches = bf16_strategy_phase(composed, margin, card)
     stamp("strategy phases")
+    mesh_bench_launches = mesh_bench_phase(card, mesh_runs.result())
+    mesh_pool.shutdown()
+    stamp("mesh bench phase (its processes beside the two before)")
     t0 = time.time()
     stream_launches, stream_bf16_launches, stream_cases, unarmed = \
         stream_phase(out, out_bf16, resident_det, card, snapshot_dir.name)
@@ -5599,6 +5914,7 @@ def main() -> int:
                  launches_pp_path=pp_launches,
                  launches_bench_path=bench["float32"],
                  launches_bench_modes_path=bench_modes["float32"],
+                 launches_mesh_bench_path=mesh_bench_launches,
                  launches_runshape_path=runshape_launches,
                  launches_resilience_path=survive_launches,
                  launches_storage_path=storage_launches,

@@ -1,5 +1,5 @@
-"""Benchmarks of the port (counterpart of ``bench.py``'s modes that need
-no mesh):
+"""Benchmarks of the port (counterpart of ``bench.py``'s modes but the
+analysis ones):
 
     python -m ddp_tpu_torch.bench [--model vgg|deepnn|resnet18] \\
         [--batch_size 512] [--bf16 | --no_bf16] [--primary_only] \\
@@ -20,6 +20,11 @@ no mesh):
     python -m ddp_tpu_torch.bench --pipeline [--batch_size 512]
     python -m ddp_tpu_torch.bench --chaos [--chaos_out CHAOS_r01.json] \\
         [--chaos_drills D1,D2]
+    python -m ddp_tpu_torch.bench --mesh_shape D,M[,S] [--pp_micro 4]
+    python -m ddp_tpu_torch.bench --tp_sweep 1,2 --num_devices N
+    python -m ddp_tpu_torch.bench --pp_sweep 1,2 --num_devices N \\
+        [--pp_micro 4]
+    python -m ddp_tpu_torch.bench --ckpt_bench [--ckpt_sizes 32,128]
 
 Prints one JSON line on stdout, with ``bench.py``'s record fields and
 metric strings: ``metric``, ``value`` (samples/s a chip of the median
@@ -116,14 +121,37 @@ defaults and record fields (plus ``device`` and ``power_limit_w``):
 - ``--chaos`` (``bench.py:498``): ``python -m ddp_tpu_torch.chaos_campaign``
   in a subprocess, its exit code passed on.
 
+The mesh modes (``bench.py:514-772``, ``:1435-1554``, ``:1728-1873``),
+with ``bench.py``'s flags, refusals, metric strings and record fields plus
+``device``, ``power_limit_w`` and ``backend`` (``nccl``/``gloo``: a figure
+from gloo ranks sharing one card is host staging, not NVLink):
+
+- ``--mesh_shape D,M[,S]``: the step records as D·M·S ranks laid out by
+  ``parallel/mesh.py`` (``--batch_size`` a data shard): DeepNN's TP step
+  (the model cut to each rank's slices by its ``TP_RECIPE``), and under a
+  stage axis ``parallel/pp/schedule.py::PPStep`` over ``--pp_micro``
+  micro-batches (1F1B; its record's ``pp`` the measured bubble beside
+  ``(S-1)/(A+S-1)``, from the timed second step, which runs in the
+  warm-up).  The ranks are spawned as ``train/lm.py`` spawns its own:
+  NCCL one a card when D·M·S cards are visible, else gloo ranks sharing
+  card 0; gloo with ``--device cpu``.  Samples/s a chip count the global
+  batch over every rank, as ``bench.py`` does under a mesh.
+- ``--tp_sweep`` / ``--pp_sweep``: one child a shape over
+  ``--num_devices`` at a fixed global batch (``--mesh_shape D,M``, or
+  ``D,1,S`` with ``--pp_micro``), their records in a dict keyed "DxM" /
+  "Dx1xS"; ``--sweep_platform`` follows ``--device``.
+- ``--ckpt_bench``: :func:`ckpt_bench_record`.
+
 ``--result_json`` writes the records, the train steps that ran in each
 dtype, the eval-form calls of ``gather_batch``'s wrapper that launch or
 capture its kernel (``--serve``'s ``warm()``: its eager run and its
 capture, a bucket an engine, on a card) and the kernels' launch counts of
-the process, a sweep's children's included.  The bench runs on ``cuda``
-unless ``--device cpu`` is given, in every mode; the flags of
-``bench.py``'s other modes are refused by name, each with the ROADMAP item
-that ports it.
+the process, a sweep's children's included (their summaries under
+``children``); a run of several ranks adds ``ranks``, each rank's stage,
+steps and ``gather_batch`` launches.  The bench runs on ``cuda`` unless
+``--device cpu`` is given, in every mode; ``--dump_hlo`` and the flags of
+``bench.py``'s analysis modes are refused by name, each with the ROADMAP
+item that ports it.
 """
 from __future__ import annotations
 
@@ -159,13 +187,20 @@ from .obs.registry import MetricsRegistry
 from .obs.tracer import SpanTracer, set_tracer
 from .ops.gather import gather_batch
 from .optim import SGDConfig, triangular_lr
+from . import interop
 from .parallel import dist
+from .parallel.mesh import Mesh
+from .parallel.pp.partition import plan_stages
+from .parallel.pp.schedule import PPStep, stage_module_
+from .parallel.tp.plan import (TPPlan, plan_for_model, shard_module_,
+                               wiring)
 from .resilience.drift import DriftAuditor
 from .resilience.guard import StepHealthGuard
 from .serve import (DynamicBatcher, LocalReplica, QueueFull, Router,
                     ServeEngine, percentiles)
 from .train.epoch import make_train_epoch, make_train_step
-from .train.step import init_train_state, to_device
+from .train import checkpoint as ckpt_lib
+from .train.step import init_train_state, make_group_update, to_device
 from .train.trainer import Trainer, draw_seed, dropout_seed
 from .train.zero import list_to_opt_shard
 from .utils.profiling import attribute_streaming
@@ -174,9 +209,7 @@ from .utils.profiling import attribute_streaming
 # ROADMAP item that ports each.
 REFUSED = {
     "--calibrate_cost": "A13c", "--mem_ledger": "A13c",
-    "--tp_sweep": "A10b", "--pp_sweep": "A10b",
-    "--mesh_shape": "A10b", "--auto_plan": "A13c",
-    "--autoplan_bench": "A13c", "--ckpt_bench": "A10b",
+    "--auto_plan": "A13c", "--autoplan_bench": "A13c",
     "--dump_hlo": "none: an eager program has no compiled program to dump",
 }
 BATCH_SWEEP_FLAVORS = ("fp32_step", "bf16_step")
@@ -347,6 +380,55 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gen_prefill_buckets", default="16,64",
                    help="With --generate: padded prompt buckets "
                         "(default 16,64)")
+    p.add_argument("--mesh_shape", default=None, metavar="D,M[,S]",
+                   help="(data x model[ x stage]) mesh for the "
+                        "steady-state step bench (parallel/tp/, "
+                        "parallel/pp/): --batch_size is per DATA shard; "
+                        "the tp plan comes from the model's TP_RECIPE; a "
+                        "third entry S>1 times the pipelined step "
+                        "(--pp_micro micro-batches, 1F1B) and records "
+                        "the measured-vs-predicted bubble fraction.  "
+                        "D*M*S ranks: NCCL one a card when the cards "
+                        "suffice, else gloo ranks sharing card 0, gloo "
+                        "ranks with --device cpu")
+    p.add_argument("--pp_micro", default=4, type=int, metavar="A",
+                   help="Micro-batches per optimizer step for the "
+                        "pipelined bench paths (default 4): the 1F1B "
+                        "schedule's A; bubble prediction is "
+                        "(S-1)/(A+S-1)")
+    p.add_argument("--tp_sweep", default=None, metavar="M1,M2,...",
+                   help="Tensor-parallel sweep: one child per model-axis "
+                        "size M over the same --num_devices total (data "
+                        "axis = total/M), at FIXED GLOBAL BATCH "
+                        "--batch_size; records ms/step + MFU per mesh "
+                        "shape.  Uses --sweep_platform like --sweep")
+    p.add_argument("--pp_sweep", default=None, metavar="S1,S2,...",
+                   help="Pipeline-stage sweep: one child per stage count "
+                        "S over the same --num_devices total (data axis = "
+                        "total/S, model axis 1), at FIXED GLOBAL BATCH "
+                        "--batch_size x --pp_micro; records ms/step plus "
+                        "the MEASURED pipeline-bubble fraction next to the "
+                        "static (S-1)/(A+S-1) prediction per shape.  S=1 "
+                        "runs the plain step on the same ranks")
+    p.add_argument("--ckpt_bench", action="store_true",
+                   help="Checkpoint-path bench: save + restore wall time "
+                        "and peak host RSS for the gathered (v1) vs "
+                        "sharded (v2, train/ckpt_shard.py) formats at each "
+                        "--ckpt_sizes size; saves on a (2,4) mesh of 8 "
+                        "ranks, restores reshard onto (2,2) (4 ranks)")
+    p.add_argument("--ckpt_sizes", default="32,128", metavar="MB1,MB2,...",
+                   help="--ckpt_bench checkpoint payload sizes in MiB "
+                        "(params + momentum, fp32; default 32,128)")
+    p.add_argument("--ckpt_bench_child", default=None,
+                   choices=["save", "restore"],
+                   help="(internal) --ckpt_bench child phase")
+    p.add_argument("--ckpt_format", default="gathered",
+                   choices=["gathered", "sharded"],
+                   help="(--ckpt_bench child) checkpoint layout under test")
+    p.add_argument("--ckpt_size_mb", default=32, type=int,
+                   help="(--ckpt_bench child) payload size in MiB")
+    # Set by the spawner for the ranks of a mesh: the group's backend.
+    p.add_argument("--backend", default=None, help=argparse.SUPPRESS)
     p.add_argument("--chaos", action="store_true",
                    help="Run the chaos campaign (python -m "
                         "ddp_tpu_torch.chaos_campaign): the DDP_TPU_FAULT "
@@ -365,7 +447,35 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_args(args: argparse.Namespace) -> None:
-    """Refuse, by name, what this entry point does not port."""
+    """Refuse, by name, what this entry point does not port, and what
+    ``bench.py`` refuses under a mesh (in its words)."""
+    dims = mesh_dims(args)
+    if dims is not None:
+        modes = [f"--{m}" for m in MESH_FREE_MODES if getattr(args, m)]
+        if modes:
+            raise SystemExit(f"--mesh_shape times the step records; it does "
+                             f"not compose with {modes[0]}")
+        if args.num_devices and args.num_devices != int(np.prod(dims)):
+            raise SystemExit(f"--num_devices {args.num_devices} contradicts "
+                             f"--mesh_shape {args.mesh_shape}")
+        if len(dims) == 3 and dims[2] > 1:
+            if args.shard_update:
+                raise SystemExit("--shard_update does not compose with a "
+                                 "staged mesh: the pipeline update is "
+                                 "already per-stage (each stage owns only "
+                                 "its own params/momentum)")
+            if args.dispatch == "scan":
+                raise SystemExit("--dispatch scan cannot wrap the pipeline "
+                                 "step (the 1F1B schedule is a host-driven "
+                                 "op loop, not one jittable program); use "
+                                 "--dispatch step with a staged "
+                                 "--mesh_shape")
+            if args.dump_hlo is not None:
+                raise SystemExit("--dump_hlo has no single program to dump "
+                                 "under a staged mesh (one jitted program "
+                                 "per stage x role); audit them with python "
+                                 "-m ddp_tpu.analysis --mesh-shape D,M,S "
+                                 "instead")
     for flag, item in REFUSED.items():
         if getattr(args, flag[2:]) is not None:
             raise SystemExit(f"{flag} is not ported to ddp_tpu_torch.bench "
@@ -398,6 +508,27 @@ def check_args(args: argparse.Namespace) -> None:
                          f"--guard_overhead")
 
 
+# The modes --mesh_shape does not time (the step records are its only
+# mode, as in bench.py).
+MESH_FREE_MODES = ("e2e", "inspect_overhead", "guard_overhead", "serve",
+                   "batch_sweep", "sweep", "tp_sweep", "pp_sweep",
+                   "ckpt_bench", "pipeline", "stream_attr", "chaos")
+
+
+def mesh_dims(args: argparse.Namespace) -> Optional[tuple]:
+    """``--mesh_shape`` as ``(D, M)`` or ``(D, M, S)``; None without it."""
+    if not args.mesh_shape:
+        return None
+    try:
+        dims = tuple(int(x) for x in args.mesh_shape.split(","))
+        if len(dims) not in (2, 3) or min(dims) < 1:
+            raise ValueError(args.mesh_shape)
+    except ValueError:
+        raise SystemExit(f"--mesh_shape wants 'D,M' or 'D,M,S' (e.g. "
+                         f"2,4 or 2,1,2), got {args.mesh_shape!r}")
+    return dims
+
+
 def power_limit_w(device: torch.device) -> Optional[float]:
     """The card's power limit in W from ``nvidia-smi`` (its row at the
     device's index); None on the CPU.  On a card a missing or unreadable
@@ -423,10 +554,16 @@ class _Bench:
         self.args = args
         self.device = device
         self.kind = device_kind(device)
-        # This process's rank of a --num_devices run (world 1 without one).
+        # This process's rank of a --num_devices or --mesh_shape run (world
+        # 1 without one), and its batch shard: the data index and extent.
         self.rank, self.world = dist.rank(), dist.world_size()
+        self.data_rank, self.data_size = dist.data_rank(), dist.data_size()
         self.card = {"name": self.kind, "count": self.world}
-        self.power_limit_w = power_limit_w(device)
+        # The children's summaries of a sweep, in order.
+        self.children: List[Dict] = []
+        # Rank 0 prints the records.
+        self.power_limit_w = power_limit_w(device) if self.rank == 0 \
+            else None
         self.steps_run = {"float32": 0, "bfloat16": 0}
         # Eval-form calls of gather_batch's wrapper that launch or capture
         # its kernel (the serving engines' warm(), on a card).
@@ -435,6 +572,7 @@ class _Bench:
         self.child_launches = {"gather_batch": 0, "gather_batch_bf16": 0}
 
     def add_child(self, summary: Dict) -> None:
+        self.children.append(summary)
         for key in self.steps_run:
             self.steps_run[key] += summary["steps"][key]
             self.eval_calls[key] += summary["eval_calls"][key]
@@ -471,14 +609,26 @@ class _Bench:
             dts.append(time.perf_counter() - t0)
         return dts
 
-    def record(self, tag: str, dts: List[float], bf16: bool) -> Dict:
+    def record(self, tag: str, dts: List[float], bf16: bool,
+               micro: int = 1, extra: Optional[Dict] = None) -> Dict:
+        """A step record: samples/s a chip of the global batch (``micro``
+        micro-batches of ``--batch_size`` a data shard a step) over every
+        rank, as ``bench.py`` counts it under a mesh."""
         a = self.args
         dt = statistics.median(dts)  # the headline window
-        sps_chip = a.batch_size * a.steps / dt
+        sps_chip = (a.batch_size * self.data_size * micro * a.steps / dt
+                    / self.world)
+        mesh_tag = ""
+        if a.mesh_shape:
+            staged = dist.num_stages() > 1
+            mesh_tag = (f"mesh {a.mesh_shape} (data x model"
+                        f"{' x stage' if staged else ''}), "
+                        f"{f'{micro} micro-batches/step, ' if staged else ''}")
         rec = {
             "metric": f"{a.model} train samples/sec/chip "
                       f"(batch {a.batch_size}/chip, "
                       f"{'bf16' if bf16 else 'fp32'}, {self.world} chip(s), "
+                      f"{mesh_tag}"
                       f"{'zero-sharded update, ' if a.shard_update else ''}"
                       f"{tag})",
             "value": round(sps_chip, 2),
@@ -492,7 +642,10 @@ class _Bench:
                 (max(dts) - min(dts)) / min(dts) * 100.0, 1),
         }
         rec.update(self.mfu_fields(sps_chip, bf16))
+        rec.update(extra or {})
         rec.update(device=self.card, power_limit_w=self.power_limit_w)
+        if a.mesh_shape:
+            rec["backend"] = dist.backend()
         return rec
 
     def _generators(self):
@@ -510,16 +663,25 @@ class _Bench:
 
         return draws, dropout
 
-    def fixed_batch(self) -> list:
-        """This rank's fixed device batch of ``synthetic(n_train=batch_size
-        x world)`` images, as the step takes its micro-batches."""
+    def fixed_batch(self, micro: int = 1, stage: int = 0) -> list:
+        """This rank's ``micro`` fixed device micro-batches of
+        ``synthetic(n_train=batch_size x data axis x micro)`` images:
+        micro-batch k is rows ``k * global + data index * batch_size`` on,
+        as the step takes them (under a stage axis, ``pp_feed``'s: the
+        labels alone past stage 0)."""
         a, device = self.args, self.device
-        ds, _ = synthetic(n_train=a.batch_size * self.world, n_test=1)
-        rows = slice(self.rank * a.batch_size, (self.rank + 1) * a.batch_size)
+        glob = a.batch_size * self.data_size
+        ds, _ = synthetic(n_train=glob * micro, n_test=1)
         stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-        return [to_device({"image": ds.images[rows],
-                           "label": ds.labels[rows].astype(np.int64)},
-                          device, stream=stream).wait()]
+        out = []
+        for k in range(micro):
+            lo = k * glob + self.data_rank * a.batch_size
+            rows = slice(lo, lo + a.batch_size)
+            batch = {"label": ds.labels[rows].astype(np.int64)}
+            if stage == 0:
+                batch["image"] = ds.images[rows]
+            out.append(to_device(batch, device, stream=stream).wait())
+        return out
 
     def profiled(self, window, name: str) -> None:
         """One call of ``window`` under ``torch.profiler``, untimed (the
@@ -536,6 +698,29 @@ class _Bench:
                 prof, os.path.join(self.args.profile_dir, name), cuda)
         print(f"profile: wrote {path}", file=sys.stderr, flush=True)
 
+    def cut_for_mesh(self, model: torch.nn.Module):
+        """Under ``--mesh_shape``: ``model`` cut in place to this rank's
+        tensor-parallel slices (the model's ``TP_RECIPE`` at the model
+        axis) and pipeline stage; returns ``(tp wiring, stage plan)``, both
+        None without a mesh (and the wiring None at a model axis of 1)."""
+        mesh = dist.mesh()
+        if mesh is None:
+            return None, None
+        name = self.args.model
+        try:
+            plan = plan_for_model(name, model, model_size=mesh.dims[1])
+        except ValueError as e:
+            raise SystemExit(str(e))
+        tp = wiring(plan, dist.model_group())
+        if tp is not None:
+            shard_module_(model, plan, mesh.model_index)
+        stages = None
+        if mesh.stages > 1:
+            stages = plan_stages(name, mesh.stages, model_size=mesh.dims[1],
+                                 model=get_model(name, device="meta"))
+            stage_module_(model, stages, mesh.stage_index)
+        return tp, stages
+
     def step_records(self, bf16: bool, extras: bool,
                      profile: bool = False) -> List[Dict]:
         """The primary record and, with ``extras``, the resident-epoch
@@ -547,14 +732,27 @@ class _Bench:
         key = "bfloat16" if bf16 else "float32"
         model = get_model(a.model, device=device,
                           generator=torch.Generator().manual_seed(0))
+        tp, stages = self.cut_for_mesh(model)
         state = init_train_state(model)
         if a.shard_update:
             state.momentum = list_to_opt_shard(state.momentum)
-        kw = dict(shard_update=a.shard_update, compute_dtype=dtype)
+        kw = dict(shard_update=a.shard_update, compute_dtype=dtype, tp=tp)
         draws, dropout = self._generators()
 
-        step_fn = make_train_step(model, SGDConfig(), SCHEDULE, False, **kw)
-        micros = self.fixed_batch()
+        if stages is not None:
+            stage = dist.stage_index()
+            step_fn = PPStep(model, stages, stage,
+                             make_group_update(SGDConfig(), SCHEDULE),
+                             device=device, compute_dtype=dtype, tp=tp)
+            micro = max(a.pp_micro, 1)
+            micros = self.fixed_batch(micro, stage)
+            # The second step of A micro-batches is PPStep's timed one,
+            # which gives its bubble: both run before the windows.
+            warmup = max(a.warmup, 2)
+        else:
+            step_fn = make_train_step(model, SGDConfig(), SCHEDULE, False,
+                                      **kw)
+            micro, micros, warmup = 1, self.fixed_batch(), max(a.warmup, 1)
 
         def step_window(n: int = a.steps) -> torch.Tensor:
             for _ in range(n):
@@ -563,20 +761,26 @@ class _Bench:
             return loss
 
         self.sync()
-        float(step_window(max(a.warmup, 1)))
+        float(step_window(warmup))
         if profile:
             self.profiled(step_window, "trace_step.json")
+        if stages is not None:
+            # The pipelined step has one dispatch flavour, as in bench.py.
+            return [self.record(
+                f"{a.steps}-step window, 1F1B pipeline dispatch",
+                self.time_windows(step_window), bf16, micro,
+                {"pp": dict(step_fn.bubble or {})})]
         recs = [self.record(f"{a.steps}-step window, per-step dispatch",
                             self.time_windows(step_window), bf16)]
         if not extras or a.profile_dir:
             return recs
 
-        table, _ = synthetic(n_train=a.batch_size * a.steps * self.world,
+        table, _ = synthetic(n_train=a.batch_size * a.steps * self.data_size,
                              n_test=1)
         resident = ResidentData(table, device)
-        loader = TrainLoader(table, a.batch_size, self.world, augment=False,
-                             local_replicas=[self.rank])
-        full, _ = loader.rank_index_matrix(self.rank)
+        loader = TrainLoader(table, a.batch_size, self.data_size,
+                             augment=False, local_replicas=[self.data_rank])
+        full, _ = loader.rank_index_matrix(self.data_rank)
         idx = torch.from_numpy(full).to(device)
         epoch_fn = make_train_epoch(model, SGDConfig(), SCHEDULE, True, **kw)
 
@@ -1472,6 +1676,361 @@ def sweep_record(bench: _Bench) -> Dict:
     }
 
 
+def mesh_total(args: argparse.Namespace, device: torch.device) -> int:
+    """The device total a ``--tp_sweep``/``--pp_sweep`` splits:
+    ``--num_devices``, else the visible cards (1 on the CPU)."""
+    if args.num_devices:
+        return args.num_devices
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def _sweep_shapes(bench: _Bench, flag: str, sizes: List[int]
+                  ) -> List[tuple]:
+    """``(d, n)`` for each model-axis or stage count ``n`` over the device
+    total, with ``bench.py``'s refusals, all checked before any child
+    runs."""
+    total = mesh_total(bench.args, bench.device)
+    batch = bench.args.batch_size
+    what, tag = (("model axis", "m") if flag == "--tp_sweep"
+                 else ("stage count", "s"))
+    out = []
+    for n in sizes:
+        if total % n:
+            raise SystemExit(f"{flag}: {what} {n} does not divide the "
+                             f"device total {total}")
+        d = total // n
+        if batch % d:
+            raise SystemExit(f"{flag}: global batch {batch} not divisible "
+                             f"by the {d}-way data axis at {tag}={n}")
+        out.append((d, n))
+    return out
+
+
+def _sweep_child(bench: _Bench, d: int, mesh: str, extra: List[str]
+                 ) -> Dict:
+    """One shape of a sweep: its ranks launched directly (``--mesh_shape
+    mesh``, ``--batch_size`` a data shard of the global batch), their
+    stdout dropped; rank 0's record, its summary added to ``bench``'s."""
+    a = bench.args
+    argv = ["--model", a.model, "--batch_size", str(a.batch_size // d),
+            "--steps", str(a.steps), "--warmup", str(a.warmup),
+            "--repeats", str(a.repeats), "--mesh_shape", mesh,
+            "--no_bf16", "--primary_only", "--device", a.device]
+    argv += (["--bf16"] if a.bf16 else []) + extra
+    n = int(np.prod([int(x) for x in mesh.split(",")]))
+    summary = spawn_ranks(argv, n, bench.device, None, mesh=True,
+                          quiet=True)
+    bench.add_child(summary)
+    return summary["records"][0]
+
+
+def tp_sweep_record(bench: _Bench) -> Dict:
+    """The tensor-parallel mesh sweep at a fixed global batch
+    (``bench.py --tp_sweep``): one child a model-axis size M over the same
+    device total (data axis total/M), each ``--mesh_shape D,M`` (M = 1
+    runs the same mesh path on a (total, 1) grid); the headline is the
+    ms/step ratio of the first shape to the last."""
+    a = bench.args
+    ms = sorted(int(x) for x in a.tp_sweep.split(","))
+    shapes = _sweep_shapes(bench, "--tp_sweep", ms)
+    per: Dict[str, Dict] = {}
+    backends = set()
+    for d, m in shapes:
+        rec = _sweep_child(bench, d, f"{d},{m}",
+                           ["--shard_update"] if a.shard_update else [])
+        backends.add(rec["backend"])
+        per[f"{d}x{m}"] = {
+            "ms_per_step": rec["median_ms_per_step"],
+            "best_window_ms_per_step": rec["best_window_ms_per_step"],
+            "samples_per_sec_per_chip": rec["value"],
+            "mfu": rec.get("mfu"),
+        }
+    names = [f"{d}x{m}" for d, m in shapes]
+    base_ms = per[names[0]]["ms_per_step"]
+    last_ms = per[names[-1]]["ms_per_step"]
+    total = shapes[0][0] * shapes[0][1]
+    return {
+        "metric": f"{a.model} tensor-parallel mesh sweep "
+                  f"({a.sweep_platform} mesh, global batch "
+                  f"{a.batch_size}, {total} devices, "
+                  f"{'bf16' if a.bf16 else 'fp32'}, "
+                  f"{'zero-sharded update, ' if a.shard_update else ''}"
+                  f"shapes {names})",
+        "value": round(base_ms / last_ms, 4) if last_ms else 0.0,
+        "unit": f"ms/step ratio, {names[0]} vs {names[-1]} (data x model)",
+        "vs_baseline": 1.0,
+        "tp_sweep": per,
+        "device": dict(bench.card, count=total),
+        "power_limit_w": bench.power_limit_w,
+        "backend": ",".join(sorted(backends)),
+    }
+
+
+def pp_sweep_record(bench: _Bench) -> Dict:
+    """The pipeline-stage sweep at a fixed global batch (``bench.py
+    --pp_sweep``): one child a stage count S over the same device total
+    (data axis total/S, model axis 1), each ``--mesh_shape D,1,S`` with
+    ``--pp_micro`` micro-batches a step (S = 1: the plain step, the
+    bubble-free baseline); each records ms/step and the measured bubble
+    beside the static ``(S-1)/(A+S-1)``; the headline is the deepest
+    shape's measured bubble."""
+    a = bench.args
+    ss = sorted(int(x) for x in a.pp_sweep.split(","))
+    shapes = _sweep_shapes(bench, "--pp_sweep", ss)
+    micro = max(int(a.pp_micro), 1)
+    per: Dict[str, Dict] = {}
+    backends = set()
+    for d, s in shapes:
+        rec = _sweep_child(bench, d, f"{d},1,{s}", ["--pp_micro", str(micro)])
+        backends.add(rec["backend"])
+        per[f"{d}x1x{s}"] = {
+            "ms_per_step": rec["median_ms_per_step"],
+            "best_window_ms_per_step": rec["best_window_ms_per_step"],
+            "samples_per_sec_per_chip": rec["value"],
+            "pp": rec.get("pp"),
+        }
+    names = [f"{d}x1x{s}" for d, s in shapes]
+    deepest = per[names[-1]].get("pp") or {}
+    total = shapes[0][0] * shapes[0][1]
+    return {
+        "metric": f"{a.model} pipeline-stage mesh sweep "
+                  f"({a.sweep_platform} mesh, global batch "
+                  f"{a.batch_size} x {micro} micro-batches/step, {total} "
+                  f"devices, {'bf16' if a.bf16 else 'fp32'}, 1F1B, "
+                  f"shapes {names})",
+        "value": round(deepest.get("bubble_measured", 0.0), 4),
+        "unit": (f"measured bubble fraction at {names[-1]} "
+                 f"(static prediction "
+                 f"{round(deepest.get('bubble_predicted', 0.0), 4)})"),
+        "vs_baseline": 1.0,
+        "pp_sweep": per,
+        "device": dict(bench.card, count=total),
+        "power_limit_w": bench.power_limit_w,
+        "backend": ",".join(sorted(backends)),
+    }
+
+
+# -- the checkpoint bench -----------------------------------------------------
+
+# The (2,4) save mesh and the (2,2) restore mesh of --ckpt_bench.
+CKPT_SAVE_MESH, CKPT_RESTORE_MESH = "2,4", "2,2"
+
+
+def ckpt_synth_tree(size_mb: int):
+    """A synthetic checkpoint tree of about ``size_mb`` MiB (params plus a
+    momentum of the same size): ``max(1, size_mb // 16)`` layers, each a
+    ``(1024, 2048)`` float32 ``w``, split on its last dim for even layers
+    (column style) and its first for odd ones (row style), and a
+    replicated ``b``: ``bench.py``'s ``_ckpt_synth_tree`` shapes and split
+    dims, which divide both of the bench's model axes (4, then 2).  The
+    leaves are not linear weights: their specs split dims of the saved
+    arrays directly, not through a model's layout rules.  ``w`` holds
+    distinct values (``bench.py`` fills each layer with one value), so
+    that a restore that read a wrong slot would not pass the bit check.
+    Returns ``(params, tree specs)``; the momentum is ``-params``."""
+    n = max(1, int(size_mb) // 16)
+    host: Dict[str, Dict[str, np.ndarray]] = {}
+    specs: Dict[str, tuple] = {}
+    for i in range(n):
+        col = i % 2 == 0
+        specs[f"layer{i}/w"] = (None, "model") if col else ("model", None)
+        specs[f"layer{i}/b"] = ()
+        w = (np.arange(1024 * 2048, dtype=np.int64) % 65521 + i)
+        host[f"layer{i}"] = {
+            "w": w.astype(np.float32).reshape(1024, 2048),
+            "b": np.full((2048 if col else 1024,), float(i), np.float32)}
+    return host, specs
+
+
+def _synth_plan(specs: Dict[str, tuple], m: int) -> TPPlan:
+    """The plan ``load_for_mesh`` cuts the synthetic tree by."""
+    return TPPlan("ckpt_synth", m, {}, {}, (), tree_specs=specs)
+
+
+def _rank_arrays(host: Dict, specs: Dict[str, tuple], m: int,
+                 k: int) -> Dict[str, np.ndarray]:
+    """Model index ``k``'s slices of the synthetic state ``host`` as a
+    checkpoint's flat ``params/``/``momentum/`` arrays."""
+    flat: Dict[str, np.ndarray] = {}
+    ckpt_lib._flatten(host, "", flat)
+    out = {}
+    for path, a in flat.items():
+        dim = interop.split_dim(specs[path])
+        if dim is not None:
+            w = a.shape[dim] // m
+            a = np.take(a, range(k * w, (k + 1) * w), axis=dim)
+        out[f"params/{path}"] = np.ascontiguousarray(a)
+        out[f"momentum/{path}"] = -out[f"params/{path}"]
+    return out
+
+
+def _peak_kb() -> int:
+    import resource
+    return int(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)
+
+
+def _barrier() -> None:
+    dist.all_gather_rows(np.zeros(1, np.float32), kind="ckpt_bench")
+
+
+def ckpt_child_record(bench: _Bench) -> Dict:
+    """One rank of one ``--ckpt_bench`` phase (``bench.py
+    _bench_ckpt_child``) in one format, on the ``--mesh_shape`` grid.
+    ``save`` places this rank's slices of the synthetic state on the
+    device, then writes ``--snapshot_path``: ``gathered`` all-gathers the
+    model-sharded leaves over the model group and rank 0 writes the v1
+    file; ``sharded`` has each data-row-0 rank write its slot, rank 0 the
+    index.  ``restore`` reads the file onto this grid through
+    ``load_for_mesh`` (slot-wise for a v2 set) with a ``HostBytesProbe``,
+    places the slices on the device and holds them bit for bit against
+    the synthetic values (a mismatch fails the rank).  Each phase starts
+    and ends on a barrier of every rank; ``wall_ms`` is rank 0's time
+    between them.  The RSS peaks (``ru_maxrss``) are the sums over the
+    ranks, the host's total, and ``engine_peak_staging_mb`` the largest
+    rank's probe peak."""
+    from .train.ckpt_shard import (HostBytesProbe, load_for_mesh,
+                                   save_checkpoint_sharded, write_slot)
+    a, device = bench.args, bench.device
+    mesh = dist.mesh()
+    d, m = mesh.dims[0], mesh.dims[1]
+    k = mesh.model_index
+    host, specs = ckpt_synth_tree(a.ckpt_size_mb)
+    local = _rank_arrays(host, specs, m, k)
+    del host
+    probe = HostBytesProbe()
+    exact = True
+    if a.ckpt_bench_child == "save":
+        placed = {key: torch.from_numpy(v).to(device)
+                  for key, v in local.items()}
+        del local
+        bench.sync()
+        _barrier()
+        before = _peak_kb()
+        t0 = time.perf_counter()
+        if a.ckpt_format == "sharded":
+            if mesh.data_index == 0:
+                arrays = {key: t.cpu().numpy() for key, t in placed.items()}
+                if bench.rank == 0:
+                    save_checkpoint_sharded(
+                        a.snapshot_path, arrays, 0, 0, n_slots=m,
+                        tree_specs=specs, mesh_shape=(d, m))
+                else:
+                    write_slot(a.snapshot_path, arrays, 0, 0, slot=k,
+                               n_slots=m, tree_specs=specs)
+        else:
+            whole = {}
+            for key, t in placed.items():
+                dim = interop.split_dim(specs[key.partition("/")[2]])
+                if dim is None:
+                    whole[key] = t
+                    continue
+                parts = dist.all_gather_model(t.reshape(-1))
+                whole[key] = torch.cat([p.view(t.shape) for p in parts],
+                                       dim=dim)
+            if bench.rank == 0:
+                ckpt_lib.write_gathered(
+                    a.snapshot_path,
+                    {key: t.cpu().numpy() for key, t in whole.items()}, 0, 0)
+            del whole
+        _barrier()
+    else:
+        bench.sync()
+        _barrier()
+        before = _peak_kb()
+        t0 = time.perf_counter()
+        ck = load_for_mesh(a.snapshot_path, _synth_plan(specs, m), k,
+                           probe=probe)
+        flat: Dict[str, np.ndarray] = {}
+        for section in ("params", "momentum"):
+            ckpt_lib._flatten(getattr(ck, section), section, flat)
+        placed = {key: torch.from_numpy(v).to(device)
+                  for key, v in flat.items()}
+        bench.sync()
+        _barrier()
+        exact = placed.keys() == local.keys() and all(
+            torch.equal(placed[key], torch.from_numpy(v).to(device))
+            for key, v in local.items())
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    after = _peak_kb()
+    rows = dist.all_gather_rows(np.array(
+        [before, after, probe.peak / 2 ** 20, exact], np.float64
+    ).astype(np.float32), kind="ckpt_bench")
+    if not all(r[3] for r in rows):
+        raise SystemExit(f"ckpt bench restore onto {d}x{m}: a rank's slices "
+                         f"differ from the saved state")
+    rec = {"value": 0.0, "phase": a.ckpt_bench_child,
+           "format": a.ckpt_format, "size_mb": int(a.ckpt_size_mb),
+           "mesh": f"{d}x{m}", "wall_ms": round(wall_ms, 1),
+           "rss_peak_before_kb": int(sum(float(r[0]) for r in rows)),
+           "rss_peak_after_kb": int(sum(float(r[1]) for r in rows)),
+           "ranks": len(rows), "backend": dist.backend()}
+    if a.ckpt_bench_child == "restore":
+        rec["engine_peak_staging_mb"] = round(
+            max(float(r[2]) for r in rows), 2)
+        rec["exact"] = True
+    return rec
+
+
+def ckpt_bench_record(bench: _Bench) -> Dict:
+    """Gathered against sharded checkpoints (``bench.py --ckpt_bench``):
+    for each ``--ckpt_sizes`` size and each format, one run of 8 ranks
+    saves the synthetic state on a (2,4) grid and a second of 4 ranks
+    restores the file resharded onto (2,2), the elastic-resume direction
+    (:func:`ckpt_child_record`; the ranks follow ``--device`` as
+    ``--mesh_shape``'s do).  The headline is the gathered/sharded ratio of
+    the save's RSS delta at the largest size (> 1: the sharded save peaks
+    lower)."""
+    a = bench.args
+    sizes = sorted(int(x) for x in a.ckpt_sizes.split(","))
+    per: Dict[str, Dict] = {}
+    backends = set()
+    with tempfile.TemporaryDirectory() as td:
+        for size in sizes:
+            per_size: Dict[str, Dict] = {}
+            for fmt in ("gathered", "sharded"):
+                path = os.path.join(td, f"ck_{fmt}_{size}.pt")
+                cell: Dict[str, float] = {}
+                for phase, shape in (("save", CKPT_SAVE_MESH),
+                                     ("restore", CKPT_RESTORE_MESH)):
+                    argv = ["--ckpt_bench_child", phase,
+                            "--ckpt_format", fmt,
+                            "--ckpt_size_mb", str(size),
+                            "--mesh_shape", shape, "--snapshot_path", path,
+                            "--device", a.device]
+                    n = int(np.prod([int(x) for x in shape.split(",")]))
+                    out = spawn_ranks(argv, n, bench.device, None,
+                                      mesh=True)
+                    bench.children.append(out)
+                    backends.add(out["backend"])
+                    cell[f"{phase}_ms"] = out["wall_ms"]
+                    cell[f"{phase}_rss_peak_delta_mb"] = round(
+                        (out["rss_peak_after_kb"]
+                         - out["rss_peak_before_kb"]) / 1024, 1)
+                    if "engine_peak_staging_mb" in out:
+                        cell["restore_engine_peak_staging_mb"] = \
+                            out["engine_peak_staging_mb"]
+                per_size[fmt] = cell
+            per[f"{size}MB"] = per_size
+    big = per[f"{sizes[-1]}MB"]
+    s_delta = big["sharded"]["save_rss_peak_delta_mb"]
+    g_delta = big["gathered"]["save_rss_peak_delta_mb"]
+    return {
+        "metric": f"checkpoint save-path peak host RSS, gathered vs "
+                  f"sharded (sizes {sizes} MiB; save on (2,4)x8 "
+                  f"{bench.device.type} ranks, restore resharded onto "
+                  f"(2,2)x4 \u2014 elastic resume)",
+        "value": round(g_delta / max(s_delta, 1.0), 2),
+        "unit": f"gathered/sharded save RSS-delta ratio at {sizes[-1]}MiB "
+                "(> 1: sharded peaks lower; sharded delta floored at "
+                "1 MiB \u2014 it can sit below the RSS noise floor)",
+        "vs_baseline": 1.0,
+        "ckpt_bench": per,
+        "device": dict(bench.card, count=8),
+        "power_limit_w": bench.power_limit_w,
+        "backend": ",".join(sorted(backends)),
+    }
+
+
 def run_chaos(args: argparse.Namespace) -> None:
     """The chaos campaign as a bench mode (``bench.py:498``): ``python -m
     ddp_tpu_torch.chaos_campaign`` in a subprocess (its drills spawn their
@@ -1486,19 +2045,38 @@ def run_chaos(args: argparse.Namespace) -> None:
         raise SystemExit(rc)
 
 
+def mesh_backend(n: int, device: torch.device) -> tuple:
+    """``(backend, same_device)`` for the ``n`` ranks of a mesh
+    (``train/lm.py``'s rule): NCCL one rank a card when ``n`` cards are
+    visible, else gloo ranks sharing card 0; gloo on the CPU."""
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    same = device.type == "cuda" and n > cards
+    return ("nccl" if device.type == "cuda" and not same else "gloo"), same
+
+
 def spawn_ranks(argv: List[str], n: int, device: torch.device,
-                result_json: Optional[str]) -> Dict:
+                result_json: Optional[str], mesh: bool = False,
+                quiet: bool = False) -> Dict:
     """Run this bench as ``n`` ranks (``parallel/dist.py::launch_local``):
-    rank 0 prints the record line and writes the summary, which is
-    returned.  A failed rank fails the run."""
-    check_card_count(n, device)
+    rank 0 prints the record line (dropped with ``quiet``) and writes the
+    summary, which is returned.  A failed rank fails the run.  The ranks of
+    a ``mesh`` take :func:`mesh_backend`'s; a data-parallel run's are one a
+    card (more ranks than cards is refused)."""
+    argv = list(argv)
+    same = False
+    if mesh:
+        backend, same = mesh_backend(n, device)
+        argv += ["--backend", backend]
+    else:
+        check_card_count(n, device)
     with tempfile.TemporaryDirectory() as tmp:
         path = result_json or os.path.join(tmp, "bench.json")
-        rc = dist.launch_local(BENCH + list(argv) + ["--result_json", path],
-                               n)
+        rc = dist.launch_local(BENCH + argv + ["--result_json", path], n,
+                               same_device=same,
+                               stdout=subprocess.DEVNULL if quiet else None)
         if rc != 0:
-            raise SystemExit(f"bench rank of --num_devices {n} failed "
-                             f"rc={rc}")
+            what = "--mesh_shape" if mesh else "--num_devices"
+            raise SystemExit(f"bench rank of {what} {n} failed rc={rc}")
         with open(path) as f:
             return json.load(f)
 
@@ -1514,22 +2092,30 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.chaos:
         run_chaos(args)
         return {"records": []}
-    if args.sweep:
+    if args.sweep or args.tp_sweep or args.pp_sweep:
         args.sweep_platform = resolve_sweep_platform(args, device)
+    if args.sweep:
         check_card_count(sweep_counts(args)[-1], device)
-    n = args.num_devices or 1
-    spawner = n > 1 and not (args.sweep or args.batch_sweep or args.pipeline)
+    dims = mesh_dims(args)
+    n = int(np.prod(dims)) if dims else (args.num_devices or 1)
+    spawner = n > 1 and not (args.sweep or args.batch_sweep or args.pipeline
+                             or args.tp_sweep or args.pp_sweep
+                             or args.ckpt_bench)
     if spawner and not dist.in_rendezvous():
-        return spawn_ranks(argv, n, device, args.result_json)
+        return spawn_ranks(argv, n, device, args.result_json,
+                           mesh=dims is not None)
     rank = dist.in_rendezvous()
     if rank:
-        device = dist.initialize(device)
+        device = dist.initialize(device, args.backend)
         if dist.world_size() != n:
             raise SystemExit(f"--num_devices {n} contradicts this run's "
                              f"world of {dist.world_size()}")
     try:
+        if dims is not None:
+            dist.init_mesh(Mesh(dims, dist.rank()))
         summary = _run(args, device)
     finally:
+        dist.clear_mesh()
         if rank:
             dist.shutdown()
     return summary
@@ -1539,7 +2125,21 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict:
     set_tf32(False)
     bench = _Bench(args, device)
     launches0 = (gather_batch.launches, gather_batch.launches_bf16)
-    if args.guard_overhead:
+    if args.ckpt_bench_child:
+        # One rank of the parent's run: its record is the summary, and
+        # nothing is printed (the ranks share the parent's stdout).
+        summary = ckpt_child_record(bench)
+        if bench.rank == 0 and args.result_json:
+            with open(args.result_json, "w") as f:
+                json.dump(summary, f)
+        return summary
+    if args.ckpt_bench:
+        records = [ckpt_bench_record(bench)]
+    elif args.tp_sweep:
+        records = [tp_sweep_record(bench)]
+    elif args.pp_sweep:
+        records = [pp_sweep_record(bench)]
+    elif args.guard_overhead:
         records = [bench.guard_overhead_record()]
     elif args.inspect_overhead:
         records = [bench.inspect_overhead_record()]
@@ -1568,6 +2168,18 @@ def _run(args: argparse.Namespace, device: torch.device) -> Dict:
                    + bench.child_launches["gather_batch"],
                    "gather_batch_bf16": gather_batch.launches_bf16
                    - launches0[1] + bench.child_launches["gather_batch_bf16"]}}
+    if bench.children:
+        summary["children"] = bench.children
+    if bench.world > 1:
+        # Every rank's stage, steps and kernel launches, on rank 0.
+        rows = dist.all_gather_rows(np.array(
+            [dist.stage_index(), sum(bench.steps_run.values()),
+             gather_batch.launches - launches0[0]], np.float32),
+            kind="bench_ranks")
+        summary["ranks"] = [{"rank": r, "stage": int(row[0]),
+                             "steps": int(row[1]),
+                             "gather_batch": int(row[2])}
+                            for r, row in enumerate(rows)]
     if bench.rank == 0:
         print(json.dumps(records[0]), flush=True)
         for rec in records[1:]:

@@ -62,12 +62,14 @@ device tensors.
 from __future__ import annotations
 
 import collections
+import contextlib
 import datetime
 import os
 import re
 import socket
 import subprocess
 import sys
+import threading
 import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -98,6 +100,8 @@ _data_group = None
 _model_group = None
 _pipe_group = None
 _links: Dict[Tuple[int, int], Any] = {}
+# The model-sum cut of a capture on this thread (cut_model_sums).
+_cuts = threading.local()
 # The pipeline's point-to-point traffic in this process: sends, receives,
 # bytes each way and the host seconds spent in the calls.
 handoff_stats: collections.Counter = collections.Counter()
@@ -380,10 +384,34 @@ def _all_reduce_sum(t: torch.Tensor, kind: str = "all_reduce") -> None:
 
 def all_reduce_model_(t: torch.Tensor, group, kind: str) -> torch.Tensor:
     """``t`` summed over the model ``group`` in place (one ``all_reduce``,
-    counted under ``kind``): the tensor-parallel layers' reduction."""
-    tdist.all_reduce(t, op=tdist.ReduceOp.SUM, group=group)
+    counted under ``kind``): the tensor-parallel layers' reduction.
+    ``group`` is a process group of the run, or an object with its own
+    ``all_reduce_`` (a serving replica's group,
+    ``serve/model_group.py``).  Inside :func:`cut_model_sums` the sum is
+    not run: ``t`` goes to the cut instead (a capture split there)."""
+    cut = getattr(_cuts, "fn", None)
+    if cut is not None:
+        return cut(t)
+    if hasattr(group, "all_reduce_"):
+        group.all_reduce_(t)
+    else:
+        tdist.all_reduce(t, op=tdist.ReduceOp.SUM, group=group)
     collective_calls[kind] += 1
     return t
+
+
+@contextlib.contextmanager
+def cut_model_sums(fn):
+    """Within it, on this thread, each model-group sum of
+    :func:`all_reduce_model_` calls ``fn(t)`` and returns what it returns,
+    instead of summing: a CUDA graph capture splits there
+    (``train/step.py::GraphProgram``), and the sums run between the
+    replays of its segments."""
+    _cuts.fn = fn
+    try:
+        yield
+    finally:
+        _cuts.fn = None
 
 
 def all_gather_model(flat: torch.Tensor) -> List[torch.Tensor]:
@@ -510,11 +538,13 @@ def free_port() -> int:
 def launch_local(cmd: Sequence[str], n: int, *,
                  env: Optional[Mapping[str, str]] = None,
                  same_device: bool = False,
-                 timeout: Optional[float] = None) -> int:
+                 timeout: Optional[float] = None,
+                 stdout: Optional[int] = None) -> int:
     """Run ``cmd`` as ``n`` ranks on this machine, wired to a fresh
     localhost rendezvous (``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` per rank,
     on top of ``env`` or this process's environment), and return the
-    largest exit code.  Children share this process's stdout and stderr.
+    largest exit code.  Children share this process's stderr, and its
+    stdout unless ``stdout`` (``subprocess.DEVNULL``) says otherwise.
 
     ``LOCAL_RANK`` is the rank, or 0 for all with ``same_device`` (several
     ranks on one card).  When a rank fails, the others (which would wait on
@@ -528,7 +558,7 @@ def launch_local(cmd: Sequence[str], n: int, *,
     deadline = None if timeout is None else time.monotonic() + timeout
     try:
         for r in range(n):
-            procs.append(subprocess.Popen(list(cmd), env=dict(
+            procs.append(subprocess.Popen(list(cmd), stdout=stdout, env=dict(
                 base, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                 RANK=str(r), WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n),
                 LOCAL_RANK="0" if same_device else str(r))))

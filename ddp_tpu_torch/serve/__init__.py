@@ -25,25 +25,28 @@ fault-tolerant fleet.
 - ``http``     :class:`ServeHTTPServer`: ``/predict``, ``/generate``,
                ``/healthz``, ``/stats``, ``/metrics`` in front of a pair
                or a fleet.
+- ``model_group`` :class:`ModelGroup`: the M ranks of a KV-cache engine
+               at a serving model axis M (rank 0 here, M - 1 follower
+               processes), its gloo sums and the headers of rank 0's
+               calls.
 - ``__main__`` ``python -m ddp_tpu_torch.serve [--fleet N]``; SIGTERM
                drains.
-
-A fleet's serving model axis above 1 is generative-only in the JAX package
-and is not ported yet (:class:`NotPorted`, ROADMAP A12b).
 """
 from .batcher import Draining, DynamicBatcher, QueueFull, percentiles
 from .engine import (RequestTooLarge, ServeEngine, ServeError,
                      claim_batch_seq, resolve_buckets)
 from .fleet import HTTPReplica, LocalReplica, ServeFleet
-from .http import NotPorted, ServeHTTPServer
+from .http import ServeHTTPServer
 from .kvcache import KVCacheEngine, SlotsExhausted
+from .model_group import ModelGroup
 from .token_batcher import TokenBatcher
 from .router import (CircuitBreaker, NoHealthyReplicas, ReplicaCrashed,
                      Router, RouterDraining, RouterOverloaded, RouterShed)
 
 __all__ = [
     "CircuitBreaker", "Draining", "DynamicBatcher", "HTTPReplica",
-    "KVCacheEngine", "LocalReplica", "NoHealthyReplicas", "NotPorted", "QueueFull",
+    "KVCacheEngine", "LocalReplica", "ModelGroup", "NoHealthyReplicas",
+    "QueueFull",
     "ReplicaCrashed", "RequestTooLarge", "Router", "RouterDraining",
     "RouterOverloaded", "RouterShed", "ServeEngine", "ServeError",
     "ServeFleet", "ServeHTTPServer", "SlotsExhausted", "TokenBatcher",

@@ -54,9 +54,15 @@ KV cache and graphs) behind a
 routed by the router's sticky sessions, and hot swap works as for
 classifiers (the warm check holds each engine to its ``compile_bound``).
 A classifier fleet serves replicated at any ``model_axis``, as the JAX
-fleet's classifier branch does; a generative fleet with a serving model
-axis above 1 (heads split across ranks a decode step) is refused with
-:class:`~ddp_tpu_torch.serve.http.NotPorted` (ROADMAP A12b).
+fleet's classifier branch does.  A generative fleet at ``model_axis`` M > 1
+serves each replica as an M-rank engine (``serve/model_group.py``): rank 0
+in this process behind the replica's batcher, M - 1 follower processes on
+the fleet's device, each rank with its slices of the ``tinylm`` plan at M
+(``_serving_plan``, as the JAX fleet's) and its heads of the cache.  Each
+replica's group is made once; a hot swap loads the new checkpoint's
+shards as the engines' next generation on every rank of each replica and
+warms it there before the commit, and the old generation is dropped on
+the followers once its batcher has drained.
 """
 from __future__ import annotations
 
@@ -78,7 +84,6 @@ from ..obs.registry import MetricsRegistry
 from ..obs.tracer import get_tracer
 from .batcher import Draining, DynamicBatcher, QueueFull
 from .engine import RequestTooLarge, ServeEngine
-from .http import NotPorted
 from .router import ReplicaCrashed, Router
 
 
@@ -390,15 +395,24 @@ class ServeFleet:
         # _slot[rid] is the index of the serving engine's stream.
         self._streams = {}
         self._slot = {}
+        # A generative replica's model group at model_axis > 1, and the
+        # generation its latest engine holds there.
+        self._groups = {}
+        self._gens = {}
 
         from ..resilience.lineage import head_fingerprint
         ckpt, used = self._load_snapshot()
         # Written by the watcher thread only after construction (tests
         # drive poll_once single-threaded instead of starting it).
         self._last_fp = head_fingerprint(self.snapshot_path)
-        engines = self._make_engines(ckpt, used,
-                                     [f"r{i}" for i in range(n_replicas)])
-        self._warm_all(engines)
+        try:
+            engines = self._make_engines(
+                ckpt, used, [f"r{i}" for i in range(n_replicas)])
+            self._warm_all(engines)
+        except BaseException:
+            for group in self._groups.values():
+                group.close()
+            raise
         self.replicas = [
             LocalReplica(f"r{i}", eng,
                          self._make_batcher(eng, f"r{i}").start())
@@ -442,8 +456,16 @@ class ServeFleet:
         serving plan."""
         from ..models import get_model
         from ..train.checkpoint import CheckpointError, restore
-        if self.generative:
-            self._serving_plan(ckpt)
+        plan = self._serving_plan(ckpt) if self.generative else None
+        if plan is not None:
+            engines = []
+            try:
+                for rid in replica_ids:
+                    engines.append(self._group_engine(rid, plan, ckpt, used))
+            except BaseException:
+                self._retire(engines)
+                raise
+            return engines
         model = get_model(self.model_name)
         try:
             restore(ckpt, model)
@@ -484,15 +506,62 @@ class ServeFleet:
     def _serving_plan(self, ckpt):
         """The generative engines' layout plan (the JAX fleet calls it on
         its generative branch only): None at ``model_axis`` 1, where a
-        checkpoint trained with tensor parallelism serves replicated.  A
-        serving model axis above 1 splits the heads across ranks a decode
-        step, which is not ported yet (ROADMAP A12b)."""
+        checkpoint trained with tensor parallelism serves replicated; the
+        model's plan at ``model_axis`` otherwise, whose heads the replica's
+        ranks split."""
         if self.model_axis <= 1:
             return None
-        raise NotPorted(
-            f"ServeFleet(generate=True, model_axis={self.model_axis}): the "
-            "KV-cache engine's serving model axis (heads split across "
-            "ranks) is not ported yet (ROADMAP queue A12b)")
+        from ..models import get_model
+        from ..parallel.tp.plan import plan_for_model
+        return plan_for_model(self.model_name,
+                              get_model(self.model_name, device="meta"),
+                              model_size=self.model_axis)
+
+    def _group_engine(self, rid: str, plan, ckpt, used: str):
+        """Replica ``rid``'s next engine generation over its model group
+        (made at its first engine): the followers load their shards of
+        ``used``, rank 0's engine takes its slices of ``ckpt``."""
+        from ..train.ckpt_shard import shard_checkpoint
+        from .kvcache import KVCacheEngine
+        from .model_group import ModelGroup
+        group = self._groups.get(rid)
+        if group is None:
+            group = self._groups[rid] = ModelGroup.spawn(
+                self.model_axis, device=self.device, slots=self.slots,
+                prompt_buckets=self.prompt_buckets,
+                compute_dtype=self.compute_dtype)
+        gen = self._gens.get(rid, -1) + 1
+        eng = group.load(gen, used, int(ckpt.step), int(ckpt.epoch),
+                         lambda: KVCacheEngine.from_shard(
+                             shard_checkpoint(ckpt, plan, 0), plan, group,
+                             gen, device=self.device, slots=self.slots,
+                             prompt_buckets=self.prompt_buckets,
+                             compute_dtype=self.compute_dtype,
+                             tracer=self.tracer, registry=self.registry,
+                             metric_labels={"replica": rid},
+                             stream=self._idle_stream(rid)))
+        self._gens[rid] = gen
+        eng.checkpoint_file = used
+        eng.checkpoint_epoch = int(ckpt.epoch)
+        eng.checkpoint_step = int(ckpt.step)
+        return eng
+
+    @staticmethod
+    def _retire(engines) -> None:
+        """Drop the followers' side of ``engines`` (generations no batcher
+        serves, or serves any longer)."""
+        for eng in engines:
+            group = getattr(eng, "group", None)
+            if group is not None and not group.closed:
+                group.retire(eng.gen)
+
+    def _retire_after(self, batcher, engine) -> None:
+        """Retire ``engine`` on its followers once ``batcher``, whose drain
+        outlasted a swap's ``drain_timeout_s``, has stopped calling it
+        (its thread ended): each generation a follower holds, its weights
+        and its cache, goes once its last stream ends."""
+        batcher.drain(timeout=None)
+        self._retire([engine])
 
     def _make_batcher(self, engine, replica_id: str):
         if self.generative:
@@ -590,15 +659,29 @@ class ServeFleet:
         with self.tracer.span("swap_warm"):
             engines = self._make_engines(
                 ckpt, used, [r.replica_id for r in self.replicas])
-            compiled = self._warm_all(engines)
+            try:
+                compiled = self._warm_all(engines)
+            except BaseException:
+                self._retire(engines)
+                raise
         warm_s = time.monotonic() - t0
         with self.tracer.span("swap_commit"):
             clean = True
             for replica, eng in zip(self.replicas, engines):
                 rid = replica.replica_id
+                old_engine, old_batcher = replica._pair()
                 drained = replica.swap(
                     eng, self._make_batcher(eng, rid).start(),
                     drain_timeout=self.drain_timeout_s)
+                if drained:
+                    # Its batcher is done: no call of it reaches the
+                    # followers again.
+                    self._retire([old_engine])
+                elif getattr(old_engine, "group", None) is not None:
+                    threading.Thread(
+                        target=self._retire_after,
+                        args=(old_batcher, old_engine), daemon=True,
+                        name=f"fleet-retire-{rid}").start()
                 old = self._slot[rid]
                 self._slot[rid] = 1 - old
                 if not drained and rid in self._streams:
@@ -685,4 +768,6 @@ class ServeFleet:
         ok = True
         for replica in self.replicas:
             ok &= replica.close(timeout=timeout)
+        for group in self._groups.values():
+            group.close()
         return ok

@@ -31,10 +31,6 @@ server's ``submit``/``healthz_payload``/``stats_payload`` indirection.
   replica's and the swap history.
 - ``GET /metrics``   the same counters as Prometheus text exposition: the
   pair's registry, or the fleet's shared one (replica-labelled series).
-
-:class:`NotPorted` is the error of a serving feature the port does not
-have yet, named with its ROADMAP item (the fleet's serving model axis,
-A12b).
 """
 from __future__ import annotations
 
@@ -48,7 +44,7 @@ import numpy as np
 
 from ..obs.registry import CONTENT_TYPE as METRICS_CONTENT_TYPE
 from .batcher import Draining, DynamicBatcher, QueueFull
-from .engine import RequestTooLarge, ServeEngine, ServeError
+from .engine import RequestTooLarge, ServeEngine
 
 # Request-body bound: the largest sane request is max_rows * 32*32*3 bytes
 # of pixels, JSON-inflated ~4x; 64 MiB covers a 1024-row bucket.
@@ -57,11 +53,6 @@ MAX_BODY_BYTES = 64 << 20
 # submit() never waits forever: a lost completion would park the handler
 # thread and the client indefinitely.
 REQUEST_TIMEOUT_S = 60.0
-
-
-class NotPorted(ServeError):
-    """A serving feature of the JAX package that the port does not have
-    yet; the message names its ROADMAP queue item."""
 
 
 class ServeHTTPServer(ThreadingHTTPServer):

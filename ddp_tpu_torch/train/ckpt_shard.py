@@ -36,15 +36,18 @@ in the JAX package's layout (the plan's ``tree_specs``).
 **Read** (:func:`assemble_checkpoint`) takes any v2 set, any ``n_slots``,
 the JAX package's tensor-parallel sets included: every shard's sha256 is
 checked as a stream first, then each leaf is assembled on the host, one at
-a time, from the slots along its shard dim (:func:`_read_leaf`).  The
+a time, from the slots along its shard dim (:func:`_read_range`).  The
 JAX package's spec lists are plain JSON lists here (``spec_to_json``,
 ``spec_from_json``); the port has no ``PartitionSpec``.
 
 **Restore onto a mesh** (:func:`load_for_mesh`, :func:`shard_checkpoint`):
-any v1 or v2 file, of any saved ``(d, m)``, onto any live ``(D, M)``: the
-file is assembled whole (the port's models are small; the JAX package
-reads only the overlapping slots of each leaf) and each leaf the live plan
-shards is cut to this rank's model slice.
+any v1 or v2 file, of any saved ``(d, m)``, onto any live ``(D, M)``, each
+leaf the live plan shards cut to this rank's model slice.  A v2 set is read
+slot-wise, as the JAX package reads it: every shard's sha256 is checked as
+a stream, then each leaf is built from only the saved slots whose ranges
+overlap this rank's slice (:func:`_read_range`), so no rank stages the
+whole tree.  A v1 file is read whole, as the JAX package reads it, and cut
+after.  :class:`HostBytesProbe` counts the restore's host staging bytes.
 """
 from __future__ import annotations
 
@@ -65,6 +68,26 @@ INDEX_KEY = "meta/shard_index_json"
 # How long rank 0 waits for the other slots' sidecars before the save
 # fails.
 SIDECAR_TIMEOUT_SECS = 300.0
+
+
+class HostBytesProbe:
+    """The restore's live host staging bytes (``current``) and their most
+    at once (``peak``), counted as the JAX package's probe counts them:
+    the saved members a leaf reads, while it holds them, then the leaf's
+    block until it is handed over.  The slices :func:`load_for_mesh`
+    returns are the caller's, and not counted."""
+
+    def __init__(self):
+        self.current = 0
+        self.peak = 0
+
+    def alloc(self, nbytes: int) -> None:
+        self.current += int(nbytes)
+        if self.current > self.peak:
+            self.peak = self.current
+
+    def free(self, nbytes: int) -> None:
+        self.current -= int(nbytes)
 
 
 def shard_file_name(path: str, epoch: int, slot: int, n_slots: int) -> str:
@@ -277,35 +300,6 @@ def open_shard_set(path: str, index: Dict[str, Any]) -> Dict[int, Any]:
         raise
 
 
-def _read_leaf(zs: Dict[int, Any], key: str, entry: Dict[str, Any],
-               path: str) -> np.ndarray:
-    """One whole leaf from the shard set: slot 0's array for a replicated
-    leaf, else every slot's slice joined along the saved shard dim (the
-    JAX package's ``_read_range`` over the full index)."""
-    dim = entry["shard_dim"]
-    slots = range(int(entry["n_slots"])) if dim is not None else [0]
-    parts = []
-    for slot in slots:
-        z = zs.get(slot)
-        if z is None or key not in z.files:
-            raise CheckpointError(
-                f"checkpoint {path!r}: array {key!r} missing from shard "
-                f"slot {slot}; the shard set is inconsistent")
-        try:
-            parts.append(z[key])
-        except Exception as e:
-            raise CheckpointError(
-                f"checkpoint {path!r}: shard member {key!r} is unreadable "
-                f"({type(e).__name__}: {e}); torn shard") from e
-    leaf = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=dim)
-    if list(leaf.shape) != list(entry["shape"]):
-        raise CheckpointError(
-            f"checkpoint {path!r}: {key!r} assembles to {leaf.shape}, the "
-            f"index says {tuple(entry['shape'])}; the shard set is "
-            f"inconsistent")
-    return leaf
-
-
 def assemble_checkpoint(path: str) -> Checkpoint:
     """The v2 set at ``path`` as a :class:`Checkpoint` of host arrays (the
     ``load_checkpoint`` delegate): every shard verified, then each leaf
@@ -320,7 +314,8 @@ def assemble_checkpoint(path: str) -> Checkpoint:
         for key, entry in index.get("leaves", {}).items():
             section, _, rest = key.partition("/")
             if section in sections:
-                sections[section][rest] = _read_leaf(zs, key, entry, path)
+                sections[section][rest] = _read_range(zs, key, entry, None,
+                                                      path, None)
     finally:
         for z in zs.values():
             z.close()
@@ -370,16 +365,144 @@ def shard_checkpoint(ckpt: Checkpoint, plan, model_index: int
         momentum=_slice_tree(ckpt.momentum, specs, n, model_index))
 
 
+def _tree_bytes(tree: Dict[str, Any]) -> int:
+    return sum(_tree_bytes(v) if isinstance(v, dict) else np.asarray(v).nbytes
+               for v in tree.values())
+
+
+def _member(zs: Dict[int, Any], key: str, slot: int, path: str
+            ) -> np.ndarray:
+    z = zs.get(slot)
+    if z is None or key not in z.files:
+        raise CheckpointError(
+            f"checkpoint {path!r}: array {key!r} missing from shard slot "
+            f"{slot}; the shard set is inconsistent")
+    try:
+        return z[key]
+    except Exception as e:
+        raise CheckpointError(
+            f"checkpoint {path!r}: shard member {key!r} is unreadable "
+            f"({type(e).__name__}: {e}); torn shard") from e
+
+
+def _read_range(zs: Dict[int, Any], key: str, entry: Dict[str, Any],
+                want: Optional[Tuple[int, int, int]], path: str,
+                probe: Optional[HostBytesProbe]) -> np.ndarray:
+    """One leaf's bytes for a request (the JAX package's ``_read_range``):
+    ``want`` is ``(dim, start, stop)`` of the saved leaf, or None for the
+    whole leaf.  Only the saved slots overlapping the request are read;
+    they are joined along the saved shard dim, then the request's range
+    is taken on its own dim.  The members read count on ``probe`` while
+    held; the result is a contiguous copy, so no member outlives the
+    call."""
+    shape = [int(v) for v in entry["shape"]]
+    dim = entry["shard_dim"]
+    member_shape, slots = list(shape), [0]
+    if dim is not None:
+        width = shape[dim] // int(entry["n_slots"])
+        member_shape[dim] = width
+        a, b = ((want[1], want[2]) if want is not None and want[0] == dim
+                else (0, shape[dim]))
+        slots = list(range(a // width, (b - 1) // width + 1))
+    parts, held = [], 0
+    for slot in slots:
+        arr = _member(zs, key, slot, path)
+        if probe:
+            probe.alloc(arr.nbytes)
+        held += arr.nbytes
+        if list(arr.shape) != member_shape:
+            raise CheckpointError(
+                f"checkpoint {path!r}: {key!r} of slot {slot} has shape "
+                f"{arr.shape}, the index says {tuple(member_shape)} a "
+                f"slot; the shard set is inconsistent")
+        if dim is not None:
+            lo = max(a, slot * width) - slot * width
+            hi = min(b, (slot + 1) * width) - slot * width
+            arr = arr[(slice(None),) * dim + (slice(lo, hi),)]
+        parts.append(arr)
+    block = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=dim)
+    if want is not None and want[0] != dim:
+        block = np.take(block, range(want[1], want[2]), axis=want[0])
+    out = np.array(block, order="C")  # a copy: no member stays pinned
+    if probe:
+        probe.free(held)
+    return out
+
+
+def _request(spec: tuple, shape: Sequence[int], n: int, k: int
+             ) -> Optional[Tuple[int, int, int]]:
+    """Model index ``k``'s ``(dim, start, stop)`` of a leaf the live spec
+    ``spec`` splits ``n`` ways; None for the whole leaf."""
+    dim = split_dim(spec)
+    if dim is None or n == 1:
+        return None
+    w = int(shape[dim]) // n
+    return dim, k * w, (k + 1) * w
+
+
+def _load_v2_for_mesh(path: str, index: Dict[str, Any], plan,
+                      model_index: int,
+                      probe: Optional[HostBytesProbe]) -> Checkpoint:
+    """The v2 set at ``path`` as model index ``model_index``'s slices under
+    ``plan``, one leaf at a time from the overlapping saved slots."""
+    n = 1 if plan is None else plan.model_size
+    specs = {} if plan is None else plan.tree_specs
+    zs = open_shard_set(path, index)
+    try:
+        sections: Dict[str, Dict[str, Any]] = {s: {} for s in _SECTIONS}
+        for key, entry in index.get("leaves", {}).items():
+            section, _, rest = key.partition("/")
+            if section not in sections:
+                continue
+            spec = (tuple(specs.get(rest, ()))
+                    if section in ("params", "momentum") else ())
+            block = _read_range(zs, key, entry,
+                                _request(spec, entry["shape"], n,
+                                         model_index), path, probe)
+            if probe:
+                probe.alloc(block.nbytes)
+                probe.free(block.nbytes)
+            sections[section][rest] = block
+    finally:
+        for z in zs.values():
+            z.close()
+    if not sections["params"] or not sections["momentum"]:
+        raise CheckpointError(
+            f"checkpoint {path!r} has a shard index but no params/momentum "
+            "leaves; it was not written by ddp_tpu or is damaged")
+    return Checkpoint(params=_unflatten(sections["params"]),
+                      batch_stats=_unflatten(sections["batch_stats"]),
+                      momentum=_unflatten(sections["momentum"]),
+                      step=int(index["step"]), epoch=int(index["epoch"]),
+                      data_state=index.get("data_state"))
+
+
 def load_for_mesh(path: str, plan=None, model_index: int = 0,
-                  pp_plan=None, stage: int = 0) -> Checkpoint:
+                  pp_plan=None, stage: int = 0,
+                  probe: Optional[HostBytesProbe] = None) -> Checkpoint:
     """The v1 file or v2 set at ``path`` (any saved mesh) for the live
-    layout: model index ``model_index``'s slices under ``plan``
-    (:func:`shard_checkpoint`), and under a stage plan ``pp_plan`` stage
-    ``stage``'s subtrees of them (``parallel/pp/schedule.py::
-    stage_checkpoint``), or the whole state without either.  Raises
+    layout: model index ``model_index``'s slices under ``plan``, and under
+    a stage plan ``pp_plan`` stage ``stage``'s subtrees of them
+    (``parallel/pp/schedule.py::stage_checkpoint``), or the whole state
+    without either.  A v2 set is read slot-wise (only the saved slots that
+    overlap each requested slice); a v1 file whole, then cut
+    (:func:`shard_checkpoint`).  Either gives the same arrays bit for bit.
+    ``probe`` counts the host staging bytes.  Raises
     :class:`CheckpointError` where ``load_checkpoint`` does."""
     from .checkpoint import load_checkpoint
-    ckpt = shard_checkpoint(load_checkpoint(path), plan, model_index)
+    index = read_shard_index(path)
+    if index is None:
+        whole = load_checkpoint(path)
+        staged = _tree_bytes(whole.params) + _tree_bytes(whole.momentum) \
+            + _tree_bytes(whole.batch_stats)
+        if probe:
+            probe.alloc(staged)
+        ckpt = shard_checkpoint(whole, plan, model_index)
+        del whole
+        if probe:
+            probe.free(staged)
+    else:
+        ckpt = _load_v2_for_mesh(path, index, plan, model_index, probe)
     if pp_plan is None:
         return ckpt
     from ..parallel.pp.schedule import stage_checkpoint

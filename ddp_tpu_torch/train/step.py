@@ -25,7 +25,9 @@ single-device one.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -306,15 +308,29 @@ class GraphProgram:
     pool as long as the program.  On the CPU :meth:`run` is :meth:`eager`.
     On the card a program that was not captured raises: it never runs
     eagerly instead.  ``name`` says which program in that error;
-    ``inputs`` names the static tensors a caller writes before a run."""
+    ``inputs`` names the static tensors a caller writes before a run.
+
+    ``sums`` is the gloo group of a tensor-parallel program's row sums
+    (``serve/model_group.py``): a gloo collective cannot sit inside a CUDA
+    graph, so the capture splits at each sum (``parallel/dist.py::
+    cut_model_sums``) into ``segments``, graphs of one memory pool, and
+    :meth:`run` replays them in order with the sum of each cut's tensor
+    between two, on the host (its seconds in ``sum_seconds``).  Without
+    ``sums`` the program is one segment, ``graph``."""
 
     def __init__(self, fn: Callable, device: torch.device, name: str,
-                 inputs: Optional[Dict[str, torch.Tensor]] = None):
+                 inputs: Optional[Dict[str, torch.Tensor]] = None,
+                 sums=None):
         self.fn = fn
         self.device = torch.device(device)
         self.name = name
         self.inputs = dict(inputs or {})
+        self.sums = sums
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.segments: List[torch.cuda.CUDAGraph] = []
+        # The tensors summed after each segment but the last.
+        self._cut_tensors: List[torch.Tensor] = []
+        self.sum_seconds = 0.0
         # The graph's static output (card); the latest run's outputs (CPU).
         self.output = None
 
@@ -324,9 +340,10 @@ class GraphProgram:
         return self.fn()
 
     def capture(self, stream: torch.cuda.Stream) -> None:
-        """Record :meth:`eager` on ``stream`` as this program's CUDA graph.
-        The caller has run it eagerly first (its kernels built and loaded,
-        cuDNN's and cuBLAS's choices settled).
+        """Record :meth:`eager` on ``stream`` as this program's CUDA graph
+        (its segments, split at the row sums, under ``sums``).  The caller
+        has run it eagerly first (its kernels built and loaded, cuDNN's and
+        cuBLAS's choices settled).
 
         The capture runs in ``thread_local`` capture mode: only this
         thread is barred from the calls a capture forbids.  A fleet's hot
@@ -338,11 +355,43 @@ class GraphProgram:
         not what is recorded: the graph is the same."""
         if self.graph is not None:
             raise RuntimeError(f"{self.name} is captured")
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream,
-                              capture_error_mode="thread_local"):
-            output = self.eager()
-        self.graph, self.output = graph, output
+        pool = torch.cuda.graph_pool_handle()
+        segments: List[torch.cuda.CUDAGraph] = []
+        cuts: List[torch.Tensor] = []
+        live = [torch.cuda.CUDAGraph()]
+
+        def begin() -> None:
+            live[0].capture_begin(pool=pool,
+                                  capture_error_mode="thread_local")
+
+        def cut(t: torch.Tensor) -> torch.Tensor:
+            live[0].capture_end()
+            segments.append(live[0])
+            cuts.append(t)
+            live[0] = torch.cuda.CUDAGraph()
+            begin()
+            return t
+
+        # As torch.cuda.graph: free what can be freed for the graph.
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        split = (dist.cut_model_sums(cut) if self.sums is not None
+                 else contextlib.nullcontext())
+        with torch.cuda.stream(stream):
+            begin()
+            try:
+                with split:
+                    output = self.eager()
+            except BaseException:
+                try:
+                    live[0].capture_end()
+                except RuntimeError:
+                    pass
+                raise
+            live[0].capture_end()
+        segments.append(live[0])
+        self.segments, self._cut_tensors = segments, cuts
+        self.graph, self.output = segments[0], output
 
     def run(self):
         """The outputs: the graph's replay on the current stream (card), or
@@ -353,7 +402,12 @@ class GraphProgram:
         if self.graph is None:
             raise RuntimeError(f"{self.name} was not captured; it does not "
                                f"run eagerly on the card")
-        self.graph.replay()
+        for i, graph in enumerate(self.segments):
+            graph.replay()
+            if i < len(self._cut_tensors):
+                t0 = time.perf_counter()
+                self.sums.all_reduce_(self._cut_tensors[i])
+                self.sum_seconds += time.perf_counter() - t0
         return self.output
 
 

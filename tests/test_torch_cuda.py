@@ -1414,3 +1414,77 @@ def test_kv_bf16_stream_on_card(cuda):
         assert got.dtype == np.float32
         assert np.abs(got - want).max() <= 2.0 ** -5 * np.abs(want).max()
         tok = int(np.argmax(got))
+
+
+# -- the serving model axis (A12b) and the mesh bench (A10b) ------------------
+
+def test_kv_model_axis_2_on_one_card_decodes_the_1d_tokens(cuda, tmp_path,
+                                                           monkeypatch):
+    """An engine at model axis 2 (rank 0 here, one follower process, gloo
+    ranks sharing the card) decodes the 1-D engine's greedy tokens, its
+    prefills and decode split into captured segments at their row sums.
+    A capture that fails on rank 0 leaves the whole group cold (its vote
+    drops the follower's programs too) and nothing runs eagerly; the next
+    warm captures every program on both ranks."""
+    from ddp_tpu_torch.models import transformer as tfm
+    from ddp_tpu_torch.serve import KVCacheEngine
+    from ddp_tpu_torch.train.step import GraphProgram
+    set_tf32(False)
+    model = _lm_on("cpu", seed=5)
+    path = str(tmp_path / "lm.npz")
+    save_checkpoint(path, model, init_train_state(model).momentum, 4, 0)
+    one = KVCacheEngine.from_checkpoint(path, "tinylm", device=cuda,
+                                        slots=4, prompt_buckets=(8, 16))
+    two = KVCacheEngine.from_checkpoint(path, "tinylm", device=cuda,
+                                        slots=4, prompt_buckets=(8, 16),
+                                        model_axis=2)
+    try:
+        capture = GraphProgram.capture
+
+        def failing(self, stream):
+            if self.name == "the decode":
+                raise RuntimeError("capture fault")
+            return capture(self, stream)
+
+        monkeypatch.setattr(GraphProgram, "capture", failing)
+        with pytest.raises(RuntimeError, match="capture fault"):
+            two.warm()
+        assert not two.warmed and two.trace_count == 0
+        assert two.programs() == {} and two.free_slots() == 4
+        monkeypatch.setattr(GraphProgram, "capture", capture)
+        assert two.warm() == two.compile_bound == 5
+        cuts = 2 * tfm.N_LAYERS + 1
+        assert two.stats()["model_group"]["segments"] == {
+            "prefill8": cuts, "write8": 1, "prefill16": cuts, "write16": 1,
+            "decode": cuts}
+        assert all(p.graph is not None for p in two.programs().values())
+        for prompt in ([5, 250, 17], list(range(11)), [42] * 9):
+            toks = {}
+            for eng in (one, two):
+                slot, tok = eng.start_stream(prompt)
+                got = [tok]
+                while len(got) < 12:
+                    got.append(eng.decode({slot: got[-1]})[slot])
+                eng.release(slot)
+                toks[eng.model_axis] = got
+            assert toks[1] == toks[2], prompt
+        sums = two.stats()["model_group"]["sum_ms"]
+        assert sums["decode"] > 0 and sums["prefill8"] > 0
+    finally:
+        two.close()
+
+
+def test_bench_mesh_record_on_the_card_says_gloo(cuda):
+    """``--mesh_shape 1,2`` on one card: two gloo ranks sharing it, the
+    record's ``backend`` says so, and each rank launched ``gather_batch``
+    once a step."""
+    from ddp_tpu_torch import bench
+    summary = bench.main(["--model", "deepnn", "--batch_size", "64",
+                          "--steps", "2", "--warmup", "1", "--repeats", "1",
+                          "--mesh_shape", "1,2", "--primary_only",
+                          "--no_bf16"])
+    rec = summary["records"][0]
+    assert rec["backend"] == "gloo" and rec["device"]["count"] == 2
+    assert "mesh 1,2 (data x model)" in rec["metric"]
+    assert [(r["steps"], r["gather_batch"]) for r in summary["ranks"]] == \
+        [(3, 3), (3, 3)]
