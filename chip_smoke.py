@@ -38,7 +38,17 @@
    336 and 212 rows, in a fifth of its epoch) with ``--snapshot_path`` in
    a temporary directory, with the kernels' launch counts read around
    it: 23 of
-   ``gather_batch``, none of ``row_gather`` or ``conv3x3``.
+   ``gather_batch``, none of ``row_gather`` or ``conv3x3``.  The same call
+   runs under ``torch.cuda.set_sync_debug_mode("warn")``: each
+   synchronizing CUDA call it makes is counted at its innermost frame in
+   ``ddp_tpu_torch/`` and printed as ``sync site: file:line x count``.
+   Analysis phase (``analysis_phase``, A13c.1), in this process: ``python
+   -m ddp_tpu_torch.analysis --skip-programs --strict --json`` on this
+   tree exits 0 with no error finding, and each of the three fixtures
+   under ``--strict`` exits 1; then each sync site of the main path hit at
+   least once a train step (18 times) is a sync in the step loop, and must
+   be flagged by the host-sync lint or carry ``host-sync-ok``.  The mode
+   is restored before the next phase.
 7. Checkpoint phase: the epoch-0 checkpoint the main path wrote, loaded
    with ``load_checkpoint`` and held bit for bit against the trained
    weights, buffers and momentum; then the CLI again with ``--resume``,
@@ -447,6 +457,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -559,6 +570,98 @@ FLEET_FAULT = "crash_replica@requests=25,replica=0"
 FLEET_F2_ROWS = 4
 FLEET_REPUBLISH_ARGS = ["2", "1", "--batch_size", "512", "--resident",
                         "--synthetic", "--synthetic_size", "10240"]
+
+
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def record_syncs(fn) -> tuple:
+    """``(fn(), sites)``: ``fn`` run under
+    ``torch.cuda.set_sync_debug_mode("warn")``, ``sites`` a Counter of
+    ``"ddp_tpu_torch/<file>:<line>"`` (the innermost frame of the port's
+    package on the stack; ``"<outside ddp_tpu_torch>"`` when none is) for
+    each synchronizing CUDA call, on any thread.  The mode and the
+    warnings' settings are restored after."""
+    pkg = os.path.join(ROOT, "ddp_tpu_torch") + os.sep
+    sites: collections.Counter = collections.Counter()
+    lock = threading.Lock()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING not in str(message):
+            return shown(message, category, filename, lineno, file, line)
+        where = "<outside ddp_tpu_torch>"
+        f = sys._getframe(1)
+        while f is not None:
+            name = f.f_code.co_filename
+            if name.startswith(pkg):
+                where = (os.path.relpath(name, ROOT).replace(os.sep, "/")
+                         + f":{f.f_lineno}")
+                break
+            f = f.f_back
+        with lock:
+            sites[where] += 1
+
+    with warnings.catch_warnings():
+        shown = warnings.showwarning
+        warnings.filterwarnings("always", message=SYNC_WARNING)
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return result, sites
+
+
+def analysis_phase(sites: collections.Counter, steps: int,
+                   card: str) -> dict:
+    """The static passes on this tree (``--skip-programs --strict``, exit
+    0, no error in the JSON artifact), each fixture under ``--strict``
+    (exit 1), and the host-sync lint held against the main path's sync
+    ``sites``: each site hit at least ``steps`` times (once a train step)
+    must be flagged by the lint or carry ``host-sync-ok``."""
+    from ddp_tpu_torch.analysis import __main__ as analysis_main
+    from ddp_tpu_torch.analysis import hostsync
+    from ddp_tpu_torch.analysis.fixtures import ERROR_FIXTURES
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "analysis.json")
+        text = io.StringIO()
+        rc = analysis_main.run(["--skip-programs", "--strict", "--json",
+                                path], out=text)
+        check(rc == 0, f"the static passes exit {rc} on this tree:\n"
+                       f"{text.getvalue()}")
+        with open(path, encoding="utf-8") as fh:
+            artifact = json.load(fh)
+    check(artifact["counts"]["error"] == 0,
+          f"the static passes' artifact counts {artifact['counts']}")
+    for name in ERROR_FIXTURES:
+        rc = analysis_main.run(["--fixture", name, "--strict"],
+                               out=io.StringIO())
+        check(rc == 1, f"fixture {name} exits {rc} under --strict, not 1")
+    static_s = time.time() - t0
+    per_step = []
+    for where, n in sorted(sites.items(), key=lambda kv: -kv[1]):
+        print(f"sync site: {where} x {n}", flush=True)
+        if n < steps or not where.startswith("ddp_tpu_torch/"):
+            continue
+        rel, line = where.rsplit(":", 1)
+        with open(os.path.join(ROOT, rel), encoding="utf-8") as fh:
+            source = fh.read()
+        flagged = {f.where for f in hostsync.scan_source(rel, source)}
+        covered = (where in flagged or hostsync._annotated_ok(
+            source.splitlines(), int(line)))
+        per_step.append({"site": where, "count": n, "covered": covered})
+    missed = [p["site"] for p in per_step if not p["covered"]]
+    check(not missed, f"sync sites hit once a train step that the host-sync "
+                      f"lint neither flags nor sees annotated: {missed}")
+    print(f"analysis phase ({card}): static passes and fixtures "
+          f"{static_s:.2f} s, findings {artifact['counts']}, "
+          f"{len(sites)} sync site(s) on the main path, "
+          f"{sum(sites.values())} syncs, {len(per_step)} hit once a train "
+          f"step", flush=True)
+    return {"static_s": static_s, "sites": dict(sites),
+            "per_step": per_step}
 
 
 def check(ok: bool, what: str) -> None:
@@ -5796,7 +5899,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     gather_batch.launches = gather_batch.launches_bf16 = 0
     gather_rows.launches = conv3x3_fused.launches = 0
-    out = cli.main(MAIN_ARGS + ["--snapshot_path", snapshot])
+    out, sync_sites = record_syncs(
+        lambda: cli.main(MAIN_ARGS + ["--snapshot_path", snapshot]))
     launches = gather_batch.launches
     check(gather_batch.launches_bf16 == 0,
           "the float32 main path launched gather_batch's bf16 form")
@@ -5829,6 +5933,8 @@ def main() -> int:
           f"{out['accuracy']:.2f}%, conv3x3 launches {conv_main_launches}",
           flush=True)
     stamp("main path")
+    analysis_phase(sync_sites, MAIN_TRAIN_STEPS, card)
+    stamp("analysis phase")
     sync_write_s = checkpoint_phase(out, snapshot)
     snapshot_bf16 = os.path.join(snapshot_dir.name, "checkpoint_bf16.pt")
     out_bf16 = bf16_main_phase(out, card, snapshot_bf16)

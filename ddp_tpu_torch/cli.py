@@ -60,7 +60,8 @@ ddp_tpu_torch.parallel.tp`` prints it offline), and every collective
 reduces over one axis.  ``--spawn``/``--num_devices`` must equal D×M; a
 malformed shape, a contradicting ``--num_devices``, an infeasible plan and
 a model without a recipe at M > 1 are refused in the JAX CLI's words, and
-``--auto_plan`` (the auto-plan search, ROADMAP A13c) is refused by name.
+``--auto_plan`` (the auto-plan search, ROADMAP A13c) and ``--audit`` (the
+pre-flight program auditor, ROADMAP A13c.2) are refused by name.
 At M = 1 the run is the data-parallel one.  A third entry ``S > 1``
 (``--mesh_shape D,M,S``, ``--spawn`` D×M×S) adds pipeline parallelism
 (``parallel/pp/``): the model's ``PP_BLOCKS`` are cut into S balanced
@@ -325,6 +326,11 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--auto_plan", default=None, metavar="PLAN.json",
                    help="Refused: the auto-plan search's plans are not "
                         "ported (ROADMAP A13c)")
+    p.add_argument("--audit", action="store_true",
+                   help="Refused: the pre-flight program auditor is not "
+                        "ported (ROADMAP A13c.2); the static passes run "
+                        "as python -m ddp_tpu_torch.analysis "
+                        "--skip-programs --strict")
     p.add_argument("--schedule_epochs", default=None, type=int,
                    help="Pin the LR triangle's epoch span (the reference "
                         "hardcodes 20, multigpu.py:136; default: "
@@ -595,6 +601,13 @@ def _check_args(args: argparse.Namespace) -> None:
     if args.keep_checkpoints < 1:
         raise SystemExit(f"--keep_checkpoints must be at least 1, not "
                          f"{args.keep_checkpoints}")
+    if args.audit:
+        raise SystemExit(
+            "--audit: the pre-flight program auditor (the collective "
+            "audit of the programs this run builds) is not ported "
+            "(ROADMAP A13c.2); run python -m ddp_tpu_torch.analysis "
+            "--skip-programs --strict for the static passes, and drop "
+            "--audit")
     if args.auto_plan:
         raise SystemExit(
             "--auto_plan: the auto-plan search's plan documents are not "
@@ -693,15 +706,16 @@ def _train_and_evaluate(args: argparse.Namespace,
                             tensorboard_dir=args.tensorboard_dir)
     # SIGTERM/SIGINT take an emergency checkpoint while this process owns
     # the main thread (signal handlers can only be set there; a caller on
-    # another thread keeps its own handling).
-    preemption = (PreemptionGuard().install()
-                  if threading.current_thread() is threading.main_thread()
-                  else None)
+    # another thread keeps its own handling).  Every rank holds a guard,
+    # installed or not, so every rank takes the stop vote, a collective at
+    # world > 1, at the same boundaries.
+    preemption = PreemptionGuard()
+    if threading.current_thread() is threading.main_thread():
+        preemption.install()
     try:
         return _train(args, device, metrics, preemption)
     finally:
-        if preemption is not None:
-            preemption.uninstall()
+        preemption.uninstall()
         metrics.close()
 
 

@@ -65,6 +65,7 @@ def straggler_report(medians: Dict[str, float], gather: bool = False
     every rank must call at the same point; otherwise it is the single-rank
     identity record.  Phases no rank timed are left out."""
     row = _median_vector(medians)
+    # analysis: divergence-ok(gather passed uniformly by call contract)
     if gather and dist.world_size() > 1:
         rows = list(enumerate(dist.all_gather_rows(row)))
     else:
@@ -97,6 +98,7 @@ def epoch_straggler_record(tracer, gather: bool, since: float,
     the report on every rank, or None when the tracer is off (a setting
     every rank shares, so every rank skips the gather alike)."""
     if not getattr(tracer, "enabled", False):
+        # analysis: divergence-ok(enabled is shared CLI config)
         return None
     report = straggler_report(
         phase_medians(tracer.spans_since(since), include_overlap=False),

@@ -313,6 +313,7 @@ def pipe_broadcast_(t: torch.Tensor, stage: int) -> torch.Tensor:
     """``t`` as stage ``stage`` of this pipeline holds it, in place on
     every stage (one ``broadcast`` over the pipe group, counted as
     ``pp_broadcast``); ``t`` itself without a stage axis."""
+    # analysis: divergence-ok(init_mesh makes a pipe group on every rank or on none)
     if _pipe_group is None:
         return t
     tdist.broadcast(t, src=_stage_rank(stage), group=_pipe_group)
@@ -353,6 +354,7 @@ def any_rank(flag: bool) -> bool:
     is never touched (the preemption guard's per-step stop vote).  Every
     rank must call it at the same point; without a group, or at world 1,
     it is ``flag``."""
+    # analysis: divergence-ok(initialize makes the vote group on every rank or on none)
     if _vote_group is None:
         return bool(flag)
     t = torch.tensor([1 if flag else 0], dtype=torch.int32)
@@ -368,6 +370,7 @@ def all_gather_rows(row: np.ndarray, kind: str = "straggler_gather"
     queue (counted under ``kind``).  Every rank must call it at the same
     point with a row of the same length; without a group, or at world 1, it
     is ``[row]``."""
+    # analysis: divergence-ok(initialize makes the vote group on every rank or on none)
     if _vote_group is None:
         return [np.asarray(row, np.float32)]
     t = torch.from_numpy(np.ascontiguousarray(row, np.float32))
@@ -392,6 +395,7 @@ def all_reduce_model_(t: torch.Tensor, group, kind: str) -> torch.Tensor:
     cut = getattr(_cuts, "fn", None)
     if cut is not None:
         return cut(t)
+    # analysis: divergence-ok(every rank of a group holds the same kind of group)
     if hasattr(group, "all_reduce_"):
         group.all_reduce_(t)
     else:
@@ -418,6 +422,7 @@ def all_gather_model(flat: torch.Tensor) -> List[torch.Tensor]:
     """Every rank's 1-D ``flat`` of this rank's model group, in model
     order: one ``all_gather``, counted as ``ckpt_gather_model`` (the
     gathered checkpoint's collective); ``[flat]`` without a model group."""
+    # analysis: divergence-ok(init_mesh makes a model group on every rank or on none)
     if _model_group is None:
         return [flat]
     out = [torch.empty_like(flat) for _ in range(_mesh.dims[1])]
@@ -461,6 +466,7 @@ def average_buffers(model: nn.Module) -> None:
     without buffers (DeepNN) issues none, as JAX's ``pmean`` of an empty
     tree issues none."""
     bufs = _buffers(model)
+    # analysis: divergence-ok(every rank holds the same model, so the same buffers)
     if not tdist.is_initialized() or not bufs:
         return
     flat = _flat(bufs)

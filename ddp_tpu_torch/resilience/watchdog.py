@@ -48,6 +48,7 @@ class Watchdog:
         # One writer each: beat() on the trainer's thread, the expiry on
         # the watchdog's; a float store is atomic, and a stale read only
         # delays the expiry by one poll.
+        # analysis: unlocked-ok(atomic float; staleness bounded by poll)
         self._last = time.monotonic()
         self.beats = 0
         self.expirations = 0

@@ -124,11 +124,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; without a card, cuda is an "
                         "error")
+    p.add_argument("--num_devices", default=None, type=int,
+                   help="Devices of the serving data axis; only 1 (the "
+                        "default) runs: sharding formed batches across a "
+                        "data axis is refused (ROADMAP C4)")
     return p
+
+
+def refuse_num_devices(num_devices: Optional[int]) -> None:
+    """``--num_devices``: the JAX server shards formed batches across a
+    data axis of N devices; the port serves on one device, so 1 runs and
+    more is refused by name."""
+    if num_devices is None or num_devices == 1:
+        return
+    if num_devices < 1:
+        raise SystemExit(f"--num_devices must be at least 1, not "
+                         f"{num_devices}")
+    raise SystemExit(
+        f"--num_devices {num_devices}: serving over a data axis (formed "
+        "batches sharded across devices) is not ported; the port serves "
+        "on one device (ROADMAP C4). Drop the flag or pass 1")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    refuse_num_devices(args.num_devices)
 
     import torch
 

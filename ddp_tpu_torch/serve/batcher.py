@@ -99,6 +99,7 @@ class DynamicBatcher:
         # The request that didn't fit the last batch.  Engine-thread-only
         # between start() and the join in drain(); the post-join flush in
         # drain() is ordered by Thread.join, not a lock.
+        # analysis: unlocked-ok(engine-thread only; drain reads after join)
         self._holdover: Optional[_Request] = None
         self._draining = threading.Event()
         self._stopped = threading.Event()  # engine loop has exited

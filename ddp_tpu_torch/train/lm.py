@@ -153,14 +153,19 @@ def train_lm(*, steps: int, batch: int, seq_len: int,
                               vocab=tfm.VOCAB, seed=seed)
     local = batch // d
     row = dist.data_rank() * local
-    losses: List[float] = []
+    # The losses stay on the device and are read once after the loop; a
+    # logged step reads its own.
+    step_losses: List[torch.Tensor] = []
     for i in range(steps):
         lo = (i * batch) % corpus.shape[0]
         shard = corpus[lo:lo + batch][row:row + local]
         tokens = torch.from_numpy(shard.astype(np.int64)).to(device)
-        losses.append(float(step_fn(state, tokens)))
+        loss = step_fn(state, tokens)
+        step_losses.append(loss)
         if not quiet and (i % log_every == 0 or i == steps - 1):
-            _log(f"[lm] step {i:4d}  loss {losses[-1]:.4f}")
+            # analysis: host-sync-ok(a logged step only, one in log_every)
+            _log(f"[lm] step {i:4d}  loss {float(loss):.4f}")
+    losses = torch.stack(step_losses).tolist() if step_losses else []
 
     if snapshot_path:
         save_lm(snapshot_path, state, plan, quiet=quiet)

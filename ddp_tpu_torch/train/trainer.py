@@ -196,6 +196,7 @@ def tp_full_state(model: nn.Module, momentum: List[torch.Tensor], plan
     names = [n for n, _ in model.named_parameters()]
     sd = model.state_dict()
     mom = dict(zip(names, momentum))
+    # analysis: divergence-ok(plan is the run's configuration, the same on every rank)
     if plan is None:
         return sd, mom
     like = list(sd.values()) + list(mom.values())
@@ -619,6 +620,7 @@ class Trainer:
     def pp_share(self, value: float) -> float:
         """Stage 0's ``value`` on every stage of its pipeline (one
         broadcast); ``value`` itself without a stage plan."""
+        # analysis: divergence-ok(pp_plan is the run's configuration, the same on every rank)
         if self.pp_plan is None:
             return value
         t = torch.tensor([value], dtype=torch.float64, device=self.device)
@@ -918,8 +920,10 @@ class Trainer:
         flat = torch.cat(parts)
         last = self.pp_plan is None or \
             self._stage == self.pp_plan.num_stages - 1
+        # analysis: divergence-ok(the sum runs over this stage's data group, whose ranks all share the stage)
         if last:
             dist.all_reduce_sum_(flat)
+        # analysis: divergence-ok(pp_plan is the run's configuration, the same on every rank)
         if self.pp_plan is not None:
             dist.pipe_broadcast_(flat, self.pp_plan.num_stages - 1)
         return flat.tolist()
@@ -1046,6 +1050,7 @@ class Trainer:
         if epoch_callback is not None:
             epoch_callback(epoch)
         self._log_stragglers(epoch, t_epoch)
+        # analysis: divergence-ok(the CLI gives every rank a guard, installed or not)
         if self._preemption is not None:
             # A collective at world > 1: every rank asks at every boundary.
             # The resident path's stop point is the epoch; the streaming
@@ -1064,6 +1069,7 @@ class Trainer:
         order.  At world 1 it is skipped where no stream would take it."""
         tracer = get_tracer()
         if not tracer.enabled:
+            # analysis: divergence-ok(enabled is shared CLI config)
             return
         gather = dist.world_size() > 1
         if not gather and (self.metrics is None

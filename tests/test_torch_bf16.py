@@ -81,6 +81,7 @@ from ddp_tpu_torch.train import zero as tzero
 from ddp_tpu_torch.train.checkpoint import save_checkpoint
 from ddp_tpu_torch.train.step import (_as_input, init_train_state as tinit,
                                       make_eval_apply, make_local_grads)
+from torch_procs import in_background
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NARROW = [8, "M", 16, "M", 512, "M"]
@@ -464,12 +465,12 @@ def test_composed_flags_world2_bf16_matches_jax(narrow):
     sd0 = {k: v.clone() for k, v in model.state_dict().items()}
     jtrain, jtest = jcifar.synthetic(n_train=96, n_test=20)
     ttrain, ttest = tcifar.synthetic(n_train=96, n_test=20)
-    ranks = drill.run(drill.spec(NARROW, sd0, ttrain, ttest, batch=BATCH,
-                                 lr=LR, seed=SEED, augment=False,
-                                 device="cpu", grad_accum=2, sync_bn=True,
-                                 shard_update=True,
-                                 compute_dtype="bfloat16"),
-                      2, env=ENV, timeout=TIMEOUT)
+    ranks = in_background(
+        drill.run, drill.spec(NARROW, sd0, ttrain, ttest, batch=BATCH, lr=LR,
+                              seed=SEED, augment=False, device="cpu",
+                              grad_accum=2, sync_bn=True, shard_update=True,
+                              compute_dtype="bfloat16"),
+        2, env=ENV, timeout=TIMEOUT)
 
     mesh = make_mesh(2)
     jl = jloader.TrainLoader(jtrain, BATCH, 2, seed=SEED, augment=False)
@@ -496,6 +497,7 @@ def test_composed_flags_world2_bf16_matches_jax(narrow):
         jnp.asarray(jtest.labels), put_index_matrix(idx, mesh),
         put_index_matrix(mask, mesh)))
 
+    ranks = ranks.result()
     got = ranks[0]
     assert got["steps"] == 3 and len(got["losses"]) == 3
     for k, v in got["state_dict"].items():

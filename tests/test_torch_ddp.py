@@ -20,7 +20,6 @@ suite.
 """
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -48,6 +47,7 @@ from ddp_tpu_torch.device import NoCardError
 from ddp_tpu_torch.models.vgg import VGG
 from ddp_tpu_torch.parallel import dist, drill
 from ddp_tpu_torch.train.trainer import draw_seed
+from torch_procs import in_background, module_argv, run_at_once
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NARROW = [8, "M", 16, "M", 512, "M"]
@@ -57,10 +57,42 @@ ENV = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
 CLI_ARGS = ["--resident", "--synthetic", "--device", "cpu", "--lr", "0.05"]
 
 
-def _run(module, args, env=ENV, timeout=TIMEOUT):
-    return subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
-                          env=env, capture_output=True, text=True,
-                          timeout=timeout)
+@pytest.fixture(scope="module")
+def cli_runs(tmp_path_factory):
+    """The file's CLI processes, all at once: ``singlegpu`` and
+    ``multigpu --spawn 1`` on the same arguments, one rank started under a
+    world-1 rendezvous with ``--spawn 2`` in its argv, ``multigpu --spawn
+    2`` over two epochs, and ``--spawn 2`` resuming a file that is not a
+    checkpoint.  Each run's result by name, beside the paths it wrote."""
+    tmp = tmp_path_factory.mktemp("cli")
+    w1 = ["2", "1", "--batch_size", "8", "--synthetic_size", "16", *CLI_ARGS]
+    one = ["1", "1", "--batch_size", "8", "--synthetic_size", "16",
+           *CLI_ARGS]
+    rank_env = dict(ENV, MASTER_ADDR="127.0.0.1",
+                    MASTER_PORT=str(dist.free_port()), RANK="0",
+                    WORLD_SIZE="1", LOCAL_RANK="0")
+    bad = tmp / "bad.pt"
+    bad.write_bytes(b"not a checkpoint")
+    paths = {name: (tmp / f"{name}.pt", tmp / f"{name}.json")
+             for name in ("singlegpu", "multigpu", "rank", "two_ranks")}
+    runs = {
+        "singlegpu": ("ddp_tpu_torch.singlegpu", w1, ENV),
+        "multigpu": ("ddp_tpu_torch.multigpu", w1 + ["--spawn", "1"], ENV),
+        "rank": ("ddp_tpu_torch.multigpu", one + ["--spawn", "2"], rank_env),
+        "two_ranks": ("ddp_tpu_torch.multigpu",
+                      ["2", "1", "--batch_size", "8", "--synthetic_size",
+                       "64", *CLI_ARGS, "--spawn", "2"], ENV),
+    }
+    for name, (snapshot, result) in paths.items():
+        module, args, env = runs[name]
+        runs[name] = (module, args + ["--snapshot_path", str(snapshot),
+                                      "--result_json", str(result)], env)
+    runs["failing"] = ("ddp_tpu_torch.multigpu",
+                       one + ["--spawn", "2", "--snapshot_path", str(bad),
+                              "--resume"], ENV)
+    done = run_at_once([(module_argv(module, args), env)
+                        for module, args, env in runs.values()])
+    return dict(zip(runs, done)), paths
 
 
 def _jax_state(tree):
@@ -129,13 +161,14 @@ def test_world2_epoch_and_eval_match_jax_mesh(narrow):
     # Before the JAX epoch, which donates the state it is given.
     sd = interop.state_dict_from_jax("vgg", _jax_state(params),
                                          _jax_state(stats))
+    ranks = in_background(
+        drill.run, drill.spec(narrow, sd, ttrain, ttest, batch=batch, lr=lr,
+                              seed=seed, augment=False, device="cpu"),
+        2, env=ENV, timeout=TIMEOUT)
     jlosses, state, counts, rows = _jax_world2(params, stats, jtrain, jtest,
                                                batch, lr, seed)
     assert [len(r) for r in rows] == [8, 8, 8, 4]
-    ranks = drill.run(drill.spec(narrow, sd, ttrain, ttest, batch=batch,
-                                 lr=lr, seed=seed, augment=False,
-                                 device="cpu"),
-                      2, env=ENV, timeout=TIMEOUT)
+    ranks = ranks.result()
     _check_ranks(ranks, int(state.step))
 
     got = ranks[0]
@@ -256,13 +289,14 @@ def test_world2_epoch_matches_a_float64_reference(narrow):
     params, stats = jvgg.init(jax.random.key(seed))
     sd = interop.state_dict_from_jax("vgg", _jax_state(params),
                                          _jax_state(stats))
+    ranks = in_background(
+        drill.run, drill.spec(narrow, sd, ttrain, ttest, batch=batch, lr=lr,
+                              seed=seed, augment=False, device="cpu"),
+        2, env=ENV, timeout=TIMEOUT)
     jlosses, state, counts, rows = _jax_world2(params, stats, jtrain, jtest,
                                                batch, lr, seed)
     assert [len(r) for r in rows] == [16, 16, 16, 8]
-    ranks = drill.run(drill.spec(narrow, sd, ttrain, ttest, batch=batch,
-                                 lr=lr, seed=seed, augment=False,
-                                 device="cpu"),
-                      2, env=ENV, timeout=TIMEOUT)
+    ranks = ranks.result()
     _check_ranks(ranks, 4)
     got = ranks[0]
     np.testing.assert_allclose(got["losses"].numpy(), jlosses, rtol=1e-4,
@@ -271,17 +305,13 @@ def test_world2_epoch_matches_a_float64_reference(narrow):
     _check_float64(got, state, narrow, sd, ttrain, rows, lr)
 
 
-def test_world1_run_is_bit_equal_to_singlegpu(tmp_path):
-    args = ["2", "1", "--batch_size", "8", "--synthetic_size", "16",
-            *CLI_ARGS]
+def test_world1_run_is_bit_equal_to_singlegpu(cli_runs):
+    procs, paths = cli_runs
     results = {}
-    for entry, extra in (("singlegpu", []), ("multigpu", ["--spawn", "1"])):
-        path = tmp_path / f"{entry}.json"
-        r = _run(f"ddp_tpu_torch.{entry}",
-                 args + extra + ["--snapshot_path", str(tmp_path / entry),
-                                 "--result_json", str(path)])
+    for entry in ("singlegpu", "multigpu"):
+        r = procs[entry]
         assert r.returncode == 0, r.stdout + r.stderr
-        results[entry] = json.loads(path.read_text())
+        results[entry] = json.loads(paths[entry][1].read_text())
     single, multi = results["singlegpu"], results["multigpu"]
     assert (single["world"], single["backend"]) == (1, None)
     assert (multi["world"], multi["backend"]) == (1, "gloo")
@@ -350,31 +380,23 @@ def test_strip_spawn_in_every_spelling(argv, want):
     assert dist.strip_spawn(argv) == want
 
 
-def test_a_rank_never_spawns(monkeypatch, tmp_path):
+def test_a_rank_never_spawns(monkeypatch, cli_runs):
     monkeypatch.setenv("RANK", "0")
     with pytest.raises(RuntimeError, match="never spawns"):
         dist.spawn_local(2, "ddp_tpu_torch.multigpu", ["1", "1"])
     # A rank started with --spawn in its argv (here under a world-1
     # rendezvous) trains as that rank and spawns nothing.
-    env = dict(ENV, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(dist.free_port()),
-               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
-    path = tmp_path / "r.json"
-    r = _run("ddp_tpu_torch.multigpu",
-             ["1", "1", "--batch_size", "8", "--synthetic_size", "16",
-              *CLI_ARGS, "--spawn", "2", "--snapshot_path",
-              str(tmp_path / "c.pt"), "--result_json", str(path)], env=env)
+    procs, paths = cli_runs
+    r = procs["rank"]
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.count("Batchsize:") == 1
-    assert json.loads(path.read_text())["world"] == 1
+    assert json.loads(paths["rank"][1].read_text())["world"] == 1
 
 
-def test_multigpu_cli_round_trip_two_ranks(tmp_path):
-    snapshot = tmp_path / "checkpoint.pt"
-    path = tmp_path / "r.json"
-    r = _run("ddp_tpu_torch.multigpu",
-             ["2", "1", "--batch_size", "8", "--synthetic_size", "64",
-              *CLI_ARGS, "--spawn", "2", "--snapshot_path", str(snapshot),
-              "--result_json", str(path)])
+def test_multigpu_cli_round_trip_two_ranks(cli_runs):
+    procs, paths = cli_runs
+    r = procs["two_ranks"]
+    snapshot, path = paths["two_ranks"]
     assert r.returncode == 0, r.stdout + r.stderr
     out = r.stdout
     for epoch in (0, 1):
@@ -393,7 +415,7 @@ def test_multigpu_cli_round_trip_two_ranks(tmp_path):
     assert ckpt.data_state["epoch"] == 2
 
 
-def test_a_failing_rank_fails_the_spawner(tmp_path):
+def test_a_failing_rank_fails_the_spawner(cli_runs):
     # Rank 1 fails at once; rank 0 would wait a minute.  The launcher ends
     # rank 0 and returns rank 1's code.
     code = ("import os, sys, time\n"
@@ -405,12 +427,7 @@ def test_a_failing_rank_fails_the_spawner(tmp_path):
     assert time.monotonic() - t0 < 30
     # A rank that raises exits 1, and the spawner returns it: here both
     # ranks refuse a checkpoint that is not one.
-    bad = tmp_path / "checkpoint.pt"
-    bad.write_bytes(b"not a checkpoint")
-    r = _run("ddp_tpu_torch.multigpu",
-             ["1", "1", "--batch_size", "8", "--synthetic_size", "16",
-              *CLI_ARGS, "--spawn", "2", "--snapshot_path", str(bad),
-              "--resume"])
+    r = cli_runs[0]["failing"]
     assert r.returncode == 1, r.stdout + r.stderr
     assert "Traceback" in r.stderr
 

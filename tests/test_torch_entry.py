@@ -45,7 +45,12 @@ new = {"ddp_tpu_torch.multigpu", "ddp_tpu_torch.parallel",
        "ddp_tpu_torch.obs.ledger", "ddp_tpu_torch.obs.inspect",
        "ddp_tpu_torch.obs.__main__", "ddp_tpu_torch.serve.router",
        "ddp_tpu_torch.serve.fleet", "ddp_tpu_torch.utils.profiling",
-       "ddp_tpu_torch.fleet_load", "ddp_tpu_torch.bench_trend"}
+       "ddp_tpu_torch.fleet_load", "ddp_tpu_torch.bench_trend",
+       "ddp_tpu_torch.analysis", "ddp_tpu_torch.analysis.__main__",
+       "ddp_tpu_torch.analysis.findings", "ddp_tpu_torch.analysis.hostsync",
+       "ddp_tpu_torch.analysis.lockset",
+       "ddp_tpu_torch.analysis.divergence",
+       "ddp_tpu_torch.analysis.fixtures"}
 assert new <= set(names), sorted(new - set(names))
 """
 
@@ -108,3 +113,12 @@ def test_singlegpu_module_entry_point(tmp_path):
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "fp32 model has accuracy=" in r.stdout
+
+
+def test_multigpu_audit_refused_by_name():
+    """JAX's ``--audit`` (the pre-flight program auditor) is refused, naming
+    the item that ports it, before any rank is spawned."""
+    with pytest.raises(SystemExit, match=r"--audit: .*ROADMAP A13c\.2"):
+        cli.main_multi(_ARGS + ["--device", "cpu", "--audit"])
+    with pytest.raises(SystemExit, match=r"ROADMAP A13c\.2"):
+        cli.main(_ARGS + ["--device", "cpu", "--audit"])

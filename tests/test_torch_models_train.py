@@ -52,6 +52,7 @@ from ddp_tpu_torch.train import step as tstep
 from ddp_tpu_torch.train.checkpoint import CheckpointError
 
 from torch_float64 import float64_epoch
+from torch_procs import in_background, module_argv, run_at_once
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
@@ -208,10 +209,11 @@ def test_resnet18_world2_sync_bn_matches_jax_mesh():
     params, stats = _np_tree(jget_model("resnet18").init(
         jax.random.key(SEED)))
     sd = interop.state_dict_from_jax("resnet18", params, stats)
-    ranks = drill.run(drill.spec("resnet18", sd, ttrain, ttest, batch=batch,
-                                 lr=LR, seed=SEED, augment=False,
-                                 device="cpu", sync_bn=True),
-                      2, env=ENV, timeout=180)
+    ranks = in_background(
+        drill.run, drill.spec("resnet18", sd, ttrain, ttest, batch=batch,
+                              lr=LR, seed=SEED, augment=False, device="cpu",
+                              sync_bn=True),
+        2, env=ENV, timeout=180)
 
     mesh = make_mesh(2)
     jl = jloader.TrainLoader(jtrain, batch, 2, seed=SEED, augment=False)
@@ -233,6 +235,7 @@ def test_resnet18_world2_sync_bn_matches_jax_mesh():
                         world=2, sync_bn=True, model="resnet18",
                         margins=decisions)
     assert min(min(d) for d in decisions) >= MARGIN
+    ranks = ranks.result()
     for got in ranks:
         assert got["collectives"] == {"all_reduce": 71 * 2 + 2 * 2 + 2,
                                       "broadcast": 1}
@@ -309,21 +312,35 @@ def test_entry_points_refuse_without_a_card(entry, monkeypatch):
         main(args)
 
 
-@pytest.mark.parametrize("name,flags,per_micro", [
-    ("deepnn", ["--grad_accum", "2", "--shard_update"], 0),
-    ("resnet18", ["--sync_bn"], 71)])
-def test_multigpu_spawn2_models(name, flags, per_micro, tmp_path):
+SPAWN2_CASES = [("deepnn", ["--grad_accum", "2", "--shard_update"], 0),
+                ("resnet18", ["--sync_bn"], 71)]
+
+
+@pytest.fixture(scope="module")
+def spawn2_runs(tmp_path_factory):
+    """``multigpu --spawn 2`` of each of :data:`SPAWN2_CASES`, all at once:
+    by model, the run's result and its ``--result_json`` path."""
+    tmp = tmp_path_factory.mktemp("spawn2")
+    runs, results = [], []
+    for name, flags, _ in SPAWN2_CASES:
+        res = str(tmp / f"{name}.json")
+        runs.append((module_argv("ddp_tpu_torch.multigpu", [
+            "1", "1", "--batch_size", "4", "--resident", "--synthetic",
+            "--synthetic_size", "32", "--device", "cpu", "--spawn", "2",
+            "--model", name, "--lr", "0.05", *flags, "--snapshot_path",
+            str(tmp / f"{name}.pt"), "--result_json", res]), ENV))
+        results.append(res)
+    done = run_at_once(runs, timeout=240)
+    return {name: (r, res) for (name, _, _), r, res
+            in zip(SPAWN2_CASES, done, results)}
+
+
+@pytest.mark.parametrize("name,flags,per_micro", SPAWN2_CASES)
+def test_multigpu_spawn2_models(name, flags, per_micro, spawn2_runs):
     """``multigpu --spawn 2`` over gloo for each model with strategy flags:
     its collectives as counted from the code (DeepNN has no buffers, so
     no buffer all-reduce), and a file that resumes."""
-    res = str(tmp_path / "r.json")
-    args = ["1", "1", "--batch_size", "4", "--resident", "--synthetic",
-            "--synthetic_size", "32", "--device", "cpu", "--spawn", "2",
-            "--model", name, "--lr", "0.05", *flags, "--snapshot_path",
-            str(tmp_path / "c.pt"), "--result_json", res]
-    r = subprocess.run([sys.executable, "-m", "ddp_tpu_torch.multigpu",
-                        *args], cwd=ROOT, env=ENV, capture_output=True,
-                       text=True, timeout=240)
+    r, res = spawn2_runs[name]
     assert r.returncode == 0, r.stderr[-3000:]
     with open(res) as f:
         got = json.load(f)

@@ -58,6 +58,7 @@ from ddp_tpu_torch.parallel.tp import plan as tplan
 from ddp_tpu_torch.resilience import supervisor as tsup
 from ddp_tpu_torch.train import checkpoint as tckpt
 from ddp_tpu_torch.train import ckpt_shard as tckpt_shard
+from torch_procs import in_background, module_argv, run_at_once
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
@@ -326,13 +327,15 @@ def _jax_pp(params0, shape, batches, kind, dropout):
 
 
 def _launch(worker, tasks, world, tmp):
-    spec = os.path.join(tmp, f"spec_{worker}{world}.pt")
+    out = os.path.join(tmp, f"{worker[:-3]}{world}")
+    os.makedirs(out)
+    spec = os.path.join(out, "spec.pt")
     torch.save({"tasks": tasks}, spec)
     code = dist.launch_local(
-        [sys.executable, os.path.join(ROOT, "tests", worker), spec, tmp],
+        [sys.executable, os.path.join(ROOT, "tests", worker), spec, out],
         world, env=ENV, timeout=TIMEOUT)
     assert code == 0, f"a {worker} rank exited with {code}"
-    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
 
 
@@ -347,7 +350,8 @@ def runs(start):
     masks = _jax_masks((2, 1), 2, 2)
     pp = dict(kind="pp", state_dict=sd, batches=two)
     out = {"tmp": tmp, "groups": groups, "masks": masks}
-    out["pp"] = _launch("torch_pp_worker.py", [
+    # The two launches run at once.
+    pp_ranks = in_background(_launch, "torch_pp_worker.py", [
         dict(pp, name="dm_1f1b", mesh=(2, 1, 2), schedule="1f1b",
              dropout=jdeepnn.DROPOUT_RATE, masks=masks),
         dict(pp, name="dm_gpipe", mesh=(2, 1, 2), schedule="gpipe",
@@ -355,10 +359,11 @@ def runs(start):
         dict(pp, name="tp", mesh=(1, 2, 2), schedule="1f1b", dropout=0.0)],
         4, tmp)
     steps = dict(kind="steps", state_dict=sd, batches=two)
-    out["accum"] = _launch("torch_tp_worker.py", [
+    accum = in_background(_launch, "torch_tp_worker.py", [
         dict(steps, name="dm", mesh=(2, 1), dropout=jdeepnn.DROPOUT_RATE,
              masks=masks),
         dict(steps, name="tp", mesh=(1, 2), dropout=0.0)], 2, tmp)
+    out["pp"], out["accum"] = pp_ranks.result(), accum.result()
     return out
 
 
@@ -482,19 +487,11 @@ def test_checkpoints_cross_between_the_packages(start, runs, tmp_path):
 
 # -- the CLI -----------------------------------------------------------------
 
-def _clis(runs, timeout=300):
+def _clis(runs):
     """Each ``(entry, args)`` of ``runs`` as a process, all at once; their
     ``CompletedProcess``-like results in order."""
-    procs = [subprocess.Popen([sys.executable, "-m", f"ddp_tpu_torch.{e}",
-                               *args], cwd=ROOT, env=ENV, text=True,
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE) for e, args in runs]
-    out = []
-    for p in procs:
-        stdout, stderr = p.communicate(timeout=timeout)
-        out.append(subprocess.CompletedProcess(p.args, p.returncode, stdout,
-                                               stderr))
-    return out
+    return run_at_once([(module_argv(f"ddp_tpu_torch.{e}", args), ENV)
+                        for e, args in runs])
 
 
 def _same_file(a, b):

@@ -575,6 +575,49 @@ def test_serve_cli_refuses_without_a_card(monkeypatch, tmp_path):
         serve_main.main(["--snapshot_path", str(tmp_path / "ck.pt")])
 
 
+def test_serve_cli_refuses_a_data_axis_by_name(monkeypatch, tmp_path):
+    """``--num_devices N``: 1 (and no flag) starts as before, up to loading
+    the checkpoint; more, or fewer than 1, is refused before anything
+    loads."""
+    ck = str(tmp_path / "missing.pt")
+    with pytest.raises(SystemExit, match=r"--num_devices 2: serving over a "
+                                         r"data axis.*ROADMAP C4"):
+        serve_main.main(["--num_devices", "2", "--snapshot_path", ck])
+    with pytest.raises(SystemExit, match="at least 1"):
+        serve_main.main(["--num_devices", "0", "--snapshot_path", ck])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for extra in (["--num_devices", "1"], []):
+        with pytest.raises(NoCardError, match="--device cpu"):
+            serve_main.main(extra + ["--snapshot_path", ck])
+
+
+def test_serve_cli_serves_at_num_devices_1(tmp_path):
+    """``--num_devices 1`` serves as the server does without it: /healthz
+    answers and SIGTERM drains to exit 0."""
+    model = VGG(FULL, generator=torch.Generator().manual_seed(0))
+    ck = str(tmp_path / "ck.pt")
+    save_checkpoint(ck, model, init_train_state(model).momentum, 0, 0)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ddp_tpu_torch.serve", "--device", "cpu",
+         "--port", "0", "--buckets", "1", "--num_devices", "1",
+         "--snapshot_path", ck, "--trace_spill", ""], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert "serving vgg on http://" in line, line
+        base = line.split("on ")[1].split(" ")[0].rstrip("/")
+        status, body = _get(base + "/healthz")
+        assert status == 200 and json.loads(body)["checkpoint"]["file"] == ck
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=60)
+        assert proc.returncode == 0 and "drained=clean" in err, err
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
 def test_serve_cli_end_to_end_with_sigterm_drain(tmp_path):
     """``python -m ddp_tpu_torch.serve --device cpu`` on a full-width
     checkpoint: /healthz and one /predict over HTTP, SIGTERM, a graceful

@@ -5,8 +5,8 @@ numpy inputs.
 
 The multi-rank checks run as gloo ranks on the CPU with one thread each and
 a hard timeout (``tests/torch_tp_worker.py``, launched by
-``dist.launch_local``), three launches in all: world 2 at mesh (1,2), world
-4 at (2,2), world 1.  JAX runs its plan-wired steps on the suite's 8-device
+``dist.launch_local``), three launches in all: world 2 at mesh (1,2), then
+world 4 at (2,2) and world 1 at once.  JAX runs its plan-wired steps on the suite's 8-device
 CPU mesh at the same mesh shapes.
 
 Tolerances: the wrappers against the unsharded ops at 1e-6 of the largest
@@ -47,6 +47,7 @@ from ddp_tpu.train.step import (init_train_state, make_train_step,
 from ddp_tpu.train.zero import (init_opt_shard, make_train_step_zero,
                                 opt_shard_to_pytree)
 from torch_float64 import float64_epoch
+from torch_procs import in_background, module_argv, run_at_once
 from ddp_tpu_torch import cli, interop
 from ddp_tpu_torch.models import get_model
 from ddp_tpu_torch.parallel import dist
@@ -201,13 +202,15 @@ def _held(got, jl, jparams, jmom, ref, what):
 
 
 def _launch(tasks, world, tmp):
-    spec = os.path.join(tmp, f"spec{world}.pt")
+    out = os.path.join(tmp, f"world{world}")
+    os.makedirs(out)
+    spec = os.path.join(out, "spec.pt")
     torch.save({"tasks": tasks}, spec)
     code = dist.launch_local(
         [sys.executable, os.path.join(ROOT, "tests", "torch_tp_worker.py"),
-         spec, tmp], world, env=ENV, timeout=TIMEOUT)
+         spec, out], world, env=ENV, timeout=TIMEOUT)
     assert code == 0, f"a tensor-parallel rank exited with {code}"
-    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
 
 
@@ -230,7 +233,8 @@ def runs(start):
     resume = dict(kind="resume", path=save["sharded"],
                   images=torch.from_numpy(train["image"]),
                   labels=torch.from_numpy(train["label"].astype(np.int64)))
-    out[4] = _launch([
+    # Both read the (1,2) sharded save; they run at once.
+    four = in_background(_launch, [
         dict(steps, name="off", mesh=(2, 2), dropout=0.0),
         dict(steps, name="on", mesh=(2, 2), dropout=jdeepnn.DROPOUT_RATE,
              masks=_jax_masks((2, 2), 2)),
@@ -240,12 +244,13 @@ def runs(start):
              batches=_torch_batches(_batches(2, accum=2))),
         dict(resume, name="resume", mesh=(2, 2), batch=4,
              shard_update=True)], 4, tmp)
-    out[1] = _launch([
+    one = in_background(_launch, [
         dict(steps, name="tp", mesh=(1, 1), dropout=jdeepnn.DROPOUT_RATE,
              force_tp=True, dropout_seed=3),
         dict(steps, name="plain", mesh=(1, 1),
              dropout=jdeepnn.DROPOUT_RATE, dropout_seed=3),
         dict(resume, name="resume", mesh=(1, 1), batch=8)], 1, tmp)
+    out[4], out[1] = four.result(), one.result()
     return out
 
 
@@ -592,69 +597,84 @@ def test_resume_across_mesh_shapes(runs):
 
 # -- the CLI ---------------------------------------------------------------------
 
-def _cli(args, timeout=TIMEOUT):
-    return subprocess.run([sys.executable, "-m", "ddp_tpu_torch.multigpu",
-                           *args], cwd=ROOT, env=ENV, capture_output=True,
-                          text=True, timeout=timeout)
-
-
-def test_cli_mesh_round_trip(tmp_path):
-    ck = str(tmp_path / "ck.pt")
+@pytest.fixture(scope="module")
+def cli_rounds(tmp_path_factory):
+    """The two CLI round trips, each a run and its resume: the (1,2) run
+    with a sharded save beside the (2,2) run with a gathered one, at once;
+    then the first resumed on the plain 1-D layout beside the second at
+    (1,2), at once.  Per case, its paths, its runs' results and the
+    ``--result_json`` each left."""
+    tmp = tmp_path_factory.mktemp("cli")
     common = ["--batch_size", "8", "--resident", "--synthetic",
-              "--synthetic_size", "64", "--model", "deepnn", "--lr", "0.05",
-              "--device", "cpu", "--snapshot_path", ck, "--ckpt_format",
-              "sharded"]
-    rj = str(tmp_path / "r.json")
-    r = _cli(["1", "1", *common, "--mesh_shape", "1,2", "--spawn", "2",
-              "--result_json", rj])
-    assert r.returncode == 0, r.stderr[-3000:]
+              "--synthetic_size", "64", "--model", "deepnn", "--device",
+              "cpu"]
+    cases = {}
+    for name in ("mesh", "2x2"):
+        ck, rj = str(tmp / f"{name}.pt"), str(tmp / f"{name}.json")
+        cases[name] = [*common, "--snapshot_path", ck, "--result_json", rj]
+    cases["mesh"] += ["--lr", "0.05", "--ckpt_format", "sharded"]
+    rounds = (
+        {"mesh": ["1", "1", *cases["mesh"], "--mesh_shape", "1,2",
+                  "--spawn", "2"],
+         "2x2": ["2", "1", *cases["2x2"], "--mesh_shape", "2,2",
+                 "--spawn", "4"]},
+        {"mesh": ["2", "1", *cases["mesh"], "--spawn", "2", "--resume"],
+         "2x2": ["3", "1", *cases["2x2"], "--mesh_shape", "1,2", "--spawn",
+                 "2", "--resume"]})
+    out = {name: {"ck": str(tmp / f"{name}.pt"), "runs": [], "results": []}
+           for name in cases}
+    for runs in rounds:
+        done = run_at_once([(module_argv("ddp_tpu_torch.multigpu", args),
+                             ENV) for args in runs.values()])
+        for name, r in zip(runs, done):
+            assert r.returncode == 0, r.stderr[-3000:]
+            out[name]["runs"].append(r)
+            with open(tmp / f"{name}.json") as f:
+                out[name]["results"].append(json.load(f))
+        if runs is rounds[0]:
+            # What the first runs wrote, read before the resumes rewrite it.
+            out["mesh"]["n_slots"] = tckpt_shard.read_shard_index(
+                out["mesh"]["ck"])["n_slots"]
+            out["2x2"]["ckpt"] = tckpt.load_checkpoint(out["2x2"]["ck"])
+    return out
+
+
+def test_cli_mesh_round_trip(cli_rounds):
+    (r, resumed), (res, res2) = (cli_rounds["mesh"]["runs"],
+                                 cli_rounds["mesh"]["results"])
     assert "tensor-parallel plan: deepnn | model axis m=2" in r.stdout
-    res = json.load(open(rj))
     steps, evals = len(res["loss_history"]), 64 // 8
     assert (res["world"], res["mesh_shape"], steps) == (2, [1, 2], 8)
     exp = tplan.expected_collectives(tp_for(2), backward=True)
     assert res["model_axis_collectives"] == {
         "psum_model_fwd": exp["psum_model_fwd"] * steps + 3 * evals,
         "psum_model_bwd": exp["psum_model_bwd"] * steps}
-    assert tckpt_shard.read_shard_index(ck)["n_slots"] == 2
+    assert cli_rounds["mesh"]["n_slots"] == 2
     # Resumed on another shape, the plain 1-D layout.
-    r = _cli(["2", "1", *common, "--spawn", "2", "--resume",
-              "--result_json", rj])
-    assert r.returncode == 0, r.stderr[-3000:]
-    assert "Resuming training from snapshot at Epoch 0" in r.stdout
-    res = json.load(open(rj))
-    assert res["mesh_shape"] is None and len(res["loss_history"]) == 4
+    assert "Resuming training from snapshot at Epoch 0" in resumed.stdout
+    assert res2["mesh_shape"] is None and len(res2["loss_history"]) == 4
 
 
-def test_cli_2x2_gathered_and_resumed_at_1x2(tmp_path):
+def test_cli_2x2_gathered_and_resumed_at_1x2(cli_rounds):
     """The slice's CPU command: ``--mesh_shape 2,2 --spawn 4`` trains, prints
     the plan table, counts the model-axis all-reduces, and writes the whole
     v1 file, which ``--mesh_shape 1,2`` resumes."""
-    ck, rj = str(tmp_path / "ck.pt"), str(tmp_path / "r.json")
-    common = ["--batch_size", "8", "--resident", "--synthetic",
-              "--synthetic_size", "64", "--model", "deepnn", "--device",
-              "cpu", "--snapshot_path", ck, "--result_json", rj]
-    r = _cli(["2", "1", *common, "--mesh_shape", "2,2", "--spawn", "4"])
-    assert r.returncode == 0, r.stderr[-3000:]
+    (r, resumed), (res, res2) = (cli_rounds["2x2"]["runs"],
+                                 cli_rounds["2x2"]["results"])
     assert "tensor-parallel plan: deepnn | model axis m=2" in r.stdout
-    res = json.load(open(rj))
     steps, evals = len(res["loss_history"]), 64 // (8 * 2)
     assert (res["world"], res["mesh_shape"], steps) == (4, [2, 2], 8)
     assert res["model_axis_collectives"] == {
         "psum_model_fwd": 3 * steps + 3 * evals,
         "psum_model_bwd": 2 * steps}
     assert res["collectives"]["ckpt_gather_model"] == 2
-    ckpt = tckpt.load_checkpoint(ck)
+    ckpt = cli_rounds["2x2"]["ckpt"]
     assert (ckpt.step, ckpt.epoch) == (8, 1)
     assert ckpt.params["features"]["conv0"]["kernel"].shape == (3, 3, 3,
                                                                 128)
-    r = _cli(["3", "1", *common, "--mesh_shape", "1,2", "--spawn", "2",
-              "--resume"])
-    assert r.returncode == 0, r.stderr[-3000:]
-    assert "Resuming training from snapshot at Epoch 1" in r.stdout
-    res = json.load(open(rj))
+    assert "Resuming training from snapshot at Epoch 1" in resumed.stdout
     # One epoch at a data axis of 1: 64 images in batches of 8.
-    assert res["mesh_shape"] == [1, 2] and len(res["loss_history"]) == 8
+    assert res2["mesh_shape"] == [1, 2] and len(res2["loss_history"]) == 8
 
 
 def _refused(argv, main=cli.main_multi):
